@@ -1,8 +1,10 @@
 """Carry parameters between the reference package and the port.
 
 Both packages keep parameters as nested dicts with the same keys, shapes
-and layouts (conv weights OIHW, ``digit.w`` as (N_in, N_out, d_in, d_out)),
-so the conversion is leaf by leaf and without permutation.  The reference's
+and layouts (conv weights OIHW, ``digit.w`` as (N_in, N_out, d_in, d_out);
+the LM's unit leaves stacked on a leading layer axis, ``wq`` as (d, H, hd),
+``wo`` as (H, hd, d)), so the conversion is leaf by leaf and without
+permutation.  The reference's
 side hands over numpy arrays (``jax.tree.map(np.asarray, params)``); this
 module never sees a JAX array.
 """

@@ -11,5 +11,7 @@ tensor it launches the kernel or raises.
 
 from repro_torch.kernels import tuning  # noqa: F401
 from repro_torch.kernels.registry import (KernelRegistry,  # noqa: F401
-                                          KernelSpec, fused_routing,
-                                          registry, taylor_softmax)
+                                          KernelSpec, decode_attention,
+                                          flash_attention, fused_routing,
+                                          fused_sampling, registry,
+                                          taylor_softmax)

@@ -27,7 +27,8 @@ from typing import List, Optional
 
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("routing.cu", "softmax.cu")
+SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
+           "decode_attention.cu", "sampling.cu")
 HEADERS = ("approx_math.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -120,6 +121,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_routing_launch.restype = i
     lib.taylor_softmax_launch.argtypes = [p, p, i, i, i, i, i, p]
     lib.taylor_softmax_launch.restype = i
+    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                           i, i, i, i, p]
+    lib.flash_attention_launch.restype = i
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            i, i, i, p]
+    lib.decode_attention_launch.restype = i
+    lib.fused_sampling_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.fused_sampling_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -286,6 +286,232 @@ registry.register(KernelSpec(
 ))
 
 
+# -- flash_attention --------------------------------------------------------
+# The example cases are the reference's.  The tunable is the CUDA kernel's
+# own: ``q_block`` query positions per thread block, each with all G heads of
+# its KV head (G * q_block <= 64 rows); the KV tile is fixed at 64 rows and a
+# ragged last tile is masked, so no block size has to divide S or T.
+
+
+def _build_flash_attention():
+    from repro_torch.kernels.attention.kernel import flash_attention_cuda
+
+    return flash_attention_cuda
+
+
+def _attention_reference():
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    return attention_ref
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(int(n), 1).bit_length() - 1)
+
+
+def _legalize_flash(config: Dict[str, Any], q, k=None, v=None, **kwargs
+                    ) -> Dict[str, Any]:
+    """``q_block`` becomes the largest power of two that keeps G * q_block
+    within a block's 64 rows and does not pass the sequence.  Idempotent."""
+    from repro_torch.kernels.attention.kernel import FLASH_ROWS
+    from repro_torch.kernels.tuning import next_pow2
+
+    g = max(1, q.shape[2] // (k.shape[2] if k is not None else q.shape[2]))
+    cap = min(int(config["q_block"]), max(1, FLASH_ROWS // g),
+              next_pow2(q.shape[1]))
+    config["q_block"] = _pow2_floor(cap)
+    return config
+
+
+def _attention_example(case, device="cpu"):
+    b, s, t, h, k, d = case.get("dims", (2, 128, 128, 4, 2, 32))
+    dtype, seed = case.get("dtype", "float32"), case.get("seed", 0)
+    q = _rand(seed, (b, s, h, d), dtype, device=device)
+    kk = _rand(seed + 1, (b, t, k, d), dtype, device=device)
+    v = _rand(seed + 2, (b, t, k, d), dtype, device=device)
+    return (q, kk, v), {"causal": case.get("causal", True),
+                        "q_offset": case.get("q_offset", 0),
+                        "softmax_mode": case.get("softmax_mode", "exact")}
+
+
+registry.register(KernelSpec(
+    name="flash_attention",
+    build=_build_flash_attention,
+    reference=_attention_reference,
+    space={"q_block": (8, 16, 32, 64),
+           "softmax_mode": ("exact", "taylor")},
+    tuned=("q_block",),
+    base_config={"q_block": 64},
+    legalize=_legalize_flash,
+    make_example=_attention_example,
+    example_cases=(
+        {"dims": (2, 128, 128, 8, 4, 32), "causal": True, "atol": 2e-5},
+        {"dims": (2, 64, 256, 8, 2, 32), "causal": False, "atol": 2e-5},
+        {"dims": (1, 192, 192, 2, 1, 64), "causal": True,
+         "atol": 2e-5},                               # non-pow2 seq
+        {"dims": (1, 64, 256, 4, 2, 32), "causal": True, "q_offset": 192,
+         "atol": 2e-5},                               # decode window
+        {"dims": (1, 128, 128, 4, 2, 32), "softmax_mode": "taylor",
+         "atol": 5e-2},                # vs exact oracle: approx-exp bound
+    ),
+    ref_accepts=("causal", "q_offset"),
+))
+
+
+# -- decode_attention -------------------------------------------------------
+# q_len = 1 serving decode against a dense cache (B, T, K, D), each slot
+# masked at its own ``kv_valid_len``.  The example cases are the
+# reference's, paged and int8 ones included: their oracle is ported, their
+# kernel bodies come with the paged slice (the wrapper raises on them).  The
+# tunable is the block size: one block serves one (slot, KV head) and its
+# warps take the slot's cache tiles in turn.
+
+
+def _build_decode_attention():
+    from repro_torch.kernels.attention.kernel import decode_attention_cuda
+
+    return decode_attention_cuda
+
+
+def _decode_attention_reference():
+    from repro_torch.kernels.attention.ref import decode_attention_ref
+
+    return decode_attention_ref
+
+
+def _legalize_decode(config: Dict[str, Any], q, k=None, *args, **kwargs
+                     ) -> Dict[str, Any]:
+    """Whole warps, at most 512 threads, and no more warps than the
+    block's shared memory holds at this head dim.  Idempotent."""
+    from repro_torch.kernels.attention.kernel import (MAX_DYNAMIC_SMEM,
+                                                      decode_smem_bytes)
+
+    t = max(WARP, min(512, int(config["threads"]) // WARP * WARP))
+    while t > WARP and decode_smem_bytes(q.shape[-1], t) > MAX_DYNAMIC_SMEM:
+        t -= WARP
+    config["threads"] = t
+    return config
+
+
+def _decode_attention_example(case, device="cpu"):
+    import torch
+
+    from repro_torch.models.attention import quantize_kv_rows
+
+    b, t, h, nkv, d = case.get("dims", (4, 128, 8, 4, 32))
+    dtype, seed = case.get("dtype", "float32"), case.get("seed", 0)
+    q = _rand(seed, (b, 1, h, d), dtype, device=device)
+    dtype = case.get("kv_dtype", dtype)          # a cache type of its own
+    valid = torch.tensor(case["valid"], dtype=torch.int32, device=device)
+    kwargs = {"softmax_mode": case.get("softmax_mode", "exact")}
+    paged = case.get("paged")
+    if paged:
+        n_pages, page, p_per = paged
+        kk = _rand(seed + 1, (n_pages, page, nkv, d), dtype, device=device)
+        v = _rand(seed + 2, (n_pages, page, nkv, d), dtype, device=device)
+        kwargs["tables"] = ((torch.arange(b * p_per, dtype=torch.int32,
+                                          device=device)
+                             .reshape(b, p_per)) * 7 + 3) % n_pages
+    else:
+        kk = _rand(seed + 1, (b, t, nkv, d), dtype, device=device)
+        v = _rand(seed + 2, (b, t, nkv, d), dtype, device=device)
+    if case.get("quant"):
+        kk, kwargs["ks"] = quantize_kv_rows(kk)
+        v, kwargs["vs"] = quantize_kv_rows(v)
+    return (q, kk, v, valid), kwargs
+
+
+registry.register(KernelSpec(
+    name="decode_attention",
+    build=_build_decode_attention,
+    reference=_decode_attention_reference,
+    space={"threads": (64, 128, 256),
+           "softmax_mode": ("exact", "taylor")},
+    tuned=("threads",),
+    base_config={"threads": 256},
+    legalize=_legalize_decode,
+    make_example=_decode_attention_example,
+    example_cases=(
+        {"dims": (4, 128, 8, 2, 32), "valid": (128, 64, 1, 97),
+         "atol": 2e-5},
+        # ragged odd lengths + a fully-masked slot (valid=0 -> zeros)
+        {"dims": (3, 96, 4, 2, 16), "valid": (5, 96, 0), "atol": 2e-5},
+        {"dims": (6, 128, 4, 2, 32), "valid": (128, 31, 77, 1, 64, 9),
+         "quant": True, "atol": 2e-5},
+        # paged: (n_pages, page, pages_per_slot) pool, table indirection
+        {"dims": (3, 64, 4, 2, 32), "valid": (64, 17, 1),
+         "paged": (12, 16, 4), "atol": 2e-5},
+        {"dims": (3, 64, 4, 2, 32), "valid": (49, 64, 8),
+         "paged": (12, 16, 4), "quant": True, "atol": 2e-5},
+        {"dims": (5, 128, 4, 2, 32), "valid": (100, 128, 64, 1, 27),
+         "softmax_mode": "taylor", "atol": 5e-2},
+    ),
+    ref_accepts=("tables", "ks", "vs"),
+))
+
+
+# -- fused_sampling ---------------------------------------------------------
+# Temperature / top-k / top-p and the counter-based draw of every row in one
+# launch; greedy (temperature <= 0) is an exact argmax.  Tokens are int32,
+# so the parity harness's tolerance means equality.  The tunable is the
+# block size (one block per row).
+
+
+def _build_fused_sampling():
+    from repro_torch.kernels.sampling.kernel import fused_sampling_cuda
+
+    return fused_sampling_cuda
+
+
+def _sampling_reference():
+    from repro_torch.kernels.sampling.ref import fused_sampling_ref
+
+    return fused_sampling_ref
+
+
+def _sampling_example(case, device="cpu"):
+    import torch
+
+    b, v = case.get("dims", (8, 64))
+    logits = _rand(case.get("seed", 0), (b, v), "float32", scale=3.0,
+                   device=device)
+
+    def row(key, default, dtype):
+        return torch.tensor(case.get(key, (default,) * b), dtype=dtype,
+                            device=device)
+
+    seeds = torch.tensor([(i * 0x9E3779B1 + 17) & 0x7FFFFFFF
+                          for i in range(b)], dtype=torch.int32,
+                         device=device)
+    pos = torch.tensor([i * 5 + case.get("pos0", 1) for i in range(b)],
+                       dtype=torch.int32, device=device)
+    return (logits, row("temperature", 1.0, torch.float32), seeds, pos,
+            row("top_k", 0, torch.int32), row("top_p", 1.0, torch.float32)), {}
+
+
+registry.register(KernelSpec(
+    name="fused_sampling",
+    build=_build_fused_sampling,
+    reference=_sampling_reference,
+    space={"threads": (256, 512, 1024)},
+    tuned=("threads",),
+    base_config={"threads": 1024},
+    legalize=_legalize_threads,
+    make_example=_sampling_example,
+    example_cases=(
+        # tokens are int32 — the parity harness's allclose means *equal*
+        {"dims": (8, 64), "temperature": (0.0,) * 8},          # greedy
+        {"dims": (8, 64)},                                     # temp 1.0
+        {"dims": (6, 50), "temperature": (0.0, 0.7, 1.0, 1.3, 0.0, 2.0)},
+        {"dims": (4, 64), "top_k": (5, 1, 64, 0)},
+        {"dims": (4, 64), "top_p": (0.1, 0.5, 0.9, 1.0)},
+        {"dims": (3, 33), "temperature": (0.8, 0.9, 1.1),
+         "top_k": (7, 0, 3), "top_p": (0.9, 0.3, 1.0), "pos0": 11},
+    ),
+    ref_accepts=(),
+))
+
+
 # ---------------------------------------------------------------------------
 # Ergonomic wrappers (registry dispatch with explicit tunable overrides)
 # ---------------------------------------------------------------------------
@@ -306,3 +532,61 @@ def taylor_softmax(x, threads: Optional[int] = None,
     """Softmax over the last axis with the Eq. 2 polynomial exp."""
     return registry.call("taylor_softmax", x, config={"threads": threads},
                          tune=tune)
+
+
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                    softmax_mode: str = "exact",
+                    q_block: Optional[int] = None,
+                    tune: Optional[bool] = None):
+    """q (B, S, H, D); k, v (B, T, K, D); H = K * G -> (B, S, H, D)."""
+    return registry.call("flash_attention", q, k, v, causal=causal,
+                         q_offset=q_offset, softmax_mode=softmax_mode,
+                         config={"q_block": q_block}, tune=tune)
+
+
+def decode_attention(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
+                     softmax_mode: str = "exact",
+                     threads: Optional[int] = None,
+                     tune: Optional[bool] = None):
+    """q_len = 1 decode attention: q (B, 1, H, D) against a dense cache
+    k, v (B, T, K, D), each slot masked at ``kv_valid_len`` (B,) ->
+    (B, 1, H, D).  ``tables`` / ``ks`` / ``vs`` (paged and int8 caches)
+    raise ``NotImplementedError`` until the paged slice."""
+    return registry.call("decode_attention", q, k, v, kv_valid_len,
+                         tables=tables, ks=ks, vs=vs,
+                         softmax_mode=softmax_mode,
+                         config={"threads": threads}, tune=tune)
+
+
+def fused_sampling(logits, temperature, seeds, pos, top_k=None, top_p=None,
+                   threads: Optional[int] = None,
+                   tune: Optional[bool] = None, scratch=None):
+    """Fused sampling: logits (B, V) float32 and per-row temperature / seed
+    / position / top_k / top_p -> (B,) int32 tokens.  Scalars and host
+    arrays are broadcast to (B,) and reach the logits' device in one copy;
+    ``top_k`` None or 0 and ``top_p`` None or 1.0 leave the restriction
+    off.  Seeds are taken modulo 2^32, as the kernel's uint32 hash reads
+    them.  ``scratch`` is the kernel's work space (see
+    :func:`repro_torch.kernels.sampling.kernel.fused_sampling_cuda`)."""
+    import numpy as np
+    import torch
+
+    b = logits.shape[0]
+
+    def row(x, default, floating):
+        """(B,) int32 bit patterns of a float32 or a uint32 row."""
+        x = np.broadcast_to(np.asarray(default if x is None else x), (b,))
+        if floating:
+            return x.astype(np.float32).view(np.int32)
+        return (x.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(
+            np.int32)
+
+    packed = np.stack([row(temperature, 0.0, True), row(seeds, 0, False),
+                       row(pos, 0, False), row(top_k, 0, False),
+                       row(top_p, 1.0, True)])
+    temp, seed, posr, tk, tp = torch.from_numpy(packed).to(
+        logits.device).unbind(0)
+    return registry.call(
+        "fused_sampling", logits, temp.view(torch.float32), seed, posr, tk,
+        tp.view(torch.float32), config={"threads": threads}, tune=tune,
+        scratch=scratch)

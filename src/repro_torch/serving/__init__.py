@@ -5,10 +5,11 @@ results and cumulative stats (with per-request-class latency and
 per-phase queue-depth histograms); pluggable :class:`Scheduler`s decide
 admission, batch shape, device placement and tick interleaving;
 :class:`CapsuleEngine` (CapsNet image frames, the paper's Fig. 1 workload)
-is the workload adapter of this slice, with the ``submit() / poll() /
-run_until_idle() / stats()`` surface and true async admission.  The LM
-decode engine, the paged cache, the disaggregated front-end and the
-sharded scheduler follow with their slices of the port.
+and :class:`ServeEngine` (LM decode over dense slot caches) are the
+workload adapters, with the ``submit() / poll() / run_until_idle() /
+stats()`` surface and true async admission.  The paged cache, the
+disaggregated front-end and the sharded scheduler follow with their slices
+of the port.
 """
 
 from repro_torch.serving.capsule_engine import (CapsuleEngine,  # noqa: F401
@@ -16,6 +17,8 @@ from repro_torch.serving.capsule_engine import (CapsuleEngine,  # noqa: F401
 from repro_torch.serving.core import (DepthHistogram,  # noqa: F401
                                       EngineCore, EngineStats,
                                       LatencyHistogram, SlotTask, StreamEvent)
+from repro_torch.serving.engine import (Completion, Request,  # noqa: F401
+                                        ServeEngine)
 from repro_torch.serving.schedulers import (DisaggScheduler,  # noqa: F401
                                             FIFOScheduler,
                                             InterleavingScheduler,

@@ -40,8 +40,10 @@ def _pipelines(seed=0):
 
 class TestConfigs:
     def test_archs(self):
-        assert port_configs.list_archs() == ["capsnet-mnist", "capsnet-fmnist"]
-        assert port_configs.list_archs() == ref_configs.PAPER_ARCHS
+        assert port_configs.PAPER_ARCHS == ["capsnet-mnist", "capsnet-fmnist"]
+        assert port_configs.PAPER_ARCHS == ref_configs.PAPER_ARCHS
+        assert port_configs.list_archs(include_paper=False) == [
+            "llama3.2-1b", "qwen3-1.7b"]
 
     @pytest.mark.parametrize("arch", ["capsnet-mnist", "capsnet-fmnist"])
     def test_published_configs_match_reference(self, arch):
@@ -66,7 +68,7 @@ class TestConfigs:
 
     def test_unknown_arch_and_config_raise(self):
         with pytest.raises(ValueError, match="unknown arch"):
-            port_configs.get_config("llama3.2-1b")
+            port_configs.get_config("mistral-large-123b")
         with pytest.raises(TypeError):
             port_configs.reduced(object())
 
@@ -274,7 +276,7 @@ class TestLauncher:
 
     def test_cli_rejects_waiting_options(self):
         for bad in (["--scheduler", "disagg"], ["--routing", "pallas"],
-                    ["--arch", "llama3.2-1b"]):
+                    ["--arch", "mistral-large-123b"]):
             with pytest.raises(SystemExit):
                 port_serve.main(["--arch", "capsnet-mnist", "--device", "cpu"]
                                 + bad)
@@ -296,6 +298,13 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_port_has_files_to_check():
     assert len(PORT_FILES) > 20
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/attention.py", "models/lm.py", "models/mlp.py",
+                "serving/engine.py", "kernels/attention/kernel.py",
+                "kernels/attention/ref.py", "kernels/sampling/kernel.py",
+                "kernels/sampling/ref.py", "configs/llama3p2_1b.py",
+                "configs/qwen3_1p7b.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
