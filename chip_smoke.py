@@ -8,11 +8,15 @@ version on the card, serves a LAKP-pruned and a dense full-width
 ``capsnet-mnist`` through ``CapsuleEngine`` with the routing in the
 hand-written kernel, serves a full-width ``llama3.2-1b`` (random weights,
 seed 0) through ``ServeEngine`` with prefill attention, decode attention and
-sampling in the hand-written kernels, and times the kernels.  One JSON
-object per phase goes to standard output; the last three lines are the
-kernel table, the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.  Any failed phase ends the script with a non-zero exit
-code and no result line.  With no CUDA device it exits non-zero at once.
+sampling in the hand-written kernels, serves it again from the paged KV
+cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
+decode reading the pages in place through the paged decode kernels, holds
+the int8 dense-cache decode kernel against the paged one on the same pool,
+and times the nine kernels.  One JSON object per phase goes to standard
+output; the last three lines are the kernel table, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.  Any failed phase ends
+the script with a non-zero exit code and no result line.  With no CUDA
+device it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.deploy import FastCapsPipeline  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain, flash_attention_cuda,
+    flash_attention_dequant_cuda, flash_attention_dequant_plain,
     flash_attention_plain)
 from repro_torch.kernels.registry import registry  # noqa: E402
 from repro_torch.kernels.routing.routing_kernel import fused_routing_cuda  # noqa: E402
@@ -56,8 +61,16 @@ BF16_FLOP_PER_S = 989e12         # H100 SXM, bf16 tensor cores, dense
 WRAPPERS = {"fused_routing": fused_routing_cuda,
             "taylor_softmax": taylor_softmax_cuda,
             "flash_attention": flash_attention_cuda,
+            "flash_attention_dequant": flash_attention_dequant_cuda,
             "decode_attention": decode_attention_cuda,
             "fused_sampling": fused_sampling_cuda}
+
+# decode_attention's four bodies, by the row of the kernel table each fills
+# (the TPU entry point each replaces)
+DECODE_ROWS = {"dense": "decode_attention",
+               "int8": "decode_attention_dequant",
+               "paged": "decode_attention_paged",
+               "paged_int8": "decode_attention_paged_dequant"}
 
 # The LM serving path (phase serve_lm): llama3.2-1b at full width, 8 slots
 # of 1024 positions, 16 requests of 16-700 prompt tokens and 32 new tokens.
@@ -73,34 +86,81 @@ LM_MAX_NEW = 32
 # paths, so margins under four steps may flip.
 LM_MARGIN = 1.0
 
-# Where each kernel lives, what it replaces, and the shape the main path
-# gives it (serve_pruned at batch 32: 252 capsules after compaction; the
-# serve_lm prefill at 8 x 1024 positions and its decode tick over 8 slots).
+# The paged serving path (phase serve_paged): the same model, engine width
+# and cache length, pages of 16 rows in the default pool of 8 x 1024 / 16 =
+# 512 pages; 16 requests of which 8 share a 256-token (16-page) prefix.
+PAGE = 16
+N_PAGES = LM_SLOTS * LM_MAX_LEN // PAGE
+SHARED_PREFIX = 256
+# Valid lengths of the kernel phase's paged and int8 decode cases: 0, 1, a
+# page boundary, the full 1024 rows and lengths in between.  (The timing
+# rows use the serve_paged tick's own lengths, paged_valid().)
+PAGED_VALID = (0, 1, 16, 1024, 700, 17, 512, 300)
+PAGED_CASE = {"dims": (LM_SLOTS, LM_MAX_LEN, 32, 8, 64),
+              "paged": (N_PAGES, PAGE, LM_MAX_LEN // PAGE), "shuffled": True}
+
+# The kernel table: one row per TPU entry point, with the registry kernel
+# that replaces it, where that kernel lives, and the shape the main paths
+# give it (serve_pruned at batch 32: 252 capsules after compaction; the
+# serve_lm prefill at 8 x 1024 positions and its decode tick over 8 slots;
+# the serve_paged decode tick over the 512-page pool; flash_attention_dequant,
+# which no model path calls, at a continuation prefill's shape).  The decode
+# rows' "valid" lengths are filled in by phase_timings.
 KERNELS = {
     "fused_routing": {
+        "kernel": "fused_routing",
         "route": "cuda", "source": "src/repro_torch/csrc/routing.cu",
         "replaces": "src/repro/kernels/routing/routing_kernel.py:93",
         "main_case": {"shape": (BATCH, 252, 10, 16), "softmax_mode": "taylor"},
     },
     "taylor_softmax": {
+        "kernel": "taylor_softmax",
         "route": "cuda", "source": "src/repro_torch/csrc/softmax.cu",
         "replaces": "src/repro/kernels/softmax/kernel.py:43",
         "main_case": {"shape": (BATCH, 252, 10), "scale": 1.0},
     },
     "flash_attention": {
+        "kernel": "flash_attention",
         "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:108",
         "main_case": {"dims": (LM_SLOTS, LM_MAX_LEN, LM_MAX_LEN, 32, 8, 64),
                       "dtype": "bfloat16", "causal": True},
     },
+    "flash_attention_dequant": {
+        "kernel": "flash_attention_dequant",
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:214",
+        "main_case": {"dims": (LM_SLOTS, 256, LM_MAX_LEN, 32, 8, 64),
+                      "dtype": "bfloat16", "causal": True, "q_offset": 768},
+    },
     "decode_attention": {
+        "kernel": "decode_attention",
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:387",
-        # "valid": the first 8 serve_lm prompts, 16 tokens into decode
         "main_case": {"dims": (LM_SLOTS, LM_MAX_LEN, 32, 8, 64),
                       "dtype": "bfloat16"},
     },
+    "decode_attention_dequant": {
+        "kernel": "decode_attention",
+        "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:417",
+        "main_case": {"dims": (LM_SLOTS, LM_MAX_LEN, 32, 8, 64),
+                      "dtype": "bfloat16", "quant": True},
+    },
+    "decode_attention_paged": {
+        "kernel": "decode_attention",
+        "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:450",
+        "main_case": {**PAGED_CASE, "dtype": "bfloat16"},
+    },
+    "decode_attention_paged_dequant": {
+        "kernel": "decode_attention",
+        "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:491",
+        "main_case": {**PAGED_CASE, "dtype": "bfloat16", "quant": True},
+    },
     "fused_sampling": {
+        "kernel": "fused_sampling",
         "route": "cuda", "source": "src/repro_torch/csrc/sampling.cu",
         "replaces": "src/repro/kernels/sampling/kernel.py:29",
         "main_case": {"dims": (LM_SLOTS, 128256),
@@ -108,9 +168,20 @@ KERNELS = {
     },
 }
 
+
+def table_row(name: str, case) -> str:
+    """The kernel-table row a registry kernel's case belongs to."""
+    if name != "decode_attention":
+        return name
+    body = ("paged" if case.get("paged") else "dense") if not case.get(
+        "quant") else ("paged_int8" if case.get("paged") else "int8")
+    return DECODE_ROWS[body]
+
+
 # The kernels' plain versions where the registry's reference is an oracle
 # of another form (the other kernels' references are their plain versions).
 PLAIN = {"flash_attention": flash_attention_plain,
+         "flash_attention_dequant": flash_attention_dequant_plain,
          "decode_attention": decode_attention_plain}
 
 # Sampling rows of the serve mix: greedy and (0.8, top-k 50, top-p 0.9).
@@ -124,7 +195,9 @@ MIXED = {"temperature": (0.8,) * LM_SLOTS, "top_k": (50,) * LM_SLOTS,
 # 32; 1e-6 for the softmax alone; 2e-5 for exact float32 attention over up
 # to 1024 rows); bfloat16 outputs round at 2^-8 (1e-2); attention with the
 # polynomial exp is held against the exact oracle (5e-2, the approximation's
-# own error); sampled tokens are integers and must be equal (0).
+# own error); sampled tokens are integers and must be equal (0).  The int8
+# caches are held against the dequantizing oracle on the same int8 rows, so
+# the quantization error cancels and the same tolerances hold.
 EXTRA_CASES = {
     "fused_routing": (
         {"shape": (BATCH, 252, 10, 16), "softmax_mode": "exact", "atol": 1e-5},
@@ -172,6 +245,33 @@ EXTRA_CASES = {
          "valid": (1024, 1, 1023, 33, 700, 17, 512, 300), "atol": 2e-5},
         {"dims": (4, 512, 16, 8, 128), "dtype": "bfloat16",
          "valid": (512, 100, 0, 333), "atol": 1e-2},
+        # serve_paged: 512 pages of 16 rows, 8 slots with shuffled tables
+        # and -1 sentinels past each slot's write head
+        {**PAGED_CASE, "dtype": "bfloat16", "valid": PAGED_VALID,
+         "atol": 1e-2},
+        {**PAGED_CASE, "dtype": "bfloat16", "valid": PAGED_VALID,
+         "softmax_mode": "taylor", "atol": 5e-2},
+        {**PAGED_CASE, "valid": PAGED_VALID, "atol": 2e-5},
+        {**PAGED_CASE, "dtype": "bfloat16", "quant": True,
+         "valid": PAGED_VALID, "atol": 1e-2},
+        {**PAGED_CASE, "quant": True, "valid": PAGED_VALID,
+         "softmax_mode": "taylor", "atol": 5e-2},
+        {**PAGED_CASE, "quant": True, "valid": PAGED_VALID, "atol": 2e-5},
+        # the int8 dense cache of a gathered view of the int8 pool
+        {"dims": (8, 1024, 32, 8, 64), "dtype": "bfloat16", "quant": True,
+         "valid": PAGED_VALID, "atol": 1e-2},
+        {"dims": (8, 1024, 32, 8, 64), "quant": True, "valid": PAGED_VALID,
+         "softmax_mode": "taylor", "atol": 5e-2},
+    ),
+    "flash_attention_dequant": (
+        # a continuation prefill of 256 rows after 768 cached int8 rows
+        {"dims": (LM_SLOTS, 256, LM_MAX_LEN, 32, 8, 64), "dtype": "bfloat16",
+         "causal": True, "q_offset": 768, "atol": 1e-2},
+        {"dims": (2, 256, 1024, 32, 8, 64), "causal": True, "q_offset": 768,
+         "atol": 2e-5},
+        {"dims": (2, 256, 1024, 32, 8, 64), "dtype": "bfloat16",
+         "causal": True, "q_offset": 768, "softmax_mode": "taylor",
+         "atol": 5e-2},
     ),
     "fused_sampling": (
         {"dims": (8, 128256), "temperature": (0.0,) * 8, "atol": 0},
@@ -247,21 +347,18 @@ def case_shape(case) -> list:
     return list(case.get("shape") or case.get("dims"))
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> tuple:
     """Every kernel against its reference on the card (the plain version,
     or for attention the exact float32 oracle, which the exact-mode plain
-    version equals); returns the largest error per kernel.  The paged and
-    int8 decode cases wait for the paged slice: their wrapper raises."""
-    worst = {}
+    version equals), paged and int8 decode cases included; returns the
+    largest error per kernel-table row and the launches of
+    flash_attention_dequant here (no model path calls it)."""
+    worst = dict.fromkeys(KERNELS, 0.0)
+    reset_counts()
     for name in registry.names():
         spec = registry.get(name)
         wrapper = spec.build()
-        worst[name] = 0.0
         for case in tuple(spec.example_cases) + EXTRA_CASES[name]:
-            if case.get("paged") or case.get("quant"):
-                emit("kernels", kernel=name, shape=case_shape(case),
-                     skipped="paged or int8 cache: paged slice")
-                continue
             atol = case.get("atol", 0)
             args, kwargs = spec.make_example(case, device=DEVICE)
             cfg = registry.default_config(name, *args, **kwargs)
@@ -278,7 +375,8 @@ def phase_kernels() -> dict:
                 plain = PLAIN[name](*args, **kwargs)
                 extra["max_abs_err_vs_plain_taylor"] = float(
                     (got[0].float() - plain.float()).abs().max())
-            emit("kernels", kernel=name, shape=case_shape(case),
+            row = table_row(name, case)
+            emit("kernels", kernel=name, row=row, shape=case_shape(case),
                  dtype=case.get("dtype", "float32"),
                  softmax_mode=kwargs.get("softmax_mode"), config=cfg,
                  max_abs_err=err, atol=atol, bit_identical=identical,
@@ -289,8 +387,11 @@ def phase_kernels() -> dict:
                 fail(f"{name} {case}: max abs err {err} > {atol}")
             if not identical:
                 fail(f"{name} {case}: two runs differ")
-            worst[name] = max(worst[name], err)
-    return worst
+            worst[row] = max(worst[row], err)
+    by_body = dict(decode_attention_cuda.launches_by_body)
+    if min(by_body.values()) < 1:
+        fail(f"kernels: a decode_attention body never ran: {by_body}")
+    return worst, flash_attention_dequant_cuda.launches
 
 
 def make_requests(n_requests: int, cfg) -> list:
@@ -307,6 +408,16 @@ def make_requests(n_requests: int, cfg) -> list:
 def reset_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+    for body in decode_attention_cuda.launches_by_body:
+        decode_attention_cuda.launches_by_body[body] = 0
+
+
+def launch_counts() -> dict:
+    """Launches since the last reset_counts(), by wrapper, and by body for
+    decode_attention (keys of DECODE_ROWS)."""
+    out = {k: w.launches for k, w in WRAPPERS.items()}
+    out.update(decode_attention_cuda.launches_by_body)
+    return out
 
 
 def serve(deployed, requests):
@@ -544,19 +655,61 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     return out
 
 
-def phase_serve_lm() -> dict:
-    """Full-width llama3.2-1b through ServeEngine: the kernel path
-    (flash_attention in prefill, decode_attention and fused_sampling in
-    every decode tick) against the plain path (chunked attention, host
-    sampling) on the same parameters and requests."""
+def init_lm():
+    """llama3.2-1b at full width with prefill attention in the flash kernel,
+    random weights from seed 0 drawn on the card: (cfg, params, seconds,
+    parameter count)."""
     cfg = dataclasses.replace(cfg_lib.get_config(LM_ARCH), attn_impl="cuda")
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     params = lm.init(cfg, gen, DEVICE)            # drawn on the card
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    return (cfg, params, time.perf_counter() - t0,
+            sum(int(x.numel()) for x in tree_leaves(params)))
+
+
+def compare_with_plain(phase: str, reqs, tok, tok_plain, tok_again, margins,
+                       vocab: int):
+    """Every request has its new tokens inside the vocabulary; seeded ones
+    are bit-identical across two kernel runs; greedy ones equal the plain
+    path's up to the first position whose top-2 margin there is below
+    LM_MARGIN.  Returns (tokens compared, ambiguous positions, where each
+    such sequence first parts from the plain one)."""
+    compared = ambiguous = 0
+    first_diff = {}
+    for r in reqs:
+        a, b = tok[r.rid], tok_plain[r.rid]
+        if len(a) != len(r.prompt) + LM_MAX_NEW:
+            fail(f"{phase}: rid {r.rid} has {len(a) - len(r.prompt)} new "
+                 f"tokens")
+        if min(a) < 0 or max(a) >= vocab:
+            fail(f"{phase}: rid {r.rid} has a token outside the vocabulary")
+        if r.temperature > 0:
+            if a != tok_again[r.rid]:
+                fail(f"{phase}: seeded rid {r.rid} differs between two runs "
+                     f"of the kernel engine")
+            continue
+        for j in range(len(r.prompt), len(a)):
+            compared += 1
+            if a[j] == b[j]:
+                continue
+            m = margins[(r.rid, j)]
+            if m >= LM_MARGIN:
+                fail(f"{phase}: rid {r.rid} token {j} differs from the plain "
+                     f"path at a top-2 margin of {m} >= {LM_MARGIN}")
+            ambiguous += 1
+            first_diff[r.rid] = {"position": j, "margin": m}
+            break                         # the sequences part ways here
+    return compared, ambiguous, first_diff
+
+
+def phase_serve_lm() -> dict:
+    """Full-width llama3.2-1b through ServeEngine: the kernel path
+    (flash_attention in prefill, decode_attention and fused_sampling in
+    every decode tick) against the plain path (chunked attention, host
+    sampling) on the same parameters and requests."""
+    cfg, params, init_s, n_params = init_lm()
     kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                        decode_kernel=True, device=DEVICE)
     plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
@@ -573,13 +726,14 @@ def phase_serve_lm() -> dict:
     ticks = count_calls(kern, "_step")
     reset_counts()
     done = kern.serve(fresh(reqs))
-    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    counts = launch_counts()
     stats = kern.stats()
     n_groups, n_ticks = groups[0], ticks[0]
     if len(done) != LM_REQUESTS:
         fail(f"serve_lm: {len(done)} of {LM_REQUESTS} requests completed")
     want = {"flash_attention": cfg.n_layers * n_groups,
             "decode_attention": cfg.n_layers * n_ticks,
+            "dense": cfg.n_layers * n_ticks,
             "fused_sampling": n_ticks}
     for name, n in want.items():
         if counts[name] != n or n < 1:
@@ -589,34 +743,10 @@ def phase_serve_lm() -> dict:
     margins = record_margins(plain)
     done_plain = plain.serve(fresh(reqs))
     again = kern.serve(fresh(reqs))
-    tok = {c.rid: c.tokens for c in done}
-    tok_plain = {c.rid: c.tokens for c in done_plain}
-    tok_again = {c.rid: c.tokens for c in again}
-    compared = ambiguous = 0
-    first_diff = {}
-    for r in reqs:
-        a, b = tok[r.rid], tok_plain[r.rid]
-        if len(a) != len(r.prompt) + LM_MAX_NEW:
-            fail(f"serve_lm: rid {r.rid} has {len(a) - len(r.prompt)} new "
-                 f"tokens")
-        if min(a) < 0 or max(a) >= cfg.vocab:
-            fail(f"serve_lm: rid {r.rid} has a token outside the vocabulary")
-        if r.temperature > 0:
-            if a != tok_again[r.rid]:
-                fail(f"serve_lm: seeded rid {r.rid} differs between two runs "
-                     f"of the kernel engine")
-            continue
-        for j in range(len(r.prompt), len(a)):
-            compared += 1
-            if a[j] == b[j]:
-                continue
-            m = margins[(r.rid, j)]
-            if m >= LM_MARGIN:
-                fail(f"serve_lm: rid {r.rid} token {j} differs from the plain "
-                     f"path at a top-2 margin of {m} >= {LM_MARGIN}")
-            ambiguous += 1
-            first_diff[r.rid] = {"position": j, "margin": m}
-            break                         # the sequences part ways here
+    compared, ambiguous, first_diff = compare_with_plain(
+        "serve_lm", reqs, {c.rid: c.tokens for c in done},
+        {c.rid: c.tokens for c in done_plain},
+        {c.rid: c.tokens for c in again}, margins, cfg.vocab)
 
     breakdown = decode_tick_breakdown(kern, cfg.vocab)
     lat = stats.latency_summary()
@@ -632,25 +762,238 @@ def phase_serve_lm() -> dict:
          ambiguous_positions=ambiguous, margin=LM_MARGIN,
          first_divergence=first_diff,
          seeded_bit_identical=True, **breakdown)
-    return {k: counts[k] for k in want}
+    return {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["dense"],
+            "fused_sampling": counts["fused_sampling"]}
 
 
-def flash_bound(case):
+def paged_requests(vocab: int) -> list:
+    """16 requests from RandomState(1), 32 new tokens each: the even ones
+    begin with one shared 256-token prefix (16 full pages) followed by
+    16-300 tokens of their own, the odd ones have prompts of 16-700 tokens
+    of their own; ids in [1, vocab / 2).  Every fourth request samples at
+    temperature 0.8 with top-k 50 and top-p 0.9 and a seed of its own, the
+    others are greedy."""
+    rng = np.random.RandomState(1)
+    shared = [int(t) for t in rng.randint(1, vocab // 2, size=SHARED_PREFIX)]
+    reqs = []
+    for i in range(LM_REQUESTS):
+        if i % 2 == 0:
+            own = rng.randint(1, vocab // 2, size=int(rng.randint(16, 301)))
+            prompt = shared + [int(t) for t in own]
+        else:
+            prompt = [int(t) for t in rng.randint(
+                1, vocab // 2, size=int(rng.randint(16, 701)))]
+        kw = {}
+        if i % 4 == 3:
+            kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=2000 + i)
+        reqs.append(Request(prompt=prompt, max_new_tokens=LM_MAX_NEW, rid=i,
+                            **kw))
+    return reqs
+
+
+def paged_valid(vocab: int) -> tuple:
+    """The decode tick's valid lengths of the first 8 paged requests, 16
+    tokens into decode (the timing rows of the paged decode bodies)."""
+    return tuple(len(r.prompt) + 16 for r in paged_requests(vocab)[:LM_SLOTS])
+
+
+def pool_nbytes(engine) -> int:
+    return int(sum(t.numel() * t.element_size()
+                   for t in engine._pool.values()))
+
+
+def b6_cross_check(kern, reqs, cfg) -> dict:
+    """The int8 dense-cache decode body (B6) against the paged int8 body on
+    the same pool: 8 requests are admitted and decoded for a tick, then on
+    copies of the engine's pool one decode tick runs (a) on the gathered
+    int8 view (PagePool.build_view, dequant=False) through lm.decode_step
+    with the dense int8 body, and (b) on the pool itself through
+    paged_tables with the paged int8 body.  The two bodies sum the same rows
+    in the same order, so the logits are expected to be equal; they are
+    held to 0.25, one bfloat16 step at the logits' magnitude (about 45),
+    and the greedy argmax must agree wherever the top-2 margin is at least
+    LM_MARGIN."""
+    for r in fresh(reqs[:LM_SLOTS]):
+        kern.submit(r)
+    kern.tick()                                   # admission + first step
+    kern.tick()
+    # as the engine's own tick does: map the page under each write head
+    kern._ensure_decode_pages([(s, t) for s, t in enumerate(kern._slots)
+                               if t is not None])
+    pages = kern._pages
+    tables = torch.from_numpy(pages.tables_snapshot()).to(DEVICE)
+    batch = {"tokens": torch.from_numpy(kern._tok[:, None].copy()).to(DEVICE),
+             "pos": torch.from_numpy(kern._pos.copy()).to(DEVICE)}
+    pool_a = {k: v.clone() for k, v in kern._pool.items()}
+    pool_b = {k: v.clone() for k, v in kern._pool.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    view = pages.build_view(pool_a, kern._residual, tables)
+    logits_a, _ = lm.decode_step(kern.params, kern.cfg, batch, view)
+    torch.cuda.synchronize()
+    counts_a = launch_counts()
+    reset_counts()
+    logits_b, _ = lm.decode_step(kern.params, kern.cfg, batch,
+                                 pages.pool_tree(pool_b, kern._residual),
+                                 paged_tables=tables)
+    torch.cuda.synchronize()
+    counts_b = launch_counts()
+    kern.run_until_idle()
+    if counts_a["int8"] != cfg.n_layers or counts_b["paged_int8"] != \
+            cfg.n_layers or counts_a["paged_int8"] or counts_b["int8"]:
+        fail(f"serve_paged: cross-check launched the int8 body "
+             f"{counts_a['int8']} and the paged int8 body "
+             f"{counts_b['paged_int8']} times, expected {cfg.n_layers} each")
+    a, b = logits_a.float().cpu().numpy(), logits_b.float().cpu().numpy()
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        fail("serve_paged: cross-check logits are not finite")
+    err = float(np.abs(a - b).max())
+    top2 = np.sort(b, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) >= LM_MARGIN
+    if err > 0.25:
+        fail(f"serve_paged: int8 and paged int8 decode logits differ by "
+             f"{err} > 0.25")
+    if not np.array_equal(a.argmax(-1)[clear], b.argmax(-1)[clear]):
+        fail("serve_paged: int8 and paged int8 decode disagree on a clear "
+             "argmax")
+    return {"max_abs_logit_diff": err, "clear_rows": int(clear.sum()),
+            "launches_int8": counts_a["int8"],
+            "launches_paged_int8": counts_b["paged_int8"]}
+
+
+def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
+    """One page mode of phase serve_paged: the kernel engine against the
+    plain paged engine of the same mode; returns the phase's numbers and
+    the launches of the first kernel run."""
+    mode = "paged_int8" if quantize else "paged"
+    kw = dict(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, page_size=PAGE,
+              quantize_pages=quantize, device=DEVICE)
+    kern = ServeEngine(cfg, params, decode_kernel=True, **kw)
+    plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
+                        **kw)
+    for eng in (kern, plain):
+        eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+
+    groups = count_calls(kern, "_prefill_paged_group")
+    ticks = count_calls(kern, "_step")
+    reset_counts()
+    done = kern.serve(fresh(reqs))
+    counts = launch_counts()
+    stats = kern.stats()
+    n_groups, n_ticks = groups[0], ticks[0]
+    if len(done) != LM_REQUESTS:
+        fail(f"serve_paged ({mode}): {len(done)} of {LM_REQUESTS} requests "
+             f"completed")
+    want = {"flash_attention": cfg.n_layers * n_groups,
+            mode: cfg.n_layers * n_ticks,
+            "decode_attention": cfg.n_layers * n_ticks,
+            "fused_sampling": n_ticks}
+    for name, n in want.items():
+        if counts[name] != n or n < 1:
+            fail(f"serve_paged ({mode}): {name} launched {counts[name]} "
+                 f"times, expected {n} ({n_groups} prefill groups, {n_ticks} "
+                 f"decode ticks)")
+    pg = dict(stats.pages)
+    if not (pg["prefix_hits"] >= LM_SLOTS - 1 and pg["allocated"] > 0
+            and pg["prefix_pages_hit"]
+            == SHARED_PREFIX // PAGE * pg["prefix_hits"]):
+        fail(f"serve_paged ({mode}): page counters {pg}")
+
+    margins = record_margins(plain)
+    done_plain = plain.serve(fresh(reqs))
+    del plain
+    # a second kernel engine: the same requests meet the same (empty)
+    # prefix cache, so every prefill group has the same composition
+    again = ServeEngine(cfg, params, decode_kernel=True, **kw).serve(
+        fresh(reqs))
+    compared, ambiguous, first_diff = compare_with_plain(
+        f"serve_paged ({mode})", reqs, {c.rid: c.tokens for c in done},
+        {c.rid: c.tokens for c in done_plain},
+        {c.rid: c.tokens for c in again}, margins, cfg.vocab)
+    out = {}
+    if quantize:
+        out["b6_cross_check"] = b6_cross_check(kern, reqs, cfg)
+    breakdown = decode_tick_breakdown(kern, cfg.vocab)
+    lat = stats.latency_summary()
+    dense_bytes = (2 * cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv_heads
+                   * cfg.head_dim * 2)
+    out.update(
+        mode=mode, pages=pg, requests=stats.completed,
+        new_tokens=stats.items, ticks=stats.ticks, prefill_groups=n_groups,
+        decode_ticks=n_ticks, tok_per_s=stats.throughput,
+        ms_per_tick=stats.ms_per_tick,
+        latency_ms={k: {"n": n, "p50": p50, "p95": p95}
+                    for k, (n, p50, p95) in lat.items()},
+        pool_bytes=pool_nbytes(kern), dense_slot_cache_bytes=dense_bytes,
+        launches={k: counts[k] for k in want},
+        greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
+        margin=LM_MARGIN, first_divergence=first_diff,
+        seeded_bit_identical=True, **breakdown)
+    return out, counts
+
+
+def phase_serve_paged() -> dict:
+    """Full-width llama3.2-1b through the paged ServeEngine: bf16 pages,
+    then int8 pages, each with the kernel path (flash_attention in prefill
+    and continuation prefill, the paged decode_attention body in every
+    decode tick, fused_sampling) against the plain paged engine of the
+    same mode (chunked attention, gathered view, host sampling), and the
+    B6 cross-check in the int8 run."""
+    torch.cuda.empty_cache()
+    cfg, params, init_s, _ = init_lm()
+    params = lm.compute_params(cfg, params)      # one cast for every engine
+    torch.cuda.empty_cache()
+    reqs = paged_requests(cfg.vocab)
+    launches = {}
+    for quantize in (False, True):
+        out, counts = serve_paged_mode(cfg, params, quantize, reqs)
+        emit("serve_paged", arch=LM_ARCH, init_s=init_s, slots=LM_SLOTS,
+             max_len=LM_MAX_LEN, page_size=PAGE, n_pages=N_PAGES, **out)
+        mode = out["mode"]
+        launches[DECODE_ROWS[mode]] = counts[mode]
+        for k in ("flash_attention", "fused_sampling"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        if quantize:
+            launches["decode_attention_dequant"] = \
+                out["b6_cross_check"]["launches_int8"]
+    return launches
+
+
+def flash_bound(case, int8: bool = False):
     """Causal attention: 4 * B * H * D operations per unmasked (i, t) pair
-    (QK and PV, a multiply and an add each) at the bf16 tensor-core peak;
-    q, k, v read and the output written once."""
+    (QK and PV, a multiply and an add each; query i at position q_offset + i
+    sees min(T, q_offset + i + 1) keys) at the bf16 tensor-core peak; q,
+    k, v read and the output written once (bf16; int8 K/V at one byte per
+    element plus a float32 scale per row of each)."""
     b, s, t, h, k, d = case["dims"]
-    pairs = s * (s + 1) // 2 if case.get("causal", True) else s * t
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * t * k * d)
+    off = case.get("q_offset", 0)
+    pairs = (sum(min(t, off + i + 1) for i in range(s))
+             if case.get("causal", True) else s * t)
+    kv_bytes = (2 * b * t * k * d + 2 * 4 * b * t) if int8 \
+        else 2 * 2 * b * t * k * d
+    nbytes = 2 * 2 * b * s * h * d + kv_bytes
     return nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / BF16_FLOP_PER_S
 
 
 def decode_bound(case):
-    """The valid cache rows of K and V read once (bf16), q read and the
-    output written once; 4 * H * D operations per valid row."""
+    """The valid cache rows of K and V read once (2 B per element for bf16;
+    1 B per element plus a 4 B scale per row of each for int8), the used
+    table entries of a paged cache (4 B each), q and the lengths read and
+    the output written once; 4 * H * D operations per valid row."""
     b, t, h, k, d = case["dims"]
-    rows = sum(min(max(v, 0), t) for v in case["valid"])
-    nbytes = 2 * (2 * rows * k * d + 2 * b * h * d) + 4 * b
+    paged = case.get("paged")
+    page = paged[1] if paged else t
+    lens = [min(max(v, 0), t) for v in case["valid"]]
+    rows = sum(lens)
+    qbytes = 2 if case.get("dtype") == "bfloat16" else 4
+    if case.get("quant"):
+        kv_bytes = 2 * rows * (k * d + 4)
+    else:
+        kv_bytes = 2 * rows * k * d * (2 if case.get("dtype", "float32")
+                                       == "bfloat16" else 4)
+    table_bytes = 4 * sum(-(-n // page) for n in lens) if paged else 0
+    nbytes = kv_bytes + table_bytes + 2 * b * h * d * qbytes + 4 * b
     return nbytes / HBM_BYTES_PER_S, 4 * rows * h * d / BF16_FLOP_PER_S
 
 
@@ -684,6 +1027,8 @@ def library_call(name, args, kwargs):
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=kwargs["causal"], enable_gqa=True)
     if name == "decode_attention":
+        if kwargs.get("tables") is not None or kwargs.get("ks") is not None:
+            return None                # no PyTorch call reads pages or int8
         q, k, v, valid = args
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(k.shape[1], device=k.device)[None, :]
@@ -716,6 +1061,7 @@ def softmax_bound(shape):
 BOUNDS = {"fused_routing": lambda c: routing_bound(c["shape"]),
           "taylor_softmax": lambda c: softmax_bound(c["shape"]),
           "flash_attention": flash_bound,
+          "flash_attention_dequant": lambda c: flash_bound(c, int8=True),
           "decode_attention": decode_bound,
           "fused_sampling": sampling_bound}
 
@@ -723,6 +1069,7 @@ BOUNDS = {"fused_routing": lambda c: routing_bound(c["shape"]),
 KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
                 "taylor_softmax": "taylor_softmax",
                 "flash_attention": "flash_attention_kernel",
+                "flash_attention_dequant": "flash_attention_kernel",
                 "decode_attention": "decode_attention_kernel",
                 "fused_sampling": "fused_sampling_kernel"}
 
@@ -757,6 +1104,10 @@ def timing_row(name, case, n_profile: int = 20) -> dict:
 
 
 def phase_timings(launches: dict, worst: dict) -> list:
+    """One row per TPU entry point at its main path's shape.  The decode
+    rows take the decode tick's valid lengths: serve_lm's first 8 requests
+    for the dense body, serve_paged's for the int8 and paged ones, 16
+    tokens into decode."""
     table = []
     vocab = cfg_lib.get_config(LM_ARCH).vocab
     valid = tuple(len(r.prompt) + 16 for r in lm_requests(vocab)[:LM_SLOTS])
@@ -764,9 +1115,12 @@ def phase_timings(launches: dict, worst: dict) -> list:
         case = dict(info["main_case"])
         if name == "decode_attention":
             case["valid"] = valid
+        elif name in DECODE_ROWS.values():
+            case["valid"] = paged_valid(vocab)
         row = {"name": name, "route": info["route"], "source": info["source"],
                "replaces": info["replaces"], "launches": launches[name],
-               "max_abs_err": worst[name], **timing_row(name, case)}
+               "max_abs_err": worst[name],
+               **timing_row(info["kernel"], case)}
         table.append(row)
         emit("timings", **row)
     # the serve mix's sampling rows (temperature 0.8, top-k 50, top-p 0.9)
@@ -798,16 +1152,26 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
-    worst = phase_kernels()
+    worst, dequant_launches = phase_kernels()
     launches = phase_serve("serve_pruned", prune=True, n_requests=8)
     launches_dense = phase_serve("serve_dense", prune=False, n_requests=4)
     launches_lm = phase_serve_lm()
+    launches_paged = phase_serve_paged()
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
-                    **launches_lm}.items():
+                    **launches_lm, **{f"{k} (paged)": v
+                                      for k, v in launches_paged.items()}
+                    }.items():
         if n < 1:
             fail(f"{name} was never launched on the serve path")
-    launches.update(launches_lm)
+    for k, n in list(launches_lm.items()) + list(launches_paged.items()):
+        launches[k] = launches.get(k, 0) + n
+    # no model path calls flash_attention_dequant: its row counts the
+    # kernel phase's launches
+    launches["flash_attention_dequant"] = dequant_launches
+    missing = [k for k in KERNELS if launches.get(k, 0) < 1]
+    if missing:
+        fail(f"no launches counted for {missing}")
     table = phase_timings(launches, worst)
     emit("done", seconds=time.perf_counter() - t0,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,

@@ -1,8 +1,9 @@
 // Blocked GQA flash attention for Hopper (sm_90a), float32 inside.
 //
-// Replaces the TPU kernel repro/kernels/attention/kernel.py
-// (_flash_kernel / flash_attention_pallas).  It computes, for q (B, S, H, D)
-// and k, v (B, T, K, D) with H = K * G,
+// Replaces the TPU kernels repro/kernels/attention/kernel.py
+// (_flash_kernel / flash_attention_pallas) and, with an int8 K/V type,
+// (_flash_dequant_kernel / flash_attention_dequant_pallas).  It computes, for
+// q (B, S, H, D) and k, v (B, T, K, D) with H = K * G,
 //
 //   out[b, i, h] = sum_t softmax_t(<q[b, i, h], k[b, t, h / G]> / sqrt(D)) v[b, t, h / G]
 //
@@ -11,7 +12,12 @@
 // m, denominator l and accumulator acc per query row, acc / max(l, 1e-30) at
 // the end, NEG_INF = -1e30 (finite), p re-zeroed under the mask after the exp.
 // The inputs are read in their own layout; the TPU entry's transposes to
-// (B*K, G, S, D) are gone.
+// (B*K, G, S, D) are gone.  Dequantizing (TKV = int8_t): k, v hold int8 rows
+// and ks, vs (B, T) one float32 scale per cache row, shared by the KV heads;
+// each element is multiplied by its row's scale as the tile is converted to
+// float32 (the TPU entry repeats the scales per KV head; here they are indexed
+// by batch row).  The scales are per row, so the KV tiles need no alignment to
+// the page length the rows were written in.
 //
 // What bounds it.  At the serving shapes the function is bound by operations
 // (4 * S * T * D per query head, halved by the causal mask, against about
@@ -41,6 +47,7 @@
 // same bits.
 
 #include <cmath>
+#include <type_traits>
 
 #include "approx_math.cuh"
 
@@ -73,12 +80,15 @@ constexpr long long flash_smem_floats() {
          + (long long)kFlashRows * kFlashKv;  // Ps, kRowsPerWarp rows per warp
 }
 
-template <typename T, int D, bool kTaylor>
+template <typename T, typename TKV, int D, bool kTaylor>
 __global__ void __launch_bounds__(kFlashThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
+flash_attention_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
+                       const TKV* __restrict__ v,
+                       const float* __restrict__ ks,
+                       const float* __restrict__ vs, T* __restrict__ out, int S,
                        int T_len, int H, int K, int G, int q_block, int causal,
                        int q_offset, float scale) {
+  constexpr bool kDequant = std::is_same<TKV, int8_t>::value;
   constexpr int DPL = (D + 31) / 32;            // output dims per lane
   constexpr int KS = D + 4;                     // Ks row stride
   extern __shared__ float4 smem4[];
@@ -137,6 +147,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const size_t off = (((size_t)b * T_len + t) * K + kvh) * D + d;
         kk = load_f32(k + off);
         vv = load_f32(v + off);
+        if (kDequant) {
+          kk *= ks[(size_t)b * T_len + t];
+          vv *= vs[(size_t)b * T_len + t];
+        }
       }
       Ks[j * KS + d] = kk;
       Vs[j * D + d] = vv;
@@ -221,11 +235,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kTaylor>
-int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int T_len, int H, int K, int q_block,
-                 int causal, int q_offset, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D, kTaylor>;
+template <typename T, typename TKV, int D, bool kTaylor>
+int launch_flash(const void* q, const void* k, const void* v, const float* ks,
+                 const float* vs, void* out, int B, int S, int T_len, int H,
+                 int K, int q_block, int causal, int q_offset,
+                 cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, TKV, D, kTaylor>;
   const size_t smem = flash_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -233,23 +248,41 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((S + q_block - 1) / q_block, B * K);
   const float scale = (float)(1.0 / std::sqrt((double)D));
   kernel<<<grid, kFlashThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, K, H / K,
-      q_block, causal, q_offset, scale);
+      static_cast<const T*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), ks, vs, static_cast<T*>(out), S, T_len, H,
+      K, H / K, q_block, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kTaylor>
+template <typename T, typename TKV, bool kTaylor>
 int dispatch_flash(int D, const void* q, const void* k, const void* v,
-                   void* out, int B, int S, int T_len, int H, int K,
-                   int q_block, int causal, int q_offset, cudaStream_t s) {
+                   const float* ks, const float* vs, void* out, int B, int S,
+                   int T_len, int H, int K, int q_block, int causal,
+                   int q_offset, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash<T, 16, kTaylor>(q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
-    case 32: return launch_flash<T, 32, kTaylor>(q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
-    case 64: return launch_flash<T, 64, kTaylor>(q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
-    case 128: return launch_flash<T, 128, kTaylor>(q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+    case 16: return launch_flash<T, TKV, 16, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+    case 32: return launch_flash<T, TKV, 32, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+    case 64: return launch_flash<T, TKV, 64, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+    case 128: return launch_flash<T, TKV, 128, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T, typename TKV>
+int dispatch_flash_mode(int taylor, int D, const void* q, const void* k,
+                        const void* v, const float* ks, const float* vs,
+                        void* out, int B, int S, int T_len, int H, int K,
+                        int q_block, int causal, int q_offset,
+                        cudaStream_t s) {
+  return taylor
+      ? dispatch_flash<T, TKV, true>(D, q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s)
+      : dispatch_flash<T, TKV, false>(D, q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+}
+
+inline bool flash_shape_ok(int B, int S, int T_len, int H, int K, int q_block,
+                    int q_offset) {
+  return B > 0 && S > 0 && T_len > 0 && K > 0 && H % K == 0 && q_block > 0 &&
+         (H / K) * q_block <= kFlashRows && q_offset >= 0;
 }
 
 }  // namespace fastcaps
@@ -266,13 +299,39 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int q_block, int causal, int q_offset,
                                       int taylor, int is_bf16, void* stream) {
   using namespace fastcaps;
-  if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0 ||
-      q_block <= 0 || (H / K) * q_block > kFlashRows || q_offset < 0)
+  if (!flash_shape_ok(B, S, T_len, H, K, q_block, q_offset))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return taylor ? dispatch_flash<__nv_bfloat16, true>(D, q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s)
-                  : dispatch_flash<__nv_bfloat16, false>(D, q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
-  return taylor ? dispatch_flash<float, true>(D, q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s)
-                : dispatch_flash<float, false>(D, q, k, v, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+    return dispatch_flash_mode<__nv_bfloat16, __nv_bfloat16>(
+        taylor, D, q, k, v, nullptr, nullptr, out, B, S, T_len, H, K, q_block,
+        causal, q_offset, s);
+  return dispatch_flash_mode<float, float>(
+      taylor, D, q, k, v, nullptr, nullptr, out, B, S, T_len, H, K, q_block,
+      causal, q_offset, s);
+}
+
+// The dequantizing variant: q, out (B, S, H, D) float32 (q_bf16 = 0) or
+// bfloat16 (1); kq, vq (B, T, K, D) int8; ks, vs (B, T) float32 per-row
+// scales; all contiguous.  The other arguments and the return value are
+// flash_attention_launch's.
+extern "C" int flash_attention_dequant_launch(
+    const void* q, const void* kq, const void* ks, const void* vq,
+    const void* vs, void* out, int B, int S, int T_len, int H, int K, int D,
+    int q_block, int causal, int q_offset, int taylor, int q_bf16,
+    void* stream) {
+  using namespace fastcaps;
+  if (!flash_shape_ok(B, S, T_len, H, K, q_block, q_offset) || ks == nullptr ||
+      vs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ksf = static_cast<const float*>(ks);
+  const float* vsf = static_cast<const float*>(vs);
+  if (q_bf16)
+    return dispatch_flash_mode<__nv_bfloat16, int8_t>(
+        taylor, D, q, kq, vq, ksf, vsf, out, B, S, T_len, H, K, q_block,
+        causal, q_offset, s);
+  return dispatch_flash_mode<float, int8_t>(
+      taylor, D, q, kq, vq, ksf, vsf, out, B, S, T_len, H, K, q_block, causal,
+      q_offset, s);
 }

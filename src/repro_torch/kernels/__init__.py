@@ -12,6 +12,8 @@ tensor it launches the kernel or raises.
 from repro_torch.kernels import tuning  # noqa: F401
 from repro_torch.kernels.registry import (KernelRegistry,  # noqa: F401
                                           KernelSpec, decode_attention,
-                                          flash_attention, fused_routing,
+                                          flash_attention,
+                                          flash_attention_dequant,
+                                          fused_routing,
                                           fused_sampling, registry,
                                           taylor_softmax)

@@ -6,20 +6,28 @@
   with a static ``q_offset``, exact or Eq. 2 exp, float32 inside.  The
   tunable ``q_block`` is the number of query positions a thread block holds
   (with all G heads of each, at most 64 rows).
+* :func:`flash_attention_dequant_cuda` (the same source, int8 K/V) replaces
+  ``flash_attention_dequant_pallas``: the same attention over int8 K/V rows
+  with one float32 scale per row, multiplied in as the tiles are read.  No
+  model path of either package calls it.
 * :func:`decode_attention_cuda` (``csrc/decode_attention.cu``) replaces
-  ``decode_attention_pallas``, the dense-cache body: one query token per
-  slot against its cache rows below ``kv_valid_len``.  The tunable
-  ``threads`` is the block size; one block serves one (slot, KV head).
-  The int8 and paged bodies are ported with the paged slice: ``tables``,
-  ``ks`` and ``vs`` raise ``NotImplementedError`` on every device.
+  ``decode_attention_pallas`` and its three siblings: one query token per
+  slot against its cache rows below ``kv_valid_len``, over a dense cache
+  (B, T, K, D) or the page pool's (n_pages, page, K, D) leaves read through
+  per-slot ``tables`` (B, P), each in bfloat16 / float32 or int8 with
+  per-row scales ``ks``, ``vs``.  The tunable ``threads`` is the block
+  size; one block serves one (slot, KV head).
+  ``decode_attention_cuda.launches_by_body`` counts its launches per body:
+  ``dense``, ``int8``, ``paged``, ``paged_int8``.
 
 A wrapper runs its plain version (:func:`flash_attention_plain`,
-:func:`decode_attention_plain`) only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  The plain versions compute what
-the kernels compute, in one pass instead of tiles: q scaled in float32, the
-masked exp of the chosen mode, ``acc / max(l, 1e-30)``.  In exact mode they
-agree with the oracles of :mod:`repro_torch.kernels.attention.ref` to
-float32 rounding.  ``<wrapper>.launches`` counts kernel launches.
+:func:`flash_attention_dequant_plain`, :func:`decode_attention_plain`) only
+for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+The plain versions compute what the kernels compute, in one pass instead of
+tiles: q scaled in float32, the masked exp of the chosen mode, ``acc /
+max(l, 1e-30)``.  In exact mode they agree with the oracles of
+:mod:`repro_torch.kernels.attention.ref` to float32 rounding.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -71,6 +79,14 @@ def _check_device(what: str, *tensors: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
+
+
+def _check_q_block(q_block: int, g: int, what: str) -> int:
+    q_block = int(q_block)
+    if q_block < 1 or q_block & (q_block - 1) or g * q_block > FLASH_ROWS:
+        raise ValueError(f"{what}: q_block {q_block} must be a power of two "
+                         f"with G * q_block <= {FLASH_ROWS} (G = {g})")
+    return q_block
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,12 +148,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, s, k.shape[1]) < 1:
         raise ValueError(f"flash_attention: empty dimension in "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
-    q_block = int(q_block)
-    g = h // nkv
-    if q_block < 1 or q_block & (q_block - 1) or g * q_block > FLASH_ROWS:
-        raise ValueError(f"flash_attention: q_block {q_block} must be a "
-                         f"power of two with G * q_block <= {FLASH_ROWS} "
-                         f"(G = {g})")
+    q_block = _check_q_block(q_block, h // nkv, "flash_attention")
     lib = build.load_library()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
@@ -154,16 +165,123 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def flash_attention_dequant_plain(q: torch.Tensor, kq: torch.Tensor,
+                                  ks: torch.Tensor, vq: torch.Tensor,
+                                  vs: torch.Tensor, causal: bool = True,
+                                  q_offset: int = 0,
+                                  softmax_mode: str = "exact") -> torch.Tensor:
+    """q (B, S, H, D); kq, vq (B, T, K, D) int8; ks, vs (B, T) float32 ->
+    (B, S, H, D) in q's type: the rows dequantized, then
+    :func:`flash_attention_plain`."""
+    k = kq.float() * ks.float()[..., None, None]
+    v = vq.float() * vs.float()[..., None, None]
+    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                 softmax_mode=softmax_mode)
+
+
+def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
+                                 ks: torch.Tensor, vq: torch.Tensor,
+                                 vs: torch.Tensor, causal: bool = True,
+                                 q_offset: int = 0,
+                                 softmax_mode: str = "exact",
+                                 q_block: int = 64,
+                                 page_size: int = 64) -> torch.Tensor:
+    """GQA flash attention over an int8 cache: q (B, S, H, D); kq, vq
+    (B, T, K, D) int8; ks, vs (B, T) float32, one scale per row shared by
+    the KV heads.  ``page_size`` is the page length the rows were written
+    in; it must be positive, and the kernel, which reads a scale per row,
+    needs no tile alignment to it."""
+    if q.dim() != 4 or kq.dim() != 4 or kq.shape != vq.shape:
+        raise ValueError(f"flash_attention_dequant: q must be (B, S, H, D) "
+                         f"and kq, vq (B, T, K, D), got {tuple(q.shape)}, "
+                         f"{tuple(kq.shape)}, {tuple(vq.shape)}")
+    _check_mode(softmax_mode)
+    b, s, h, d = q.shape
+    t, nkv = kq.shape[1], kq.shape[2]
+    if kq.shape[0] != b or kq.shape[3] != d or nkv < 1 or h % nkv:
+        raise ValueError(f"flash_attention_dequant: cache {tuple(kq.shape)} "
+                         f"does not fit q {tuple(q.shape)}")
+    if ks.shape != (b, t) or vs.shape != (b, t):
+        raise ValueError(f"flash_attention_dequant: scales must be (B, T) = "
+                         f"{(b, t)}, got {tuple(ks.shape)}, {tuple(vs.shape)}")
+    if int(page_size) < 1:
+        raise ValueError(f"flash_attention_dequant: page_size must be "
+                         f"positive, got {page_size}")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_dequant: q_offset must be >= 0, "
+                         f"got {q_offset}")
+    if _check_device("flash_attention_dequant", q, kq, ks, vq, vs) == "cpu":
+        return flash_attention_dequant_plain(
+            q, kq, ks, vq, vs, causal=causal, q_offset=q_offset,
+            softmax_mode=softmax_mode)
+    if (q.dtype not in _DTYPES or kq.dtype != torch.int8
+            or vq.dtype != torch.int8 or ks.dtype != torch.float32
+            or vs.dtype != torch.float32):
+        raise TypeError(f"flash_attention_dequant takes a float32 or bfloat16 "
+                        f"q, int8 kq, vq and float32 scales, got {q.dtype}, "
+                        f"{kq.dtype}, {vq.dtype}, {ks.dtype}, {vs.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_dequant: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if not all(x.is_contiguous() for x in (q, kq, ks, vq, vs)):
+        raise ValueError("flash_attention_dequant: inputs must be contiguous")
+    if min(b, s, t) < 1:
+        raise ValueError(f"flash_attention_dequant: empty dimension in "
+                         f"{tuple(q.shape)}, {tuple(kq.shape)}")
+    q_block = _check_q_block(q_block, h // nkv, "flash_attention_dequant")
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        code = lib.flash_attention_dequant_launch(
+            q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+            vs.data_ptr(), out.data_ptr(), b, s, t, h, nkv, d, q_block,
+            int(bool(causal)), q_offset, int(softmax_mode == "taylor"),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, "flash_attention_dequant")
+    flash_attention_dequant_cuda.launches += 1
+    return out
+
+
+flash_attention_dequant_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
 
+DECODE_BODIES = ("dense", "int8", "paged", "paged_int8")
+
+
+def _paged_rows(x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Pool leaf (n_pages, page, ...) read through ``tables`` (B, P), the
+    entries clipped to the pool -> (B, P * page, ...)."""
+    tv = torch.clamp(tables.to(device=x.device, dtype=torch.int64), 0,
+                     x.shape[0] - 1)
+    g = x[tv]
+    return g.reshape((tv.shape[0], tv.shape[1] * x.shape[1]) + x.shape[2:])
+
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_valid_len: torch.Tensor,
+                           tables: Optional[torch.Tensor] = None,
+                           ks: Optional[torch.Tensor] = None,
+                           vs: Optional[torch.Tensor] = None,
                            softmax_mode: str = "exact") -> torch.Tensor:
-    """q (B, 1, H, D); k, v (B, T, K, D); kv_valid_len (B,) -> (B, 1, H, D)
-    in q's type; a slot with no valid row gives zeros."""
+    """q (B, 1, H, D); a dense cache k, v (B, T, K, D) or, with ``tables``
+    (B, P), pool leaves (n_pages, page, K, D); int8 k, v with float32
+    per-row scales ``ks``, ``vs`` ((B, T) dense, (n_pages, page) paged);
+    kv_valid_len (B,) -> (B, 1, H, D) in q's type.  The pages are gathered
+    through the clipped tables and the rows dequantized, then the masked
+    softmax; a slot with no valid row gives zeros."""
+    if tables is not None:
+        k, v = _paged_rows(k, tables), _paged_rows(v, tables)
+        if ks is not None:
+            ks, vs = _paged_rows(ks, tables), _paged_rows(vs, tables)
+    if ks is not None:
+        k = k.float() * ks.float()[..., None, None]
+        v = v.float() * vs.float()[..., None, None]
     b, s, h, d = q.shape
     t, nkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, nkv, h // nkv, d).float() * (1.0 / math.sqrt(d))
@@ -179,6 +297,49 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
+def _check_decode_cache(q, k, v, kv_valid_len, tables, ks, vs):
+    """Shapes of a decode call; returns (body, rows per slot T, pages per
+    slot P, page length, pool pages)."""
+    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"decode_attention: q must be (B, 1, H, D) and k, v "
+                         f"(B, T, K, D) or (n_pages, page, K, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[3] != d or k.shape[2] < 1 or h % k.shape[2]:
+        raise ValueError(f"decode_attention: cache {tuple(k.shape)} does "
+                         f"not fit q {tuple(q.shape)}")
+    if kv_valid_len.shape != (b,) or kv_valid_len.dtype.is_floating_point:
+        raise ValueError(f"decode_attention: kv_valid_len must be (B,) "
+                         f"integers, got {tuple(kv_valid_len.shape)} "
+                         f"{kv_valid_len.dtype}")
+    if (ks is None) != (vs is None):
+        raise ValueError("decode_attention: ks and vs come together")
+    if tables is not None:
+        if (tables.dim() != 2 or tables.shape[0] != b
+                or tables.dtype.is_floating_point):
+            raise ValueError(f"decode_attention: tables must be (B, P) "
+                             f"integers, got {tuple(tables.shape)} "
+                             f"{tables.dtype}")
+        n_pages, page, p_per = k.shape[0], k.shape[1], tables.shape[1]
+        t = p_per * page
+        scale_shape = (n_pages, page)
+    else:
+        if k.shape[0] != b:
+            raise ValueError(f"decode_attention: cache {tuple(k.shape)} does "
+                             f"not fit q {tuple(q.shape)}")
+        n_pages = page = p_per = 0
+        t = k.shape[1]
+        scale_shape = (b, t)
+    if ks is not None and (ks.shape != scale_shape
+                           or vs.shape != scale_shape):
+        raise ValueError(f"decode_attention: scales must be {scale_shape}, "
+                         f"got {tuple(ks.shape)}, {tuple(vs.shape)}")
+    body = ("paged" if tables is not None else "dense") if ks is None else (
+        "paged_int8" if tables is not None else "int8")
+    return body, t, p_per, page, n_pages
+
+
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid_len: torch.Tensor,
                           tables: Optional[torch.Tensor] = None,
@@ -186,43 +347,47 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           vs: Optional[torch.Tensor] = None,
                           softmax_mode: str = "exact",
                           threads: int = 256) -> torch.Tensor:
-    """q_len = 1 decode: q (B, 1, H, D); dense cache k, v (B, T, K, D);
+    """q_len = 1 decode: q (B, 1, H, D) against a dense cache k, v
+    (B, T, K, D) or pool leaves (n_pages, page, K, D) read through
+    ``tables`` (B, P) (negative entries are sentinels: clipped, and masked
+    by the valid length); int8 caches carry per-row scales ``ks``, ``vs``;
     kv_valid_len (B,) integer -> (B, 1, H, D)."""
-    if tables is not None or ks is not None or vs is not None:
-        raise NotImplementedError(
-            "decode_attention: paged (tables) and int8 (ks, vs) caches are "
-            "ported with the paged slice; this kernel reads dense caches")
     _check_mode(softmax_mode)
-    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"decode_attention: q must be (B, 1, H, D) and k, v "
-                         f"(B, T, K, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, _, h, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or k.shape[2] < 1 \
-            or h % k.shape[2]:
-        raise ValueError(f"decode_attention: cache {tuple(k.shape)} does "
-                         f"not fit q {tuple(q.shape)}")
-    if kv_valid_len.shape != (b,) or kv_valid_len.dtype.is_floating_point:
-        raise ValueError(f"decode_attention: kv_valid_len must be (B,) "
-                         f"integers, got {tuple(kv_valid_len.shape)} "
-                         f"{kv_valid_len.dtype}")
-    if _check_device("decode_attention", q, k, v, kv_valid_len) == "cpu":
-        return decode_attention_plain(q, k, v, kv_valid_len,
+    body, t, p_per, page, n_pages = _check_decode_cache(
+        q, k, v, kv_valid_len, tables, ks, vs)
+    extra = [x for x in (tables, ks, vs) if x is not None]
+    if _check_device("decode_attention", q, k, v, kv_valid_len,
+                     *extra) == "cpu":
+        return decode_attention_plain(q, k, v, kv_valid_len, tables=tables,
+                                      ks=ks, vs=vs,
                                       softmax_mode=softmax_mode)
-    if (q.dtype not in _DTYPES or k.dtype not in _DTYPES
-            or v.dtype != k.dtype
-            or (q.dtype == torch.bfloat16 and k.dtype != torch.bfloat16)):
+    int8 = ks is not None
+    if int8:
+        ok = (k.dtype == v.dtype == torch.int8
+              and ks.dtype == vs.dtype == torch.float32
+              and q.dtype in _DTYPES)
+    else:
+        ok = (q.dtype in _DTYPES and k.dtype in _DTYPES and v.dtype == k.dtype
+              and not (q.dtype == torch.bfloat16
+                       and k.dtype != torch.bfloat16))
+    if not ok:
         raise TypeError(f"decode_attention takes a float32 or bfloat16 cache "
-                        f"and a query of the cache's type or float32, got q "
-                        f"{q.dtype}, k {k.dtype}, v {v.dtype}")
+                        f"and a query of the cache's type or float32, or an "
+                        f"int8 cache with float32 scales and a float32 or "
+                        f"bfloat16 query; got q {q.dtype}, k {k.dtype}, "
+                        f"v {v.dtype}"
+                        + (f", ks {ks.dtype}, vs {vs.dtype}" if int8 else ""))
+    b, _, h, d = q.shape
     nkv = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {d} not in {HEAD_DIMS}")
     if h // nkv > DECODE_MAX_GROUP:
         raise ValueError(f"decode_attention: {h // nkv} query heads per KV "
                          f"head, the kernel takes {DECODE_MAX_GROUP}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("decode_attention: q, k, v must be contiguous")
+    scales = (ks, vs) if int8 else ()
+    if not all(x.is_contiguous() for x in (q, k, v, *scales)):
+        raise ValueError("decode_attention: q, k, v and the scales must be "
+                         "contiguous")
     threads = int(threads)
     if threads % 32 or not 32 <= threads <= 512:
         raise ValueError(f"threads must be a multiple of 32 in [32, 512], "
@@ -232,22 +397,28 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: D={d} at {threads} threads "
                          f"needs {smem} bytes of shared memory per block, "
                          f"more than the {MAX_DYNAMIC_SMEM} a block can have")
+    kv_type = 2 if int8 else int(k.dtype == torch.bfloat16)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         valid = kv_valid_len.to(torch.int32).contiguous()
+        tab = (tables.to(torch.int32).contiguous() if tables is not None
+               else None)
         out = torch.empty_like(q)
         code = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), b, k.shape[1], h, nkv, d,
+            tab.data_ptr() if tab is not None else None,
+            ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
+            out.data_ptr(), b, t, h, nkv, d, p_per, page, n_pages,
             int(softmax_mode == "taylor"), int(q.dtype == torch.bfloat16),
-            int(k.dtype == torch.bfloat16), threads,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, "decode_attention")
+            kv_type, threads, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(code, f"decode_attention ({body})")
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.launches_by_body[body] += 1
     return out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.launches_by_body = dict.fromkeys(DECODE_BODIES, 0)
 
 
 def decode_smem_bytes(d: int, threads: int) -> int:

@@ -124,8 +124,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, i, i, i, p]
     lib.flash_attention_launch.restype = i
-    lib.decode_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            i, i, i, p]
+    lib.flash_attention_dequant_launch.argtypes = [p, p, p, p, p, p, i, i, i,
+                                                   i, i, i, i, i, i, i, i, p]
+    lib.flash_attention_dequant_launch.restype = i
+    lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, i, i, i, i, i, i, i, p]
     lib.decode_attention_launch.restype = i
     lib.fused_sampling_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.fused_sampling_launch.restype = i

@@ -358,13 +358,90 @@ registry.register(KernelSpec(
 ))
 
 
+# -- flash_attention_dequant ------------------------------------------------
+# Flash attention over int8 K/V rows with one float32 scale per cache row,
+# shared by the KV heads, dequantized as the tiles are read (the resident
+# cache stays int8).  The example cases are the reference's; the tunable is
+# ``q_block`` as for flash_attention.  ``page_size`` is structural (the
+# page length the rows were written in), legalized to divide T as the
+# reference's block divisor does; the kernel reads a scale per row, so its
+# tiles need no alignment to it.
+
+
+def _build_flash_attention_dequant():
+    from repro_torch.kernels.attention.kernel import (
+        flash_attention_dequant_cuda)
+
+    return flash_attention_dequant_cuda
+
+
+def _attention_dequant_reference():
+    from repro_torch.kernels.attention.ref import attention_dequant_ref
+
+    return attention_dequant_ref
+
+
+def _legalize_flash_dequant(config: Dict[str, Any], q, kq=None, *args,
+                            **kwargs) -> Dict[str, Any]:
+    """``q_block`` as :func:`_legalize_flash`; ``page_size`` the largest
+    divisor of T not above the request.  Idempotent."""
+    config = _legalize_flash(config, q, kq)
+    t = kq.shape[1] if kq is not None else q.shape[1]
+    config["page_size"] = largest_divisor(t, int(config["page_size"]))
+    return config
+
+
+def _attention_dequant_example(case, device="cpu"):
+    from repro_torch.models.attention import quantize_kv_rows
+
+    b, s, t, h, k, d = case.get("dims", (2, 128, 128, 4, 2, 32))
+    seed = case.get("seed", 0)
+    q = _rand(seed, (b, s, h, d), case.get("dtype", "float32"),
+              device=device)
+    kq, ks = quantize_kv_rows(_rand(seed + 1, (b, t, k, d), device=device))
+    vq, vs = quantize_kv_rows(_rand(seed + 2, (b, t, k, d), device=device))
+    return ((q, kq, ks, vq, vs),
+            {"causal": case.get("causal", True),
+             "q_offset": case.get("q_offset", 0),
+             "softmax_mode": case.get("softmax_mode", "exact")})
+
+
+registry.register(KernelSpec(
+    name="flash_attention_dequant",
+    build=_build_flash_attention_dequant,
+    reference=_attention_dequant_reference,
+    space={"q_block": (8, 16, 32, 64),
+           "page_size": (8, 16, 32, 64, 128),
+           "softmax_mode": ("exact", "taylor")},
+    tuned=("q_block",),
+    base_config={"q_block": 64, "page_size": 64},
+    legalize=_legalize_flash_dequant,
+    make_example=_attention_dequant_example,
+    example_cases=(
+        # parity vs the dequantizing oracle is tight: both read the same
+        # int8 rows, so quantization error cancels and only the online
+        # softmax differs.  (The *quantization* tolerance vs an
+        # unquantized cache is asserted end-to-end in the serving tests.)
+        {"dims": (2, 128, 128, 8, 4, 32), "causal": True, "atol": 2e-5},
+        {"dims": (2, 64, 256, 8, 2, 32), "causal": False, "atol": 2e-5},
+        {"dims": (1, 64, 256, 4, 2, 32), "causal": True, "q_offset": 192,
+         "atol": 2e-5},                               # decode window
+        {"dims": (1, 192, 192, 2, 1, 64), "causal": True,
+         "atol": 2e-5},                               # non-pow2 seq
+    ),
+    ref_accepts=("causal", "q_offset"),
+))
+
+
 # -- decode_attention -------------------------------------------------------
-# q_len = 1 serving decode against a dense cache (B, T, K, D), each slot
-# masked at its own ``kv_valid_len``.  The example cases are the
-# reference's, paged and int8 ones included: their oracle is ported, their
-# kernel bodies come with the paged slice (the wrapper raises on them).  The
-# tunable is the block size: one block serves one (slot, KV head) and its
-# warps take the slot's cache tiles in turn.
+# q_len = 1 serving decode, each slot masked at its own ``kv_valid_len``,
+# over a dense cache (B, T, K, D) or the page pool's (n_pages, page, K, D)
+# leaves read in place through per-slot ``tables`` (B, P), either optionally
+# int8 with per-row scales ``ks``/``vs``: four bodies of one kernel.  The
+# example cases are the reference's; a case may also ask for ``shuffled``
+# tables (a permutation of the pool, -1 past each slot's last valid page).
+# The tunable is the block size: one block serves one (slot, KV head) and
+# its warps take the slot's cache tiles in turn.
 
 
 def _build_decode_attention():
@@ -406,12 +483,21 @@ def _decode_attention_example(case, device="cpu"):
     kwargs = {"softmax_mode": case.get("softmax_mode", "exact")}
     paged = case.get("paged")
     if paged:
+        import numpy as np
+
         n_pages, page, p_per = paged
         kk = _rand(seed + 1, (n_pages, page, nkv, d), dtype, device=device)
         v = _rand(seed + 2, (n_pages, page, nkv, d), dtype, device=device)
-        kwargs["tables"] = ((torch.arange(b * p_per, dtype=torch.int32,
-                                          device=device)
-                             .reshape(b, p_per)) * 7 + 3) % n_pages
+        if case.get("shuffled"):
+            perm = np.random.RandomState(seed + 3).permutation(n_pages)
+            tab = perm[:b * p_per].reshape(b, p_per).astype(np.int32)
+            used = -(-np.asarray(case["valid"]) // page)   # pages in use
+            tab[np.arange(p_per)[None, :] >= used[:, None]] = -1
+            kwargs["tables"] = torch.from_numpy(tab).to(device)
+        else:
+            kwargs["tables"] = ((torch.arange(b * p_per, dtype=torch.int32,
+                                              device=device)
+                                 .reshape(b, p_per)) * 7 + 3) % n_pages
     else:
         kk = _rand(seed + 1, (b, t, nkv, d), dtype, device=device)
         v = _rand(seed + 2, (b, t, nkv, d), dtype, device=device)
@@ -544,14 +630,28 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
                          config={"q_block": q_block}, tune=tune)
 
 
+def flash_attention_dequant(q, kq, ks, vq, vs, causal: bool = True,
+                            q_offset: int = 0, softmax_mode: str = "exact",
+                            q_block: Optional[int] = None,
+                            page_size: Optional[int] = None,
+                            tune: Optional[bool] = None):
+    """q (B, S, H, D); int8 kq, vq (B, T, K, D) with float32 per-row
+    scales ks, vs (B, T) -> (B, S, H, D)."""
+    return registry.call("flash_attention_dequant", q, kq, ks, vq, vs,
+                         causal=causal, q_offset=q_offset,
+                         softmax_mode=softmax_mode,
+                         config={"q_block": q_block, "page_size": page_size},
+                         tune=tune)
+
+
 def decode_attention(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
                      softmax_mode: str = "exact",
                      threads: Optional[int] = None,
                      tune: Optional[bool] = None):
     """q_len = 1 decode attention: q (B, 1, H, D) against a dense cache
-    k, v (B, T, K, D), each slot masked at ``kv_valid_len`` (B,) ->
-    (B, 1, H, D).  ``tables`` / ``ks`` / ``vs`` (paged and int8 caches)
-    raise ``NotImplementedError`` until the paged slice."""
+    k, v (B, T, K, D), or with ``tables`` (B, P) the pool leaves
+    (n_pages, page, K, D), int8 with per-row scales ``ks``/``vs`` or not;
+    each slot masked at ``kv_valid_len`` (B,) -> (B, 1, H, D)."""
     return registry.call("decode_attention", q, k, v, kv_valid_len,
                          tables=tables, ks=ks, vs=vs,
                          softmax_mode=softmax_mode,

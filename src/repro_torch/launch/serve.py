@@ -11,6 +11,14 @@ through the ``repro_torch.serving`` engine API
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --requests 3 --max-new 4 --device cpu
 
+    # LM, paged KV cache: global page pool + per-slot page tables,
+    # content-addressed prefix reuse, int8 pages; decode reads the pages
+    # in place through the decode_attention kernel (drop --device cpu and
+    # add --no-reduced for the published size on the card)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --paged --quantize-pages --decode-kernel --attn-impl cuda \
+        --device cpu
+
     # the paper's deployment path at the published size, on the card:
     # FastCapsPipeline -> DeployedCapsNet.serve(), FPS report
     PYTHONPATH=src python -m repro_torch.launch.serve --arch capsnet-mnist \
@@ -47,6 +55,21 @@ def _make_scheduler(args):
     return FIFOScheduler()
 
 
+def _paged_kwargs(args) -> dict:
+    """Page-pool engine kwargs from the CLI flags."""
+    if not args.paged:
+        return {}
+    return dict(page_size=args.page_size, n_pages=args.pages,
+                quantize_pages=args.quantize_pages)
+
+
+def _print_pages(stats) -> None:
+    if stats.pages:
+        summary = " ".join(f"{k}={v}" for k, v in
+                           sorted(stats.pages.items()))
+        print(f"  pages: {summary}")
+
+
 def _print_latency(stats) -> None:
     for cls, (n, p50, p95) in stats.latency_summary().items():
         print(f"  latency[{cls}]: n={n} p50={p50:.1f} ms p95={p95:.1f} ms")
@@ -76,7 +99,8 @@ def serve_lm(args) -> None:
                          max_len=args.max_len,
                          scheduler=_make_scheduler(args),
                          kernel_tune=args.kernel_tune or None,
-                         decode_kernel=args.decode_kernel, device=device)
+                         decode_kernel=args.decode_kernel, device=device,
+                         **_paged_kwargs(args))
     del params
     rng = np.random.RandomState(0)
     reqs = [Request(prompt=list(rng.randint(1, cfg.vocab // 2,
@@ -107,6 +131,7 @@ def serve_lm(args) -> None:
           f"requests ({stats.items} new tokens) in {stats.wall_s:.2f}s "
           f"({stats.throughput:.1f} tok/s, {stats.ms_per_tick:.1f} ms/tick)")
     _print_latency(stats)
+    _print_pages(stats)
     for c in sorted(completions, key=lambda c: c.rid):
         print(f"  rid={c.rid}: latency={c.latency_s * 1e3:.0f} ms "
               f"{c.tokens}")
@@ -182,12 +207,26 @@ def main(argv=None):
                     help="LM: cache length per slot")
     ap.add_argument("--max-new", type=int, default=12,
                     help="LM: tokens to generate per request")
+    ap.add_argument("--paged", action="store_true",
+                    help="LM: block-paged KV cache (global page pool + "
+                         "per-slot page tables) with content-addressed "
+                         "prefix reuse across requests")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged: tokens per cache page")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="paged: total pool pages (default sizes the "
+                         "pool to n_slots * max_len tokens)")
+    ap.add_argument("--quantize-pages", action="store_true",
+                    help="paged: store KV pages as int8 with per-row "
+                         "scales, dequantized on read")
     ap.add_argument("--stream", action="store_true",
                     help="LM: print token-level StreamEvents as they are "
                          "generated (poll(stream=True))")
     ap.add_argument("--decode-kernel", action="store_true",
                     help="LM: decode through the decode_attention kernel "
-                         "and draw tokens on the card with fused_sampling")
+                         "(paged caches read in place through the page "
+                         "tables, int8 pages dequantized on read) and draw "
+                         "tokens on the card with fused_sampling")
     ap.add_argument("--attn-impl", default="chunked",
                     choices=["chunked", "cuda"],
                     help="LM: prefill attention (cuda = the flash_attention "
@@ -203,6 +242,8 @@ def main(argv=None):
                     help="where the model runs; cuda raises when no card "
                          "is present")
     args = ap.parse_args(argv)
+    if args.paged and args.arch in cfg_lib.PAPER_ARCHS:
+        ap.error("--paged applies to LM serving only")
     if args.arch in cfg_lib.PAPER_ARCHS:
         serve_capsnet(args)
     else:

@@ -1,2 +1,2 @@
-"""Model substrate shared by the architectures (parameter declaration and
-initialisation; the LM families follow with the LM slice of the port)."""
+"""Model substrate shared by the architectures: parameter declaration and
+initialisation, and the dense LM family (``attention``, ``mlp``, ``lm``)."""

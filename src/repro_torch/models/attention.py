@@ -17,9 +17,16 @@ polynomial with range reduction (``repro_torch.core.approx_math``).
 
 Caches are updated **in place** (``index_put_`` / slice assignment) where
 the reference returns a new tree: ``self_attention`` writes the fresh K/V
-rows into the cache tensors it is given and returns the same dict.  The
-int8 (``k_scale`` leaves) and paged (``paged_tables``) caches come with the
-paged slice of the port and raise ``NotImplementedError`` here.
+rows into the cache tensors it is given and returns the same dict.
+
+int8 caches (``repro_torch.serving.pages``): a cache dict that carries
+``k_scale`` / ``v_scale`` leaves holds int8 rows with one float32 scale per
+row.  Writes quantize the fresh rows (:func:`quantize_kv_rows`), reads
+dequantize them (:func:`dequantize_kv`, or the ``decode_attention`` kernel
+on read), so the resident cache stays int8.  Paged decode
+(``paged_tables``) takes the page pool's leaves (n_pages, page, K, D) and
+per-slot tables; the fresh row goes straight into its page and the
+``decode_attention`` kernel reads the pages through the tables.
 """
 
 from __future__ import annotations
@@ -37,12 +44,9 @@ from repro_torch.models.common import (LMConfig, ParamDef, fanin_init,
 NEG_INF = -1e30
 
 # int8 cache rows: symmetric per-row scales, one float32 scale per
-# (position) row of K and of V (the paged slice stores them).
+# (position) row of K and of V (the page pool stores them).
 KV_QUANT_MAX = 127.0
 KV_QUANT_EPS = 1e-8
-
-_PAGED_SLICE = ("int8 and paged KV caches are served by the paged slice of "
-                "the port, not yet by this one")
 
 
 def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -246,13 +250,92 @@ def _write_rows(cache: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
                 new: torch.Tensor) -> None:
     """cache[rows, idx] = new, in place; an index past the cache drops its
     write (the reference's scatter drops out-of-range updates), without a
-    host synchronisation."""
+    host synchronisation.  ``cache`` is (B, T, ...) and ``new`` (B, ...)."""
     t = cache.shape[1]
     ok = (idx >= 0) & (idx < t)
     idx_c = idx.clamp(0, t - 1)
     keep = cache[rows, idx_c]
-    cache[rows, idx_c] = torch.where(ok[:, None, None], new.to(cache.dtype),
-                                     keep)
+    ok = ok.view((-1,) + (1,) * (new.dim() - 1))
+    cache[rows, idx_c] = torch.where(ok, new.to(cache.dtype), keep)
+
+
+def put_rows(dst: torch.Tensor, index: Tuple[torch.Tensor, ...],
+             ok: torch.Tensor, rows: torch.Tensor) -> None:
+    """``dst[index[0][i], index[1][i], ...] = rows[i]`` in place for every
+    i with ``ok[i]``; the other rows are dropped (the reference's
+    ``mode="drop"`` scatter to a sentinel), without a host
+    synchronisation.  A dropped row is written as a copy of the first kept
+    row's write (the same bytes to the same place), or, when no row is
+    kept, as ``dst[0, ..., 0]`` onto itself: indices that repeat carry
+    equal values, so the result does not depend on the order in which the
+    device performs the writes.  ``dst`` may be a view (a ``movedim`` of
+    a pool leaf): the writes land in its storage."""
+    any_ok = ok.any()
+    # the first kept row (row 0 when none is), as a (1,) index: indexing
+    # with a 0-d tensor would read it on the host
+    first = torch.argmax(ok.to(torch.int32)).view(1)
+    tgt = tuple(torch.where(ok, i, torch.where(
+        any_ok, i.index_select(0, first), torch.zeros_like(i[:1])))
+        for i in index)
+    src = rows.to(dst.dtype)
+    fill = torch.where(any_ok, src.index_select(0, first),
+                       dst[(0,) * len(index)][None])
+    shape = (-1,) + (1,) * (src.dim() - 1)
+    dst.index_put_(tgt, torch.where(ok.view(shape), src, fill))
+
+
+def page_slot(tables: torch.Tensor, pos: torch.Tensor, page: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where row ``pos[b]`` of slot b lives in the pool: (page id from the
+    table, unclipped; row within the page; whether the row is written).
+    A row is dropped when its table entry is negative (an unmapped page)
+    or when it lies past the table."""
+    b, p_per = tables.shape
+    pos = pos.to(torch.int64)
+    pid = tables[torch.arange(b, device=tables.device),
+                 (pos // page).clamp(0, p_per - 1)].to(torch.int64)
+    ok = (pid >= 0) & (pos >= 0) & (pos < p_per * page)
+    return pid, pos % page, ok
+
+
+def _paged_decode(params, cfg: LMConfig, q, k, v, cache, idx, tables):
+    """Decode one token against *pool-shaped* cache leaves.
+
+    ``cache`` holds the page pool's leaves of one layer, k / v
+    (n_pages, page, K, D) (int8 plus ``k_scale`` / ``v_scale``
+    (n_pages, page) when quantized), and ``tables`` (B, P) maps each
+    slot's page index to a pool page (negative = unmapped).  The fresh
+    row is written in place into its page (rows of unmapped pages, and
+    rows past the table, are dropped), then the ``decode_attention``
+    kernel reads the slot's pages through its table row: no gathered
+    dense view.
+    """
+    from repro_torch import kernels
+
+    b = q.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    n_pages, page = ck.shape[0], ck.shape[1]
+    tables = tables.to(device=ck.device)
+    idx = idx.to(device=ck.device, dtype=torch.int64)
+    pid, off, ok = page_slot(tables, idx, page)
+    at = (pid.clamp(0, n_pages - 1), off)
+    if "k_scale" in cache:
+        kq, ks = quantize_kv_rows(k[:, 0])
+        vq, vs = quantize_kv_rows(v[:, 0])
+        put_rows(ck, at, ok, kq)
+        put_rows(cv, at, ok, vq)
+        put_rows(cache["k_scale"], at, ok, ks)
+        put_rows(cache["v_scale"], at, ok, vs)
+        ks_arg, vs_arg = cache["k_scale"], cache["v_scale"]
+    else:
+        put_rows(ck, at, ok, k[:, 0])
+        put_rows(cv, at, ok, v[:, 0])
+        ks_arg = vs_arg = None
+    valid = (idx + 1).to(torch.int32)
+    out = kernels.decode_attention(q, ck, cv, valid, tables=tables,
+                                   ks=ks_arg, vs=vs_arg,
+                                   softmax_mode=cfg.softmax_mode)
+    return _out_proj(params, cfg, out), cache
 
 
 def self_attention(params, cfg: LMConfig, x: torch.Tensor,
@@ -262,7 +345,7 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
                    prefill_offset: int = 0,
                    paged_tables=None,
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention with an optional dense KV cache (updated in place).
+    """Self-attention with an optional KV cache (updated in place).
 
     Modes:
       * cache None                   — training / encoder forward;
@@ -274,9 +357,12 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
                                        to cache[0:idx+1].  A vector
                                        ``cache_index`` (B,) gives every slot
                                        its own row; a scalar one is shared.
+                                       With ``paged_tables`` (B, P) the cache
+                                       leaves are the page pool's.
+
+    A cache with ``k_scale`` / ``v_scale`` leaves is int8: fresh rows are
+    quantized on write and the cached rows dequantized on read.
     """
-    if paged_tables is not None or (cache is not None and "k_scale" in cache):
-        raise NotImplementedError(_PAGED_SLICE)
     q, k, v = _project_qkv(params, cfg, x, x)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -285,6 +371,7 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
         out = _inner_attention(q, k, v, cfg, causal=cfg.causal)
         return _out_proj(params, cfg, out), None
 
+    quant = "k_scale" in cache
     ck, cv = cache["k"], cache["v"]
     s = x.shape[1]
     off = int(prefill_offset)
@@ -294,38 +381,78 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
         if off + s > ck.shape[1]:
             raise ValueError(f"prefill rows [{off}, {off + s}) pass the "
                              f"cache length {ck.shape[1]}")
-        ck[:, off:off + s] = k.to(ck.dtype)
-        cv[:, off:off + s] = v.to(cv.dtype)
+        if quant:
+            kq, ks = quantize_kv_rows(k)
+            vq, vs = quantize_kv_rows(v)
+            ck[:, off:off + s] = kq
+            cv[:, off:off + s] = vq
+            cache["k_scale"][:, off:off + s] = ks
+            cache["v_scale"][:, off:off + s] = vs
+        else:
+            ck[:, off:off + s] = k.to(ck.dtype)
+            cv[:, off:off + s] = v.to(cv.dtype)
         if off:
             t = off + s
-            out = _inner_attention(q, ck[:, :t].to(q.dtype),
-                                   cv[:, :t].to(q.dtype), cfg, causal=True,
-                                   q_offset=off)
+            if quant:
+                kk = dequantize_kv(ck[:, :t], cache["k_scale"][:, :t], q.dtype)
+                vv = dequantize_kv(cv[:, :t], cache["v_scale"][:, :t], q.dtype)
+            else:
+                # rows [0, t) of a longer cache are a strided view; the
+                # flash kernel reads contiguous K/V
+                kk = ck[:, :t].to(q.dtype).contiguous()
+                vv = cv[:, :t].to(q.dtype).contiguous()
+            out = _inner_attention(q, kk, vv, cfg, causal=True, q_offset=off)
         else:
             out = _inner_attention(q, k, v, cfg, causal=cfg.causal)
         return _out_proj(params, cfg, out), cache
 
     b = x.shape[0]
     idx = cache_index if cache_index is not None else positions[:, 0].max()
-    if torch.is_tensor(idx) and idx.dim() == 1:
+    vector = torch.is_tensor(idx) and idx.dim() == 1
+    if paged_tables is not None:
+        if not vector:
+            raise ValueError("paged decode requires a vector cache_index")
+        return _paged_decode(params, cfg, q, k, v, cache, idx, paged_tables)
+    if vector:
         idx = idx.to(device=ck.device, dtype=torch.int64)
         rows = torch.arange(b, device=ck.device)
-        _write_rows(ck, rows, idx, k[:, 0])
-        _write_rows(cv, rows, idx, v[:, 0])
+        if quant:
+            kq, ks = quantize_kv_rows(k[:, 0])
+            vq, vs = quantize_kv_rows(v[:, 0])
+            _write_rows(ck, rows, idx, kq)
+            _write_rows(cv, rows, idx, vq)
+            _write_rows(cache["k_scale"], rows, idx, ks)
+            _write_rows(cache["v_scale"], rows, idx, vs)
+        else:
+            _write_rows(ck, rows, idx, k[:, 0])
+            _write_rows(cv, rows, idx, v[:, 0])
         valid = (idx + 1).to(torch.int32)
     else:
+        if quant:
+            raise ValueError(
+                "quantized cache decode requires a vector cache_index")
         i = min(max(int(idx), 0), ck.shape[1] - 1)
         ck[:, i] = k[:, 0].to(ck.dtype)
         cv[:, i] = v[:, 0].to(cv.dtype)
         valid = torch.full((b,), i + 1, dtype=torch.int32, device=ck.device)
+    scales = ({"ks": cache["k_scale"], "vs": cache["v_scale"]} if quant
+              else {})
     if cfg.decode_impl == "cuda":
+        # the cache stays resident: int8 stays int8 and is dequantized on
+        # read inside the kernel
         from repro_torch import kernels
 
         out = kernels.decode_attention(q, ck, cv, valid,
-                                       softmax_mode=cfg.softmax_mode)
+                                       softmax_mode=cfg.softmax_mode,
+                                       **scales)
     elif cfg.decode_impl == "chunked":
-        out = _inner_attention(q, ck.to(q.dtype), cv.to(q.dtype), cfg,
-                               causal=False, kv_valid_len=valid)
+        if quant:
+            kk = dequantize_kv(ck, scales["ks"], q.dtype)
+            vv = dequantize_kv(cv, scales["vs"], q.dtype)
+        else:
+            kk, vv = ck.to(q.dtype), cv.to(q.dtype)
+        out = _inner_attention(q, kk, vv, cfg, causal=False,
+                               kv_valid_len=valid)
     else:
         raise ValueError(f"decode_impl must be chunked or cuda, got "
                          f"{cfg.decode_impl!r}")

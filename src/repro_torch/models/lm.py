@@ -8,7 +8,10 @@ the stacked layers in Python where the reference scans them; sharding
 constraints are left out until the port shards.  Caches are
 ``{"kv": {"k", "v"}}`` of shape (L, B, T, K, D), bfloat16, and are updated
 **in place** by the steps (the reference returns new trees; the steps here
-return the same dict they were given).
+return the same dict they were given).  A ``"kv"`` dict may also carry
+``k_scale`` / ``v_scale`` (L, B, T) leaves (an int8 cache), and with
+``paged_tables`` its leaves are the page pool's (L, n_pages, page, K, D)
+(``repro_torch.serving.pages``).
 
 The moe, hybrid, ssm, audio and vlm families raise ``NotImplementedError``
 (``make_caches`` also builds the moe shape, which is the dense one).
@@ -122,11 +125,12 @@ def layer_params(params: Dict[str, Any], i: int) -> Any:
 
 
 def _apply_self_block(p, cfg: LMConfig, x, positions, kv_cache, cache_index,
-                      prefill_offset: int = 0):
+                      prefill_offset: int = 0, paged_tables=None):
     h = common.apply_norm(p["ln1"], x, cfg)
     a, new_kv = attn_lib.self_attention(p["attn"], cfg, h, positions,
                                         kv_cache, cache_index,
-                                        prefill_offset=prefill_offset)
+                                        prefill_offset=prefill_offset,
+                                        paged_tables=paged_tables)
     x = x + a
     h = common.apply_norm(p["ln2"], x, cfg)
     x = x + mlp_lib.mlp_apply(p["ffn"], cfg, h)
@@ -144,10 +148,10 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
 
     ``prefill_offset``: continuation prefill; the caches already hold rows
     ``[0, prefill_offset)`` and this forward writes the next S rows.
-    ``paged_tables`` raises ``NotImplementedError`` (paged slice)."""
+    ``paged_tables`` (B, P) int: paged decode; ``caches["kv"]`` leaves are
+    the page pool's (L, n_pages, page, K, D) and every layer reads and
+    writes its pages through the per-slot tables."""
     _dense_only(cfg, "forward")
-    if paged_tables is not None:
-        raise NotImplementedError(attn_lib._PAGED_SLICE)
     x = common.embed_inputs(params["embed"], cfg, batch)
     b, s = x.shape[0], x.shape[1]
     if "positions" in batch:
@@ -165,10 +169,11 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
     for i in range(n_units(cfg)):
         kv = None
         if caches is not None:
-            kv = {"k": caches["kv"]["k"][i], "v": caches["kv"]["v"][i]}
+            kv = {name: leaf[i] for name, leaf in caches["kv"].items()}
         x, _, _ = _apply_self_block(layer_params(params, i)["block"], cfg, x,
                                     positions, kv, cache_index,
-                                    prefill_offset=prefill_offset)
+                                    prefill_offset=prefill_offset,
+                                    paged_tables=paged_tables)
     x = common.apply_norm(params["final_ln"], x, cfg)
     return x, caches, 0.0
 
@@ -184,7 +189,9 @@ def decode_step(params, cfg: LMConfig, batch: Dict[str, torch.Tensor],
                 caches: Dict[str, Any], paged_tables=None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode.  batch: tokens (B, 1), pos scalar or (B,) int.  A
-    vector ``pos`` gives every slot its own cache index."""
+    vector ``pos`` gives every slot its own cache index.  With
+    ``paged_tables`` (B, P), ``caches`` carries the page pool's leaves and
+    decode addresses pages through the tables (no gathered view)."""
     x, caches, _ = forward(params, cfg, batch, caches,
                            cache_index=batch["pos"],
                            paged_tables=paged_tables)

@@ -25,8 +25,8 @@ workload-independent about a slot-based, fixed-shape inference engine:
     ticks, wall-clock, completed requests) plus per-request-class
     latency histograms (p50/p95), shared by every workload.
 
-Workload adapters (:class:`repro_torch.serving.CapsuleEngine`; the LM
-decode engine follows with the LM slice of the port) subclass this and
+Workload adapters (:class:`repro_torch.serving.CapsuleEngine`,
+:class:`repro_torch.serving.ServeEngine`) subclass this and
 implement four hooks — ``_expand`` / ``_admit`` / ``_step`` /
 ``_finalize`` — giving every workload the same
 ``submit() / poll() / run_until_idle() / stats()`` surface.

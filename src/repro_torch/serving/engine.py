@@ -1,4 +1,4 @@
-"""ServeEngine: LM decode serving over the shared EngineCore, dense caches.
+"""ServeEngine: LM decode serving over the shared EngineCore.
 
 A fixed batch of ``n_slots`` KV-cache slots (continuous batching): requests
 join free slots as they arrive, get a *ragged* batched prefill (per-slot
@@ -23,8 +23,19 @@ built (:func:`repro_torch.models.lm.compute_params`), and updates its
 caches in place.  It shares ``submit() / poll() / run_until_idle() /
 stats()`` with :class:`repro_torch.serving.CapsuleEngine` and takes the
 same schedulers (priority preemption is lossless: the slot's cache rows
-are gathered and re-injected on resume).  Paged caches (``page_size``)
-come with the paged slice and raise here.
+are gathered and re-injected on resume).
+
+Paged mode (``page_size=...``): the dense slot caches are replaced by a
+:class:`repro_torch.serving.pages.PagePool` — a global page pool with
+per-slot page tables, a content-addressed prefix cache (shared prompt
+prefixes prefill once; later requests pin the shared read-only pages and
+prefill only their suffix via ``lm.continuation_prefill_step``), optional
+int8 pages (``quantize_pages``), preemption by reference (the table row is
+saved, no device traffic) and a host spill when the pool runs dry.  With
+``decode_kernel=True`` a paged decode tick hands the pool's leaves and the
+tables to the model (``paged_tables``), so the ``decode_attention`` kernel
+reads each slot's pages in place; otherwise the tick gathers a dense view
+through the tables, decodes it and scatters the new rows back.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import LMConfig
 from repro_torch.serving.core import EngineCore, SlotTask
+from repro_torch.serving.pages import PagePool, PagePoolExhausted
 from repro_torch.serving.schedulers import Scheduler, pow2_bucket
 
 
@@ -79,12 +91,11 @@ class ServeEngine(EngineCore):
                  clock=time.perf_counter,
                  kernel_tune: Optional[bool] = None,
                  page_size: Optional[int] = None,
+                 n_pages: Optional[int] = None,
+                 quantize_pages: bool = False,
+                 prefix_cache: bool = True,
                  decode_kernel: bool = False,
                  device: Any = None):
-        if page_size is not None:
-            raise NotImplementedError(
-                "paged KV caches (page_size) are served by the paged slice "
-                "of the port, not yet by this one")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"ServeEngine serves the dense family so far, not "
@@ -98,9 +109,23 @@ class ServeEngine(EngineCore):
         self.n_slots = n_slots
         self.max_len = max_len
         self._seed0 = int(seed)       # base of engine-derived request seeds
+        self._prefix_cache = bool(prefix_cache)
+        self._pages: Optional[PagePool] = None
+        if page_size is not None:
+            self._pages = PagePool(cfg, n_slots, max_len, page_size,
+                                   n_pages=n_pages, quantize=quantize_pages)
+        # paged kernel decode threads the per-slot tables into the model
+        self._paged_kernel = self._decode_kernel and self._pages is not None
         super().__init__(capacity=n_slots, scheduler=scheduler, clock=clock,
                          kernel_tune=kernel_tune)
-        self._caches = lm.make_caches(cfg, n_slots, max_len, self.device)
+        if self._pages is not None:
+            # no dense slot caches: resident capacity is bounded by pages,
+            # not slots x max_len (generate() makes caches of its own)
+            self._caches = None
+            self._pool = self._pages.init_pool_arrays(self.device)
+            self._residual = self._pages.init_residual_arrays(self.device)
+        else:
+            self._caches = lm.make_caches(cfg, n_slots, max_len, self.device)
         self._tok = np.zeros((n_slots,), np.int32)   # pending token per slot
         self._pos = np.zeros((n_slots,), np.int32)   # its cache index
         # fused_sampling's work space, allocated at the first device-sampled
@@ -130,6 +155,63 @@ class ServeEngine(EngineCore):
         return lm.decode_step(
             self.params, self.cfg,
             {"tokens": self._to_dev(tok), "pos": self._to_dev(pos)}, caches)
+
+    def _decode_paged_impl(self, tok: np.ndarray, pos: np.ndarray,
+                           tables: np.ndarray, pool: Dict[str, Any],
+                           residual: Dict[str, Any]):
+        """One paged decode tick; returns (logits on the device, pool).
+
+        Kernel path (``decode_kernel=True``): the pool leaves pass straight
+        through (:meth:`PagePool.pool_tree`, no gather) and every layer's
+        ``decode_attention`` kernel reads each slot's resident pages
+        through its table row, after the fresh row was written into its
+        page: a slot touches only its own pages.
+
+        Otherwise: gather the dense view through the page tables, run the
+        ordinary ``lm.decode_step`` on it, and scatter each slot's new row
+        back into its mapped page.  Residual (non-paged) leaves are
+        read-only during decode."""
+        pages = self._pages
+        batch = {"tokens": self._to_dev(tok), "pos": self._to_dev(pos)}
+        tables_t = self._to_dev(tables)
+        if self._paged_kernel:
+            tree = pages.pool_tree(pool, residual)
+            logits, tree = lm.decode_step(self.params, self.cfg, batch, tree,
+                                          paged_tables=tables_t)
+            return logits, pages.pool_untree(tree)[0]
+        view = pages.build_view(pool, residual, tables_t)
+        logits, view = lm.decode_step(self.params, self.cfg, batch, view)
+        return logits, pages.scatter_decode_rows(pool, view, tables_t,
+                                                 batch["pos"])
+
+    def _prefill_paged_impl(self, off: int, tokens: np.ndarray,
+                            lengths: np.ndarray, page_map: np.ndarray,
+                            prefix_rows: np.ndarray, slot_idx: np.ndarray,
+                            pool: Dict[str, Any], residual: Dict[str, Any]):
+        """Paged (possibly continuation) prefill: a fresh sub cache just
+        long enough for the written page span, prefilled from position
+        ``off`` (0 = ordinary ragged prefill; > 0 continues from the
+        dequantized shared-prefix pages ``prefix_rows``), then scattered
+        into the pool at page granularity.  Returns (logits, pool,
+        residual)."""
+        pages = self._pages
+        nb = tokens.shape[0]
+        total = off + page_map.shape[1] * pages.page_size
+        batch = {"tokens": self._to_dev(tokens),
+                 "lengths": self._to_dev(lengths)}
+        if off == 0:
+            sub = lm.make_caches(self.cfg, nb, total, self.device)
+            logits, sub = lm.ragged_prefill_step(self.params, self.cfg,
+                                                 batch, sub)
+        else:
+            sub = pages.make_continuation_caches(pool, prefix_rows, nb,
+                                                 total)
+            logits, sub = lm.continuation_prefill_step(
+                self.params, self.cfg, batch, sub, off)
+        pool = pages.write_prefill_pages(pool, sub, page_map, off)
+        residual = pages.scatter_residual_rows(
+            residual, pages.residual_rows_from(sub), slot_idx)
+        return logits, pool, residual
 
     # -- sampling ----------------------------------------------------------
     #
@@ -277,6 +359,8 @@ class ServeEngine(EngineCore):
         rows) take the *resume* path instead: one batched scatter
         re-injects their rows at the new slots and decode continues from
         the saved token and position, exactly as if never preempted."""
+        if self._pages is not None:
+            return self._admit_paged(new)
         resume = [(s, t) for s, t in new if "resume_rows" in t.state]
         new = [(s, t) for s, t in new if "resume_rows" not in t.state]
         pre_finished: List[int] = []
@@ -326,6 +410,211 @@ class ServeEngine(EngineCore):
                 finished.append(s)
         return finished
 
+    # -- paged-cache admission / lifecycle ---------------------------------
+
+    def _admit_paged(self, new: List[Tuple[int, SlotTask]]
+                     ) -> Tuple[List[int], int]:
+        """Paged admission.  Resumed tasks splice their saved table row
+        back (or re-import a host spill); fresh tasks look their prompt up
+        in the prefix index and prefill only past the longest hit.
+
+        Fresh tasks are processed in waves of equal prefix-hit length,
+        shortest first, and a wave defers any task whose *next* page hash
+        duplicates a groupmate's — that page registers when the
+        representative's group prefills, so the deferred task re-checks and
+        picks the hit up.  Two identical system prompts submitted in the
+        same tick therefore still prefill the shared span exactly once."""
+        pages = self._pages
+        ps = pages.page_size
+        resume = [(s, t) for s, t in new
+                  if "resume_pages" in t.state or "resume_spill" in t.state]
+        resumed = {id(t) for _, t in resume}
+        fresh = [(s, t) for s, t in new if id(t) not in resumed]
+        pre_finished: List[int] = []
+        for s, task in resume:
+            if "resume_spill" in task.state:
+                payload, n = task.state.pop("resume_spill")
+                pgs = self._alloc_pages(n, s)
+                self._pool = pages.import_pages(self._pool, payload, pgs)
+            else:
+                pgs = task.state.pop("resume_pages")
+            pages.bind_slot(s, pgs)
+            self._tok[s] = task.state.pop("resume_tok")
+            self._pos[s] = task.state.pop("resume_pos")
+            if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
+                pre_finished.append(s)
+        if not fresh:
+            return pre_finished, 0
+        infos: List[List[Any]] = []
+        for s, task in fresh:
+            hashes = (pages.chain_hashes(task.payload.prompt)
+                      if self._prefix_cache else [])
+            hits = pages.acquire_prefix(hashes) if hashes else []
+            infos.append([s, task, hashes, hits])
+        finished = list(pre_finished)
+        while infos:
+            min_hit = min(len(info[3]) for info in infos)
+            group, defer, seen_next = [], [], set()
+            for info in infos:
+                if len(info[3]) != min_hit:
+                    defer.append(info)
+                    continue
+                nxt = info[2][min_hit] if min_hit < len(info[2]) else None
+                if nxt is not None and nxt in seen_next:
+                    defer.append(info)
+                    continue
+                if nxt is not None:
+                    seen_next.add(nxt)
+                group.append(info)
+            finished += self._prefill_paged_group(group, min_hit * ps)
+            for info in defer:   # hits can only grow as groups register
+                info[3] += pages.extend_prefix(info[2], len(info[3]))
+            infos = defer
+        return finished, len(fresh)
+
+    def _prefill_paged_group(self, group: List[List[Any]], off: int
+                             ) -> List[int]:
+        """Prefill one wave of tasks sharing prefix-hit length ``off`` (0 =
+        full prefill).  Suffixes pad to the dense engine's pow2 bucket (so
+        full prefills compute what the dense path computes), pages past
+        each task's own span map to the drop sentinel, and full suffix
+        pages register into the prefix index."""
+        pages = self._pages
+        ps = pages.page_size
+        nb = pow2_bucket(len(group), self.capacity)
+        smax = max(len(info[1].payload.prompt) - off for info in group)
+        splen = pow2_bucket(smax, self.max_len - off)
+        npg = -(-splen // ps)
+        if off == 0:
+            self._maybe_tune_prefill(nb, splen)
+        tokens = np.zeros((nb, splen), np.int32)
+        lengths = np.ones((nb,), np.int32)
+        slot_idx = np.full((nb,), self.capacity, np.int64)  # pad rows: OOB
+        page_rows = np.full((nb, npg), pages.n_pages, np.int64)
+        prefix_rows = np.zeros((nb, off // ps), np.int64)
+        hit_reqs = hit_pages = 0
+        for i, (s, task, hashes, hits) in enumerate(group):
+            p = task.payload.prompt
+            suffix = p[off:]
+            tokens[i, :len(suffix)] = suffix
+            lengths[i] = len(suffix)
+            slot_idx[i] = s
+            # pages covering positions [0, len(p)]: the prompt plus the
+            # first decode write; later pages are allocated in _step
+            own = self._alloc_pages(len(p) // ps + 1 - len(hits), s)
+            allp = list(hits) + own
+            pages.bind_slot(s, allp)
+            for j in range(len(hits), len(hashes)):
+                pages.register_hash(allp[j], hashes[j])
+            base = off // ps
+            for j in range(min(npg, len(allp) - base)):
+                page_rows[i, j] = allp[base + j]
+            prefix_rows[i, :] = allp[:base]
+            if hits:
+                hit_reqs += 1
+                hit_pages += len(hits)
+        logits, self._pool, self._residual = self._prefill_paged_impl(
+            off, self.scheduler.place(tokens), lengths, page_rows,
+            prefix_rows, slot_idx, self._pool, self._residual)
+        logits = logits.cpu().numpy()
+        finished = []
+        for i, (s, task, hashes, hits) in enumerate(group):
+            req = task.payload
+            tok = self._sample_task_row(logits[i], task, len(req.prompt))
+            task.state = {"out": list(req.prompt) + [tok],
+                          "left": req.max_new_tokens - 1}
+            self._emit(task.rid, tok)
+            self._tok[s] = tok
+            self._pos[s] = len(req.prompt)
+            if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
+                finished.append(s)
+        self._count_pages(
+            prefill_ticks=1, prefix_hits=hit_reqs,
+            prefix_pages_hit=hit_pages,
+            prefill_tokens=sum(len(info[1].payload.prompt) - off
+                               for info in group))
+        return finished
+
+    def _alloc_pages(self, n: int, slot: int) -> List[int]:
+        """Allocate with spill fallback: when the pool is dry, preempted
+        (queued) requests' pages move to host memory and free up, so
+        admission pressure never fails a losslessly preempted task."""
+        if n <= 0:
+            return []
+        try:
+            return self._pages.allocate(n, slot)
+        except PagePoolExhausted:
+            if not self._spill_preempted():
+                raise
+            return self._pages.allocate(n, slot)
+
+    def _spill_preempted(self) -> bool:
+        """Copy every queued preempted task's pages to host memory and
+        release them; resume re-imports them into fresh pages.  Returns
+        whether anything was spilled."""
+        with self._lock:
+            targets = [t for t in self._queue if "resume_pages" in t.state]
+        spilled = 0
+        for task in targets:
+            pgs = task.state.pop("resume_pages")
+            payload = {k: v.cpu() for k, v in
+                       self._pages.export_pages(self._pool, pgs).items()}
+            task.state["resume_spill"] = (payload, len(pgs))
+            self._pages.release(pgs)
+            spilled += len(pgs)
+        if spilled:
+            self._count_pages(spilled_pages=spilled)
+        return spilled > 0
+
+    def _ensure_decode_pages(self, active: List[Tuple[int, SlotTask]]
+                             ) -> None:
+        """Allocate the page under each active slot's write head when the
+        decode position crosses a page boundary."""
+        pages = self._pages
+        for s, _ in active:
+            idx = int(self._pos[s]) // pages.page_size
+            if pages.page_at(s, idx) < 0:
+                pages.set_slot_page(s, idx, self._alloc_pages(1, s)[0])
+
+    def _release_slot(self, slot: int, task: SlotTask) -> None:
+        if getattr(self, "_pages", None) is not None:
+            pgs = self._pages.unbind_slot(slot)
+            if pgs:
+                self._pages.release(pgs)
+
+    def _count_pages(self, **counts: int) -> None:
+        with self._lock:
+            d = self._stats.pages
+            for k, v in counts.items():
+                d[k] = d.get(k, 0) + int(v)
+
+    def pin_page_hashes(self, hashes: List[Optional[bytes]]
+                        ) -> Dict[int, int]:
+        """Pin prefix-index hits on this engine's pool (empty when not
+        paged)."""
+        if self._pages is None:
+            return {}
+        return self._pages.pin_hashes(hashes)
+
+    def release_page_pins(self, pages: List[int]) -> None:
+        """Drop references taken by :meth:`pin_page_hashes`."""
+        if self._pages is not None and pages:
+            self._pages.release(pages)
+
+    @property
+    def paged(self) -> bool:
+        return self._pages is not None
+
+    @property
+    def free_pages(self) -> Optional[int]:
+        """Allocatable pages right now (None when not paged) — the
+        admission-control backpressure gauge."""
+        return self._pages.free_pages if self._pages is not None else None
+
+    @property
+    def total_pages(self) -> Optional[int]:
+        return self._pages.total_pages if self._pages is not None else None
+
     def _batch_for(self, n_active: int) -> int:
         return self.capacity            # decode shape pinned by the caches
 
@@ -334,7 +623,17 @@ class ServeEngine(EngineCore):
         gather) plus the pending token and position into ``task.state``;
         the generated tokens already live there.  ``_admit`` re-injects the
         rows wherever the task lands and decoding continues where it
-        stopped."""
+        stopped.
+
+        Paged mode preempts by *reference*: the task keeps its pages and
+        only the table row is saved (no device traffic); resume splices the
+        row into the new slot.  If the pool later runs dry,
+        ``_spill_preempted`` demotes the references to a host copy."""
+        if self._pages is not None:
+            task.state["resume_pages"] = self._pages.unbind_slot(slot)
+            task.state["resume_tok"] = int(self._tok[slot])
+            task.state["resume_pos"] = int(self._pos[slot])
+            return
         task.state["resume_rows"] = lm.gather_cache_rows(
             self.cfg, [slot], self._caches)
         task.state["resume_tok"] = int(self._tok[slot])
@@ -375,8 +674,15 @@ class ServeEngine(EngineCore):
 
     def _step(self, active: List[Tuple[int, SlotTask]], n_batch: int
               ) -> Tuple[List[int], int]:
-        logits, self._caches = self._decode(
-            self.scheduler.place(self._tok[:, None]), self._pos, self._caches)
+        if self._pages is not None:
+            self._ensure_decode_pages(active)
+            logits, self._pool = self._decode_paged_impl(
+                self.scheduler.place(self._tok[:, None]), self._pos,
+                self._pages.tables_snapshot(), self._pool, self._residual)
+        else:
+            logits, self._caches = self._decode(
+                self.scheduler.place(self._tok[:, None]), self._pos,
+                self._caches)
         if self._decode_kernel:
             # fused sampling where the logits are; each token's counter is
             # the position it will occupy (pos + 1)
@@ -411,6 +717,17 @@ class ServeEngine(EngineCore):
                   else list(entry.request.prompt))   # max_new_tokens <= 0
         return Completion(rid=entry.request.rid, tokens=tokens,
                           latency_s=latency_s)
+
+    def stats(self):
+        """Engine stats; paged engines also merge the pool's allocation,
+        eviction and pin counters into ``stats().pages`` beside the
+        engine's prefill and prefix-hit counters."""
+        st = super().stats()
+        if self._pages is not None:
+            merged = self._pages.counters()
+            merged.update(st.pages)
+            st.pages = merged
+        return st
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:

@@ -1,14 +1,15 @@
 """Port parity for the attention kernels (``flash_attention``,
-``decode_attention``) on the CPU.
+``flash_attention_dequant``, ``decode_attention``) on the CPU.
 
 The oracles of ``repro_torch.kernels.attention.ref`` are held against the
 reference's on every example case (paged and int8 included); the wrappers,
 which take their plain versions for CPU tensors, against the reference's
-oracles on the dense cases at each case's ``atol`` (2e-5 exact, 5e-2 for the
-Eq. 2 exp against the exact oracle); and the Taylor path against the
-reference's Pallas kernels in interpret mode at 1e-4 (float32, one KV block,
-so both compute the same sums in another order).  The CUDA kernels run only
-on the card and are checked there by ``chip_smoke.py``.
+oracles on every case at each case's ``atol`` (2e-5 exact, 5e-2 for the
+Eq. 2 exp against the exact oracle); and against the reference's Pallas
+kernels in interpret mode: the Taylor paths at 1e-4 (float32, one KV block,
+so both compute the same sums in another order) and the dequantizing flash
+kernel on its four cases at 2e-5.  The CUDA kernels run only on the card and
+are checked there by ``chip_smoke.py``.
 """
 
 import importlib
@@ -32,7 +33,7 @@ torch.set_num_threads(1)
 
 ref_registry = importlib.import_module("repro.kernels.registry").registry
 port_registry_mod = importlib.import_module("repro_torch.kernels.registry")
-NAMES = ("flash_attention", "decode_attention")
+NAMES = ("flash_attention", "flash_attention_dequant", "decode_attention")
 
 
 def _cases(name, dense_only=False):
@@ -128,13 +129,57 @@ class TestPlainVersions:
         assert got.shape == args[0].shape and got.dtype == args[0].dtype
         np.testing.assert_allclose(f32(got), f32(want), atol=case["atol"])
 
-    @pytest.mark.parametrize("idx", _cases("decode_attention", dense_only=True))
+    @pytest.mark.parametrize("idx", _cases("decode_attention"))
     def test_decode_plain_vs_reference_oracle(self, idx):
+        """Every case, paged and int8 ones included: the plain version
+        gathers the pages through the tables and dequantizes the rows."""
         spec, case, args, kwargs = _example("decode_attention", idx)
         got = port_registry.call("decode_attention", *args, **kwargs)
-        want = jref.decode_attention_ref(*map(_jax, args))
+        extra = {k: _jax(kwargs[k]) for k in ("tables", "ks", "vs")
+                 if kwargs.get(k) is not None}
+        want = jref.decode_attention_ref(*map(_jax, args), **extra)
         assert got.shape == args[0].shape
         np.testing.assert_allclose(f32(got), f32(want), atol=case["atol"])
+
+    @pytest.mark.parametrize("idx", _cases("flash_attention_dequant"))
+    def test_flash_dequant_plain_vs_reference_oracle(self, idx):
+        spec, case, args, kwargs = _example("flash_attention_dequant", idx)
+        got = port_kernels.flash_attention_dequant(*args, **kwargs)
+        want = jref.attention_dequant_ref(
+            *map(_jax, args), causal=kwargs["causal"],
+            q_offset=kwargs["q_offset"])
+        assert got.shape == args[0].shape and got.dtype == args[0].dtype
+        np.testing.assert_allclose(f32(got), f32(want), atol=case["atol"])
+
+    @pytest.mark.parametrize("idx", _cases("flash_attention_dequant"))
+    def test_flash_dequant_vs_pallas_interpret(self, idx):
+        """The reference registry's dequantizing Pallas kernel, run in
+        interpret mode, on the same int8 rows and scales."""
+        spec, case, args, kwargs = _example("flash_attention_dequant", idx)
+        want = ref_registry.call("flash_attention_dequant",
+                                 *map(_jax, args), tune=False, **kwargs)
+        got = port_registry.call("flash_attention_dequant", *args, **kwargs)
+        np.testing.assert_allclose(f32(got), f32(want), atol=case["atol"])
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_paged_taylor_vs_pallas_interpret(self, quant):
+        """The paged bodies with the Eq. 2 exp, shuffled tables and -1
+        sentinels past each slot's last page (clipped for the reference,
+        as its engine passes them)."""
+        case = {"dims": (4, 64, 4, 2, 32), "valid": (64, 17, 0, 33),
+                "paged": (16, 16, 4), "shuffled": True, "quant": quant,
+                "softmax_mode": "taylor", "seed": 3}
+        args, kwargs = port_registry.get("decode_attention").make_example(
+            case)
+        assert (kwargs["tables"] < 0).any()
+        ref_kw = {k: _jax(v) for k, v in kwargs.items()
+                  if k in ("ks", "vs")}
+        want = ref_kernels.decode_attention(
+            *map(_jax, args), tables=_jax(kwargs["tables"].clamp(0, 15)),
+            softmax_mode="taylor", **ref_kw)
+        got = port_kernels.decode_attention(*args, **kwargs)
+        np.testing.assert_allclose(f32(got), f32(want), atol=1e-4)
+        assert not f32(got)[2].any()               # valid 0 gives zeros
 
     @pytest.mark.parametrize("name", NAMES)
     def test_wrapper_on_cpu_launches_nothing(self, name):
@@ -191,16 +236,55 @@ class TestPlainVersions:
 
 class TestWrapperChecks:
     def test_decode_paged_and_int8_raise_on_every_device(self):
+        """The paged and int8 bodies are served: on CPU tensors by the
+        plain version (equal to the oracle), while a device the port does
+        not serve raises for them as for the dense body, and malformed
+        tables or scales raise on every device."""
         spec = port_registry.get("decode_attention")
         for idx, case in enumerate(spec.example_cases):
             if not (case.get("paged") or case.get("quant")):
                 continue
             args, kwargs = spec.make_example(case, device="cpu")
-            with pytest.raises(NotImplementedError, match="paged slice"):
-                port_registry.call("decode_attention", *args, **kwargs)
+            got = port_registry.call("decode_attention", *args, **kwargs)
+            want = spec.ref_call(*args, **kwargs)
+            np.testing.assert_allclose(f32(got), f32(want), atol=case["atol"])
         q = torch.zeros(1, 1, 2, 16, device="meta")
-        with pytest.raises(NotImplementedError):
-            port_attn.decode_attention_cuda(q, q, q, q, ks=q)
+        k = torch.zeros(1, 4, 1, 16, device="meta")
+        s = torch.zeros(1, 4, device="meta")
+        valid = torch.zeros(1, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            port_attn.decode_attention_cuda(q, k, k, valid, ks=s, vs=s)
+        with pytest.raises(ValueError, match="unsupported device"):
+            port_attn.decode_attention_cuda(
+                q, k, k, valid, tables=torch.zeros(1, 2, dtype=torch.int32,
+                                                   device="meta"))
+        q, k = torch.zeros(1, 1, 2, 16), torch.zeros(1, 4, 1, 16)
+        valid = torch.ones(1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="come together"):
+            port_attn.decode_attention_cuda(q, k, k, valid,
+                                            ks=torch.ones(1, 4))
+        with pytest.raises(ValueError, match="scales must be"):
+            port_attn.decode_attention_cuda(q, k, k, valid,
+                                            ks=torch.zeros(1, 3),
+                                            vs=torch.zeros(1, 3))
+        with pytest.raises(ValueError, match="tables must be"):
+            port_attn.decode_attention_cuda(q, k, k, valid,
+                                            tables=torch.zeros(2, 2))
+
+    def test_flash_dequant_checks(self):
+        q = torch.zeros(1, 4, 4, 16)
+        kq = torch.zeros(1, 4, 2, 16, dtype=torch.int8)
+        s = torch.ones(1, 4)
+        with pytest.raises(ValueError, match="scales must be"):
+            port_attn.flash_attention_dequant_cuda(q, kq, s[:, :3], kq, s)
+        with pytest.raises(ValueError, match="page_size"):
+            port_attn.flash_attention_dequant_cuda(q, kq, s, kq, s,
+                                                   page_size=0)
+        with pytest.raises(ValueError, match="unsupported device"):
+            port_attn.flash_attention_dequant_cuda(
+                *(x.to("meta") for x in (q, kq, s, kq, s)))
+        out = port_attn.flash_attention_dequant_cuda(q, kq, s, kq, s)
+        assert out.shape == q.shape and not out.any()
 
     def test_flash_rejects_bad_shapes_and_offsets(self):
         q = torch.zeros(1, 4, 4, 16)
@@ -234,7 +318,11 @@ class TestWrapperChecks:
 
     def test_launch_counters_exist(self):
         assert isinstance(port_attn.flash_attention_cuda.launches, int)
+        assert isinstance(port_attn.flash_attention_dequant_cuda.launches,
+                          int)
         assert isinstance(port_attn.decode_attention_cuda.launches, int)
+        assert (sorted(port_attn.decode_attention_cuda.launches_by_body)
+                == sorted(port_attn.DECODE_BODIES))
 
 
 class TestLegalize:
@@ -276,6 +364,17 @@ class TestLegalize:
         text = (build.CSRC_DIR / source).read_text()
         found = re.findall(rf"constexpr int {constant} = (\d+);", text)
         assert found == [str(getattr(port_attn, name))]
+
+    @pytest.mark.parametrize("t,asked,want", [(192, 64, 64), (100, 64, 50),
+                                              (256, 16, 16), (7, 8, 7)])
+    def test_flash_dequant_page_size_divides_t(self, t, asked, want):
+        q = torch.zeros(1, 32, 8, 32)
+        kq = torch.zeros(1, t, 2, 32, dtype=torch.int8)
+        cfg = port_registry_mod._legalize_flash_dequant(
+            {"q_block": 64, "page_size": asked}, q, kq)
+        assert cfg["page_size"] == want and cfg["q_block"] == 16
+        assert port_registry_mod._legalize_flash_dequant(dict(cfg), q,
+                                                         kq) == cfg
 
     def test_default_configs(self):
         spec = port_registry.get("flash_attention")

@@ -300,7 +300,8 @@ def test_port_has_files_to_check():
     assert len(PORT_FILES) > 20
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("models/attention.py", "models/lm.py", "models/mlp.py",
-                "serving/engine.py", "kernels/attention/kernel.py",
+                "serving/engine.py", "serving/pages.py",
+                "kernels/attention/kernel.py",
                 "kernels/attention/ref.py", "kernels/sampling/kernel.py",
                 "kernels/sampling/ref.py", "configs/llama3p2_1b.py",
                 "configs/qwen3_1p7b.py"):

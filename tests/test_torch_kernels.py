@@ -53,7 +53,9 @@ def _case_input(case):
 class TestRegistryEntries:
     def test_inventory(self):
         assert port_registry.names() == sorted(
-            PORTED + ("flash_attention", "decode_attention", "fused_sampling"))
+            PORTED + ("flash_attention", "flash_attention_dequant",
+                      "decode_attention", "fused_sampling"))
+        assert port_registry.names() == ref_registry.names()
 
     @pytest.mark.parametrize("name", PORTED)
     def test_example_cases_copied_from_reference(self, name):
@@ -67,7 +69,7 @@ class TestRegistryEntries:
 
     def test_unknown_kernel_raises(self):
         with pytest.raises(ValueError, match="unknown kernel"):
-            port_registry.get("flash_attention_dequant")
+            port_registry.get("no_such_kernel")
 
     @pytest.mark.parametrize("name", PORTED)
     def test_tunable_is_launch_geometry(self, name):

@@ -313,21 +313,217 @@ class TestCaches:
         assert torch.isfinite(logits).all()
         assert c["kv"]["k"][:, 0, 1].any() and not c["kv"]["k"][:, 1].any()
 
+    def test_continuation_prefill_hands_the_kernel_contiguous_rows(
+            self, monkeypatch):
+        """A continuation prefill into a cache longer than its rows (a
+        suffix shorter than a page after a prefix hit) attends rows
+        [0, off + S) of the cache: the flash kernel must be handed them
+        contiguous, as its wrapper requires on the card.  bfloat16 compute,
+        as served: the cache's type, so no cast copies the rows."""
+        from repro_torch import kernels
+
+        _, pcfg = _cfgs("llama3.2-1b", compute_dtype="bfloat16")
+        pcfg = dataclasses.replace(pcfg, attn_impl="cuda")
+        pp = port_lm.init(pcfg, torch.Generator().manual_seed(8), "cpu")
+        seen = []
+        inner = kernels.flash_attention
+
+        def checked(q, k, v, **kw):
+            seen.append((k.is_contiguous(), v.is_contiguous()))
+            return inner(q, k, v, **kw)
+
+        monkeypatch.setattr(kernels, "flash_attention", checked)
+        tokens = torch.from_numpy(_inputs()[0])
+        caches = port_lm.make_caches(pcfg, B, T, device="cpu")
+        port_lm.continuation_prefill_step(
+            pp, pcfg, {"tokens": tokens[:, :4],
+                       "lengths": torch.tensor([4, 4, 4])}, caches, offset=0)
+        port_lm.continuation_prefill_step(
+            pp, pcfg, {"tokens": tokens[:, 4:6],
+                       "lengths": torch.tensor([2, 2, 2])}, caches, offset=4)
+        assert len(seen) == 2 * pcfg.n_layers
+        assert all(all(pair) for pair in seen)
+
     def test_paged_and_other_families_raise(self):
+        """Paged and int8 caches are served (TestInt8AndPaged); what still
+        raises is a paged or int8 decode without a per-slot index, and the
+        families the port does not serve yet."""
         _, pcfg = _cfgs("llama3.2-1b")
         pp = port_lm.init(pcfg, torch.Generator().manual_seed(7), "cpu")
-        tokens = torch.ones((1, 2), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="paged slice"):
-            port_lm.forward(pp, pcfg, {"tokens": tokens},
+        tokens = torch.ones((1, 1), dtype=torch.int32)
+        pool = {"kv": {k: torch.zeros((pcfg.n_layers, 4, 4, pcfg.n_kv_heads,
+                                       pcfg.head_dim)) for k in ("k", "v")}}
+        with pytest.raises(ValueError, match="vector cache_index"):
+            port_lm.forward(pp, pcfg, {"tokens": tokens}, pool,
+                            cache_index=2,
                             paged_tables=torch.zeros((1, 1)))
-        with pytest.raises(NotImplementedError, match="paged slice"):
+        q8 = torch.zeros((1, 4, pcfg.n_kv_heads, pcfg.head_dim),
+                         dtype=torch.int8)
+        with pytest.raises(ValueError, match="vector cache_index"):
             port_attention.self_attention(
-                pp["units"]["block"]["attn"], pcfg,
+                port_lm.layer_params(pp, 0)["block"]["attn"], pcfg,
                 torch.zeros(1, 1, pcfg.d_model), torch.zeros(1, 1),
-                cache={"k": None, "v": None, "k_scale": None})
+                cache={"k": q8, "v": q8, "k_scale": torch.ones(1, 4),
+                       "v_scale": torch.ones(1, 4)}, cache_index=1)
         with pytest.raises(NotImplementedError, match="dense family"):
             port_lm.forward(pp, dataclasses.replace(pcfg, family="vlm"),
                             {"tokens": tokens})
         with pytest.raises(ValueError, match="attn_impl"):
             port_lm.forward(pp, dataclasses.replace(pcfg, attn_impl="pallas"),
                             {"tokens": tokens})
+
+
+# ---------------------------------------------------------------------------
+# int8 caches and paged decode, against the reference at float32
+# ---------------------------------------------------------------------------
+
+NP, PG = 12, 4                       # pool pages, rows per page
+PAGE_TABLES = np.array([[7, 2, 9, -1], [0, 11, -1, -1], [-1] * 4], np.int32)
+PAGE_POS = np.array([9, 6, 3], np.int32)   # slot 2 is idle: its row drops
+
+
+def _layer(tree, i=0):
+    return jax.tree.map(lambda a: a[i], tree)
+
+
+_MODELS = {}
+
+
+def _model():
+    if "m" not in _MODELS:
+        jcfg, pcfg = _cfgs("llama3.2-1b", compute_dtype="float32")
+        jp = ref_lm.init(jcfg, jax.random.key(0))
+        pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+        _MODELS["m"] = (jcfg, pcfg, jp, pp)
+    return _MODELS["m"]
+
+
+def _pool(pcfg, quant, seed=11):
+    """Random pool contents (L, NP, PG, K, D) as numpy: bf16-representable
+    float32 K/V, or int8 rows with positive scales."""
+    rng = np.random.RandomState(seed)
+    shape = (pcfg.n_layers, NP, PG, pcfg.n_kv_heads, pcfg.head_dim)
+    if not quant:
+        return {k: f32(torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)) for k in ("k", "v")}
+    out = {k: rng.randint(-127, 128, size=shape).astype(np.int8)
+           for k in ("k", "v")}
+    for k in ("k", "v"):
+        out[k + "_scale"] = rng.uniform(0.005, 0.03, size=shape[:3]
+                                        ).astype(np.float32)
+    return out
+
+
+def _as_jax(tree):
+    return {k: (jnp.asarray(v).astype(jnp.bfloat16) if v.dtype == np.float32
+                and not k.endswith("_scale") else jnp.asarray(v))
+            for k, v in tree.items()}
+
+
+def _as_torch(tree):
+    return {k: (torch.from_numpy(v.copy()).to(torch.bfloat16)
+                if v.dtype == np.float32 and not k.endswith("_scale")
+                else torch.from_numpy(v.copy())) for k, v in tree.items()}
+
+
+def _assert_int8_close(got, want):
+    """Quantizing a float32 row rounds to the nearest int8 step: the two
+    frameworks' float32 K/V differ in the last bits, so a value that
+    lands at a half step may round the other way (one step, rarely)."""
+    d = np.abs(f32(got) - f32(want))
+    assert d.max() <= 1 and (d > 0).mean() < 2e-3
+
+
+class TestInt8AndPaged:
+    @pytest.mark.parametrize("decode_impl", ["chunked", "cuda"])
+    def test_int8_self_attention_prefill_continuation_and_decode(
+            self, decode_impl):
+        """An int8 (B, T) cache through a prefill at offset 0, a
+        continuation prefill at offset 5 and a vector-index decode."""
+        jcfg, pcfg, jp, pp = _model()
+        pcfg = dataclasses.replace(pcfg, decode_impl=decode_impl)
+        ja, pa = (_layer(jp["units"]["block"]["attn"]),
+                  port_lm.layer_params(pp, 0)["block"]["attn"])
+        b, t = 3, 16
+        rng = np.random.RandomState(12)
+        xs = rng.standard_normal((b, 9, pcfg.d_model)).astype(np.float32)
+        shape = (b, t, pcfg.n_kv_heads, pcfg.head_dim)
+        jc = {"k": jnp.zeros(shape, jnp.int8), "v": jnp.zeros(shape, jnp.int8),
+              "k_scale": jnp.zeros((b, t)), "v_scale": jnp.zeros((b, t))}
+        pc = {k: torch.from_numpy(np.array(v)) for k, v in jc.items()}
+        steps = [(slice(0, 5), 0, None), (slice(5, 8), 5, None),
+                 (slice(8, 9), 0, np.array([8, 3, 15], np.int32))]
+        for cols, off, idx in steps:
+            x = xs[:, cols]
+            s = x.shape[1]
+            pos = (np.broadcast_to(idx[:, None], (b, 1)) if idx is not None
+                   else np.broadcast_to(np.arange(off, off + s), (b, s)))
+            pos = np.array(pos, np.int32)
+            jo, jc = ref_lm.attn_lib.self_attention(
+                ja, jcfg, jnp.asarray(x), jnp.asarray(pos), jc,
+                None if idx is None else jnp.asarray(idx),
+                prefill_offset=off)
+            po, pc = port_attention.self_attention(
+                pa, pcfg, torch.from_numpy(x), torch.from_numpy(pos), pc,
+                None if idx is None else torch.from_numpy(idx),
+                prefill_offset=off)
+            np.testing.assert_allclose(f32(po), f32(jo), atol=1e-4)
+            for k in ("k", "v"):
+                _assert_int8_close(pc[k], jc[k])
+                np.testing.assert_allclose(f32(pc[k + "_scale"]),
+                                           f32(jc[k + "_scale"]), rtol=1e-5)
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_paged_decode_layer(self, quant):
+        """``_paged_decode`` through ``self_attention(paged_tables=...)``:
+        the fresh rows land in their pages (slot 2's unmapped row drops)
+        and the output is the reference's."""
+        jcfg, pcfg, jp, pp = _model()
+        ja, pa = (_layer(jp["units"]["block"]["attn"]),
+                  port_lm.layer_params(pp, 0)["block"]["attn"])
+        pool = {k: v[0] for k, v in _pool(pcfg, quant).items()}
+        x = np.random.RandomState(13).standard_normal(
+            (3, 1, pcfg.d_model)).astype(np.float32)
+        pos = PAGE_POS[:, None].copy()
+        jo, jc = ref_lm.attn_lib.self_attention(
+            ja, jcfg, jnp.asarray(x), jnp.asarray(pos), _as_jax(pool),
+            jnp.asarray(PAGE_POS), paged_tables=jnp.asarray(PAGE_TABLES))
+        pc = _as_torch(pool)
+        before = {k: v.clone() for k, v in pc.items()}
+        po, pc2 = port_attention.self_attention(
+            pa, pcfg, torch.from_numpy(x), torch.from_numpy(pos), pc,
+            torch.from_numpy(PAGE_POS),
+            paged_tables=torch.from_numpy(PAGE_TABLES))
+        assert pc2 is pc                               # written in place
+        np.testing.assert_allclose(f32(po), f32(jo), atol=1e-4)
+        for k in pc:
+            if quant and not k.endswith("_scale"):
+                _assert_int8_close(pc[k], jc[k])
+            else:
+                np.testing.assert_allclose(f32(pc[k]), f32(jc[k]),
+                                           rtol=1e-5, atol=1e-6)
+        changed = (pc["k"] != before["k"]).flatten(2).any(-1)
+        assert changed.sum() <= 2 and not changed[0].any()
+
+    @pytest.mark.parametrize("quant", [False, True])
+    def test_decode_step_with_paged_tables(self, quant):
+        jcfg, pcfg, jp, pp = _model()
+        pool = _pool(pcfg, quant, seed=14)
+        nxt = np.array([[3], [17], [5]], np.int32)
+        jl, jc = ref_lm.decode_step(
+            jp, jcfg, {"tokens": jnp.asarray(nxt),
+                       "pos": jnp.asarray(PAGE_POS)},
+            {"kv": _as_jax(pool)}, paged_tables=jnp.asarray(PAGE_TABLES))
+        pc = {"kv": _as_torch(pool)}
+        pl, pc = port_lm.decode_step(
+            pp, pcfg, {"tokens": torch.from_numpy(nxt),
+                       "pos": torch.from_numpy(PAGE_POS)}, pc,
+            paged_tables=torch.from_numpy(PAGE_TABLES))
+        np.testing.assert_allclose(f32(pl), f32(jl), atol=1e-4)
+        for k in pc["kv"]:
+            if quant and not k.endswith("_scale"):
+                _assert_int8_close(pc["kv"][k], jc["kv"][k])
+            else:
+                np.testing.assert_allclose(f32(pc["kv"][k]),
+                                           f32(jc["kv"][k]),
+                                           rtol=1e-5, atol=1e-6)

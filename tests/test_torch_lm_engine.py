@@ -164,8 +164,11 @@ def test_engine_checks():
         engine().submit(Request(prompt=[]))
     with pytest.raises(ValueError, match="no room"):
         engine().submit(Request(prompt=[1] * MAX_LEN))
-    with pytest.raises(NotImplementedError, match="paged slice"):
-        ServeEngine(CFG, port_params(), page_size=8, device="cpu")
+    # paged caches are served (test_torch_paged_engine); a page length
+    # that does not divide max_len is refused
+    assert ServeEngine(CFG, port_params(), page_size=8, device="cpu").paged
+    with pytest.raises(ValueError, match="divide"):
+        ServeEngine(CFG, port_params(), page_size=5, device="cpu")
     with pytest.raises(NotImplementedError, match="dense family"):
         ServeEngine(dataclasses.replace(CFG, family="ssm"), port_params(),
                     device="cpu")
