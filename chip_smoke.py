@@ -231,6 +231,17 @@ EXTRA_CASES = {
         # continuation prefill: 100 fresh rows after 412 cached ones
         {"dims": (2, 100, 512, 32, 8, 64), "causal": True, "q_offset": 412,
          "atol": 2e-5},
+        # the tensor-core body off the serve shape: non-causal, a ragged
+        # continuation (S and T not multiples of the 64-row tiles), G = 1
+        # (one position per block row), and D = 16
+        {"dims": (2, 64, 256, 8, 2, 32), "dtype": "bfloat16",
+         "causal": False, "atol": 1e-2},
+        {"dims": (2, 100, 512, 32, 8, 64), "dtype": "bfloat16",
+         "causal": True, "q_offset": 412, "atol": 1e-2},
+        {"dims": (1, 192, 192, 8, 8, 64), "dtype": "bfloat16",
+         "causal": True, "atol": 1e-2},
+        {"dims": (2, 128, 128, 8, 4, 16), "dtype": "bfloat16",
+         "causal": True, "atol": 1e-2},
     ),
     "decode_attention": (
         {"dims": (8, 1024, 32, 8, 64), "dtype": "bfloat16",
@@ -272,6 +283,8 @@ EXTRA_CASES = {
         {"dims": (2, 256, 1024, 32, 8, 64), "dtype": "bfloat16",
          "causal": True, "q_offset": 768, "softmax_mode": "taylor",
          "atol": 5e-2},
+        {"dims": (2, 64, 256, 8, 2, 32), "dtype": "bfloat16",
+         "causal": False, "atol": 1e-2},
     ),
     "fused_sampling": (
         {"dims": (8, 128256), "temperature": (0.0,) * 8, "atol": 0},
@@ -388,9 +401,13 @@ def phase_kernels() -> tuple:
             if not identical:
                 fail(f"{name} {case}: two runs differ")
             worst[row] = max(worst[row], err)
-    by_body = dict(decode_attention_cuda.launches_by_body)
-    if min(by_body.values()) < 1:
-        fail(f"kernels: a decode_attention body never ran: {by_body}")
+    counts = launch_counts()
+    for name in BODY_COUNTERS:
+        by_body = dict(WRAPPERS[name].launches_by_body)
+        if min(by_body.values()) < 1:
+            fail(f"kernels: a {name} body never ran: {by_body}")
+    emit("kernels", bodies={k: v for k, v in counts.items()
+                            if k in DECODE_ROWS or "/" in k})
     return worst, flash_attention_dequant_cuda.launches
 
 
@@ -405,19 +422,41 @@ def make_requests(n_requests: int, cfg) -> list:
     return reqs
 
 
+# the wrappers that count their launches per body, and their bodies' keys
+# in launch_counts(): decode_attention's by DECODE_ROWS' keys, the flash
+# wrappers' as "<wrapper>/tensor_core" and "<wrapper>/fma"
+BODY_COUNTERS = ("decode_attention", "flash_attention",
+                 "flash_attention_dequant")
+
+
 def reset_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
-    for body in decode_attention_cuda.launches_by_body:
-        decode_attention_cuda.launches_by_body[body] = 0
+    for name in BODY_COUNTERS:
+        by_body = WRAPPERS[name].launches_by_body
+        for body in by_body:
+            by_body[body] = 0
 
 
 def launch_counts() -> dict:
     """Launches since the last reset_counts(), by wrapper, and by body for
-    decode_attention (keys of DECODE_ROWS)."""
+    decode_attention (keys of DECODE_ROWS) and the flash wrappers."""
     out = {k: w.launches for k, w in WRAPPERS.items()}
     out.update(decode_attention_cuda.launches_by_body)
+    for name in ("flash_attention", "flash_attention_dequant"):
+        for body, n in WRAPPERS[name].launches_by_body.items():
+            out[f"{name}/{body}"] = n
     return out
+
+
+def check_prefill_bodies(phase: str, counts: dict) -> None:
+    """Every prefill launch of a bf16 serve path took the tensor-core
+    body, none the FMA body."""
+    tc, fma = (counts["flash_attention/tensor_core"],
+               counts["flash_attention/fma"])
+    if tc != counts["flash_attention"] or fma:
+        fail(f"{phase}: prefill launched the tensor-core body {tc} and the "
+             f"FMA body {fma} times of {counts['flash_attention']}")
 
 
 def serve(deployed, requests):
@@ -625,22 +664,30 @@ def record_margins(engine) -> dict:
 
 def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     """Where a decode tick's time goes with every slot busy: 8 requests of
-    512 prompt tokens are admitted, then ``n_ticks`` decode-only ticks are
-    timed by the host clock (a tick ends in the copy of the tokens to the
-    host) and ``n_ticks`` more are traced by ``torch.profiler``."""
+    512 prompt tokens are admitted in one tick traced by ``torch.profiler``
+    (``prefill_tick``: the device time of the prefill group and the first
+    step), then ``n_ticks`` decode-only ticks are timed by the host clock
+    (a tick ends in the copy of the tokens to the host) and ``n_ticks``
+    more are traced."""
     rng = np.random.RandomState(2)
     for i in range(LM_SLOTS):
         engine.submit(Request(
             prompt=[int(t) for t in rng.randint(1, vocab // 2, size=512)],
             max_new_tokens=4 * n_ticks + 4, rid=1000 + i))
-    engine.tick()                                 # admission + first step
+    kernels, _ = profile_ms(engine.tick, 1)       # admission + first step
+    busy = sum(kernels.values())
+    prefill = {"device_busy_ms": busy if busy > 0 else None,
+               "flash_ms": sum(v for k, v in kernels.items()
+                               if KERNEL_EVENT["flash_attention"] in k),
+               "device_ms_by_kernel": dict(
+                   sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
     walls = []
     for _ in range(n_ticks):
         t0 = time.perf_counter()
         engine.tick()
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
-    out = {"tick_wall_ms": walls[len(walls) // 2]}
+    out = {"prefill_tick": prefill, "tick_wall_ms": walls[len(walls) // 2]}
     kernels, host = profile_ms(engine.tick, n_ticks)
     busy = sum(kernels.values())
     out["device_busy_ms"] = busy if busy > 0 else None
@@ -739,6 +786,7 @@ def phase_serve_lm() -> dict:
         if counts[name] != n or n < 1:
             fail(f"serve_lm: {name} launched {counts[name]} times, expected "
                  f"{n} ({n_groups} prefill groups, {n_ticks} decode ticks)")
+    check_prefill_bodies("serve_lm", counts)
 
     margins = record_margins(plain)
     done_plain = plain.serve(fresh(reqs))
@@ -758,6 +806,8 @@ def phase_serve_lm() -> dict:
          latency_ms={k: {"n": n, "p50": p50, "p95": p95}
                      for k, (n, p50, p95) in lat.items()},
          launches={k: counts[k] for k in want},
+         prefill_launches_by_body={
+             b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
          greedy_tokens_compared=compared,
          ambiguous_positions=ambiguous, margin=LM_MARGIN,
          first_divergence=first_diff,
@@ -894,6 +944,7 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
             fail(f"serve_paged ({mode}): {name} launched {counts[name]} "
                  f"times, expected {n} ({n_groups} prefill groups, {n_ticks} "
                  f"decode ticks)")
+    check_prefill_bodies(f"serve_paged ({mode})", counts)
     pg = dict(stats.pages)
     if not (pg["prefix_hits"] >= LM_SLOTS - 1 and pg["allocated"] > 0
             and pg["prefix_pages_hit"]
@@ -927,6 +978,8 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
                     for k, (n, p50, p95) in lat.items()},
         pool_bytes=pool_nbytes(kern), dense_slot_cache_bytes=dense_bytes,
         launches={k: counts[k] for k in want},
+        prefill_launches_by_body={
+            b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
         greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
         margin=LM_MARGIN, first_divergence=first_diff,
         seeded_bit_identical=True, **breakdown)
@@ -963,17 +1016,20 @@ def phase_serve_paged() -> dict:
 def flash_bound(case, int8: bool = False):
     """Causal attention: 4 * B * H * D operations per unmasked (i, t) pair
     (QK and PV, a multiply and an add each; query i at position q_offset + i
-    sees min(T, q_offset + i + 1) keys) at the bf16 tensor-core peak; q,
-    k, v read and the output written once (bf16; int8 K/V at one byte per
+    sees min(T, q_offset + i + 1) keys) at the peak of the case's type (the
+    bf16 tensor cores, or float32 outside them); q, k, v read and the
+    output written once (2 or 4 bytes an element; int8 K/V at one byte per
     element plus a float32 scale per row of each)."""
     b, s, t, h, k, d = case["dims"]
+    width = 2 if case.get("dtype", "float32") == "bfloat16" else 4
     off = case.get("q_offset", 0)
     pairs = (sum(min(t, off + i + 1) for i in range(s))
              if case.get("causal", True) else s * t)
     kv_bytes = (2 * b * t * k * d + 2 * 4 * b * t) if int8 \
-        else 2 * 2 * b * t * k * d
-    nbytes = 2 * 2 * b * s * h * d + kv_bytes
-    return nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / BF16_FLOP_PER_S
+        else 2 * width * b * t * k * d
+    nbytes = 2 * width * b * s * h * d + kv_bytes
+    peak = BF16_FLOP_PER_S if width == 2 else FP32_FLOP_PER_S
+    return nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / peak
 
 
 def decode_bound(case):
@@ -1128,6 +1184,11 @@ def phase_timings(launches: dict, worst: dict) -> list:
     emit("timings", name="fused_sampling", case="mixed",
          **{k: v for k, v in timing_row("fused_sampling", case).items()
             if k != "library_ms"})
+    # the flash kernels' FMA body: float32 q at the main shapes
+    for name in ("flash_attention", "flash_attention_dequant"):
+        case = {**KERNELS[name]["main_case"], "dtype": "float32"}
+        emit("timings", name=name, case="fma float32",
+             **timing_row(name, case))
     # the dense serve path's shape, for the record beside the main one
     spec = registry.get("fused_routing")
     case = {"shape": (BATCH, 1152, 10, 16), "softmax_mode": "taylor"}

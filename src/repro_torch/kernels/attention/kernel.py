@@ -3,13 +3,20 @@
 * :func:`flash_attention_cuda` (``csrc/flash_attention.cu``) replaces
   ``repro/kernels/attention/kernel.py`` ``flash_attention_pallas``: blocked
   GQA attention over q (B, S, H, D) and k, v (B, T, K, D), causal or not,
-  with a static ``q_offset``, exact or Eq. 2 exp, float32 inside.  The
-  tunable ``q_block`` is the number of query positions a thread block holds
-  (with all G heads of each, at most 64 rows).
+  with a static ``q_offset``, exact or Eq. 2 exp.  The tunable ``q_block``
+  is the number of query positions a thread block holds (with all G heads
+  of each, at most 64 rows).
 * :func:`flash_attention_dequant_cuda` (the same source, int8 K/V) replaces
   ``flash_attention_dequant_pallas``: the same attention over int8 K/V rows
-  with one float32 scale per row, multiplied in as the tiles are read.  No
-  model path of either package calls it.
+  with one float32 scale per row.  No model path of either package calls
+  it.
+
+  Both take their body from q's type (:func:`flash_body`): bfloat16 q runs
+  the ``tensor_core`` body (wgmma on bf16 operands with float32
+  accumulation, the scale applied after the dot, p split into two bf16
+  terms for PV; held at 1e-2 of the float32 oracle), float32 q the ``fma``
+  body (float32 throughout; 2e-5).  ``<wrapper>.launches_by_body`` counts
+  the launches per body.
 * :func:`decode_attention_cuda` (``csrc/decode_attention.cu``) replaces
   ``decode_attention_pallas`` and its three siblings: one query token per
   slot against its cache rows below ``kv_valid_len``, over a dense cache
@@ -23,10 +30,11 @@
 A wrapper runs its plain version (:func:`flash_attention_plain`,
 :func:`flash_attention_dequant_plain`, :func:`decode_attention_plain`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-The plain versions compute what the kernels compute, in one pass instead of
-tiles: q scaled in float32, the masked exp of the chosen mode, ``acc /
-max(l, 1e-30)``.  In exact mode they agree with the oracles of
-:mod:`repro_torch.kernels.attention.ref` to float32 rounding.
+The plain versions compute the kernels' function in one pass instead of
+tiles, in float32 as the FMA bodies do: q scaled in float32, the masked exp
+of the chosen mode, ``acc / max(l, 1e-30)``.  In exact mode they agree with
+the oracles of :mod:`repro_torch.kernels.attention.ref` to float32
+rounding.
 ``<wrapper>.launches`` counts kernel launches.
 """
 
@@ -44,9 +52,11 @@ from repro_torch.kernels.attention.ref import NEG_INF
 MAX_DYNAMIC_SMEM = 232448           # bytes a Hopper block may ask for
 HEAD_DIMS = (16, 32, 64, 128)
 # The kernels' block geometry, which the registry needs to plan block sizes
-# on hosts without the library: kFlashRows, kDecodeMaxG and kDecodeTile of
-# the sources (tests/test_torch_attention.py holds them equal).
+# on hosts without the library: kFlashRows, kFlashKv, kDecodeMaxG and
+# kDecodeTile of the sources (tests/test_torch_attention.py holds them
+# equal).
 FLASH_ROWS = 64                     # query rows (positions x heads) a block holds
+FLASH_KV_TILE = 64                  # KV rows a flash block takes per step
 DECODE_MAX_GROUP = 8                # query heads per KV head of the decode kernel
 DECODE_TILE = 32                    # cache rows per warp tile of the decode kernel
 _SOFTMAX_MODES = ("exact", "taylor")
@@ -79,6 +89,24 @@ def _check_device(what: str, *tensors: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
+
+
+FLASH_BODIES = ("tensor_core", "fma")
+
+
+def flash_body(q_dtype: torch.dtype) -> str:
+    """The flash kernels' body for a query of this type: ``tensor_core``
+    for bfloat16, ``fma`` for float32 (``csrc/flash_attention.cu``)."""
+    return "tensor_core" if q_dtype == torch.bfloat16 else "fma"
+
+
+def _check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """The tensor-core body copies rows 16 bytes at a time (cp.async): its
+    inputs must start on a 16-byte boundary (every allocation does; an odd
+    storage offset does not)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the bfloat16 query's body needs q and "
+                         f"the K/V rows 16-byte aligned")
 
 
 def _check_q_block(q_block: int, g: int, what: str) -> int:
@@ -149,20 +177,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: empty dimension in "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     q_block = _check_q_block(q_block, h // nkv, "flash_attention")
+    body = flash_body(q.dtype)
+    if body == "tensor_core":
+        _check_aligned("flash_attention", q, k, v)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             k.shape[1], h, nkv, d, q_block, int(bool(causal)), q_offset,
-            int(softmax_mode == "taylor"), int(q.dtype == torch.bfloat16),
+            int(softmax_mode == "taylor"), int(body == "tensor_core"),
             torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, "flash_attention")
+    build.check_launch(code, f"flash_attention ({body})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_body[body] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_body = dict.fromkeys(FLASH_BODIES, 0)
 
 
 def flash_attention_dequant_plain(q: torch.Tensor, kq: torch.Tensor,
@@ -230,6 +263,9 @@ def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
         raise ValueError(f"flash_attention_dequant: empty dimension in "
                          f"{tuple(q.shape)}, {tuple(kq.shape)}")
     q_block = _check_q_block(q_block, h // nkv, "flash_attention_dequant")
+    body = flash_body(q.dtype)
+    if body == "tensor_core":
+        _check_aligned("flash_attention_dequant", q, kq, vq)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
@@ -237,14 +273,16 @@ def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
             q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
             vs.data_ptr(), out.data_ptr(), b, s, t, h, nkv, d, q_block,
             int(bool(causal)), q_offset, int(softmax_mode == "taylor"),
-            int(q.dtype == torch.bfloat16),
+            int(body == "tensor_core"),
             torch.cuda.current_stream().cuda_stream)
-    build.check_launch(code, "flash_attention_dequant")
+    build.check_launch(code, f"flash_attention_dequant ({body})")
     flash_attention_dequant_cuda.launches += 1
+    flash_attention_dequant_cuda.launches_by_body[body] += 1
     return out
 
 
 flash_attention_dequant_cuda.launches = 0
+flash_attention_dequant_cuda.launches_by_body = dict.fromkeys(FLASH_BODIES, 0)
 
 
 # ---------------------------------------------------------------------------

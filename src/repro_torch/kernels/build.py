@@ -29,7 +29,7 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
            "decode_attention.cu", "sampling.cu")
-HEADERS = ("approx_math.cuh",)
+HEADERS = ("approx_math.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

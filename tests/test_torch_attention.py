@@ -9,10 +9,13 @@ Eq. 2 exp against the exact oracle); and against the reference's Pallas
 kernels in interpret mode: the Taylor paths at 1e-4 (float32, one KV block,
 so both compute the same sums in another order) and the dequantizing flash
 kernel on its four cases at 2e-5.  The CUDA kernels run only on the card and
-are checked there by ``chip_smoke.py``.
+are checked there by ``chip_smoke.py``; ``TestTensorCoreNumerics`` emulates
+the rounding of the flash kernels' bf16 tensor-core body here and holds it
+against the Pallas kernels and the float32 oracle.
 """
 
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,7 @@ from repro.kernels.attention import ref as jref
 from repro.models import attention as ref_attention
 from repro_torch import kernels as port_kernels
 from repro_torch.kernels.attention import kernel as port_attn
+from repro_torch.core import approx_math as port_approx
 from repro_torch.kernels.attention import ref as pref
 from repro_torch.kernels.registry import registry as port_registry
 from repro_torch.models import attention as port_attention
@@ -323,6 +327,43 @@ class TestWrapperChecks:
         assert isinstance(port_attn.decode_attention_cuda.launches, int)
         assert (sorted(port_attn.decode_attention_cuda.launches_by_body)
                 == sorted(port_attn.DECODE_BODIES))
+        for wrapper in (port_attn.flash_attention_cuda,
+                        port_attn.flash_attention_dequant_cuda):
+            assert (sorted(wrapper.launches_by_body)
+                    == sorted(("tensor_core", "fma")))
+            assert all(isinstance(n, int)
+                       for n in wrapper.launches_by_body.values())
+
+    def test_tensor_core_body_refuses_misaligned_rows(self):
+        """The tensor-core body's 16-byte copies need aligned inputs: a
+        contiguous view at an odd storage offset is refused before any
+        launch, an allocation passes."""
+        buf = torch.zeros(1 + 4 * 16, dtype=torch.bfloat16)
+        odd = buf[1:].view(1, 1, 4, 16)
+        assert odd.is_contiguous() and odd.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            port_attn._check_aligned("flash_attention", odd)
+        port_attn._check_aligned("flash_attention",
+                                 torch.zeros(1, 1, 4, 16,
+                                             dtype=torch.bfloat16))
+
+    @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "tensor_core"),
+                                            (torch.float32, "fma")])
+    def test_flash_body_follows_the_query_type(self, dtype, body):
+        """bf16 q takes the tensor-core body, float32 q the FMA body, for
+        both flash wrappers; a CPU tensor takes the plain version and counts
+        no launch of either body."""
+        assert port_attn.flash_body(dtype) == body
+        q = torch.zeros(1, 8, 4, 16, dtype=dtype)
+        k = torch.zeros(1, 8, 2, 16, dtype=dtype)
+        kq = torch.zeros(1, 8, 2, 16, dtype=torch.int8)
+        s = torch.ones(1, 8)
+        for wrapper, args in ((port_attn.flash_attention_cuda, (q, k, k)),
+                              (port_attn.flash_attention_dequant_cuda,
+                               (q, kq, s, kq, s))):
+            before = dict(wrapper.launches_by_body)
+            assert wrapper(*args).dtype == dtype
+            assert wrapper.launches_by_body == before
 
 
 class TestLegalize:
@@ -351,6 +392,7 @@ class TestLegalize:
 
     @pytest.mark.parametrize("source,constant,name", [
         ("flash_attention.cu", "kFlashRows", "FLASH_ROWS"),
+        ("flash_attention.cu", "kFlashKv", "FLASH_KV_TILE"),
         ("decode_attention.cu", "kDecodeMaxG", "DECODE_MAX_GROUP"),
         ("decode_attention.cu", "kDecodeTile", "DECODE_TILE"),
     ])
@@ -385,3 +427,170 @@ class TestLegalize:
         args, kwargs = spec.make_example(spec.example_cases[0])
         assert port_registry.default_config("decode_attention", *args,
                                             **kwargs) == {"threads": 256}
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core body's numerics
+# ---------------------------------------------------------------------------
+
+
+def _tensor_core_body(q, k, v, causal=True, q_offset=0, softmax_mode="exact",
+                      ks=None, vs=None):
+    """The flash kernels' bf16 tensor-core body (``csrc/flash_attention.cu``,
+    ``flash_attention_kernel_tc``) in plain PyTorch, float32 output before
+    its rounding.  bf16 q against bf16 or int8 K (exact in float32) with
+    float32 sums, the scale applied after the dot (int8: the column's ks
+    first); the online softmax over KV tiles of ``FLASH_KV_TILE`` rows; p
+    (int8: times vs) split into bf16 hi and lo for the two PV products."""
+    b, s, h, d = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bskgd,btkd->bkgst",
+                          q.float().reshape(b, s, nkv, h // nkv, d), k.float())
+    if ks is not None:
+        scores = scores * ks.float()[:, None, None, None, :]
+    scores = scores * (1.0 / math.sqrt(d))
+    kpos = torch.arange(t)
+    mask = (kpos[None, :] <= torch.arange(s)[:, None] + q_offset) if causal \
+        else torch.ones(s, t, dtype=torch.bool)
+
+    def exp(x):
+        return (port_approx.taylor_exp(x, range_reduce=True)
+                if softmax_mode == "taylor" else torch.exp(x))
+
+    m = torch.full(scores.shape[:-1], pref.NEG_INF)
+    l = torch.zeros(scores.shape[:-1])
+    acc = torch.zeros(scores.shape[:-1] + (d,))
+    for t0 in range(0, t, port_attn.FLASH_KV_TILE):
+        sl = slice(t0, t0 + port_attn.FLASH_KV_TILE)
+        mk = mask[:, sl]
+        sc = torch.where(mk, scores[..., sl], pref.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = exp(m - m_new)
+        p = torch.where(mk, exp(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        if vs is not None:
+            p = p * vs.float()[:, None, None, None, sl]
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        vt = v[:, sl].float()
+        acc = (acc * alpha[..., None]
+               + torch.einsum("bkgst,btkd->bkgsd", p_hi, vt)
+               + torch.einsum("bkgst,btkd->bkgsd", p_lo, vt))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+# (dims (B, S, T, H, K, D), causal, q_offset, softmax_mode, atol): bf16
+# inputs, the tolerances chip_smoke.py holds the card's bf16 cases to
+TC_FLASH_CASES = [
+    pytest.param((2, 128, 128, 8, 4, 32), True, 0, "exact", 1e-2, id="causal"),
+    pytest.param((1, 64, 192, 4, 2, 16), False, 0, "exact", 1e-2,
+                 id="noncausal-d16"),
+    pytest.param((1, 64, 192, 4, 2, 64), True, 128, "exact", 1e-2,
+                 id="offset-d64"),
+    pytest.param((1, 64, 64, 2, 1, 128), True, 0, "exact", 1e-2, id="d128"),
+    pytest.param((1, 128, 128, 4, 2, 32), True, 0, "taylor", 5e-2,
+                 id="taylor"),
+]
+TC_DEQUANT_CASES = [
+    pytest.param((1, 64, 128, 4, 2, 32), True, 0, "exact", 1e-2, id="causal"),
+    pytest.param((1, 64, 192, 4, 2, 32), True, 128, "taylor", 5e-2,
+                 id="offset-taylor"),
+    pytest.param((2, 64, 128, 8, 2, 32), False, 0, "exact", 1e-2,
+                 id="noncausal"),
+]
+
+
+def _tc_inputs(dims, quant, seed=60):
+    b, s, t, h, k, d = dims
+    q = to_torch(rand(seed, (b, s, h, d)), "bfloat16")
+    if not quant:
+        return q, tuple(to_torch(rand(seed + i, (b, t, k, d)), "bfloat16")
+                        for i in (1, 2))
+    kq, ks = port_attention.quantize_kv_rows(to_torch(rand(seed + 1, (b, t, k, d))))
+    vq, vs = port_attention.quantize_kv_rows(to_torch(rand(seed + 2, (b, t, k, d))))
+    return q, (kq, ks, vq, vs)
+
+
+class TestTensorCoreNumerics:
+    """The bf16 tensor-core body's rounding, emulated on the CPU, meets the
+    tolerances the card's bf16 cases are held to."""
+
+    @pytest.mark.parametrize("dims,causal,q_offset,mode,atol", TC_FLASH_CASES)
+    def test_flash_vs_pallas_interpret(self, dims, causal, q_offset, mode,
+                                       atol):
+        q, (k, v) = _tc_inputs(dims, quant=False)
+        got = _tensor_core_body(q, k, v, causal, q_offset, mode)
+        want = ref_kernels.flash_attention(
+            *(_jax(x.float()).astype(jnp.bfloat16) for x in (q, k, v)),
+            causal=causal, q_offset=q_offset, softmax_mode=mode)
+        assert want.dtype == jnp.bfloat16
+        np.testing.assert_allclose(f32(got.to(torch.bfloat16)), f32(want),
+                                   atol=atol)
+
+    @pytest.mark.parametrize("dims,causal,q_offset,mode,atol",
+                             TC_DEQUANT_CASES)
+    def test_dequant_vs_pallas_interpret(self, dims, causal, q_offset, mode,
+                                         atol):
+        q, (kq, ks, vq, vs) = _tc_inputs(dims, quant=True)
+        got = _tensor_core_body(q, kq, vq, causal, q_offset, mode, ks=ks,
+                                vs=vs)
+        want = ref_registry.call(
+            "flash_attention_dequant", _jax(q.float()).astype(jnp.bfloat16),
+            *map(_jax, (kq, ks, vq, vs)), tune=False, causal=causal,
+            q_offset=q_offset, softmax_mode=mode)
+        assert want.dtype == jnp.bfloat16
+        np.testing.assert_allclose(f32(got.to(torch.bfloat16)), f32(want),
+                                   atol=atol)
+
+    @pytest.mark.parametrize("dims,causal,q_offset,mode,atol", TC_FLASH_CASES)
+    def test_flash_within_1e3_of_float32_before_rounding(
+            self, dims, causal, q_offset, mode, atol):
+        """Before the output's bf16 rounding the body stays within 1e-3 of
+        float32 attention on the same bf16 inputs (the oracle; with the
+        Eq. 2 exp, the float32 plain version of that mode): the split p
+        costs far less than the 2^-8 the rounding then adds."""
+        q, (k, v) = _tc_inputs(dims, quant=False)
+        got = _tensor_core_body(q, k, v, causal, q_offset, mode)
+        args = tuple(x.float() for x in (q, k, v))
+        want = (pref.attention_ref(*args, causal=causal, q_offset=q_offset)
+                if mode == "exact" else port_attn.flash_attention_plain(
+                    *args, causal=causal, q_offset=q_offset,
+                    softmax_mode=mode))
+        np.testing.assert_allclose(f32(got), f32(want), atol=1e-3)
+
+    @pytest.mark.parametrize("dims,causal,q_offset,mode,atol",
+                             TC_DEQUANT_CASES)
+    def test_dequant_within_1e3_of_float32_before_rounding(
+            self, dims, causal, q_offset, mode, atol):
+        q, (kq, ks, vq, vs) = _tc_inputs(dims, quant=True)
+        got = _tensor_core_body(q, kq, vq, causal, q_offset, mode, ks=ks,
+                                vs=vs)
+        if mode == "exact":
+            want = pref.attention_dequant_ref(q.float(), kq, ks, vq, vs,
+                                              causal=causal, q_offset=q_offset)
+        else:
+            want = port_attn.flash_attention_dequant_plain(
+                q.float(), kq, ks, vq, vs, causal=causal, q_offset=q_offset,
+                softmax_mode=mode)
+        np.testing.assert_allclose(f32(got), f32(want), atol=1e-3)
+
+    def test_split_p_beats_a_single_bf16_p(self):
+        """The hi + lo split keeps p to about 2^-16 relative: replacing it
+        by p_hi alone moves the float32 output by far more."""
+        q, (k, v) = _tc_inputs((1, 64, 64, 4, 2, 32), quant=False, seed=70)
+        oracle = pref.attention_ref(*(x.float() for x in (q, k, v)))
+        split = _tensor_core_body(q, k, v)
+        b, s, h, d = q.shape
+        scores = torch.einsum("bskgd,btkd->bkgst",
+                              q.float().reshape(b, s, 2, 2, d), k.float())
+        scores = scores / math.sqrt(d)
+        mask = torch.arange(64)[None, :] <= torch.arange(64)[:, None]
+        p = torch.softmax(torch.where(mask, scores, pref.NEG_INF), dim=-1)
+        single = torch.einsum("bkgst,btkd->bkgsd",
+                              p.to(torch.bfloat16).float(), v.float())
+        single = single.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+        err_split = float((split - oracle).abs().max())
+        err_single = float((single - oracle).abs().max())
+        assert err_split < 1e-5 < err_single
