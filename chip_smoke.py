@@ -12,9 +12,12 @@ sampling in the hand-written kernels, serves it again from the paged KV
 cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
 decode reading the pages in place through the paged decode kernels, holds
 the int8 dense-cache decode kernel against the paged one on the same pool,
-and times the nine kernels.  One JSON object per phase goes to standard
-output; the last three lines are the kernel table, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  Any failed phase ends
+and times the nine kernels (and the decode and sampling kernels at every
+point of their tunables' spaces: ``kv_splits`` and threads, the cluster
+size and threads; and sampling on a served decode tick's logits).  One JSON
+object per phase goes to standard output; the last three lines are the
+kernel table, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Any failed phase ends
 the script with a non-zero exit code and no result line.  With no CUDA
 device it exits non-zero at once.
 """
@@ -22,6 +25,7 @@ device it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -187,6 +191,29 @@ PLAIN = {"flash_attention": flash_attention_plain,
 # Sampling rows of the serve mix: greedy and (0.8, top-k 50, top-p 0.9).
 MIXED = {"temperature": (0.8,) * LM_SLOTS, "top_k": (50,) * LM_SLOTS,
          "top_p": (0.9,) * LM_SLOTS}
+# greedy and sampled rows in one call, with and without each restriction
+MIXED_ROWS = {"temperature": (0.0, 0.8, 1.0, 0.0, 1.3, 0.7, 0.0, 0.9),
+              "top_k": (0, 50, 0, 0, 7, 1, 0, 40000),
+              "top_p": (1.0, 0.9, 0.5, 1.0, 1.0, 0.95, 1.0, 0.99)}
+# decode_attention's split counts, and its four layouts at the serve
+# widths and at qwen3's (D 128, G 2; 128 pages of 16 rows, 32 a slot)
+DECODE_SPLITS = (1, 2, 4, 8)
+DECODE_LAYOUTS = (
+    {"dims": (8, 1024, 32, 8, 64), "dtype": "bfloat16"},
+    {"dims": (8, 1024, 32, 8, 64), "dtype": "bfloat16", "quant": True},
+    {**PAGED_CASE, "dtype": "bfloat16"},
+    {**PAGED_CASE, "dtype": "bfloat16", "quant": True},
+)
+QWEN_PAGED = {"dims": (4, 512, 16, 8, 128), "paged": (128, 16, 32),
+              "shuffled": True}
+QWEN_LAYOUTS = (
+    {"dims": (4, 512, 16, 8, 128), "dtype": "bfloat16"},
+    {"dims": (4, 512, 16, 8, 128), "dtype": "bfloat16", "quant": True},
+    {**QWEN_PAGED, "dtype": "bfloat16"},
+    {**QWEN_PAGED, "dtype": "bfloat16", "quant": True},
+)
+SPLIT_VALID = ((0, 1, 31, 32, 33, 1024, 100, 200),
+               (255, 256, 257, 127, 129, 1023, 511, 513))
 
 # Main-path shapes beyond the registry's example cases.  Tolerances: the
 # kernels sum in another order than the plain versions and use rsqrtf/expf,
@@ -273,6 +300,16 @@ EXTRA_CASES = {
          "valid": PAGED_VALID, "atol": 1e-2},
         {"dims": (8, 1024, 32, 8, 64), "quant": True, "valid": PAGED_VALID,
          "softmax_mode": "taylor", "atol": 5e-2},
+        # the split-KV edges at the default split count, all four layouts:
+        # lengths at and around one tile, below one split, split
+        # boundaries +- 1 (n = 256 splits into 8 whole tiles, 255 and 257
+        # into ragged ones), ranges shorter than kv_splits tiles
+        *({**lay, "valid": valid, "atol": 1e-2}
+          for lay in DECODE_LAYOUTS for valid in SPLIT_VALID),
+        # every kv_splits of the space, all four layouts, qwen3 widths
+        *({**lay, "valid": (512, 100, 0, 333), "atol": 1e-2,
+           "config": {"kv_splits": n}}
+          for lay in QWEN_LAYOUTS for n in DECODE_SPLITS),
     ),
     "flash_attention_dequant": (
         # a continuation prefill of 256 rows after 768 cached int8 rows
@@ -289,6 +326,16 @@ EXTRA_CASES = {
     "fused_sampling": (
         {"dims": (8, 128256), "temperature": (0.0,) * 8, "atol": 0},
         {"dims": (8, 128256), **MIXED, "atol": 0},
+        # each vocabulary (a cluster of 8 blocks a row, the one size that
+        # holds it); all greedy, all sampled, and mixed rows
+        *({"dims": (8, v), **rows, "atol": 0}
+          for v in (128256, 151936)
+          for rows in ({"temperature": (0.0,) * 8}, MIXED, MIXED_ROWS,
+                       {"temperature": (1.0,) * 8})),
+        # V that no cluster size divides (and V % 4 != 0: scalar loads)
+        {"dims": (8, 128257), **MIXED_ROWS, "atol": 0},
+        {"dims": (4, 100003), "temperature": (0.0, 1.0, 0.7, 0.0),
+         "top_k": (0, 0, 20, 0), "top_p": (1.0, 0.5, 1.0, 1.0), "atol": 0},
     ),
 }
 
@@ -304,6 +351,16 @@ def fail(message: str) -> None:
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def clocks_line() -> str:
+    """The card's SM and memory clocks and power draw as ``nvidia-smi``
+    reads them now (MHz, MHz, W)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
@@ -353,7 +410,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     build.load_library()
     emit("build", seconds=time.perf_counter() - t0,
-         library=str(build.build_dir()), sources=list(build.SOURCES))
+         library=str(build.build_dir()), sources=list(build.SOURCES),
+         private_stream_query=hasattr(torch._C, "_cuda_getCurrentRawStream"))
 
 
 def case_shape(case) -> list:
@@ -374,7 +432,8 @@ def phase_kernels() -> tuple:
         for case in tuple(spec.example_cases) + EXTRA_CASES[name]:
             atol = case.get("atol", 0)
             args, kwargs = spec.make_example(case, device=DEVICE)
-            cfg = registry.default_config(name, *args, **kwargs)
+            cfg = {**registry.default_config(name, *args, **kwargs),
+                   **case.get("config", {})}
             got = as_tuple(wrapper(*args, **kwargs, **cfg))
             torch.cuda.synchronize()
             want = as_tuple(spec.ref_call(*args, **kwargs))
@@ -522,6 +581,18 @@ def kernel_device_ms(fn, n_calls: int) -> dict:
     return profile_ms(fn, n_calls)[0]
 
 
+def kernel_ms_of(fn, name: str, n_calls: int = 20):
+    """Device ms per call of the kernel-table row ``name``'s kernel, or
+    None; a trace that holds none of its events (the profiler now and then
+    drops a trace's kernel events) is taken once more."""
+    for _ in range(2):
+        ms = sum(v for k, v in kernel_device_ms(fn, n_calls).items()
+                 if KERNEL_EVENT[name] in k)
+        if ms > 0:
+            return ms
+    return None
+
+
 def profile_ms(fn, n_calls: int):
     """``(device ms per call by kernel, host ms per call by operation)``
     from one ``torch.profiler`` trace of ``n_calls`` calls.  Device: kernel
@@ -664,16 +735,21 @@ def record_margins(engine) -> dict:
 
 def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     """Where a decode tick's time goes with every slot busy: 8 requests of
-    512 prompt tokens are admitted in one tick traced by ``torch.profiler``
-    (``prefill_tick``: the device time of the prefill group and the first
-    step), then ``n_ticks`` decode-only ticks are timed by the host clock
-    (a tick ends in the copy of the tokens to the host) and ``n_ticks``
-    more are traced."""
+    512 prompt tokens, every fourth sampled as in the serve mix, are
+    admitted in one tick traced by ``torch.profiler`` (``prefill_tick``:
+    the device time of the prefill group and the first step), then
+    ``n_ticks`` decode-only ticks are timed by the host clock (a tick ends
+    in the copy of the tokens to the host) and ``n_ticks`` more are traced;
+    ``decode_ms`` and ``sampling_ms`` are the decode attention and sampling
+    kernels' device time per traced tick."""
     rng = np.random.RandomState(2)
     for i in range(LM_SLOTS):
+        kw = {}
+        if i % 4 == 3:
+            kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3000 + i)
         engine.submit(Request(
             prompt=[int(t) for t in rng.randint(1, vocab // 2, size=512)],
-            max_new_tokens=4 * n_ticks + 4, rid=1000 + i))
+            max_new_tokens=4 * n_ticks + 4, rid=1000 + i, **kw))
     kernels, _ = profile_ms(engine.tick, 1)       # admission + first step
     busy = sum(kernels.values())
     prefill = {"device_busy_ms": busy if busy > 0 else None,
@@ -691,6 +767,10 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     kernels, host = profile_ms(engine.tick, n_ticks)
     busy = sum(kernels.values())
     out["device_busy_ms"] = busy if busy > 0 else None
+    for key, name in (("decode_ms", "decode_attention"),
+                      ("sampling_ms", "fused_sampling")):
+        out[key] = sum(v for k, v in kernels.items()
+                       if KERNEL_EVENT[name] in k)
     out["device_idle_share_of_tick"] = (
         max(0.0, 1.0 - busy / out["tick_wall_ms"]) if busy > 0 else None)
     out["device_ms_by_kernel"] = dict(
@@ -698,8 +778,111 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     out["host_self_ms"] = sum(host.values())
     out["host_ms_by_op"] = dict(
         sorted(host.items(), key=lambda kv: -kv[1])[:12])
+    out["sampling_on_served_logits"] = served_sampling(engine)
     engine.run_until_idle()
     return out
+
+
+def served_sampling(engine) -> dict:
+    """Row 9 on the logits of one served decode tick: the engine's own
+    call (``tick_rows``: every fourth row sampled) and the same logits with
+    every row sampled as the serve mix samples (``mixed``), timed as
+    ``timing_row`` times the kernel, their tokens held against the plain
+    version (equal) and over two runs (bit-identical); beside them the
+    same timings and the logits' spread on the ``mixed`` timing case's
+    seeded normal logits.  The lanes each row keeps under top-k 50 and
+    top-p 0.9 at T 0.8 set how many lanes a bisection pass visits (it
+    skips those below the current lower end: ``pass_lane_visits_mean``)."""
+    from repro_torch import kernels as kernels_pkg
+
+    seen = []
+    call = kernels_pkg.fused_sampling
+
+    def capture(logits, temp, seeds, pos, top_k=None, top_p=None, **kw):
+        if not seen:
+            seen.append((logits.clone(), temp, seeds, pos, top_k, top_p))
+        return call(logits, temp, seeds, pos, top_k=top_k, top_p=top_p,
+                    **kw)
+
+    kernels_pkg.fused_sampling = capture
+    try:
+        engine.tick()
+    finally:
+        kernels_pkg.fused_sampling = call
+    logits, temp, seeds, pos, top_k, top_p = seen[0]
+    b = logits.shape[0]
+
+    def on_device(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(x).astype(dtype))).to(DEVICE)
+
+    tick_rows = (on_device(temp, np.float32),
+                 on_device(np.asarray(seeds).astype(np.uint32)
+                           .view(np.int32), np.int32),
+                 on_device(pos, np.int32), on_device(top_k, np.int32),
+                 on_device(top_p, np.float32))
+    mixed_rows = (on_device([0.8] * b, np.float32), tick_rows[1],
+                  tick_rows[2], on_device([50] * b, np.int32),
+                  on_device([0.9] * b, np.float32))
+    spec = registry.get("fused_sampling")
+    example, _ = spec.make_example(
+        {"dims": (b, logits.shape[1]), **MIXED}, device=DEVICE)
+    out = {"sampled_rows_of_tick": int((tick_rows[0] > 0).sum())}
+    for label, x, rows in (("tick_rows", logits, tick_rows),
+                           ("mixed", logits, mixed_rows),
+                           ("mixed, seeded normal logits", example[0],
+                            example[1:])):
+        cfg = registry.default_config("fused_sampling", x, *rows)
+
+        def run():
+            return fused_sampling_cuda(x, *rows, **cfg)
+
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        want = spec.ref_call(x, *rows)
+        if not torch.equal(got, want):
+            fail(f"fused_sampling on served logits ({label}): tokens differ "
+                 f"from the plain version's")
+        if not torch.equal(got, again):
+            fail(f"fused_sampling on served logits ({label}): two runs "
+                 f"differ")
+        z = x.float() / 0.8
+        mass = torch.softmax(z, -1).sort(-1, descending=True).values
+        top_p_lanes = (mass.cumsum(-1) < 0.9).sum(-1) + 1
+        out[label] = {
+            "ms": median_ms(run), "config": cfg,
+            "kernel_ms": kernel_ms_of(run, "fused_sampling"),
+            "logit_std_mean": float(x.float().std(-1).mean()),
+            "logit_range_mean": float((x.max(-1).values
+                                       - x.min(-1).values).mean()),
+            "top_p_lanes_mean": float(top_p_lanes.float().mean()),
+            "top_p_lanes_max": int(top_p_lanes.max()),
+            "pass_lane_visits_mean": float(pass_lane_visits(z).mean()),
+            "clocks_after": clocks_line()}
+    return out
+
+
+def pass_lane_visits(z, top_k: int = 50, top_p: float = 0.9):
+    """Per row of scaled logits ``z``, the lanes the sampling kernel's 10
+    bisection passes visit: at the start of each pass of 3 steps, the
+    lanes at or above the top-k bisection's lower end plus those above the
+    top-p one's (the two 30-step bisections of ``sampling/ref.py``, read
+    every third step; the kernel skips every other lane)."""
+    probs = torch.softmax(z, -1)
+    lo_k, hi_k = z.min(-1).values, z.max(-1).values
+    lo_p, hi_p = lo_k - 1.0, hi_k.clone()
+    visits = torch.zeros_like(lo_k)
+    for step in range(30):
+        if step % 3 == 0:
+            visits += ((z >= lo_k[:, None]).sum(-1)
+                       + (z > lo_p[:, None]).sum(-1))
+        mid = 0.5 * (lo_k + hi_k)
+        ge = (z >= mid[:, None]).sum(-1) >= top_k
+        lo_k, hi_k = torch.where(ge, mid, lo_k), torch.where(ge, hi_k, mid)
+        mid = 0.5 * (lo_p + hi_p)
+        ge = torch.where(z > mid[:, None], probs, 0.0).sum(-1) >= top_p
+        lo_p, hi_p = torch.where(ge, mid, lo_p), torch.where(ge, hi_p, mid)
+    return visits
 
 
 def init_lm():
@@ -1130,33 +1313,59 @@ KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
                 "fused_sampling": "fused_sampling_kernel"}
 
 
-def timing_row(name, case, n_profile: int = 20) -> dict:
+def timing_row(name, case, n_profile: int = 20, config=None,
+               plain: bool = True) -> dict:
     """Kernel time by CUDA events (``ms``, wrapper included), the kernel
     alone by profiler events (``kernel_ms``), the plain version's and the
-    library call's time, and the bound, at one case."""
+    library call's time, and the bound, at one case, with the default
+    config or ``config`` over it (the plain version's and the library
+    call's times only when ``plain``)."""
     spec = registry.get(name)
     args, kwargs = spec.make_example(case, device=DEVICE)
-    cfg = registry.default_config(name, *args, **kwargs)
+    cfg = {**registry.default_config(name, *args, **kwargs),
+           **(config or {})}
     wrapper = spec.build()
 
     def call():
         return wrapper(*args, **kwargs, **cfg)
 
-    plain = PLAIN.get(name)
-    plain_call = ((lambda: plain(*args, **kwargs)) if plain
-                  else (lambda: spec.ref_call(*args, **kwargs)))
     ms = median_ms(call)
-    per_kernel = kernel_device_ms(call, n_profile)
-    kernel_ms = sum(v for k, v in per_kernel.items()
-                    if KERNEL_EVENT[name] in k) or None
-    lib = library_call(name, args, kwargs)
+    kernel_ms = kernel_ms_of(call, name, n_profile)
     t_bytes, t_ops = BOUNDS[name](case)
-    return {"ms": ms, "kernel_ms": kernel_ms,
-            "plain_ms": median_ms(plain_call, launches=5, repeats=3),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": median_ms(lib) if lib is not None else None,
-            "shape": case_shape(case), "config": cfg}
+    row = {"ms": ms, "kernel_ms": kernel_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "shape": case_shape(case), "config": cfg}
+    if plain:
+        fn = PLAIN.get(name)
+        plain_call = ((lambda: fn(*args, **kwargs)) if fn
+                      else (lambda: spec.ref_call(*args, **kwargs)))
+        lib = library_call(name, args, kwargs)
+        row["plain_ms"] = median_ms(plain_call, launches=5, repeats=3)
+        row["library_ms"] = median_ms(lib) if lib is not None else None
+    return row
+
+
+def sweep(name, case) -> dict:
+    """``timing_row`` (kernel only) at every point of the kernel's tuned
+    space over its default config, as the wrapper is called with it (not
+    re-planned: the planner would fold the decode splits above one block
+    an SM, and the clusters too small for a row, into its own choice); a
+    point the wrapper refuses (its shared memory does not fit) is recorded
+    with the refusal."""
+    spec = registry.get(name)
+    args, kwargs = spec.make_example(case, device=DEVICE)
+    base = registry.default_config(name, *args, **kwargs)
+    out = {}
+    for values in itertools.product(*(spec.space[k] for k in spec.tuned)):
+        point = dict(zip(spec.tuned, values))
+        key = ",".join(f"{k}={v}" for k, v in point.items())
+        try:
+            out[key] = timing_row(name, case, plain=False,
+                                  config={**base, **point})
+        except ValueError as err:
+            out[key] = {"refused": str(err)}
+    return out
 
 
 def phase_timings(launches: dict, worst: dict) -> list:
@@ -1183,7 +1392,21 @@ def phase_timings(launches: dict, worst: dict) -> list:
     case = {"dims": (LM_SLOTS, 128256), **MIXED}
     emit("timings", name="fused_sampling", case="mixed",
          **{k: v for k, v in timing_row("fused_sampling", case).items()
-            if k != "library_ms"})
+            if k != "library_ms"}, clocks_after=clocks_line())
+    # the tunables' spaces, so the defaults come from this card's numbers:
+    # the decode rows and sampling greedy and mixed at every point
+    for name, info in KERNELS.items():
+        if info["kernel"] != "decode_attention":
+            continue
+        case = dict(info["main_case"], valid=(
+            valid if name == "decode_attention" else paged_valid(vocab)))
+        emit("timings", name=name, case="by config",
+             by_config=sweep("decode_attention", case))
+    for label, rows in (("greedy", {"temperature": (0.0,) * LM_SLOTS}),
+                        ("mixed", MIXED)):
+        case = {"dims": (LM_SLOTS, 128256), **rows}
+        emit("timings", name="fused_sampling", case=f"{label} by config",
+             by_config=sweep("fused_sampling", case))
     # the flash kernels' FMA body: float32 q at the main shapes
     for name in ("flash_attention", "flash_attention_dequant"):
         case = {**KERNELS[name]["main_case"], "dtype": "float32"}

@@ -19,54 +19,77 @@
 // leaves and tables (B, P) maps a slot's page index to a pool page; row t of
 // slot b is at storage row pid * page + t % page with
 // pid = clamp(tables[b, t / page], 0, n_pages - 1), so T = P * page.  The
-// TPU's scalar-prefetch index_map becomes a plain load of the table inside
-// the loop.  int8 (TKV = int8_t): k, v hold int8 rows and ks, vs one float32
-// scale per storage row, shared by the KV heads ((B, T) dense, (n_pages, page)
-// paged: in both layouts the scale's index is the storage row's).
+// TPU's scalar-prefetch index_map becomes a plain load of the table by the
+// lane that copies the row.  int8 (TKV = int8_t): k, v hold int8 rows and
+// ks, vs one float32 scale per storage row, shared by the KV heads ((B, T)
+// dense, (n_pages, page) paged: in both layouts the scale's index is the
+// storage row's).
 //
 // What bounds it.  Bytes: every valid cache row of K and V is read once
 // (2 * n * D elements per slot and KV head, plus one scale per row for int8)
 // for 4 * G * D operations per row, far below the card's ratio of operations
-// to bytes.  The design reads each slot's cache only up to its own valid
-// length (the TPU body reads every slot up to the largest length of the
-// batch; its paged grid skips pages past the length with pl.when), so a paged
-// slot touches only its own resident pages, and reads each row once for all
-// G query heads of its KV head.
+// to bytes.  So the design is about keeping enough loads in flight: at 8
+// slots and 8 KV heads one block per (slot, KV head) would fill half the
+// SMs and walk up to 700 rows in a chain of load latencies.
 //
-// Design.  One block per (slot, kv-head), which loops over the cache itself
-// (no split across blocks: there is no second pass).  The block's warps take
-// 32-row tiles of the slot's valid rows in turn, each warp with its own online
-// softmax state (m, l, acc for the G heads), and the warps' states are joined
-// at the end by a log-sum-exp combine in a fixed order.
+// Design.  Split-KV over a thread-block cluster: the grid is (slot, KV head,
+// split), and the `splits` blocks of one (slot, KV head) form one cluster
+// (cudaLaunchKernelEx; at most the portable 8).  Split s owns the logical
+// rows [s * per, s * per + per) of the slot, per = ceil(n / splits) rounded
+// up to the 32-row tile, so the dense and paged bodies of one cache type run
+// the same sums in the same order; a split past n has no rows and ends with
+// m = -1e30, l = 0.  Inside a block the warps take the split's 32-row tiles
+// in turn, each warp with its own online softmax state (m, l, acc for the G
+// heads):
 //
-//   rows    lane j of a warp resolves the storage row of the tile's row j
-//           (the page-table load, paged) and, int8, its two scales; the tile
-//           load takes each row's address from its lane by a shuffle, so a
-//           tile may straddle pages (page < 32) at no extra cost;
-//   scores  a warp copies its K tile to shared memory as float32 (row stride
-//           D + 1: no bank conflicts), then lane j scores row j against the
-//           G query rows (broadcast from shared memory); int8 multiplies the
-//           score by the row's K scale;
+//   loads   a warp copies a tile of K and of V with 16-byte cp.async copies
+//           along D (at D = 64 bf16, 8 lanes a row and 4 rows a copy; int8,
+//           4 lanes a row), each lane resolving the storage rows it copies
+//           itself (the page-table load, paged) and, int8, the scales of the
+//           tile's row it scores; the next tile is staged while the current
+//           one is scored (two stages a warp).  Rows past the split are
+//           zero-filled.  A staged row is padded by 16 bytes, so the lanes
+//           that read 16 bytes of 8 different rows hit different banks;
+//   scores  lane j scores row j against the G query rows (float32, broadcast
+//           from shared memory), d in order; int8 multiplies the score by
+//           the row's K scale;
 //   softmax maximum and sum over the tile by xor shuffles;
-//   PV      the warp copies its V tile to shared memory beside the K tile
-//           (both loads coalesced along D and in flight together); lane j
-//           owns output dims j, j + 32, ...; p comes from a per-warp shared
-//           buffer, int8 with the row's V scale folded in.
+//   PV      lane j owns D / 32 neighbouring output dims (D = 16: lanes
+//           0-15 one each) and sums p * v over the tile's rows in order; p
+//           comes from a per-warp shared buffer, int8 with the row's V scale
+//           folded in.
+//
+// The combine.  A block joins its warps' states in warp order by
+// log-sum-exp, and writes its (m, l, acc) into rank 0's shared memory over
+// distributed shared memory; after one cluster barrier rank 0 joins the
+// splits in rank order the same way and writes the output.  No second
+// launch and no global work space.
 //
 // No atomics and fixed orders throughout, so two runs give the same bits;
 // the dense and paged bodies of one cache type run the same sums in the same
 // order, so they agree bit for bit on the same rows.
 
+#include <cooperative_groups.h>
+
 #include <cmath>
 #include <type_traits>
 
 #include "approx_math.cuh"
+#include "launch.cuh"
+#include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace fastcaps {
 
 constexpr float kDecodeNegInf = -1e30f;
-constexpr int kDecodeMaxG = 8;       // query heads per KV head
-constexpr int kDecodeTile = 32;      // cache rows per warp tile
+constexpr int kDecodeMaxG = 8;          // query heads per KV head
+constexpr int kDecodeTile = 32;         // cache rows per warp tile
+constexpr int kDecodeStages = 2;        // tiles staged per warp
+constexpr int kDecodeRowPad = 16;       // bytes after each staged row
+constexpr int kDecodeMaxSplits = 8;     // blocks of a cluster (portable)
+constexpr int kDecodeMaxThreads = 512;
+constexpr int kDecodeMaxSmem = 232448;  // bytes a block may ask for
 
 __device__ __forceinline__ float decode_warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
@@ -80,17 +103,26 @@ __device__ __forceinline__ float decode_warp_sum(float x) {
   return x;
 }
 
-// Shared memory of one block, in floats: the scaled queries, and per warp
-// one K tile, one V tile and one p buffer.  The combine at the end reuses
-// the tiles.  decode_smem_bytes in kernels/attention/kernel.py plans block
+// Shared memory of one block, in bytes: the scaled queries; per warp
+// kDecodeStages stages of a K tile, a V tile (rows padded by kDecodeRowPad)
+// and the tile's K and V scales, then a p buffer; and the cluster's states,
+// one per split, that rank 0 joins.  The warps' states reuse the tiles at
+// the end.  decode_smem_bytes in kernels/attention/kernel.py plans block
 // sizes by the same sum; a CPU test holds the two equal.
-__host__ __device__ inline long long decode_warp_floats(int d) {
-  return (long long)kDecodeTile * (d + 1) + (long long)kDecodeTile * d +
-         (long long)kDecodeMaxG * kDecodeTile;
+__host__ __device__ inline long long decode_stage_bytes(int d, int kv_bytes) {
+  return 2LL * kDecodeTile * (d * kv_bytes + kDecodeRowPad) +
+         2LL * kDecodeTile * 4;
 }
 
-__host__ __device__ inline long long decode_smem_floats(int d, int warps) {
-  return (long long)kDecodeMaxG * d + warps * decode_warp_floats(d);
+__host__ __device__ inline long long decode_warp_bytes(int d, int kv_bytes) {
+  return kDecodeStages * decode_stage_bytes(d, kv_bytes) +
+         4LL * kDecodeMaxG * kDecodeTile;
+}
+
+__host__ __device__ inline long long decode_smem_bytes(int d, int kv_bytes,
+                                                       int warps, int splits) {
+  return 4LL * kDecodeMaxG * d + warps * decode_warp_bytes(d, kv_bytes) +
+         4LL * splits * kDecodeMaxG * (d + 2);
 }
 
 // One launch's operands.  tables is null for a dense cache, ks and vs are
@@ -113,31 +145,119 @@ struct DecodeArgs {
   float scale;
 };
 
+// 16 staged bytes as float32 values.
+__device__ __forceinline__ void unpack16(const uint4 raw, float (&f)[4]) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack16(const uint4 raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);          // bf16 is float's top half
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4 raw, float (&f)[16]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
+}
+
+// N staged values of type T at p, as float32.
+template <typename T, int N>
+__device__ __forceinline__ void load_staged(const char* p, float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) f[i] = load_f32(reinterpret_cast<const T*>(p) + i);
+}
+
 template <typename TQ, typename TKV, int D, bool kTaylor, bool kPaged>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kDecodeMaxThreads)
 decode_attention_kernel(const DecodeArgs a) {
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
-  constexpr int DPL = (D + 31) / 32;
-  constexpr int KS = D + 1;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Kw = Qs + kDecodeMaxG * D;               // per warp: K, V, p
-  const int warps = blockDim.x >> 5;
-  const TQ* q = static_cast<const TQ*>(a.q);
-  TQ* out = static_cast<TQ*>(a.out);
-  const int K = a.K, G = a.G;
+  constexpr int kElem = (int)sizeof(TKV);
+  constexpr int kPerChunk = 16 / kElem;               // values in 16 bytes
+  constexpr int kChunks = D / kPerChunk;              // 16-byte copies a row
+  constexpr int kRowsPerCopy = 32 / kChunks;          // rows a warp copies at once
+  constexpr int kRowBytes = D * kElem + kDecodeRowPad;
+  constexpr int kTileBytes = kDecodeTile * kRowBytes;
+  constexpr int kStageBytes = 2 * kTileBytes + 2 * kDecodeTile * 4;
+  constexpr int DPL = D >= 32 ? D / 32 : 1;           // output dims a lane owns
+  static_assert(kChunks >= 1 && kChunks <= 32, "16-byte copies along D");
 
+  cg::cluster_group cluster = cg::this_cluster();
+  // every block must have started before another writes its shared memory
+  cluster_arrive_relaxed();
+  const int splits = (int)cluster.num_blocks();
+  const int split = (int)cluster.block_rank();
+  const int warps = blockDim.x >> 5;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.x / K;
-  const int h = blockIdx.x % K;
+  const int K = a.K, G = a.G;
+  const int bh = blockIdx.x / splits;
+  const int b = bh / K;
+  const int h = bh % K;
   const int H = K * G;
   const int n = max(0, min(a.valid[b], a.T_len));
+  const int per = ((n + splits - 1) / splits + kDecodeTile - 1) /
+                  kDecodeTile * kDecodeTile;
+  const int r0 = min(n, split * per);
+  const int r1 = min(n, r0 + per);
+  const int n_tiles = (r1 - r0 + kDecodeTile - 1) / kDecodeTile;
 
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* Qs = reinterpret_cast<float*>(smem);
+  char* warp_space = smem + 4 * kDecodeMaxG * D;
+  float* recv = reinterpret_cast<float*>(
+      warp_space + warps * decode_warp_bytes(D, kElem));
+  char* ws = warp_space + warp * decode_warp_bytes(D, kElem);
+  float* P = reinterpret_cast<float*>(ws + kDecodeStages * kStageBytes);
+
+  const TQ* q = static_cast<const TQ*>(a.q);
   for (int e = tid; e < G * D; e += blockDim.x)
     Qs[e] = load_f32(q + ((size_t)b * H + h * G) * D + e) * a.scale;
-  __syncthreads();
+
+  const long long row_stride = (long long)K * D;
+  const TKV* kh = static_cast<const TKV*>(a.k) + (size_t)h * D;
+  const TKV* vh = static_cast<const TKV*>(a.v) + (size_t)h * D;
+  auto storage_row = [&](int t) -> long long {
+    if (kPaged) {
+      int pid = a.tables[(size_t)b * a.P + t / a.page];
+      pid = min(max(pid, 0), a.n_pages - 1);
+      return (long long)pid * a.page + t % a.page;
+    }
+    return (long long)b * a.T_len + t;
+  };
+  // stage a tile's K and V rows (and, int8, the scales of row `lane`)
+  auto stage_tile = [&](int tile, int stage) {
+    const int t0 = r0 + tile * kDecodeTile;
+    const int rows = min(kDecodeTile, r1 - t0);
+    const uint32_t kdst =
+        (uint32_t)__cvta_generic_to_shared(ws + stage * kStageBytes);
+    const int c = lane % kChunks;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int r = lane / kChunks + i * kRowsPerCopy;
+      const bool ok = r < rows;
+      const long long off = ok ? storage_row(t0 + r) * row_stride + c * kPerChunk
+                               : 0;
+      cp_async16(kdst + r * kRowBytes + c * 16, kh + off, ok);
+      cp_async16(kdst + kTileBytes + r * kRowBytes + c * 16, vh + off, ok);
+    }
+    if (kInt8) {
+      const bool ok = lane < rows;
+      const long long sr = ok ? storage_row(t0 + lane) : 0;
+      cp_async4(kdst + 2 * kTileBytes + lane * 4, a.ks + sr, ok);
+      cp_async4(kdst + 2 * kTileBytes + (kDecodeTile + lane) * 4, a.vs + sr,
+                ok);
+    }
+    cp_async_commit();
+  };
 
   float m[kDecodeMaxG], l[kDecodeMaxG], acc[kDecodeMaxG][DPL];
 #pragma unroll
@@ -147,64 +267,53 @@ decode_attention_kernel(const DecodeArgs a) {
 #pragma unroll
     for (int c = 0; c < DPL; ++c) acc[g][c] = 0.0f;
   }
+  const int d0 = lane * DPL;                 // this lane's first output dim
+  const bool owns = d0 < D;
 
-  float* Kt = Kw + warp * decode_warp_floats(D);
-  float* Vt = Kt + kDecodeTile * KS;
-  float* P = Vt + kDecodeTile * D;
-  const long long row_stride = (long long)K * D;
-  const TKV* kh = static_cast<const TKV*>(a.k) + (size_t)h * D;
-  const TKV* vh = static_cast<const TKV*>(a.v) + (size_t)h * D;
-
-  for (int t0 = warp * kDecodeTile; t0 < n; t0 += warps * kDecodeTile) {
-    const int rows = min(kDecodeTile, n - t0);
-    // lane j: the storage row of cache row t0 + j, and its scales
-    long long my_row = 0;
-    float my_ks = 1.0f, my_vs = 1.0f;
-    if (lane < rows) {
-      const int t = t0 + lane;
-      if (kPaged) {
-        int pid = a.tables[(size_t)b * a.P + t / a.page];
-        pid = min(max(pid, 0), a.n_pages - 1);
-        my_row = (long long)pid * a.page + t % a.page;
-      } else {
-        my_row = (long long)b * a.T_len + t;
-      }
-      if (kInt8) {
-        my_ks = a.ks[my_row];
-        my_vs = a.vs[my_row];
-      }
-    }
-#pragma unroll 8
-    for (int e = lane; e < kDecodeTile * D; e += 32) {
-      const int j = e / D, d = e % D;
-      const long long row = __shfl_sync(0xffffffffu, my_row, j);
-      float kk = 0.0f, vv = 0.0f;
-      if (j < rows) {
-        kk = load_f32(kh + row * row_stride + d);
-        vv = load_f32(vh + row * row_stride + d);
-      }
-      Kt[j * KS + d] = kk;
-      Vt[j * D + d] = vv;
-    }
+  if (warp < n_tiles) stage_tile(warp, 0);
+  __syncthreads();                            // Qs
+  int stage = 0;
+  for (int tile = warp; tile < n_tiles; tile += warps) {
+    if (tile + warps < n_tiles) stage_tile(tile + warps, stage ^ 1);
+    else cp_async_commit();                   // an empty group: wait_one holds
+    cp_async_wait_one();
     __syncwarp();
-
+    const int rows = min(kDecodeTile, r1 - (r0 + tile * kDecodeTile));
+    const char* kt = ws + stage * kStageBytes;
+    const char* vt = kt + kTileBytes;
+    const float* sc = reinterpret_cast<const float*>(kt + 2 * kTileBytes);
     const bool ok = lane < rows;
+
     float s[kDecodeMaxG];
 #pragma unroll
     for (int g = 0; g < kDecodeMaxG; ++g) s[g] = 0.0f;
-    const float* kr = Kt + lane * KS;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d];
+    const char* kr = kt + lane * kRowBytes;
 #pragma unroll
-      for (int g = 0; g < kDecodeMaxG; ++g)
-        if (g < G) s[g] += Qs[g * D + d] * kd;
+    for (int c = 0; c < kChunks; ++c) {
+      float kf[kPerChunk];
+      unpack16(*reinterpret_cast<const uint4*>(kr + c * 16), kf);
+#pragma unroll
+      for (int e = 0; e < kPerChunk; e += 4) {
+        const int d = c * kPerChunk + e;
+#pragma unroll
+        for (int g = 0; g < kDecodeMaxG; ++g) {
+          if (g < G) {
+            const float4 q4 = *reinterpret_cast<const float4*>(Qs + g * D + d);
+            s[g] += q4.x * kf[e];
+            s[g] += q4.y * kf[e + 1];
+            s[g] += q4.z * kf[e + 2];
+            s[g] += q4.w * kf[e + 3];
+          }
+        }
+      }
     }
 
+    const float k_scale = kInt8 ? sc[lane] : 1.0f;
+    const float v_scale = kInt8 ? sc[kDecodeTile + lane] : 1.0f;
 #pragma unroll
     for (int g = 0; g < kDecodeMaxG; ++g) {
       if (g >= G) break;
-      const float sg = ok ? (kInt8 ? s[g] * my_ks : s[g]) : kDecodeNegInf;
+      const float sg = ok ? (kInt8 ? s[g] * k_scale : s[g]) : kDecodeNegInf;
       const float m_new = fmaxf(m[g], decode_warp_max(sg));
       const float alpha = softmax_exp<kTaylor>(m[g] - m_new);
       const float p = ok ? softmax_exp<kTaylor>(sg - m_new) : 0.0f;
@@ -212,30 +321,33 @@ decode_attention_kernel(const DecodeArgs a) {
       m[g] = m_new;
 #pragma unroll
       for (int c = 0; c < DPL; ++c) acc[g][c] *= alpha;
-      P[g * kDecodeTile + lane] = kInt8 ? p * my_vs : p;
+      P[g * kDecodeTile + lane] = kInt8 ? p * v_scale : p;
     }
     __syncwarp();
 
-    for (int j = 0; j < rows; ++j) {
+    if (owns) {
+      for (int j = 0; j < rows; ++j) {
+        float vv[DPL];
+        load_staged<TKV, DPL>(vt + j * kRowBytes + d0 * kElem, vv);
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int d = lane + 32 * c;
-        if (d >= D) break;
-        const float vd = Vt[j * D + d];
+        for (int c = 0; c < DPL; ++c) {
 #pragma unroll
-        for (int g = 0; g < kDecodeMaxG; ++g)
-          if (g < G) acc[g][c] += P[g * kDecodeTile + j] * vd;
+          for (int g = 0; g < kDecodeMaxG; ++g)
+            if (g < G) acc[g][c] += P[g * kDecodeTile + j] * vv[c];
+        }
       }
     }
     __syncwarp();
+    stage ^= 1;
   }
+  cp_async_wait_all();
 
-  // join the warps' states: (m, l) then acc, per warp and head, in the
-  // tiles' space
+  // join the warps' states in warp order (in the tiles' space), then send
+  // the block's state to rank 0
   __syncthreads();
-  float* Ms = Kw;                                 // warps x G
-  float* Ls = Ms + warps * kDecodeMaxG;           // warps x G
-  float* As = Ls + warps * kDecodeMaxG;           // warps x G x D
+  float* Ms = reinterpret_cast<float*>(warp_space);   // warps x kDecodeMaxG
+  float* Ls = Ms + warps * kDecodeMaxG;               // warps x kDecodeMaxG
+  float* As = Ls + warps * kDecodeMaxG;               // warps x kDecodeMaxG x D
 #pragma unroll
   for (int g = 0; g < kDecodeMaxG; ++g) {
     if (g >= G) break;
@@ -243,13 +355,16 @@ decode_attention_kernel(const DecodeArgs a) {
       Ms[warp * kDecodeMaxG + g] = m[g];
       Ls[warp * kDecodeMaxG + g] = l[g];
     }
+    if (owns) {
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) As[(warp * kDecodeMaxG + g) * D + d] = acc[g][c];
+      for (int c = 0; c < DPL; ++c)
+        As[(warp * kDecodeMaxG + g) * D + d0 + c] = acc[g][c];
     }
   }
   __syncthreads();
+  constexpr int kState = kDecodeMaxG * (D + 2);       // floats a split sends
+  cluster_wait();
+  float* dst = cluster.map_shared_rank(recv, 0) + split * kState;
   for (int e = tid; e < G * D; e += blockDim.x) {
     const int g = e / D, d = e % D;
     float mt = kDecodeNegInf;
@@ -260,42 +375,86 @@ decode_attention_kernel(const DecodeArgs a) {
       lt += Ls[w * kDecodeMaxG + g] * f;
       at += As[(w * kDecodeMaxG + g) * D + d] * f;
     }
+    dst[2 * kDecodeMaxG + g * D + d] = at;
+    if (d == 0) {
+      dst[g] = mt;
+      dst[kDecodeMaxG + g] = lt;
+    }
+  }
+  cluster.sync();
+  if (split != 0) return;
+
+  // rank 0: join the splits in rank order and write the output
+  TQ* out = static_cast<TQ*>(a.out);
+  for (int e = tid; e < G * D; e += blockDim.x) {
+    const int g = e / D, d = e % D;
+    float mt = kDecodeNegInf;
+    for (int r = 0; r < splits; ++r) mt = fmaxf(mt, recv[r * kState + g]);
+    float lt = 0.0f, at = 0.0f;
+    for (int r = 0; r < splits; ++r) {
+      const float* st = recv + r * kState;
+      const float f = softmax_exp<kTaylor>(st[g] - mt);
+      lt += st[kDecodeMaxG + g] * f;
+      at += st[2 * kDecodeMaxG + g * D + d] * f;
+    }
     store_f32(out + ((size_t)b * H + h * G) * D + e, at / fmaxf(lt, 1e-30f));
   }
 }
 
 template <typename TQ, typename TKV, int D, bool kTaylor, bool kPaged>
-int launch_decode(const DecodeArgs& a, int B, int threads,
-                  cudaStream_t stream) {
+int launch_decode(const DecodeArgs& a, int B, int threads, int splits,
+                  int device, cudaStream_t stream) {
   auto kernel = decode_attention_kernel<TQ, TKV, D, kTaylor, kPaged>;
-  const size_t smem = decode_smem_floats(D, threads / 32) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B * a.K, threads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  // the dynamic shared memory limit, set once per template instance and
+  // device (a failure is returned on every launch)
+  static cudaError_t err[kMaxDevices];
+  static bool set[kMaxDevices];
+  if (!set[device]) {
+    err[device] = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecodeMaxSmem);
+    set[device] = true;
+  }
+  if (err[device] != cudaSuccess) return (int)err[device];
+  const long long smem =
+      decode_smem_bytes(D, (int)sizeof(TKV), threads / 32, splits);
+  if (smem > kDecodeMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.K * splits, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launch = cudaLaunchKernelEx(&cfg, kernel, a);
+  const cudaError_t last = cudaGetLastError();   // and clear it
+  return (int)(launch != cudaSuccess ? launch : last);
 }
 
 template <typename TQ, typename TKV, bool kTaylor, bool kPaged>
 int dispatch_decode_d(int D, const DecodeArgs& a, int B, int threads,
-                      cudaStream_t s) {
+                      int splits, int dev, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_decode<TQ, TKV, 16, kTaylor, kPaged>(a, B, threads, s);
-    case 32: return launch_decode<TQ, TKV, 32, kTaylor, kPaged>(a, B, threads, s);
-    case 64: return launch_decode<TQ, TKV, 64, kTaylor, kPaged>(a, B, threads, s);
-    case 128: return launch_decode<TQ, TKV, 128, kTaylor, kPaged>(a, B, threads, s);
+    case 16: return launch_decode<TQ, TKV, 16, kTaylor, kPaged>(a, B, threads, splits, dev, s);
+    case 32: return launch_decode<TQ, TKV, 32, kTaylor, kPaged>(a, B, threads, splits, dev, s);
+    case 64: return launch_decode<TQ, TKV, 64, kTaylor, kPaged>(a, B, threads, splits, dev, s);
+    case 128: return launch_decode<TQ, TKV, 128, kTaylor, kPaged>(a, B, threads, splits, dev, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename TQ, typename TKV>
 int dispatch_decode(int taylor, int paged, int D, const DecodeArgs& a, int B,
-                    int threads, cudaStream_t s) {
+                    int threads, int splits, int dev, cudaStream_t s) {
   if (paged)
-    return taylor ? dispatch_decode_d<TQ, TKV, true, true>(D, a, B, threads, s)
-                  : dispatch_decode_d<TQ, TKV, false, true>(D, a, B, threads, s);
-  return taylor ? dispatch_decode_d<TQ, TKV, true, false>(D, a, B, threads, s)
-                : dispatch_decode_d<TQ, TKV, false, false>(D, a, B, threads, s);
+    return taylor ? dispatch_decode_d<TQ, TKV, true, true>(D, a, B, threads, splits, dev, s)
+                  : dispatch_decode_d<TQ, TKV, false, true>(D, a, B, threads, splits, dev, s);
+  return taylor ? dispatch_decode_d<TQ, TKV, true, false>(D, a, B, threads, splits, dev, s)
+                : dispatch_decode_d<TQ, TKV, false, false>(D, a, B, threads, splits, dev, s);
 }
 
 }  // namespace fastcaps
@@ -304,26 +463,33 @@ int dispatch_decode(int taylor, int paged, int D, const DecodeArgs& a, int B,
 // k, v (B, T, K, D).  Paged cache: k, v (n_pages, page, K, D) and tables
 // (B, P) int32 with T = P * page.  kv_type 0 = float32, 1 = bfloat16,
 // 2 = int8 with ks, vs float32 per-row scales ((B, T) dense, (n_pages, page)
-// paged; null otherwise).  valid (B,) int32.  q and out are float32
-// (q_bf16 = 0) or bfloat16 (1); bfloat16 q takes a bfloat16 or int8 cache.
-// D in {16, 32, 64, 128}, G <= kDecodeMaxG, threads a multiple of 32 in
-// [32, 512] whose shared memory fits a block.  Launches on `stream`, does not
-// synchronise, allocates nothing.  Returns the CUDA error code of the launch
-// (0 = success).
+// paged; null otherwise).  k and v 16-byte aligned.  valid (B,) int32.  q and
+// out are float32 (q_bf16 = 0) or bfloat16 (1); bfloat16 q takes a bfloat16
+// or int8 cache.  D in {16, 32, 64, 128}, G <= kDecodeMaxG, threads a
+// multiple of 32 in [32, 512], splits in [1, kDecodeMaxSplits] (the blocks
+// of a cluster), their shared memory within a block's.  Every pointer on
+// CUDA device `device`; launches on `stream` (a stream of `device`, made
+// current for the launch), does not synchronise, allocates nothing.
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* valid,
     const void* tables, const void* ks, const void* vs, void* out, int B,
     int T_len, int H, int K, int D, int P, int page, int n_pages, int taylor,
-    int q_bf16, int kv_type, int threads, void* stream) {
+    int q_bf16, int kv_type, int threads, int splits, int device,
+    void* stream) {
   using namespace fastcaps;
   const bool paged = tables != nullptr;
   const bool int8 = kv_type == 2;
   if (B <= 0 || T_len <= 0 || K <= 0 || H % K != 0 || H / K > kDecodeMaxG ||
-      threads < 32 || threads > 512 || threads % 32 != 0 || kv_type < 0 ||
+      threads < 32 || threads > kDecodeMaxThreads || threads % 32 != 0 ||
+      splits < 1 || splits > kDecodeMaxSplits || kv_type < 0 ||
       kv_type > 2 || (q_bf16 && kv_type == 0) ||
       int8 != (ks != nullptr && vs != nullptr) ||
-      (paged && (P <= 0 || page <= 0 || n_pages <= 0 || T_len != P * page)))
+      (paged && (P <= 0 || page <= 0 || n_pages <= 0 || T_len != P * page)) ||
+      device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   DecodeArgs a;
   a.q = q;
   a.k = k;
@@ -342,11 +508,11 @@ extern "C" int decode_attention_launch(
   a.scale = (float)(1.0 / std::sqrt((double)D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return int8 ? dispatch_decode<__nv_bfloat16, int8_t>(taylor, paged, D, a, B, threads, s)
-                : dispatch_decode<__nv_bfloat16, __nv_bfloat16>(taylor, paged, D, a, B, threads, s);
+    return int8 ? dispatch_decode<__nv_bfloat16, int8_t>(taylor, paged, D, a, B, threads, splits, device, s)
+                : dispatch_decode<__nv_bfloat16, __nv_bfloat16>(taylor, paged, D, a, B, threads, splits, device, s);
   if (int8)
-    return dispatch_decode<float, int8_t>(taylor, paged, D, a, B, threads, s);
+    return dispatch_decode<float, int8_t>(taylor, paged, D, a, B, threads, splits, device, s);
   if (kv_type == 1)
-    return dispatch_decode<float, __nv_bfloat16>(taylor, paged, D, a, B, threads, s);
-  return dispatch_decode<float, float>(taylor, paged, D, a, B, threads, s);
+    return dispatch_decode<float, __nv_bfloat16>(taylor, paged, D, a, B, threads, splits, device, s);
+  return dispatch_decode<float, float>(taylor, paged, D, a, B, threads, splits, device, s);
 }

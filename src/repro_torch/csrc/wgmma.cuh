@@ -123,6 +123,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Every group of this thread but the newest has landed.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 // Two floats as a bf16 pair (lo in the low half), rounded to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -22,8 +22,10 @@
   slot against its cache rows below ``kv_valid_len``, over a dense cache
   (B, T, K, D) or the page pool's (n_pages, page, K, D) leaves read through
   per-slot ``tables`` (B, P), each in bfloat16 / float32 or int8 with
-  per-row scales ``ks``, ``vs``.  The tunable ``threads`` is the block
-  size; one block serves one (slot, KV head).
+  per-row scales ``ks``, ``vs``.  The tunables are ``kv_splits``, the
+  blocks of the cluster that serves one (slot, KV head), each owning a
+  contiguous range of the slot's rows (:func:`decode_kv_splits` plans it),
+  and ``threads``, the block size.
   ``decode_attention_cuda.launches_by_body`` counts its launches per body:
   ``dense``, ``int8``, ``paged``, ``paged_int8``.
 
@@ -52,13 +54,18 @@ from repro_torch.kernels.attention.ref import NEG_INF
 MAX_DYNAMIC_SMEM = 232448           # bytes a Hopper block may ask for
 HEAD_DIMS = (16, 32, 64, 128)
 # The kernels' block geometry, which the registry needs to plan block sizes
-# on hosts without the library: kFlashRows, kFlashKv, kDecodeMaxG and
-# kDecodeTile of the sources (tests/test_torch_attention.py holds them
+# on hosts without the library: kFlashRows, kFlashKv and the kDecode*
+# constants of the sources (tests/test_torch_attention.py holds them
 # equal).
 FLASH_ROWS = 64                     # query rows (positions x heads) a block holds
 FLASH_KV_TILE = 64                  # KV rows a flash block takes per step
 DECODE_MAX_GROUP = 8                # query heads per KV head of the decode kernel
 DECODE_TILE = 32                    # cache rows per warp tile of the decode kernel
+DECODE_STAGES = 2                   # tiles a decode warp keeps staged
+DECODE_ROW_PAD = 16                 # bytes after each staged cache row
+DECODE_MAX_SPLITS = 8               # blocks of a decode cluster (portable)
+DECODE_MAX_THREADS = 512
+H100_SMS = 132                      # the SM count planned for off the card
 _SOFTMAX_MODES = ("exact", "taylor")
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -384,12 +391,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ks: Optional[torch.Tensor] = None,
                           vs: Optional[torch.Tensor] = None,
                           softmax_mode: str = "exact",
-                          threads: int = 256) -> torch.Tensor:
+                          threads: int = 256,
+                          kv_splits: int = 1) -> torch.Tensor:
     """q_len = 1 decode: q (B, 1, H, D) against a dense cache k, v
     (B, T, K, D) or pool leaves (n_pages, page, K, D) read through
     ``tables`` (B, P) (negative entries are sentinels: clipped, and masked
     by the valid length); int8 caches carry per-row scales ``ks``, ``vs``;
-    kv_valid_len (B,) integer -> (B, 1, H, D)."""
+    kv_valid_len (B,) integer -> (B, 1, H, D).  ``kv_splits`` blocks of
+    ``threads`` threads serve one (slot, KV head)."""
     _check_mode(softmax_mode)
     body, t, p_per, page, n_pages = _check_decode_cache(
         q, k, v, kv_valid_len, tables, ks, vs)
@@ -426,29 +435,39 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(x.is_contiguous() for x in (q, k, v, *scales)):
         raise ValueError("decode_attention: q, k, v and the scales must be "
                          "contiguous")
-    threads = int(threads)
-    if threads % 32 or not 32 <= threads <= 512:
-        raise ValueError(f"threads must be a multiple of 32 in [32, 512], "
-                         f"got {threads}")
-    smem = decode_smem_bytes(d, threads)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: the kernel copies cache rows 16 "
+                         "bytes at a time: k and v must be 16-byte aligned")
+    threads, kv_splits = int(threads), int(kv_splits)
+    if threads % 32 or not 32 <= threads <= DECODE_MAX_THREADS:
+        raise ValueError(f"threads must be a multiple of 32 in "
+                         f"[32, {DECODE_MAX_THREADS}], got {threads}")
+    if not 1 <= kv_splits <= DECODE_MAX_SPLITS:
+        raise ValueError(f"decode_attention: kv_splits must be in "
+                         f"[1, {DECODE_MAX_SPLITS}], got {kv_splits}")
+    smem = decode_smem_bytes(d, threads, k.element_size(), kv_splits)
     if smem > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"decode_attention: D={d} at {threads} threads "
-                         f"needs {smem} bytes of shared memory per block, "
-                         f"more than the {MAX_DYNAMIC_SMEM} a block can have")
-    kv_type = 2 if int8 else int(k.dtype == torch.bfloat16)
-    lib = build.load_library()
-    with torch.cuda.device(q.device):
-        valid = kv_valid_len.to(torch.int32).contiguous()
-        tab = (tables.to(torch.int32).contiguous() if tables is not None
-               else None)
-        out = torch.empty_like(q)
-        code = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            tab.data_ptr() if tab is not None else None,
-            ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
-            out.data_ptr(), b, t, h, nkv, d, p_per, page, n_pages,
-            int(softmax_mode == "taylor"), int(q.dtype == torch.bfloat16),
-            kv_type, threads, torch.cuda.current_stream().cuda_stream)
+        raise ValueError(f"decode_attention: D={d} at {threads} threads and "
+                         f"{kv_splits} splits needs {smem} bytes of shared "
+                         f"memory per block, more than the "
+                         f"{MAX_DYNAMIC_SMEM} a block can have")
+    valid = kv_valid_len
+    if valid.dtype != torch.int32 or not valid.is_contiguous():
+        valid = valid.to(torch.int32).contiguous()
+    tab = tables
+    if tab is not None and (tab.dtype != torch.int32
+                            or not tab.is_contiguous()):
+        tab = tab.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    index = q.get_device()
+    code = _decode_launch_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        tab.data_ptr() if tab is not None else None,
+        ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
+        out.data_ptr(), b, t, h, nkv, d, p_per, page, n_pages,
+        int(softmax_mode == "taylor"), int(q.dtype == torch.bfloat16),
+        2 if int8 else int(k.dtype == torch.bfloat16), threads, kv_splits,
+        index, build.raw_stream(index))
     build.check_launch(code, f"decode_attention ({body})")
     decode_attention_cuda.launches += 1
     decode_attention_cuda.launches_by_body[body] += 1
@@ -458,11 +477,39 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attention_cuda.launches = 0
 decode_attention_cuda.launches_by_body = dict.fromkeys(DECODE_BODIES, 0)
 
+_decode_launch = None               # the C entry point, bound at first use
 
-def decode_smem_bytes(d: int, threads: int) -> int:
-    """Shared memory of one decode block, as ``decode_smem_floats`` in the
-    source sizes it: per warp a K tile padded to D + 1, a V tile and a p
-    buffer of ``DECODE_MAX_GROUP`` heads; the scaled queries once."""
-    per_warp = (DECODE_TILE * (d + 1) + DECODE_TILE * d
-                + DECODE_MAX_GROUP * DECODE_TILE)
-    return 4 * (DECODE_MAX_GROUP * d + (threads // 32) * per_warp)
+
+def _decode_launch_fn():
+    global _decode_launch
+    if _decode_launch is None:
+        _decode_launch = build.load_library().decode_attention_launch
+    return _decode_launch
+
+
+def decode_smem_bytes(d: int, threads: int, kv_bytes: int,
+                      kv_splits: int) -> int:
+    """Shared memory of one decode block, as ``decode_smem_bytes`` in the
+    source sizes it: the scaled queries; per warp ``DECODE_STAGES`` stages
+    of a K and a V tile (rows of ``kv_bytes``-byte elements padded by
+    ``DECODE_ROW_PAD``) with their scales, and a p buffer; one
+    (m, l, acc) state per split for rank 0 to join."""
+    stage = 2 * DECODE_TILE * (d * kv_bytes + DECODE_ROW_PAD) \
+        + 2 * DECODE_TILE * 4
+    per_warp = DECODE_STAGES * stage + 4 * DECODE_MAX_GROUP * DECODE_TILE
+    return (4 * DECODE_MAX_GROUP * d + (threads // 32) * per_warp
+            + 4 * kv_splits * DECODE_MAX_GROUP * (d + 2))
+
+
+def decode_kv_splits(b: int, nkv: int, t: int, asked: int,
+                     n_sm: int = H100_SMS) -> int:
+    """Blocks per (slot, KV head): the largest power of two that puts no
+    more than one block on each of ``n_sm`` SMs (B * K * splits <= n_sm,
+    at least 1), no more than ``asked``, than ``DECODE_MAX_SPLITS`` or than
+    the slot's ``t`` rows have tiles.  (A block of the default 8 warps
+    stages two tiles a warp, 166 KB at D = 64 bf16: one fits an SM.)"""
+    want = 1
+    while want < DECODE_MAX_SPLITS and b * nkv * want * 2 <= n_sm:
+        want *= 2
+    tiles = -(-t // DECODE_TILE)
+    return max(1, min(int(asked), want, tiles, DECODE_MAX_SPLITS))

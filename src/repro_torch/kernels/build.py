@@ -29,7 +29,7 @@ BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
            "decode_attention.cu", "sampling.cu")
-HEADERS = ("approx_math.cuh", "wgmma.cuh")
+HEADERS = ("approx_math.cuh", "launch.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -128,9 +128,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                                    i, i, i, i, i, i, i, i, p]
     lib.flash_attention_dequant_launch.restype = i
     lib.decode_attention_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                            i, i, i, i, i, i, i, i, i, p]
+                                            i, i, i, i, i, i, i, i, i, i, i,
+                                            p]
     lib.decode_attention_launch.restype = i
-    lib.fused_sampling_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.fused_sampling_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                          i, p]
     lib.fused_sampling_launch.restype = i
 
 
@@ -148,6 +150,32 @@ def load_library() -> ctypes.CDLL:
             _declare(lib)
             _library = lib
         return _library
+
+
+_raw_stream = None
+
+
+def stream_query():
+    """The function that gives a device's current CUDA stream handle:
+    PyTorch's private raw-stream query where this build has it, which
+    builds no ``torch.cuda.Stream`` object (that costs a few microseconds a
+    call, as much as the kernels it would launch); else the public
+    ``torch.cuda.current_stream``, which gives the same handle."""
+    import torch
+
+    query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if query is not None:
+        return query
+    return lambda index: torch.cuda.current_stream(index).cuda_stream
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of the current CUDA stream of a device, as an integer for
+    a launch through ``ctypes`` (the query is bound at first use)."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = stream_query()
+    return _raw_stream(device_index)
 
 
 def check_launch(code: int, what: str) -> None:

@@ -440,8 +440,9 @@ registry.register(KernelSpec(
 # int8 with per-row scales ``ks``/``vs``: four bodies of one kernel.  The
 # example cases are the reference's; a case may also ask for ``shuffled``
 # tables (a permutation of the pool, -1 past each slot's last valid page).
-# The tunable is the block size: one block serves one (slot, KV head) and
-# its warps take the slot's cache tiles in turn.
+# The tunables are ``kv_splits``, the blocks of the cluster that serves one
+# (slot, KV head), each owning a contiguous range of the slot's rows, and
+# the block size, whose warps take the range's cache tiles in turn.
 
 
 def _build_decode_attention():
@@ -456,17 +457,45 @@ def _decode_attention_reference():
     return decode_attention_ref
 
 
-def _legalize_decode(config: Dict[str, Any], q, k=None, *args, **kwargs
-                     ) -> Dict[str, Any]:
-    """Whole warps, at most 512 threads, and no more warps than the
-    block's shared memory holds at this head dim.  Idempotent."""
-    from repro_torch.kernels.attention.kernel import (MAX_DYNAMIC_SMEM,
-                                                      decode_smem_bytes)
+def _sm_count(device) -> int:
+    """The SMs of the card the tensors lie on; the H100's off the card,
+    where the plain version ignores the plan."""
+    from repro_torch.kernels.attention.kernel import H100_SMS
 
-    t = max(WARP, min(512, int(config["threads"]) // WARP * WARP))
-    while t > WARP and decode_smem_bytes(q.shape[-1], t) > MAX_DYNAMIC_SMEM:
-        t -= WARP
-    config["threads"] = t
+    if device.type != "cuda":
+        return H100_SMS
+    if device not in _SM_COUNTS:
+        import torch
+
+        _SM_COUNTS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNTS[device]
+
+
+_SM_COUNTS: Dict[Any, int] = {}
+
+
+def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
+                     tables=None, **kwargs) -> Dict[str, Any]:
+    """``kv_splits`` no more than :func:`decode_kv_splits` plans for the
+    slots, KV heads and rows at hand on this card; then whole warps, at
+    most 512 threads, and no more warps than the block's shared memory
+    holds at this head dim, cache type and split count.  Idempotent."""
+    from repro_torch.kernels.attention.kernel import (
+        DECODE_MAX_THREADS, MAX_DYNAMIC_SMEM, decode_kv_splits,
+        decode_smem_bytes)
+
+    b, d = q.shape[0], q.shape[-1]
+    nkv, kv_bytes = k.shape[2], k.element_size()
+    t = (tables.shape[1] * k.shape[1] if tables is not None else k.shape[1])
+    splits = decode_kv_splits(b, nkv, t, int(config["kv_splits"]),
+                              _sm_count(q.device))
+    threads = max(WARP, min(DECODE_MAX_THREADS,
+                            int(config["threads"]) // WARP * WARP))
+    while threads > WARP and decode_smem_bytes(
+            d, threads, kv_bytes, splits) > MAX_DYNAMIC_SMEM:
+        threads -= WARP
+    config["kv_splits"], config["threads"] = splits, threads
     return config
 
 
@@ -512,9 +541,10 @@ registry.register(KernelSpec(
     build=_build_decode_attention,
     reference=_decode_attention_reference,
     space={"threads": (64, 128, 256),
+           "kv_splits": (1, 2, 4, 8),
            "softmax_mode": ("exact", "taylor")},
-    tuned=("threads",),
-    base_config={"threads": 256},
+    tuned=("threads", "kv_splits"),
+    base_config={"threads": 256, "kv_splits": 8},
     legalize=_legalize_decode,
     make_example=_decode_attention_example,
     example_cases=(
@@ -539,8 +569,8 @@ registry.register(KernelSpec(
 # -- fused_sampling ---------------------------------------------------------
 # Temperature / top-k / top-p and the counter-based draw of every row in one
 # launch; greedy (temperature <= 0) is an exact argmax.  Tokens are int32,
-# so the parity harness's tolerance means equality.  The tunable is the
-# block size (one block per row).
+# so the parity harness's tolerance means equality.  The tunables are the
+# cluster size (the blocks that share a row) and the block size.
 
 
 def _build_fused_sampling():
@@ -553,6 +583,18 @@ def _sampling_reference():
     from repro_torch.kernels.sampling.ref import fused_sampling_ref
 
     return fused_sampling_ref
+
+
+def _legalize_sampling(config: Dict[str, Any], logits, *args, **kwargs
+                       ) -> Dict[str, Any]:
+    """Whole warps, at most 1024 threads; then the cluster size that
+    :func:`plan_cluster` gives rows of this length.  Idempotent."""
+    from repro_torch.kernels.sampling.kernel import plan_cluster
+
+    config = _legalize_threads(config)
+    config["cluster"] = plan_cluster(logits.shape[-1], config["cluster"],
+                                     config["threads"])
+    return config
 
 
 def _sampling_example(case, device="cpu"):
@@ -579,10 +621,10 @@ registry.register(KernelSpec(
     name="fused_sampling",
     build=_build_fused_sampling,
     reference=_sampling_reference,
-    space={"threads": (256, 512, 1024)},
-    tuned=("threads",),
-    base_config={"threads": 1024},
-    legalize=_legalize_threads,
+    space={"cluster": (1, 2, 4, 8), "threads": (256, 512, 1024)},
+    tuned=("cluster", "threads"),
+    base_config={"cluster": 8, "threads": 512},
+    legalize=_legalize_sampling,
     make_example=_sampling_example,
     example_cases=(
         # tokens are int32 — the parity harness's allclose means *equal*
@@ -647,6 +689,7 @@ def flash_attention_dequant(q, kq, ks, vq, vs, causal: bool = True,
 def decode_attention(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
                      softmax_mode: str = "exact",
                      threads: Optional[int] = None,
+                     kv_splits: Optional[int] = None,
                      tune: Optional[bool] = None):
     """q_len = 1 decode attention: q (B, 1, H, D) against a dense cache
     k, v (B, T, K, D), or with ``tables`` (B, P) the pool leaves
@@ -655,19 +698,20 @@ def decode_attention(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
     return registry.call("decode_attention", q, k, v, kv_valid_len,
                          tables=tables, ks=ks, vs=vs,
                          softmax_mode=softmax_mode,
-                         config={"threads": threads}, tune=tune)
+                         config={"threads": threads, "kv_splits": kv_splits},
+                         tune=tune)
 
 
 def fused_sampling(logits, temperature, seeds, pos, top_k=None, top_p=None,
+                   cluster: Optional[int] = None,
                    threads: Optional[int] = None,
-                   tune: Optional[bool] = None, scratch=None):
+                   tune: Optional[bool] = None):
     """Fused sampling: logits (B, V) float32 and per-row temperature / seed
     / position / top_k / top_p -> (B,) int32 tokens.  Scalars and host
     arrays are broadcast to (B,) and reach the logits' device in one copy;
     ``top_k`` None or 0 and ``top_p`` None or 1.0 leave the restriction
     off.  Seeds are taken modulo 2^32, as the kernel's uint32 hash reads
-    them.  ``scratch`` is the kernel's work space (see
-    :func:`repro_torch.kernels.sampling.kernel.fused_sampling_cuda`)."""
+    them."""
     import numpy as np
     import torch
 
@@ -688,5 +732,5 @@ def fused_sampling(logits, temperature, seeds, pos, top_k=None, top_p=None,
         logits.device).unbind(0)
     return registry.call(
         "fused_sampling", logits, temp.view(torch.float32), seed, posr, tk,
-        tp.view(torch.float32), config={"threads": threads}, tune=tune,
-        scratch=scratch)
+        tp.view(torch.float32),
+        config={"cluster": cluster, "threads": threads}, tune=tune)

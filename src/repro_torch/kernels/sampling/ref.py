@@ -63,9 +63,9 @@ def _uniform_lanes(seeds: torch.Tensor, pos: torch.Tensor, v: int
     return torch.clamp(u, min=1e-7)
 
 
-def _topk_mask(z: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Keep lanes >= the k-th largest value of each row (ties kept);
-    ``k <= 0`` means no restriction.  Invariant: count(z >= lo) >= k."""
+def _topk_lo(z: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(b,) the largest lo found with count(z >= lo) >= k, by bisection
+    over [min z, max z]; ``k <= 0`` means k = V."""
     b, v = z.shape
     k_eff = torch.clamp(torch.where(k <= 0, v, k), 1, v)
     lo = z.amin(dim=-1)
@@ -75,15 +75,24 @@ def _topk_mask(z: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         ge = (z >= mid[:, None]).sum(dim=-1) >= k_eff
         lo = torch.where(ge, mid, lo)
         hi = torch.where(ge, hi, mid)
-    return z >= lo[:, None]
+    return lo
 
 
-def _topp_mask(z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Keep the smallest prefix of probability mass >= p (nucleus);
-    ``p >= 1`` keeps everything.  Invariant: sum(prob[z > lo]) >= p."""
-    m = z.amax(dim=-1, keepdim=True)
-    e = torch.exp(z - m)
-    probs = e / e.sum(dim=-1, keepdim=True)
+def _topk_mask(z: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Keep lanes >= the k-th largest value of each row (ties kept);
+    ``k <= 0`` means no restriction.  Invariant: count(z >= lo) >= k."""
+    return z >= _topk_lo(z, k)[:, None]
+
+
+def _probs(z: torch.Tensor) -> torch.Tensor:
+    e = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _topp_lo(z: torch.Tensor, p: torch.Tensor,
+             probs: torch.Tensor) -> torch.Tensor:
+    """(b,) the largest lo found with sum(probs[z > lo]) >= p, by
+    bisection over [min z - 1, max z]."""
     lo = z.amin(dim=-1) - 1.0
     hi = z.amax(dim=-1)
     for _ in range(_BISECT_STEPS):
@@ -92,6 +101,13 @@ def _topp_mask(z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         ge = c >= p
         lo = torch.where(ge, mid, lo)
         hi = torch.where(ge, hi, mid)
+    return lo
+
+
+def _topp_mask(z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Keep the smallest prefix of probability mass >= p (nucleus);
+    ``p >= 1`` keeps everything.  Invariant: sum(prob[z > lo]) >= p."""
+    lo = _topp_lo(z, p, _probs(z))
     return (z > lo[:, None]) | (p >= 1.0)[:, None]
 
 

@@ -128,9 +128,6 @@ class ServeEngine(EngineCore):
             self._caches = lm.make_caches(cfg, n_slots, max_len, self.device)
         self._tok = np.zeros((n_slots,), np.int32)   # pending token per slot
         self._pos = np.zeros((n_slots,), np.int32)   # its cache index
-        # fused_sampling's work space, allocated at the first device-sampled
-        # tick and kept (guarded-by: single ticker thread)
-        self._sample_scratch: Optional[torch.Tensor] = None
 
     # -- device steps --------------------------------------------------------
 
@@ -270,15 +267,8 @@ class ServeEngine(EngineCore):
             poss[s] = pos_of(s)
             tks[s] = int(getattr(req, "top_k", 0) or 0)
             tps[s] = float(getattr(req, "top_p", 1.0))
-        if logits.is_cuda and (
-                self._sample_scratch is None
-                or self._sample_scratch.shape[-1] != logits.shape[-1]):
-            self._sample_scratch = torch.empty(
-                (n, 2, logits.shape[-1]), dtype=torch.float32,
-                device=logits.device)
         toks = kernels.fused_sampling(logits, temp, seeds, poss, top_k=tks,
-                                      top_p=tps, tune=False,
-                                      scratch=self._sample_scratch)
+                                      top_p=tps, tune=False)
         return toks.cpu().numpy()
 
     # -- single-batch convenience ------------------------------------------

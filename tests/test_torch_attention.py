@@ -384,10 +384,15 @@ class TestLegalize:
     @pytest.mark.parametrize("d,asked,want", [(64, 256, 256), (128, 256, 192),
                                               (32, 100, 96), (16, 9999, 512)])
     def test_decode_threads_fit_shared_memory(self, d, asked, want):
-        q, k = torch.zeros(2, 1, 8, d), torch.zeros(2, 16, 2, d)
-        cfg = port_registry_mod._legalize_decode({"threads": asked}, q, k)
-        assert cfg == {"threads": want}
-        assert (port_attn.decode_smem_bytes(d, want)
+        """A bf16 cache, one split: whole warps, at most 512 threads, and no
+        more warps than the block's shared memory holds (two staged K and V
+        tiles a warp)."""
+        q = torch.zeros(2, 1, 8, d, dtype=torch.bfloat16)
+        k = torch.zeros(2, 64, 2, d, dtype=torch.bfloat16)
+        cfg = port_registry_mod._legalize_decode(
+            {"threads": asked, "kv_splits": 1}, q, k)
+        assert cfg == {"threads": want, "kv_splits": 1}
+        assert (port_attn.decode_smem_bytes(d, want, 2, 1)
                 <= port_attn.MAX_DYNAMIC_SMEM)
 
     @pytest.mark.parametrize("source,constant,name", [
@@ -425,8 +430,11 @@ class TestLegalize:
                                             **kwargs) == {"q_block": 32}
         spec = port_registry.get("decode_attention")
         args, kwargs = spec.make_example(spec.example_cases[0])
+        # 4 slots x 2 KV heads of 128 rows: the split is capped by the
+        # rows' four tiles
         assert port_registry.default_config("decode_attention", *args,
-                                            **kwargs) == {"threads": 256}
+                                            **kwargs) == {"threads": 256,
+                                                          "kv_splits": 4}
 
 
 # ---------------------------------------------------------------------------
@@ -594,3 +602,230 @@ class TestTensorCoreNumerics:
         err_split = float((split - oracle).abs().max())
         err_single = float((single - oracle).abs().max())
         assert err_split < 1e-5 < err_single
+
+
+# ---------------------------------------------------------------------------
+# The decode kernel's split-KV partition and combine, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _join(states, mode):
+    """The kernel's log-sum-exp join of (m, l, acc) states, in order."""
+    mt = states[0][0]
+    for m, _, _ in states[1:]:
+        mt = torch.maximum(mt, m)
+    lt = torch.zeros_like(mt)
+    at = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        f = port_attn._exp(m - mt, mode)
+        lt = lt + l * f
+        at = at + acc * f[..., None]
+    return mt, lt, at
+
+
+def _split_kv_model(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
+                    softmax_mode="exact", kv_splits=1, warps=4):
+    """``decode_attention_kernel`` (``csrc/decode_attention.cu``) in plain
+    PyTorch: split s of a slot owns the logical rows [s * per, s * per +
+    per), per = ceil(n / kv_splits) rounded up to the tile; the block's
+    warps take its tiles in turn with an online softmax each (scores
+    scaled by the row's K scale, p by its V scale for PV); the warps are
+    joined in warp order, the splits in rank order."""
+    if tables is not None:
+        k, v = port_attn._paged_rows(k, tables), port_attn._paged_rows(v, tables)
+        if ks is not None:
+            ks, vs = (port_attn._paged_rows(ks, tables),
+                      port_attn._paged_rows(vs, tables))
+    b, _, h, d = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    tile = port_attn.DECODE_TILE
+    qs = q.float().reshape(b, nkv, h // nkv, d) * (1.0 / math.sqrt(d))
+    out = torch.zeros(b, nkv, h // nkv, d)
+    empty = (torch.full((nkv, h // nkv), pref.NEG_INF),
+             torch.zeros(nkv, h // nkv), torch.zeros(nkv, h // nkv, d))
+    for bi in range(b):
+        n = max(0, min(int(kv_valid_len[bi]), t))
+        per = -(-(-(-n // kv_splits)) // tile) * tile
+        splits = []
+        for s in range(kv_splits):
+            r0 = min(n, s * per)
+            r1 = min(n, r0 + per)
+            n_tiles = -(-(r1 - r0) // tile)
+            states = []
+            for w in range(warps):
+                m, l, acc = empty
+                for j in range(w, n_tiles, warps):
+                    rows = slice(r0 + j * tile, min(r0 + (j + 1) * tile, r1))
+                    sc = torch.einsum("kgd,rkd->kgr", qs[bi],
+                                      k[bi, rows].float())
+                    if ks is not None:
+                        sc = sc * ks[bi, rows].float()
+                    m_new = torch.maximum(m, sc.amax(dim=-1))
+                    alpha = port_attn._exp(m - m_new, softmax_mode)
+                    p = port_attn._exp(sc - m_new[..., None], softmax_mode)
+                    l = l * alpha + p.sum(dim=-1)
+                    if vs is not None:
+                        p = p * vs[bi, rows].float()
+                    acc = (acc * alpha[..., None]
+                           + torch.einsum("kgr,rkd->kgd", p,
+                                          v[bi, rows].float()))
+                    m = m_new
+                states.append((m, l, acc))
+            splits.append(_join(states, softmax_mode))
+        _, lt, at = _join(splits, softmax_mode)
+        out[bi] = at / torch.clamp(lt, min=1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# (name, case, atol): the decode layouts at a small size, 4 slots of up to
+# 256 rows over 2 KV heads; lengths at a tile's edges, a full slot, an
+# empty one, and lengths shorter than one split
+_SPLIT_LAYOUTS = [
+    ("dense", {"dims": (4, 256, 8, 2, 32)}, 2e-5),
+    ("dense-bf16", {"dims": (4, 256, 8, 2, 32), "dtype": "bfloat16"}, 1e-2),
+    ("int8", {"dims": (4, 256, 8, 2, 32), "quant": True}, 2e-5),
+    ("paged", {"dims": (4, 256, 8, 2, 32), "paged": (64, 16, 16),
+               "shuffled": True}, 2e-5),
+    ("paged-int8-bf16", {"dims": (4, 256, 8, 2, 32), "paged": (64, 16, 16),
+                         "shuffled": True, "quant": True,
+                         "dtype": "bfloat16"}, 1e-2),
+]
+_SPLIT_VALID = {"edges": (256, 33, 1, 0), "short": (7, 31, 32, 65)}
+_SPLIT_CACHE = {}
+
+
+def _jax_exact(x):
+    """A tensor as a JAX array of the same type (bf16 through float32,
+    which holds it exactly)."""
+    if x.dtype == torch.bfloat16:
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    return _jax(x)
+
+
+def _split_case(layout, valid, mode):
+    name, case, atol = {c[0]: c for c in _SPLIT_LAYOUTS}[layout]
+    case = dict(case, valid=_SPLIT_VALID[valid], softmax_mode=mode, seed=9)
+    args, kwargs = port_registry.get("decode_attention").make_example(case)
+    key = (layout, valid, mode)
+    if key not in _SPLIT_CACHE:      # the Pallas kernel, once per inputs
+        ref_kw = {k: _jax(kwargs[k]) for k in ("ks", "vs") if k in kwargs}
+        if "tables" in kwargs:
+            n_pages = args[1].shape[0]
+            ref_kw["tables"] = _jax(kwargs["tables"].clamp(0, n_pages - 1))
+        _SPLIT_CACHE[key] = f32(ref_kernels.decode_attention(
+            *map(_jax_exact, args), softmax_mode=mode, **ref_kw))
+    return args, kwargs, atol, _SPLIT_CACHE[key]
+
+
+class TestSplitKvModel:
+    @pytest.mark.parametrize("kv_splits", port_registry.get(
+        "decode_attention").space["kv_splits"])
+    @pytest.mark.parametrize("valid", sorted(_SPLIT_VALID))
+    @pytest.mark.parametrize("layout", [c[0] for c in _SPLIT_LAYOUTS])
+    def test_exact_vs_oracle_and_pallas_interpret(self, layout, valid,
+                                                  kv_splits):
+        args, kwargs, atol, pallas = _split_case(layout, valid, "exact")
+        kw = {k: v for k, v in kwargs.items() if k != "softmax_mode"}
+        got = _split_kv_model(*args, **kw, kv_splits=kv_splits)
+        want = pref.decode_attention_ref(*args, **kw)
+        assert got.dtype == args[0].dtype
+        np.testing.assert_allclose(f32(got), f32(want), atol=atol)
+        np.testing.assert_allclose(f32(got), pallas, atol=atol)
+        if valid == "edges":
+            assert not f32(got)[3].any()              # valid 0 gives zeros
+
+    @pytest.mark.parametrize("kv_splits", port_registry.get(
+        "decode_attention").space["kv_splits"])
+    @pytest.mark.parametrize("layout", ["dense", "paged-int8-bf16"])
+    def test_taylor_vs_oracle_and_pallas_interpret(self, layout, kv_splits):
+        """The Eq. 2 exp, in every online-softmax step and in both joins,
+        within 5e-2 of the exact oracle and of the Pallas kernel's own
+        Eq. 2 body."""
+        args, kwargs, _, pallas = _split_case(layout, "edges", "taylor")
+        got = _split_kv_model(*args, **kwargs, kv_splits=kv_splits)
+        kw = {k: v for k, v in kwargs.items() if k != "softmax_mode"}
+        np.testing.assert_allclose(
+            f32(got), f32(pref.decode_attention_ref(*args, **kw)), atol=5e-2)
+        np.testing.assert_allclose(f32(got), pallas, atol=5e-2)
+
+    @pytest.mark.parametrize("kv_splits", [1, 2, 4, 8])
+    def test_dense_and_paged_take_the_same_sums(self, kv_splits):
+        """The partition is over logical rows: the paged body's rows are
+        the dense body's, so the model gives the same bits."""
+        case = {"dims": (4, 256, 8, 2, 32), "valid": (256, 100, 3, 77),
+                "paged": (64, 16, 16), "shuffled": True, "seed": 4}
+        args, kwargs = port_registry.get("decode_attention").make_example(
+            case)
+        q, kp, vp, valid = args
+        tables = kwargs.pop("tables")
+        dense_k = port_attn._paged_rows(kp, tables)
+        dense_v = port_attn._paged_rows(vp, tables)
+        paged = _split_kv_model(q, kp, vp, valid, tables=tables,
+                                kv_splits=kv_splits)
+        dense = _split_kv_model(q, dense_k, dense_v, valid,
+                                kv_splits=kv_splits)
+        assert torch.equal(paged, dense)
+
+
+class TestDecodePlanner:
+    @pytest.mark.parametrize("source_constant,name", [
+        ("kDecodeStages", "DECODE_STAGES"),
+        ("kDecodeRowPad", "DECODE_ROW_PAD"),
+        ("kDecodeMaxSplits", "DECODE_MAX_SPLITS"),
+        ("kDecodeMaxThreads", "DECODE_MAX_THREADS"),
+        ("kDecodeMaxSmem", "MAX_DYNAMIC_SMEM"),
+    ])
+    def test_constants_match_cuda_source(self, source_constant, name):
+        import re
+
+        from repro_torch.kernels import build
+
+        text = (build.CSRC_DIR / "decode_attention.cu").read_text()
+        found = re.findall(rf"constexpr int {source_constant} = (\d+);",
+                           text)
+        assert found == [str(getattr(port_attn, name))]
+
+    def test_smem_formula_matches_cuda_source(self):
+        from repro_torch.kernels import build
+
+        text = " ".join((build.CSRC_DIR / "decode_attention.cu")
+                        .read_text().split())
+        for line in (
+                "return 2LL * kDecodeTile * (d * kv_bytes + kDecodeRowPad) "
+                "+ 2LL * kDecodeTile * 4;",
+                "return kDecodeStages * decode_stage_bytes(d, kv_bytes) + "
+                "4LL * kDecodeMaxG * kDecodeTile;",
+                "return 4LL * kDecodeMaxG * d + warps * decode_warp_bytes(d, "
+                "kv_bytes) + 4LL * splits * kDecodeMaxG * (d + 2);"):
+            assert line in text
+
+    @pytest.mark.parametrize("d", port_attn.HEAD_DIMS)
+    @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                          torch.int8])
+    def test_every_legal_config_fits_shared_memory(self, d, kv_dtype):
+        spec = port_registry.get("decode_attention")
+        q = torch.zeros(8, 1, 16, d)
+        k = torch.zeros(8, 512, 8, d).to(kv_dtype)
+        for threads in spec.space["threads"] + (512,):
+            for splits in spec.space["kv_splits"]:
+                cfg = port_registry_mod._legalize_decode(
+                    {"threads": threads, "kv_splits": splits}, q, k)
+                assert 1 <= cfg["kv_splits"] <= splits
+                assert cfg["threads"] % 32 == 0 and cfg["threads"] <= threads
+                assert port_attn.decode_smem_bytes(
+                    d, cfg["threads"], k.element_size(), cfg["kv_splits"]
+                ) <= port_attn.MAX_DYNAMIC_SMEM
+                assert port_registry_mod._legalize_decode(
+                    dict(cfg), q, k) == cfg
+
+    @pytest.mark.parametrize("b,nkv,t,want", [
+        (8, 8, 1024, 2),       # serve_lm: 64 (slot, head) pairs, 128 blocks
+        (4, 8, 512, 4),        # qwen3 widths: 32 pairs
+        (1, 8, 1024, 8),
+        (16, 8, 1024, 1),      # 128 pairs fill the card alone
+        (2, 8, 64, 2),         # two tiles of rows
+        (1, 1, 16, 1),
+    ])
+    def test_default_splits_fill_the_card(self, b, nkv, t, want):
+        assert port_attn.decode_kv_splits(b, nkv, t, 8) == want
+        assert port_attn.decode_kv_splits(b, nkv, t, 8, n_sm=66) <= want

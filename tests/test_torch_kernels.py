@@ -190,6 +190,39 @@ class TestBuild:
         with pytest.raises(build.KernelBuildError, match="nvcc not found"):
             build.find_nvcc()
 
+    def test_every_included_header_is_hashed(self):
+        """A header a source includes is part of the build's content hash,
+        so editing it rebuilds the library."""
+        import re
+
+        for name in build.SOURCES + build.HEADERS:
+            text = (build.CSRC_DIR / name).read_text()
+            for inc in re.findall(r'#include "([^"]+)"', text):
+                assert inc in build.HEADERS, (name, inc)
+
+    def test_stream_query_takes_the_private_query_where_it_exists(
+            self, monkeypatch):
+        """The wrappers take PyTorch's private raw-stream query when the
+        build has it, and the public current_stream route when it does not
+        (a PyTorch that renames the private one still launches)."""
+        def private(index):
+            return 1000 + index
+
+        class FakeStream:
+            def __init__(self, index):
+                self.cuda_stream = 2000 + index
+
+        monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", private,
+                            raising=False)
+        assert build.stream_query() is private
+        monkeypatch.setattr(build, "_raw_stream", None)
+        assert build.raw_stream(3) == 1003
+        monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream")
+        assert build.stream_query()(3) == 2003
+        monkeypatch.setattr(build, "_raw_stream", None)
+        assert build.raw_stream(1) == 2001
+
     def test_source_hash_is_stable(self):
         assert build._source_hash() == build._source_hash()
         assert len(build._source_hash()) == 16

@@ -160,3 +160,198 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="on meta"):
             port_kernel.fused_sampling_cuda(torch.zeros(2, 8),
                                             *self._rows(2, "meta"))
+
+
+# ---------------------------------------------------------------------------
+# The cluster kernel's arithmetic (csrc/sampling.cu), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+from hypothesis import HealthCheck, given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+
+def _multilevel_lo(lo, hi, pred, levels, steps=pref._BISECT_STEPS):
+    """The kernel's bisection: per pass the 2^L - 1 midpoints the next L
+    steps can take (heap order, each 0.5 * (lo' + hi') of its own
+    interval), the predicate at every one of them in one sweep, then the L
+    decisions walked.  ``pred(mid)`` maps (b,) midpoints to (b,) bools."""
+    done = 0
+    while done < steps:
+        n_levels = min(levels, steps - done)
+        nodes = (1 << n_levels) - 1
+        nlo, nhi, mids = [lo] + [None] * nodes, [hi] + [None] * nodes, []
+        for n in range(nodes):
+            mids.append(0.5 * (nlo[n] + nhi[n]))
+            if 2 * n + 2 < nodes:
+                nlo[2 * n + 1], nhi[2 * n + 1] = nlo[n], mids[n]
+                nlo[2 * n + 2], nhi[2 * n + 2] = mids[n], nhi[n]
+        ge = [pred(m) for m in mids]
+        node = torch.zeros_like(lo, dtype=torch.int64)
+        for _ in range(n_levels):
+            mid = torch.stack(mids, dim=-1).gather(-1, node[:, None])[:, 0]
+            up = torch.stack(ge, dim=-1).gather(-1, node[:, None])[:, 0]
+            lo = torch.where(up, mid, lo)
+            hi = torch.where(up, hi, mid)
+            node = torch.where(up, 2 * node + 2, 2 * node + 1)
+        done += n_levels
+    return lo
+
+
+def _kernel_lo(z, k, p, levels):
+    """(lo_k, lo_p) of the multi-level walk, as the kernel runs it."""
+    b, v = z.shape
+    k_eff = torch.clamp(torch.where(k <= 0, v, k), 1, v)
+    probs = pref._probs(z)
+    lo_k = _multilevel_lo(
+        z.amin(dim=-1), z.amax(dim=-1),
+        lambda mid: (z >= mid[:, None]).sum(dim=-1) >= k_eff, levels)
+    lo_p = _multilevel_lo(
+        z.amin(dim=-1) - 1.0, z.amax(dim=-1),
+        lambda mid: torch.where(z > mid[:, None], probs, 0.0).sum(dim=-1)
+        >= p, levels)
+    return lo_k, lo_p
+
+
+_ROW_VALUES = st.sampled_from([-3.0, -1.0, 0.0, 0.5, 1.0, 2.0, 7.25])
+
+
+@st.composite
+def _rows(draw):
+    """A row with ties (values from a small set), a constant row, or
+    arbitrary floats; k in {1, V - 1, V} or any; p near 0 or 1 or any."""
+    v = draw(st.integers(2, 48))
+    kind = draw(st.sampled_from(["ties", "constant", "floats"]))
+    if kind == "ties":
+        row = draw(st.lists(_ROW_VALUES, min_size=v, max_size=v))
+    elif kind == "constant":
+        row = [draw(_ROW_VALUES)] * v
+    else:
+        row = draw(st.lists(st.floats(-30, 30, width=32), min_size=v,
+                            max_size=v))
+    k = draw(st.sampled_from([1, v - 1, v, draw(st.integers(1, v))]))
+    p = draw(st.sampled_from([1e-6, 0.01, 0.5, 0.9, 0.999, 0.999999,
+                              draw(st.floats(0.0, 1.0, width=32))]))
+    t = draw(st.sampled_from([0.5, 0.8, 1.0, 1.7]))
+    return row, k, p, t
+
+
+@pytest.mark.parametrize("levels", [1, 2, port_kernel.SAMPLE_LEVELS, 4, 5])
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(case=_rows())
+def test_multilevel_bisection_takes_the_sequential_floats(levels, case):
+    """The kernel's L-levels-per-pass walk ends on the very floats lo_k
+    and lo_p of the 30-step sequential bisection of sample_tokens, for the
+    kernel's L and others (30 % L != 0 ends with a shorter pass)."""
+    row, k, p, t = case
+    x = torch.tensor([row], dtype=torch.float32)
+    z = x / torch.clamp(torch.tensor([t], dtype=torch.float32), min=1e-6)[:, None]
+    kt = torch.tensor([k], dtype=torch.int64)
+    pt = torch.tensor([p], dtype=torch.float32)
+    lo_k, lo_p = _kernel_lo(z, kt, pt, levels)
+    assert torch.equal(lo_k, pref._topk_lo(z, kt))
+    assert torch.equal(lo_p, pref._topp_lo(z, pt, pref._probs(z)))
+
+
+def test_multilevel_bisection_on_a_llama_row():
+    rng = np.random.RandomState(11)
+    z = torch.from_numpy((rng.standard_normal((3, 128256)) * 3.0 / 0.8)
+                         .astype(np.float32))
+    k = torch.tensor([50, 1, 128255])
+    p = torch.tensor([0.9, 1e-4, 0.999], dtype=torch.float32)
+    lo_k, lo_p = _kernel_lo(z, k, p, port_kernel.SAMPLE_LEVELS)
+    assert torch.equal(lo_k, pref._topk_lo(z, k))
+    assert torch.equal(lo_p, pref._topp_lo(z, p, pref._probs(z)))
+
+
+@pytest.mark.parametrize("constant,name", [
+    ("kSampleLevels", "SAMPLE_LEVELS"),
+    ("kSampleVals", "SAMPLE_VALS"),
+    ("kSampleMaxWarps", "SAMPLE_MAX_WARPS"),
+    ("kSampleMaxCluster", "SAMPLE_MAX_CLUSTER"),
+    ("kSampleMaxSmem", "MAX_DYNAMIC_SMEM"),
+])
+def test_planner_constants_match_cuda_source(constant, name):
+    """The registry plans cluster sizes from the wrapper module's copy of
+    the kernel's geometry; it must be the source's own."""
+    import re
+
+    from repro_torch.kernels import build
+
+    text = (build.CSRC_DIR / "sampling.cu").read_text()
+    found = re.findall(rf"constexpr int {constant} = (\d+);", text)
+    assert found == [str(getattr(port_kernel, name))]
+
+
+def test_planner_formulas_match_cuda_source():
+    """The slice and shared-memory sums, as the source writes them."""
+    from repro_torch.kernels import build
+
+    text = " ".join((build.CSRC_DIR / "sampling.cu").read_text().split())
+    assert "return ((V + cluster - 1) / cluster + 3) / 4 * 4;" in text
+    assert ("return 2LL * sampling_slice(V, cluster) + (long long)"
+            "(kSampleMaxWarps + 3) * kSampleVals + 2LL * kSampleMaxCluster;"
+            ) in text
+
+
+@pytest.mark.parametrize("v", [33, 50, 64, 4096, 32000, 128256, 128257,
+                               151936, 262144, 400000])
+def test_every_legal_config_fits_shared_memory(v):
+    """Every config of the space is planned to a cluster whose slice fits a
+    block's shared memory; a row that fits no cluster (more than 230144
+    logits, here 262144 and 400000) is refused for every config."""
+    spec = port_registry.get("fused_sampling")
+    logits = torch.zeros(2, v)
+    fits = (port_kernel.sampling_smem_bytes(
+        v, port_kernel.SAMPLE_MAX_CLUSTER) <= port_kernel.MAX_DYNAMIC_SMEM)
+    assert fits == (v <= 230144)
+    for cluster in spec.space["cluster"]:
+        for threads in spec.space["threads"]:
+            def resolve():
+                return port_registry.resolve_config(
+                    "fused_sampling", logits, *([torch.zeros(2)] * 5),
+                    overrides={"cluster": cluster, "threads": threads},
+                    tune=False)
+
+            if not fits:
+                with pytest.raises(ValueError, match="shared memory"):
+                    resolve()
+                continue
+            cfg = resolve()
+            assert cfg["cluster"] in port_kernel.CLUSTER_SIZES
+            assert cfg["cluster"] <= max(cluster, 1) or (
+                port_kernel.sampling_smem_bytes(v, cluster)
+                > port_kernel.MAX_DYNAMIC_SMEM)
+            assert (port_kernel.sampling_smem_bytes(v, cfg["cluster"])
+                    <= port_kernel.MAX_DYNAMIC_SMEM)
+            slice_ = port_kernel.sampling_slice(v, cfg["cluster"])
+            assert slice_ % 4 == 0 and cfg["cluster"] * slice_ >= v
+
+
+@pytest.mark.parametrize("v,want", [(64, 1), (33, 1), (50, 1), (8192, 4),
+                                    (128256, 8), (151936, 8), (230144, 8)])
+def test_default_cluster(v, want):
+    """Small rows (the CPU cases) run on one block; a llama or qwen
+    vocabulary, and the longest row the kernel takes, on the default 8."""
+    logits = torch.zeros(2, v)
+    cfg = port_registry.default_config("fused_sampling", logits,
+                                       *([torch.zeros(2)] * 5))
+    assert cfg == {"cluster": want, "threads": 512}
+
+
+def test_a_row_too_long_for_any_cluster_is_refused():
+    """A row that fits no cluster of the portable 8 blocks is refused by
+    the planner and by the wrapper's checks, with the same message."""
+    v = 230145
+    assert (port_kernel.sampling_smem_bytes(v, 8)
+            > port_kernel.MAX_DYNAMIC_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        port_kernel.plan_cluster(v, 8, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        port_kernel._check_cuda(torch.zeros(1, v), tuple(
+            torch.zeros(1, dtype=dt) for _, dt in port_kernel._ROWS), 8,
+            1024)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        port_kernel._check_cuda(torch.zeros(1, 64), tuple(
+            torch.zeros(1, dtype=dt) for _, dt in port_kernel._ROWS), 16,
+            512)
