@@ -12,8 +12,9 @@ sampling in the hand-written kernels, serves it again from the paged KV
 cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
 decode reading the pages in place through the paged decode kernels, holds
 the int8 dense-cache decode kernel against the paged one on the same pool,
-and times the nine kernels (and the decode and sampling kernels at every
-point of their tunables' spaces: ``kv_splits`` and threads, the cluster
+and times the nine kernels (routing also at the dense shape; routing,
+softmax, decode and sampling at every point of their tunables' spaces:
+``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
 size and threads; and sampling on a served decode tick's logits).  One JSON
 object per phase goes to standard output; the last three lines are the
 kernel table, the card's name and power limit, and ``{"ok": true,
@@ -49,7 +50,8 @@ from repro_torch.kernels.attention.kernel import (  # noqa: E402
     flash_attention_dequant_cuda, flash_attention_dequant_plain,
     flash_attention_plain)
 from repro_torch.kernels.registry import registry  # noqa: E402
-from repro_torch.kernels.routing.routing_kernel import fused_routing_cuda  # noqa: E402
+from repro_torch.kernels.routing.routing_kernel import (  # noqa: E402
+    fused_routing_cuda, routing_smem_bytes)
 from repro_torch.kernels.sampling.kernel import fused_sampling_cuda  # noqa: E402
 from repro_torch.kernels.softmax.kernel import taylor_softmax_cuda  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -235,11 +237,41 @@ EXTRA_CASES = {
          "dtype": "bfloat16", "atol": 1e-2},
         # D not a power of two: the agreement step's path without shuffles
         {"shape": (2, 20, 3, 12), "softmax_mode": "taylor", "atol": 1e-4},
+        # bf16 at the dense shape; 72-byte bf16 rows (slices staged by 8-byte
+        # cp.async) and 30-byte ones (staged element by element)
+        *({"shape": (BATCH, 1152, 10, 16), "softmax_mode": mode,
+           "dtype": "bfloat16", "atol": 1e-2} for mode in ("exact", "taylor")),
+        {"shape": (2, 20, 3, 12), "softmax_mode": "taylor",
+         "dtype": "bfloat16", "atol": 1e-2},
+        {"shape": (3, 7, 3, 5), "softmax_mode": "exact", "dtype": "bfloat16",
+         "atol": 1e-2},
+        # small and odd batches (the SLO scheduler's buckets and the last
+        # tick of a run): 8 blocks an image, ragged capsule ranges at I = 252
+        *({"shape": (b, i, 10, 16), "softmax_mode": mode,
+           "atol": 1e-5 if mode == "exact" else 1e-4}
+          for b in (1, 3, 17) for i in (252, 1152)
+          for mode in ("exact", "taylor")),
+        # every cluster size that fits, at both main shapes
+        *({"shape": (BATCH, 252, 10, 16), "softmax_mode": "taylor",
+           "atol": 1e-4, "config": {"i_splits": n}} for n in (1, 2, 4, 8)),
+        *({"shape": (BATCH, 1152, 10, 16), "softmax_mode": "taylor",
+           "atol": 1e-4, "config": {"i_splits": n, "threads": t}}
+          for n in (4, 8) for t in (256, 1024)),
     ),
     "taylor_softmax": (
         {"shape": (BATCH * 252, 10), "scale": 1.0, "atol": 1e-6},
         {"shape": (BATCH, 252, 10), "scale": 1.0, "atol": 1e-6},
+        {"shape": (BATCH, 252, 10), "scale": 1.0, "dtype": "bfloat16",
+         "atol": 1e-2},
         {"shape": (1, 1024), "atol": 1e-6},
+        # row counts that are no multiple of the tile, an unaligned tail
+        # (7 floats a row), and N at both sides of the tile kernel's 32
+        {"shape": (1000, 10), "atol": 1e-6},
+        {"shape": (999, 7), "atol": 1e-6},
+        {"shape": (513, 9), "dtype": "bfloat16", "scale": 3.0, "atol": 1e-2},
+        {"shape": (4000, 32), "atol": 1e-6},
+        {"shape": (4000, 33), "atol": 1e-6},
+        {"shape": (100, 17), "atol": 1e-6},
     ),
     "flash_attention": (
         # the serve_lm prefill: 8 prompts rounded up to 1024 positions
@@ -406,9 +438,21 @@ def phase_device() -> str:
     return smi
 
 
+# (I, J, D, element bytes, i_splits) at which the routing wrapper's mirror
+# of the kernel's shared memory is held against the library's own sum
+SMEM_CHECKS = ((252, 10, 16, 4, 4), (1152, 10, 16, 4, 4),
+               (1152, 10, 16, 4, 8), (1152, 10, 16, 2, 4), (20, 3, 12, 2, 8),
+               (7, 3, 5, 2, 8))
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.load_library()
+    lib = build.load_library()
+    for dims in SMEM_CHECKS:
+        if lib.fused_routing_smem_bytes(*dims) != routing_smem_bytes(*dims):
+            fail(f"build: routing shared memory at {dims}: the library "
+                 f"sizes {lib.fused_routing_smem_bytes(*dims)} bytes, the "
+                 f"wrapper {routing_smem_bytes(*dims)}")
     emit("build", seconds=time.perf_counter() - t0,
          library=str(build.build_dir()), sources=list(build.SOURCES),
          private_stream_query=hasattr(torch._C, "_cuda_getCurrentRawStream"))
@@ -491,6 +535,8 @@ BODY_COUNTERS = ("decode_attention", "flash_attention",
 def reset_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+    for n in fused_routing_cuda.launches_by_splits:
+        fused_routing_cuda.launches_by_splits[n] = 0
     for name in BODY_COUNTERS:
         by_body = WRAPPERS[name].launches_by_body
         for body in by_body:
@@ -528,6 +574,9 @@ def serve(deployed, requests):
         engine.submit(ImageRequest(images=r.images, rid=r.rid))
     completions = engine.run_until_idle()
     counts = {k: w.launches for k, w in WRAPPERS.items()}
+    counts["routing_by_i_splits"] = {
+        str(n): k for n, k in fused_routing_cuda.launches_by_splits.items()
+        if k}
     return completions, engine.stats(), counts
 
 
@@ -675,6 +724,11 @@ def phase_serve(phase: str, prune: bool, n_requests: int) -> dict:
          latency_ms={k: {"n": n, "p50": p50, "p95": p95}
                      for k, (n, p50, p95) in lat.items()},
          routing_launches=counts["fused_routing"],
+         routing_by_i_splits=counts["routing_by_i_splits"],
+         routing_config_at_batch=registry.default_config(
+             "fused_routing", torch.empty(
+                 (BATCH, fused.cfg.n_primary_caps, fused.cfg.n_classes,
+                  fused.cfg.digit_dim), device=DEVICE)),
          softmax_launches_unfused=counts_ref["taylor_softmax"],
          max_abs_err_vs_optimized=max_err, ambiguous_frames=ambiguous,
          **forward_breakdown(fused))
@@ -1280,9 +1334,16 @@ def library_call(name, args, kwargs):
     return None
 
 
-def routing_bound(shape, n_iters: int = 3):
+def elem_bytes(case) -> int:
+    """Bytes an element of the case's type."""
+    return 2 if case.get("dtype", "float32") == "bfloat16" else 4
+
+
+def routing_bound(shape, elem: int = 4, n_iters: int = 3):
+    """u_hat read and v written once in the case's type, c written once in
+    float32; the routing's float32 operations at the float32 peak."""
     b, i, j, d = shape
-    nbytes = 4 * (b * i * j * d + b * j * d + b * i * j)
+    nbytes = elem * (b * i * j * d + b * j * d) + 4 * b * i * j
     flops = (n_iters * 2 * b * i * j * d            # FC
              + (n_iters - 1) * 2 * b * i * j * d    # agreement
              + n_iters * 6 * b * i * j              # softmax
@@ -1290,15 +1351,17 @@ def routing_bound(shape, n_iters: int = 3):
     return nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
 
 
-def softmax_bound(shape):
+def softmax_bound(shape, elem: int = 4):
     n = int(np.prod(shape))
     # per element: subtract, clamp (2), scale, Horner (10), e^a, 5 squarings,
     # the sum, the division, and the maximum
-    return 2 * 4 * n / HBM_BYTES_PER_S, 23 * n / FP32_FLOP_PER_S
+    return 2 * elem * n / HBM_BYTES_PER_S, 23 * n / FP32_FLOP_PER_S
 
 
-BOUNDS = {"fused_routing": lambda c: routing_bound(c["shape"]),
-          "taylor_softmax": lambda c: softmax_bound(c["shape"]),
+BOUNDS = {"fused_routing":
+          lambda c: routing_bound(c["shape"], elem_bytes(c)),
+          "taylor_softmax":
+          lambda c: softmax_bound(c["shape"], elem_bytes(c)),
           "flash_attention": flash_bound,
           "flash_attention_dequant": lambda c: flash_bound(c, int8=True),
           "decode_attention": decode_bound,
@@ -1412,21 +1475,30 @@ def phase_timings(launches: dict, worst: dict) -> list:
         case = {**KERNELS[name]["main_case"], "dtype": "float32"}
         emit("timings", name=name, case="fma float32",
              **timing_row(name, case))
-    # the dense serve path's shape, for the record beside the main one
-    spec = registry.get("fused_routing")
-    case = {"shape": (BATCH, 1152, 10, 16), "softmax_mode": "taylor"}
-    args, kwargs = spec.make_example(case, device=DEVICE)
-    wrapper = spec.build()
-    per_threads = {}
-    for threads in spec.space["threads"]:
-        per_threads[str(threads)] = median_ms(
-            lambda: wrapper(*args, **kwargs, threads=threads))
-    t_bytes, t_ops = routing_bound(case["shape"])
-    emit("timings", name="fused_routing", shape=list(case["shape"]),
-         ms_by_threads=per_threads,
-         plain_ms=median_ms(lambda: spec.ref_call(*args, **kwargs)),
-         bound_ms=max(t_bytes, t_ops) * 1e3,
-         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    # routing at the dense serve path's shape beside the main one, and
+    # both at every point of i_splits x threads; the softmax's threads
+    routing_dense = {"shape": (BATCH, 1152, 10, 16), "softmax_mode": "taylor"}
+    emit("timings", name="fused_routing", case="dense",
+         **timing_row("fused_routing", routing_dense))
+    for label, case in (("pruned", KERNELS["fused_routing"]["main_case"]),
+                        ("dense", routing_dense)):
+        emit("timings", name="fused_routing", case=f"{label} by config",
+             by_config=sweep("fused_routing", case))
+    emit("timings", name="taylor_softmax", case="by config",
+         by_config=sweep("taylor_softmax",
+                         KERNELS["taylor_softmax"]["main_case"]))
+    # the floors under row 2's time: the shortest kernel the card runs (a
+    # one-element fill) and a copy of row 2's own input (one read and one
+    # write of the same bytes)
+    one = torch.empty(1, device=DEVICE)
+    (x,), _ = registry.get("taylor_softmax").make_example(
+        KERNELS["taylor_softmax"]["main_case"], device=DEVICE)
+    fill = kernel_device_ms(lambda: one.fill_(0.0), 20)
+    copy = kernel_device_ms(lambda: x.clone(), 20)
+    emit("timings", name="launch_floor",
+         fill_kernel_ms=sum(fill.values()) or None,
+         copy_kernel_ms=sum(copy.values()) or None,
+         kernels=sorted(fill) + sorted(copy))
     return table
 
 

@@ -24,8 +24,10 @@ Variants (``mode``):
         ``taylor_softmax`` kernel on the card), optional exp/log division
         (Eq. 3), ``squash_fast``.
   * ``cuda``       — kernels/routing: the whole r-iteration loop fused in
-        one hand-written kernel with ``b``, ``c``, ``v`` resident in shared
-        memory (the paper's "everything in BRAM").
+        one hand-written kernel, an image's input capsules split over a
+        thread-block cluster of ``i_splits`` blocks, each holding its slice
+        of ``u_hat`` and its rows of ``b`` and ``c`` in shared memory for the
+        whole launch (the paper's "everything in BRAM").
 
 All variants return (v, c_last): parent capsules (B, N_out, D_out) and the
 final coupling coefficients (B, N_in, N_out).

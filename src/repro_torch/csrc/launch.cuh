@@ -32,7 +32,9 @@ struct DeviceScope {
 
 // A cluster barrier in two halves: every thread arrives at the start of the
 // kernel and waits just before its first access to another block's shared
-// memory, which is then known to have started.
+// memory, which is then known to have started (routing.cu arrives after its
+// last such access and waits before it exits, so no peer's shared memory
+// is gone while it is read).
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }

@@ -115,11 +115,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     """argtypes / restype for every entry (an undeclared pointer argument
     would be passed as a 32-bit int and cut)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_routing_smem_bytes.argtypes = [i, i, i, i]
+    lib.fused_routing_smem_bytes.argtypes = [i, i, i, i, i]
     lib.fused_routing_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_routing_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fused_routing_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i,
+                                         i, p]
     lib.fused_routing_launch.restype = i
-    lib.taylor_softmax_launch.argtypes = [p, p, i, i, i, i, i, p]
+    lib.taylor_softmax_launch.argtypes = [p, p, i, i, i, i, i, i, i, p]
     lib.taylor_softmax_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, i, i, i, p]

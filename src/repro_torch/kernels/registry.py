@@ -223,15 +223,40 @@ def _routing_example(case, device="cpu"):
                   "softmax_mode": case.get("softmax_mode", "exact")}
 
 
+def _legalize_routing(config: Dict[str, Any], u_hat, *args, **kwargs
+                      ) -> Dict[str, Any]:
+    """Whole warps, at most 1024 threads; then the cluster size that
+    :func:`plan_i_splits` gives this ``u_hat`` on this card (0 asks for its
+    plan, a tuned size is kept where its slice fits).  Off the card, where
+    the plain version takes any I, an I that fits no cluster keeps the
+    largest size.  Idempotent."""
+    from repro_torch.kernels.routing.routing_kernel import (
+        ROUTING_MAX_CLUSTER, plan_i_splits)
+
+    config = _legalize_threads(config)
+    b, i, j, d = u_hat.shape
+    try:
+        config["i_splits"] = plan_i_splits(
+            b, i, j, d, u_hat.element_size(), config["i_splits"],
+            _sm_count(u_hat.device))
+    except ValueError:
+        if u_hat.device.type == "cuda":
+            raise
+        config["i_splits"] = ROUTING_MAX_CLUSTER
+    return config
+
+
+# The tunables are the cluster size (blocks that split an image's input
+# capsules; 0 = planned) and the block size.
 registry.register(KernelSpec(
     name="fused_routing",
     build=_build_fused_routing,
     reference=_routing_reference,
-    space={"threads": (128, 256, 512, 1024),
+    space={"i_splits": (1, 2, 4, 8), "threads": (128, 256, 512, 1024),
            "softmax_mode": ("exact", "taylor")},
-    tuned=("threads",),
-    base_config={"threads": 1024},
-    legalize=_legalize_threads,
+    tuned=("i_splits", "threads"),
+    base_config={"i_splits": 0, "threads": 256},
+    legalize=_legalize_routing,
     make_example=_routing_example,
     example_cases=(
         {"shape": (4, 24, 10, 16), "softmax_mode": "exact", "atol": 1e-5},
@@ -646,13 +671,16 @@ registry.register(KernelSpec(
 
 
 def fused_routing(u_hat, n_iters: int = 3, softmax_mode: str = "exact",
+                  i_splits: Optional[int] = None,
                   threads: Optional[int] = None,
                   tune: Optional[bool] = None):
     """u_hat (B, I, J, D) -> (v (B, J, D), c (B, I, J)): every routing
-    iteration in one kernel launch (plain version for a CPU tensor)."""
+    iteration in one kernel launch, an image's input capsules split over
+    ``i_splits`` blocks of a cluster (plain version for a CPU tensor)."""
     return registry.call("fused_routing", u_hat, n_iters=n_iters,
                          softmax_mode=softmax_mode,
-                         config={"threads": threads}, tune=tune)
+                         config={"i_splits": i_splits, "threads": threads},
+                         tune=tune)
 
 
 def taylor_softmax(x, threads: Optional[int] = None,

@@ -150,8 +150,9 @@ class CapsuleEngine(EngineCore):
 
     def _pretune(self) -> None:
         # bind-time kernel tuning: measure the routing kernel's launch
-        # geometry for every u_hat shape the scheduler's batch shapes
-        # imply, so every later dispatch finds the cache populated
+        # geometry (cluster size i_splits x threads per block) for every
+        # u_hat shape the scheduler's batch shapes imply, so every later
+        # dispatch finds the cache populated
         spec = getattr(self.deployed, "spec", None)
         if spec is None or spec.mode != "cuda" or self.device.type != "cuda":
             return

@@ -73,11 +73,19 @@ class TestRegistryEntries:
 
     @pytest.mark.parametrize("name", PORTED)
     def test_tunable_is_launch_geometry(self, name):
+        """Threads per block for both; the routing kernel also tunes its
+        cluster size (portable sizes; 0 in the base config asks the
+        planner)."""
         spec = port_registry.get(name)
-        assert spec.tuned == ("threads",)
+        want = (("i_splits", "threads") if name == "fused_routing"
+                else ("threads",))
+        assert spec.tuned == want
         assert all(t % 32 == 0 and 32 <= t <= 1024
                    for t in spec.space["threads"])
         assert spec.base_config["threads"] in spec.space["threads"]
+        if name == "fused_routing":
+            assert spec.space["i_splits"] == (1, 2, 4, 8)
+            assert spec.base_config["i_splits"] == 0
 
 
 class TestPlainVersionsMatchReferenceKernels:
@@ -269,13 +277,17 @@ class TestLegalize:
         args, kwargs = spec.make_example(spec.example_cases[0])
         c1 = port_registry.default_config(name, *args, **kwargs)
         assert c1 == port_registry.default_config(name, *args, **kwargs)
-        assert c1 == dict(spec.base_config)
+        # the routing cluster size is planned: 4 images of 24 capsules
+        # take the largest cluster, 8 blocks an image
+        planned = {"i_splits": 8} if name == "fused_routing" else {}
+        assert c1 == {**spec.base_config, **planned}
 
     def test_override_is_legalized(self):
         u = torch.zeros(1, 4, 3, 8)
         cfg = port_registry.resolve_config("fused_routing", u,
                                            overrides={"threads": 200})
-        assert cfg == {"threads": 192}
+        # 4 capsules: no more blocks than capsules
+        assert cfg == {"i_splits": 4, "threads": 192}
 
 
 @pytest.fixture
@@ -353,28 +365,33 @@ class TestTuning:
         spec = port_registry.get("fused_routing")
         u = torch.zeros(2, 24, 10, 16)
         cands = port_tuning.candidate_configs(spec, u)
-        assert cands[0] == dict(spec.base_config)
-        assert sorted(c["threads"] for c in cands) == [128, 256, 512, 1024]
+        assert cands[0] == {**spec.base_config, "i_splits": 8}
+        assert sorted((c["i_splits"], c["threads"]) for c in cands) == [
+            (s, t) for s in (1, 2, 4, 8) for t in (128, 256, 512, 1024)]
 
     def test_autotune_picks_fastest_with_injected_timer(self, tune_cache):
         spec = port_registry.get("fused_routing")
         u = to_torch(rand(0, (2, 24, 10, 16), 0.2))
-        cost = {128: 4.0, 256: 1.0, 512: 2.0, 1024: 3.0}
+        kwargs = {"n_iters": 3, "softmax_mode": "taylor"}
+        cands = port_tuning.candidate_configs(spec, u, **kwargs)
+        cost = {(c["i_splits"], c["threads"]): 10.0 + k
+                for k, c in enumerate(cands)}
+        cost[(2, 256)] = 1.0
         calls = []
 
         def timer(fn, warmup, iters):
             out = fn()                      # the candidate really runs
             assert out[0].shape == (2, 10, 16)
+            c = cands[len(calls)]           # measured in candidate order
             calls.append(1)
-            return cost[[128, 256, 512, 1024][
-                (len(calls) - 1 + 3) % 4]]  # base (1024) is measured first
+            return cost[(c["i_splits"], c["threads"])]
 
         best, timings = port_tuning.autotune(
-            spec, (u,), {"n_iters": 3, "softmax_mode": "taylor"},
-            cache=tune_cache, timer=timer)
-        assert best == {"threads": 256}
-        assert timings == {"threads=1024": 3.0, "threads=128": 4.0,
-                           "threads=256": 1.0, "threads=512": 2.0}
+            spec, (u,), kwargs, cache=tune_cache, timer=timer)
+        assert best == {"i_splits": 2, "threads": 256}
+        assert len(calls) == len(cands) == 16
+        assert timings["i_splits=2,threads=256"] == 1.0
+        assert timings["i_splits=8,threads=256"] == 10.0   # the base, first
         assert tune_cache.get(port_tuning.cache_key_for(spec, (u,))) == best
 
     def test_cpu_tensors_never_tune(self, tune_cache):
@@ -384,6 +401,6 @@ class TestTuning:
         with port_tuning.tuning(True):
             cfg = port_registry.resolve_config("fused_routing", u)
             v, c = port_kernels.fused_routing(u, softmax_mode="taylor")
-        assert cfg == {"threads": 1024}
+        assert cfg == {"i_splits": 8, "threads": 256}
         assert not os.path.exists(tune_cache.path)
         assert v.shape == (2, 10, 16) and c.shape == (2, 24, 10)
