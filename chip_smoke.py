@@ -6,7 +6,11 @@ takes no arguments.  It builds the port's CUDA kernels from
 ``src/repro_torch/csrc``, holds every kernel against its plain PyTorch
 version on the card, serves a LAKP-pruned and a dense full-width
 ``capsnet-mnist`` through ``CapsuleEngine`` with the routing in the
-hand-written kernel, serves a full-width ``llama3.2-1b`` (random weights,
+hand-written kernel, trains a full-width ``capsnet-mnist`` on the card and
+carries it through the paper's Fig. 6 pipeline (LAKP prune, masked
+fine-tune, compact, deploy through the routing and softmax kernels, serve
+the test set; with a save / crash / resume check and a save / reload of the
+deployed model), serves a full-width ``llama3.2-1b`` (random weights,
 seed 0) through ``ServeEngine`` with prefill attention, decode attention and
 sampling in the hand-written kernels, serves it again from the paged KV
 cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
@@ -31,6 +35,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,7 +48,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import configs as cfg_lib  # noqa: E402
-from repro_torch.deploy import FastCapsPipeline  # noqa: E402
+from repro_torch.checkpointing import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.core import capsnet, pruning  # noqa: E402
+from repro_torch.data import synthetic_digits as sd  # noqa: E402
+from repro_torch.deploy import FastCapsPipeline, RoutingSpec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain, flash_attention_cuda,
@@ -54,9 +62,13 @@ from repro_torch.kernels.routing.routing_kernel import (  # noqa: E402
     fused_routing_cuda, routing_smem_bytes)
 from repro_torch.kernels.sampling.kernel import fused_sampling_cuda  # noqa: E402
 from repro_torch.kernels.softmax.kernel import taylor_softmax_cuda  # noqa: E402
+from repro_torch.launch.train import accuracy  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serving import ImageRequest, Request, ServeEngine  # noqa: E402
+from repro_torch.training import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.training.trainer import make_train_step  # noqa: E402
 
 DEVICE = "cuda"
 BATCH = 32
@@ -91,6 +103,21 @@ LM_MAX_NEW = 32
 # 0.25) after 16 layers whose attention sums run in another order on the two
 # paths, so margins under four steps may flip.
 LM_MARGIN = 1.0
+
+# The training path (phase train_capsnet): full-width capsnet-mnist from
+# seed 0, the synthetic digits (2048 train / 512 test, seed 0), batch 32;
+# dense AdamW steps, the serve_pruned cut (LAKP 0.6 / 0.9, 7 of 32 capsule
+# types: 252 capsules), masked fine-tuning, compaction, then deployment
+# through the routing kernel.  Bars: tests/test_system.py's (dense test
+# accuracy above 0.5, pruned + fine-tuned within 0.15 of it).
+TRAIN_N, TEST_N = 2048, 512
+TRAIN_STEPS, TRAIN_LR = 300, 1e-3
+FT_STEPS, FT_LR = 100, 3e-4
+TRAIN_PROFILE_STEPS = 10
+RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 12, 4, 10
+# classes of the kernel deployments must equal the reference's on every
+# test image whose top-two capsule lengths (reference) differ by more
+TRAIN_MARGIN = 1e-3
 
 # The paged serving path (phase serve_paged): the same model, engine width
 # and cache length, pages of 16 rows in the default pool of 8 x 1024 / 16 =
@@ -734,6 +761,280 @@ def phase_serve(phase: str, prune: bool, n_requests: int) -> dict:
          **forward_breakdown(fused))
     return {"fused_routing": counts["fused_routing"],
             "taylor_softmax": counts_ref["taylor_softmax"]}
+
+
+def capsnet_classes(deployed, x: np.ndarray) -> tuple:
+    """Classes and capsule lengths of ``deployed`` on the images ``x``, in
+    slices of 256."""
+    lengths = []
+    for i in range(0, len(x), 256):
+        lengths.append(deployed.forward(
+            torch.from_numpy(x[i:i + 256]).to(DEVICE)).cpu().numpy())
+    lengths = np.concatenate(lengths)
+    return lengths.argmax(-1), lengths
+
+
+def clear_margin(lengths: np.ndarray) -> np.ndarray:
+    top2 = np.sort(lengths, axis=-1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > TRAIN_MARGIN
+
+
+def timed_steps(trainer, walls: list) -> None:
+    """Wrap the trainer's step so each one's host wall-clock, from a
+    synchronised start to a synchronised end, is appended to ``walls``."""
+    inner = trainer.train_step
+
+    def step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.train_step = step
+
+
+def resume_check(cfg, loss_fn, batches) -> dict:
+    """A save -> crash -> resume run against an uninterrupted one, at full
+    width on the card, with cuDNN deterministic for this check only (set
+    back after).  Also repeats one step from the same state and names the
+    leaves whose gradients differ, the op to look at when the two runs
+    disagree."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def trainer(d):
+            tcfg = TrainerConfig(
+                optim=AdamWConfig(lr=TRAIN_LR, weight_decay=0.0,
+                                  warmup_steps=2, total_steps=RESUME_STEPS),
+                ckpt_dir=d, ckpt_every=RESUME_EVERY, log_every=RESUME_EVERY)
+            return Trainer(tcfg, loss_fn,
+                           lambda g: capsnet.init(cfg, g, DEVICE),
+                           device=DEVICE)
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+            ref = trainer(os.path.join(d, "a")).run(batches(), RESUME_STEPS)
+            crashed = False
+            try:
+                trainer(os.path.join(d, "b")).run(batches(), RESUME_STEPS,
+                                                  crash_at=RESUME_CRASH)
+            except RuntimeError:
+                crashed = True
+            last = ckpt_lib.list_steps(os.path.join(d, "b"))[-1]
+            res = trainer(os.path.join(d, "b")).run(
+                itertools.islice(batches(), last, None), RESUME_STEPS)
+        gaps = {f"{k}/{kk}": float((a - res.params[k][kk]).abs().max())
+                for k, sub in ref.params.items() for kk, a in sub.items()}
+        # one step twice from the same state: which gradients differ
+        step = make_train_step(loss_fn, TrainerConfig(), donate=False)
+        batch = {k: torch.as_tensor(v, device=DEVICE)
+                 for k, v in next(batches()).items()}
+        p1, _, _ = step(ref.params, ref.opt_state, batch)
+        p2, _, _ = step(ref.params, ref.opt_state, batch)
+        repeat = {f"{k}/{kk}": float((a - p2[k][kk]).abs().max())
+                  for k, sub in p1.items() for kk, a in sub.items()}
+    finally:
+        torch.backends.cudnn.deterministic = was
+    worst = max(gaps, key=gaps.get)
+    return {"crashed": crashed, "resumed_from": last, "steps": res.step,
+            "max_abs_gap": gaps[worst], "worst_leaf": worst,
+            "repeat_step_differs": {k: v for k, v in repeat.items() if v},
+            "cudnn_deterministic_during_check": True,
+            "cudnn_deterministic_after": torch.backends.cudnn.deterministic}
+
+
+def phase_train_capsnet() -> dict:
+    """The paper's Fig. 6 pipeline on the card at full width: train ->
+    LAKP prune -> masked fine-tune -> compact -> compile (cuda, reference,
+    optimized) -> serve the test set through CapsuleEngine; float32 with
+    TF32 off.  Returns the routing and softmax launches of the phase."""
+    t_phase = time.perf_counter()
+    # training runs before any compile(), which is where DeployedCapsNet
+    # switches TF32 off: do it here, before the first step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32 = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    cfg = cfg_lib.get_config("capsnet-mnist")
+    t0 = time.perf_counter()
+    data = sd.load(sd.DigitsConfig(n_train=TRAIN_N, n_test=TEST_N, seed=0))
+    data_s = time.perf_counter() - t0
+    tr_x, tr_y = data["train"]
+    te_x, te_y = data["test"]
+
+    def loss_fn(p, b):
+        return capsnet.loss_fn(p, cfg, b["images"], b["labels"])
+
+    def batches(seed=0):
+        for bx, by in sd.batches(tr_x, tr_y, BATCH, seed, epochs=1000):
+            yield {"images": bx, "labels": by}
+
+    reset_counts()
+    # 1. dense training, every step timed on the host
+    tcfg = TrainerConfig(optim=AdamWConfig(
+        lr=TRAIN_LR, weight_decay=0.0, warmup_steps=TRAIN_STEPS // 10,
+        total_steps=TRAIN_STEPS), log_every=10)
+    trainer = Trainer(tcfg, loss_fn, lambda g: capsnet.init(cfg, g, DEVICE),
+                      device=DEVICE)
+    walls = []
+    timed_steps(trainer, walls)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    res = trainer.run(batches(), TRAIN_STEPS, generator=gen)
+    train_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in res.history]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train_capsnet: the loss went {losses[0]} -> {losses[-1]}")
+    n_dense = capsnet.param_count(res.params)
+
+    # the step's device time, from a trace of a few more steps
+    step = make_train_step(loss_fn, tcfg, donate=False)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in next(batches(seed=1)).items()}
+    state = [res.params, res.opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    one_step()
+    kernels, host = profile_ms(one_step, TRAIN_PROFILE_STEPS)
+    busy = sum(kernels.values())
+    walls_sorted = sorted(walls)
+    step_ms = walls_sorted[len(walls_sorted) // 2]
+
+    acc_dense = accuracy(lambda x: capsnet.forward(res.params, cfg, x)[0]
+                         .argmax(-1), te_x, te_y, torch.device(DEVICE))
+    if not acc_dense > 0.5:
+        fail(f"train_capsnet: dense test accuracy {acc_dense} <= 0.5")
+
+    # 2. LAKP prune (serve_pruned's cut) + masked fine-tuning
+    pipe = FastCapsPipeline(cfg, params=res.params, device=DEVICE)
+    pipe.prune(0.6, 0.9, type_keep=7)
+    m1, m2 = pipe.masks
+
+    def finetune(masked, masks):
+        ft = Trainer(
+            TrainerConfig(optim=AdamWConfig(
+                lr=FT_LR, weight_decay=0.0, warmup_steps=1,
+                total_steps=FT_STEPS), log_every=FT_STEPS),
+            loss_fn, lambda g: masked,
+            mask_fn=lambda g: pruning.mask_gradients(g, masks),
+            device=DEVICE)
+        return ft.run(batches(seed=7), FT_STEPS).params
+
+    t0 = time.perf_counter()
+    pipe.finetune(finetune)
+    ft_s = time.perf_counter() - t0
+    for name, m in (("conv1", m1), ("conv2", m2)):
+        left = int((pipe.params[name]["w"][m == 0] != 0).sum())
+        if left:
+            fail(f"train_capsnet: {left} masked {name} weights are not 0 "
+                 f"after fine-tuning")
+    acc_pruned = accuracy(lambda x: capsnet.forward(pipe.params, pipe.cfg, x)
+                          [0].argmax(-1), te_x, te_y, torch.device(DEVICE))
+    if not acc_pruned >= acc_dense - 0.15:
+        fail(f"train_capsnet: pruned + fine-tuned accuracy {acc_pruned} "
+             f"below dense {acc_dense} - 0.15")
+
+    # 3. compact and deploy three ways
+    pipe.compact()
+    want_caps = min(7, cfg.caps_types) * cfg.caps_out_hw ** 2     # 252
+    if pipe.cfg.n_primary_caps != want_caps:
+        fail(f"train_capsnet: {pipe.cfg.n_primary_caps} capsules after "
+             f"compaction, expected {want_caps}")
+    deps = {r: pipe.compile(routing=r)
+            for r in ("reference", "cuda", "optimized")}
+    classes, lengths = {}, {}
+    for r, dep in deps.items():
+        classes[r], lengths[r] = capsnet_classes(dep, te_x)
+    clear = clear_margin(lengths["reference"])
+    for r in ("cuda", "optimized"):
+        if not np.array_equal(classes[r][clear], classes["reference"][clear]):
+            fail(f"train_capsnet: {r} classes differ from the reference's")
+    acc_c = {r: float((classes[r] == te_y).mean()) for r in deps}
+
+    # 4. serve the test set through CapsuleEngine with the routing kernel
+    rng = np.random.RandomState(0)
+    cuts = np.sort(rng.choice(np.arange(1, TEST_N), size=15, replace=False))
+    reqs = [ImageRequest(images=chunk, rid=i)
+            for i, chunk in enumerate(np.split(te_x, cuts))]
+    engine = deps["cuda"].serve(batch_size=BATCH)
+    engine.warmup()
+    done = engine.serve(reqs)
+    stats = engine.stats()
+    served = np.concatenate([c.classes for c in sorted(done,
+                                                       key=lambda c: c.rid)])
+    if len(done) != len(reqs) or served.shape != te_y.shape:
+        fail(f"train_capsnet: {len(done)} of {len(reqs)} requests served")
+    if not np.array_equal(served[clear], classes["reference"][clear]):
+        fail("train_capsnet: served classes differ from the reference's")
+    counts = launch_counts()
+    if counts["fused_routing"] < 1 or counts["taylor_softmax"] < 1:
+        fail(f"train_capsnet: routing {counts['fused_routing']} and softmax "
+             f"{counts['taylor_softmax']} kernel launches")
+
+    # 5. DeployedCapsNet.save, loaded back into the compacted specs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as d:
+        deps["cuda"].save(d)
+        loaded = ckpt_lib.load(d, 0, capsnet.specs(deps["cuda"].cfg),
+                               device=DEVICE)
+    again = FastCapsPipeline(dataclasses.replace(deps["cuda"].cfg,
+                                                 routing=None),
+                             params=loaded, device=DEVICE).compile("cuda")
+    if not np.array_equal(capsnet_classes(again, te_x)[0], classes["cuda"]):
+        fail("train_capsnet: the saved and reloaded model classifies "
+             "differently")
+
+    # 6. the kernels refuse a gradient
+    live = {k: {kk: v.detach().clone().requires_grad_(True)
+                for kk, v in sub.items()} for k, sub in pipe.params.items()}
+    cuda_cfg = dataclasses.replace(pipe.cfg, routing=RoutingSpec.cuda())
+    xb = torch.from_numpy(te_x[:BATCH]).to(DEVICE)
+    yb = torch.from_numpy(te_y[:BATCH]).to(DEVICE)
+    try:
+        capsnet.loss_fn(live, cuda_cfg, xb, yb)[0].backward()
+        fail("train_capsnet: a loss backward through RoutingSpec.cuda ran")
+    except RuntimeError as err:
+        refused = str(err)
+
+    # 7. save -> crash -> resume against an uninterrupted run
+    resume = resume_check(cfg, loss_fn, batches)
+    if not resume["crashed"] or resume["steps"] != RESUME_STEPS:
+        fail(f"train_capsnet: the crash/resume run went wrong: {resume}")
+    emit("train_capsnet", arch=cfg.arch_id, **tf32, n_train=TRAIN_N,
+         n_test=TEST_N, batch=BATCH, steps=res.step, ft_steps=FT_STEPS,
+         data_s=data_s, train_s=train_s, finetune_s=ft_s,
+         loss_first=losses[0], loss_last=losses[-1],
+         step_wall_ms_median=step_ms, step_wall_ms_min=walls_sorted[0],
+         step_wall_ms_max=walls_sorted[-1],
+         step_device_busy_ms=busy if busy > 0 else None,
+         step_device_idle_share=(max(0.0, 1.0 - busy / step_ms)
+                                 if busy > 0 else None),
+         step_device_ms_by_kernel=dict(sorted(
+             kernels.items(), key=lambda kv: -kv[1])[:6]),
+         step_host_self_ms=sum(host.values()),
+         step_host_ms_by_op=dict(sorted(
+             host.items(), key=lambda kv: -kv[1])[:6]),
+         acc_dense=acc_dense, acc_pruned_finetuned=acc_pruned,
+         acc_compacted=acc_c, n_params_dense=n_dense,
+         n_params_compacted=deps["cuda"].n_params,
+         capsules=deps["cuda"].cfg.n_primary_caps,
+         compression=pipe.compression,
+         index_overhead=pipe.index_overhead_frac,
+         ambiguous_test_images=int((~clear).sum()),
+         served_fps=stats.fps, served_frames=stats.frames,
+         served_ticks=stats.ticks, routing_launches=counts["fused_routing"],
+         softmax_launches=counts["taylor_softmax"], grad_refused=refused,
+         resume=resume, seconds=time.perf_counter() - t_phase)
+    if resume["max_abs_gap"] > 1e-6:
+        fail(f"train_capsnet: the resumed run is {resume['max_abs_gap']} "
+             f"off the uninterrupted one at {resume['worst_leaf']}; leaves "
+             f"whose step differs when repeated: "
+             f"{resume['repeat_step_differs']}")
+    return {"fused_routing": counts["fused_routing"],
+            "taylor_softmax": counts["taylor_softmax"]}
 
 
 def lm_requests(vocab: int) -> list:
@@ -1511,16 +1812,19 @@ def main() -> None:
     worst, dequant_launches = phase_kernels()
     launches = phase_serve("serve_pruned", prune=True, n_requests=8)
     launches_dense = phase_serve("serve_dense", prune=False, n_requests=4)
+    launches_train = phase_train_capsnet()
     launches_lm = phase_serve_lm()
     launches_paged = phase_serve_paged()
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
+                    **{f"{k} (train)": v for k, v in launches_train.items()},
                     **launches_lm, **{f"{k} (paged)": v
                                       for k, v in launches_paged.items()}
                     }.items():
         if n < 1:
-            fail(f"{name} was never launched on the serve path")
-    for k, n in list(launches_lm.items()) + list(launches_paged.items()):
+            fail(f"{name} was never launched on its path")
+    for k, n in (list(launches_train.items()) + list(launches_lm.items())
+                 + list(launches_paged.items())):
         launches[k] = launches.get(k, 0) + n
     # no model path calls flash_attention_dequant: its row counts the
     # kernel phase's launches

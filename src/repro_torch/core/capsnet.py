@@ -6,8 +6,13 @@ Architecture (MNIST shapes):
                  stride 2, reshape to capsules, squash       -> (B, 1152, 8)
     DigitCaps    per-(i, j) linear maps u_hat = W_ij u_i,
                  dynamic routing (core/routing.py)           -> (B, 10, 16)
-    Decoder      FC 160 -> 512 -> 1024 -> 784 (parameters declared here;
-                 the reconstruction loss comes with the training slice)
+    Decoder      FC 160 -> 512 -> 1024 -> 784, sigmoid (reconstruction reg.)
+
+Loss: margin loss (Sabour Eq. 4) + 0.0005 * MSE reconstruction.  It is
+differentiable through the ``reference`` routing only: the ``cuda`` and
+``optimized`` variants run the hand-written kernels, whose wrappers refuse a
+tensor that needs a gradient (the reference package trains through
+``RoutingSpec.reference()`` too).
 
 Layouts at the public functions are the reference's: images NHWC, conv
 weights OIHW, ``digit.w`` (N_in, N_out, d_in, d_out), capsule index =
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.core import approx_math
 from repro_torch.deploy.registry import RoutingSpec, resolve as resolve_routing
 from repro_torch.models.common import (ParamDef, fanin_init, init_params,
-                                       zeros_init)
+                                       param_specs, zeros_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +141,12 @@ def init(cfg: CapsNetConfig, generator: torch.Generator,
     return init_params(capsnet_defs(cfg), generator, cfg.pdtype(), device)
 
 
+def specs(cfg: CapsNetConfig) -> Dict[str, Any]:
+    """Shapes, types and logical axes of the params, nothing allocated (a
+    target for ``repro_torch.checkpointing.load``)."""
+    return param_specs(capsnet_defs(cfg), cfg.pdtype())
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -170,6 +181,17 @@ def digit_capsules(params: Dict[str, Any], cfg: CapsNetConfig,
     return route_fn(u_hat, n_iters=cfg.routing_iters)
 
 
+def decode(params: Dict[str, Any], cfg: CapsNetConfig, v: torch.Tensor,
+           labels: torch.Tensor) -> torch.Tensor:
+    """Reconstruction decoder; masks all but the true class's capsule."""
+    d = params["decoder"]
+    mask = F.one_hot(labels.long(), cfg.n_classes).to(v.dtype)  # (B, J)
+    x = (v * mask[:, :, None]).reshape(v.shape[0], -1)
+    x = torch.relu(x @ d["w1"] + d["b1"])
+    x = torch.relu(x @ d["w2"] + d["b2"])
+    return torch.sigmoid(x @ d["w3"] + d["b3"])
+
+
 def forward(params: Dict[str, Any], cfg: CapsNetConfig, images: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images -> (class capsule lengths (B, n_classes), capsules v)."""
@@ -177,6 +199,37 @@ def forward(params: Dict[str, Any], cfg: CapsNetConfig, images: torch.Tensor
     v, _ = digit_capsules(params, cfg, u)
     lengths = torch.linalg.vector_norm(v.to(torch.float32), dim=-1)
     return lengths, v
+
+
+# ---------------------------------------------------------------------------
+# Losses / metrics
+# ---------------------------------------------------------------------------
+
+
+def margin_loss(lengths: torch.Tensor, labels: torch.Tensor,
+                cfg: CapsNetConfig) -> torch.Tensor:
+    t = F.one_hot(labels.long(), cfg.n_classes).to(torch.float32)
+    pos = torch.square(torch.clamp(cfg.m_plus - lengths, min=0.0))
+    neg = torch.square(torch.clamp(lengths - cfg.m_minus, min=0.0))
+    per_class = t * pos + cfg.lambda_down * (1.0 - t) * neg
+    return torch.mean(torch.sum(per_class, dim=-1))
+
+
+def loss_fn(params: Dict[str, Any], cfg: CapsNetConfig,
+            images: torch.Tensor, labels: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    u = primary_capsules(params, cfg, images)
+    v, _ = digit_capsules(params, cfg, u)
+    # the offset keeps the norm's gradient finite at v = 0
+    lengths = torch.linalg.vector_norm(v.to(torch.float32) + 1e-12, dim=-1)
+    l_margin = margin_loss(lengths, labels, cfg)
+    recon = decode(params, cfg, v, labels)
+    flat = images.reshape(images.shape[0], -1).to(torch.float32)
+    l_recon = torch.mean(torch.sum(torch.square(recon - flat), dim=-1))
+    loss = l_margin + cfg.recon_weight * l_recon
+    acc = torch.mean((torch.argmax(lengths, -1) == labels).to(torch.float32))
+    return loss, {"loss": loss, "margin": l_margin,
+                  "recon": l_recon, "acc": acc}
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,13 @@ pass ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.checkpointing import checkpoint
 from repro_torch.core import capsnet as capsnet_lib
 from repro_torch.core import lakp as lakp_lib
 from repro_torch.core import routing as routing_lib
@@ -127,6 +130,19 @@ class DeployedCapsNet:
         return CapsuleEngine(self, batch_size=batch_size,
                              scheduler=scheduler, kernel_tune=kernel_tune,
                              device=self.device)
+
+    def save(self, directory: str, step: int = 0) -> str:
+        """Checkpoint the params (atomic publish) + a deploy manifest, in
+        the reference's layout and keys."""
+        path = checkpoint.save(directory, step, self.params)
+        meta = {"cfg": dataclasses.asdict(
+                    dataclasses.replace(self.cfg, routing=None)),
+                "routing": dataclasses.asdict(self.spec),
+                "n_params": self.n_params,
+                "flops_per_image": self.flops_per_image}
+        with open(os.path.join(directory, "deploy.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+        return path
 
 
 class FastCapsPipeline:

@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+import torch
+
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
@@ -162,8 +164,6 @@ def stream_query():
     builds no ``torch.cuda.Stream`` object (that costs a few microseconds a
     call, as much as the kernels it would launch); else the public
     ``torch.cuda.current_stream``, which gives the same handle."""
-    import torch
-
     query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if query is not None:
         return query
@@ -184,3 +184,15 @@ def check_launch(code: int, what: str) -> None:
     if code != 0:
         raise KernelLaunchError(
             f"{what}: launch refused with CUDA error code {code}")
+
+
+def refuse_grad(what: str, x) -> None:
+    """The kernels have no backward.  A wrapper given a tensor that needs a
+    gradient, with autograd on, raises on every device (on the CPU too,
+    where its plain version could differentiate) rather than hand back an
+    output the gradient cannot pass through."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{what} has no backward: train through RoutingSpec.reference() "
+            f"(as the reference package does), or call it under "
+            f"torch.no_grad() on a tensor that needs no gradient")

@@ -17,7 +17,8 @@ on the CPU.  For a CUDA tensor it builds the library if need be, launches
 the kernel on the current stream and raises on anything the kernel does not
 take; nothing falls back.  ``fused_routing_cuda.launches`` counts the kernel
 launches of this process, and ``launches_by_splits`` the same by cluster
-size.
+size.  The kernel has no backward: a ``u_hat`` that needs a gradient, with
+autograd on, is refused on every device (``build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -173,6 +174,7 @@ def fused_routing_cuda(u_hat: torch.Tensor, n_iters: int = 3,
                          f"{softmax_mode!r}")
     if n_iters < 1:
         raise ValueError(f"n_iters must be >= 1, got {n_iters}")
+    build.refuse_grad("fused_routing", u_hat)
     if u_hat.device.type == "cpu":
         return fused_routing_ref(u_hat, n_iters=n_iters,
                                  softmax_mode=softmax_mode)

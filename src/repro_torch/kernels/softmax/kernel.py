@@ -14,6 +14,8 @@ Bound by bytes: ``x`` read once, the result written once.
 (:func:`repro_torch.kernels.softmax.ref.taylor_softmax_ref`) only for a
 tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
 ``taylor_softmax_cuda.launches`` counts the kernel launches of this process.
+The kernel has no backward: an ``x`` that needs a gradient, with autograd
+on, is refused on every device (``build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ def taylor_softmax_cuda(x: torch.Tensor, threads: int = 256) -> torch.Tensor:
     """Softmax over the last axis of x (any leading shape) using Eq. 2."""
     if x.dim() < 1:
         raise ValueError("taylor_softmax: x needs at least one axis")
+    build.refuse_grad("taylor_softmax", x)
     if x.device.type == "cpu":
         return taylor_softmax_ref(x)
     if x.device.type != "cuda":

@@ -161,6 +161,25 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a tree of dicts and lists (and of trees of
+    the same structure, ``rest``), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``leaves`` (in :func:`tree_leaves` order) in the structure of
+    ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 # ---------------------------------------------------------------------------
 # Param declaration
 # ---------------------------------------------------------------------------
@@ -212,6 +231,23 @@ class ParamDef:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
                              f"in rank")
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """A parameter that is not allocated: its shape, type and logical axes.
+    ``checkpoint.load`` takes a tree of these as its target."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    axes: Tuple[Optional[str], ...]
+
+
+def param_specs(defs: Any, dtype: torch.dtype) -> Any:
+    """A tree of ParamDefs -> the tree of their :class:`LeafSpec`."""
+    if isinstance(defs, ParamDef):
+        return LeafSpec(tuple(defs.shape), dtype, tuple(defs.axes))
+    return {k: param_specs(v, dtype) for k, v in defs.items()}
 
 
 def init_params(defs: Any, generator: torch.Generator, dtype: torch.dtype,
