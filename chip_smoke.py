@@ -16,6 +16,10 @@ sampling in the hand-written kernels, serves it again from the paged KV
 cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
 decode reading the pages in place through the paged decode kernels, holds
 the int8 dense-cache decode kernel against the paged one on the same pool,
+serves it disaggregated (a prefill engine and two decode engines joined by
+cache handoffs under each transport, dense and paged, held against the
+unified engine), serves the pruned CapsNet through a pool of two engines,
+replays a seeded bursty trace against an autoscaled disaggregated pool,
 and times the nine kernels (routing also at the dense shape; routing,
 softmax, decode and sampling at every point of their tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
@@ -66,7 +70,14 @@ from repro_torch.launch.train import accuracy  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
-from repro_torch.serving import ImageRequest, Request, ServeEngine  # noqa: E402
+from repro_torch.serving import (DecodeEngine,  # noqa: E402
+                                 DisaggregatedEngine, DisaggScheduler,
+                                 ImageRequest, PriorityScheduler, Request,
+                                 ServeEngine, disaggregated_lm_engine,
+                                 make_transport)
+from repro_torch.traffic import (AutoscaleController,  # noqa: E402
+                                 bursty_trace, default_classes,
+                                 default_factory, replay)
 from repro_torch.training import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.training.trainer import make_train_step  # noqa: E402
 
@@ -125,6 +136,18 @@ TRAIN_MARGIN = 1e-3
 PAGE = 16
 N_PAGES = LM_SLOTS * LM_MAX_LEN // PAGE
 SHARED_PREFIX = 256
+# The disaggregated serving path (phase serve_disagg): the same model and
+# cache length, one prefill engine of 8 slots and two decode engines of 4,
+# serve_lm's requests under each transport and serve_paged's from bf16 and
+# int8 pages; the pruned CapsNet behind a pool of two engines; a 2 s seeded
+# bursty trace (the launcher's --trace bursty at 60 req/s in the burst)
+# against the dense pool autoscaled from one decode engine up to three.
+DISAGG_DECODES = 2
+DISAGG_SLOTS = 4
+DISAGG_TRANSPORTS = ("in_process", "host_staged", "device_to_device")
+TRACE_RATE, TRACE_HORIZON, TRACE_SEED = 60.0, 2.0, 0
+TRACE_MAX_ENGINES = 3
+
 # Valid lengths of the kernel phase's paged and int8 decode cases: 0, 1, a
 # page boundary, the full 1024 rows and lengths in between.  (The timing
 # rows use the serve_paged tick's own lengths, paged_valid().)
@@ -1551,6 +1574,371 @@ def phase_serve_paged() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Disaggregated serving
+# ---------------------------------------------------------------------------
+
+
+def record_kernel_margins(engine) -> dict:
+    """record_margins for a kernel engine: the prefill tokens are sampled on
+    the host, the decode tokens by one fused_sampling launch a tick, whose
+    logits' top-2 margins are read here for every active slot."""
+    margins = record_margins(engine)
+    inner = engine._sample_batch_device
+
+    def wrapped(logits, active, pos_of):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values.cpu().numpy()
+        for s, task in active:
+            margins[(task.rid, pos_of(s))] = float(top2[s, 0] - top2[s, 1])
+        return inner(logits, active, pos_of)
+
+    engine._sample_batch_device = wrapped
+    return margins
+
+
+def unified_reference(cfg, params, reqs, **kw) -> tuple:
+    """The unified kernel engine on ``reqs``: a timed run (tokens, tok/s,
+    ms per tick) and a second run on a fresh engine that records the top-2
+    margin of every token, the margin rule's input."""
+    def engine():
+        eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          decode_kernel=True, device=DEVICE, **kw)
+        eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+        return eng
+
+    eng = engine()
+    t0 = time.perf_counter()
+    done = eng.serve(fresh(reqs))
+    wall = time.perf_counter() - t0
+    stats = eng.stats()
+    del eng
+    marked = engine()
+    margins = record_kernel_margins(marked)
+    marked.serve(fresh(reqs))
+    del marked
+    return ({c.rid: c.tokens for c in done}, margins,
+            {"tok_per_s": stats.items / wall, "ms_per_tick": stats.ms_per_tick,
+             "engine_tok_per_s": stats.throughput, "wall_s": wall})
+
+
+def warm_disagg(engine) -> None:
+    """A short generate() through every member engine, outside the stats."""
+    for eng in engine._members():
+        eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+
+
+def leg_numbers(records) -> dict:
+    """Per leg of a transport's records: the median and largest seconds
+    over the deliveries (exact, unlike the histograms' power-of-two
+    buckets), in ms, and for a leg that times a copy (host staging's d2h
+    and h2d; ``pass`` and ``dispatch`` time no copy) the GB/s the payload
+    gives at the median."""
+    nbytes = sorted(r.nbytes for r in records)[len(records) // 2]
+    out = {"bytes_per_handoff": nbytes, "deliveries": len(records)}
+    for leg in records[0].legs:
+        ts = sorted(r.legs[leg] for r in records)
+        med = ts[len(ts) // 2]
+        out[leg] = {"p50_ms": med * 1e3, "max_ms": ts[-1] * 1e3}
+        if leg in ("d2h", "h2d") and med > 0:
+            out[leg]["gb_per_s"] = nbytes / med / 1e9
+    return out
+
+
+def copy_bounds(nbytes: int) -> dict:
+    """What the card's links give for one handoff's bytes in this run, by
+    CUDA events: a pinned host -> device and device -> host copy (the
+    host link, host staging's bound) and a device -> device copy (HBM, the
+    device-to-device transport's copy), beside the HBM bound of that copy
+    (read and write once at 3.35 TB/s)."""
+    n = nbytes // 2
+    dev = torch.empty(n, dtype=torch.bfloat16, device=DEVICE)
+    dst = torch.empty_like(dev)
+    host = torch.empty(n, dtype=torch.bfloat16, pin_memory=True)
+    out = {}
+    for name, fn in (("h2d", lambda: dev.copy_(host, non_blocking=True)),
+                     ("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                     ("d2d", lambda: dst.copy_(dev))):
+        ms = median_ms(fn, launches=5, repeats=5)
+        out[name] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6}
+    out["d2d_hbm_bound_ms"] = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
+    """One transport of phase serve_disagg: the dense disaggregated engine
+    (DisaggScheduler(overlap=True) for device_to_device) on ``reqs``;
+    returns (tokens, numbers, launch counts)."""
+    eng = disaggregated_lm_engine(
+        cfg, params, n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN,
+        n_decode=DISAGG_DECODES, prefill_slots=LM_SLOTS,
+        transport=make_transport(transport, keep_records=LM_REQUESTS),
+        scheduler=DisaggScheduler(
+            overlap=transport == "device_to_device"),
+        decode_kernel=True, device=DEVICE)
+    warm_disagg(eng)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.serve(fresh(reqs))
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = eng.stats()
+    if len(done) != LM_REQUESTS:
+        fail(f"serve_disagg ({transport}): {len(done)} of {LM_REQUESTS} "
+             f"requests completed")
+    recs = eng.transport.records
+    if len(recs) != LM_REQUESTS or any(
+            r.nbytes != lm.cache_row_nbytes(
+                lm.make_caches(cfg, 1, LM_MAX_LEN, device="meta"))
+            for r in recs):
+        fail(f"serve_disagg ({transport}): {len(recs)} deliveries, bytes "
+             f"{sorted({r.nbytes for r in recs})}")
+    numbers = {
+        "transport": transport, "requests": stats.completed,
+        "new_tokens": stats.items, "wall_s": wall,
+        "tok_per_s": stats.items / wall, "engine_tok_per_s": stats.throughput,
+        "ms_per_tick": stats.ms_per_tick,
+        "decode_ticks": sum(e.stats().ticks for e in eng.decodes),
+        "prefill_ticks": eng.prefill.stats().ticks,
+        "legs": leg_numbers(recs),
+        "transfer_histograms_ms": {
+            k: {"n": n, "p50": p50, "p95": p95}
+            for k, (n, p50, p95) in stats.transfer_summary().items()},
+        "depth": {k: {"ticks": n, "p50": p50, "p95": p95, "peak": peak}
+                  for k, (n, p50, p95, peak)
+                  in stats.depth_summary().items()},
+        "launches": {k: counts[k] for k in ("flash_attention", "dense",
+                                            "fused_sampling")}}
+    check_prefill_bodies(f"serve_disagg ({transport})", counts)
+    return {c.rid: c.tokens for c in done}, numbers, counts
+
+
+def disagg_paged(cfg, params, reqs, quantize: bool) -> tuple:
+    """One page mode of phase serve_disagg (in_process): the paged
+    disaggregated engine against the paged unified engine.  The requests
+    arrive in two waves of 8, the second after the first has finished: a
+    decode engine registers a handoff's page hashes when it admits it, so
+    only handoffs that reach it after that can dedup against its pages
+    (within one wave every handoff is delivered before the first
+    admission)."""
+    mode = "paged_int8" if quantize else "paged"
+    kw = dict(page_size=PAGE, quantize_pages=quantize)
+    tok_ref, margins, unified = unified_reference(cfg, params, reqs, **kw)
+    eng = disaggregated_lm_engine(
+        cfg, params, n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN,
+        n_decode=DISAGG_DECODES, prefill_slots=LM_SLOTS,
+        transport="in_process", decode_kernel=True, device=DEVICE, **kw)
+    warm_disagg(eng)
+    reset_counts()
+    t0 = time.perf_counter()
+    half = LM_REQUESTS // 2
+    done = eng.serve(fresh(reqs[:half])) + eng.serve(fresh(reqs[half:]))
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = eng.stats()
+    if len(done) != LM_REQUESTS:
+        fail(f"serve_disagg ({mode}): {len(done)} of {LM_REQUESTS} requests "
+             f"completed")
+    tok = {c.rid: c.tokens for c in done}
+    compared, ambiguous, first_diff = compare_with_plain(
+        f"serve_disagg ({mode})", reqs, tok, tok_ref, tok, margins,
+        cfg.vocab)
+    pg = dict(stats.pages)
+    # every handoff's pages either travelled or were pinned on the target,
+    # and what was pinned is the shared prefix: whole 16-page prefixes, at
+    # most one per second-wave request that carries it
+    shared = SHARED_PREFIX // PAGE
+    total = sum(len(r.prompt) // PAGE + 1 for r in reqs)
+    moved, dedup = pg.get("handoff_pages_moved", 0), pg.get(
+        "handoff_pages_dedup", 0)
+    n_shared = sum(1 for r in reqs[half:]
+                   if r.prompt[:SHARED_PREFIX] == reqs[0].prompt[
+                       :SHARED_PREFIX])
+    if (moved + dedup != total or dedup < shared or dedup % shared
+            or dedup > shared * n_shared):
+        fail(f"serve_disagg ({mode}): pages moved {moved} + dedup {dedup}, "
+             f"expected {total} in all and a whole number of {shared}-page "
+             f"prefixes deduped, 1 to {n_shared}")
+    seeded_equal = sum(1 for r in reqs if r.temperature > 0
+                       and tok[r.rid] == tok_ref[r.rid])
+    numbers = {
+        "mode": mode, "requests": stats.completed, "new_tokens": stats.items,
+        "wall_s": wall, "tok_per_s": stats.items / wall,
+        "engine_tok_per_s": stats.throughput,
+        "ms_per_tick": stats.ms_per_tick, "unified": unified,
+        "handoff_pages_moved": moved, "handoff_pages_dedup": dedup,
+        "handoff_pages_total": total, "pages": pg,
+        "greedy_tokens_compared": compared,
+        "ambiguous_positions": ambiguous, "first_divergence": first_diff,
+        "seeded_rows_equal_unified": seeded_equal,
+        "launches": {k: counts[k] for k in ("flash_attention", mode,
+                                            "fused_sampling")}}
+    check_prefill_bodies(f"serve_disagg ({mode})", counts)
+    return numbers, counts
+
+
+def disagg_capsnet() -> tuple:
+    """The pruned capsnet-mnist (252 capsules, routing in the kernel)
+    behind DisaggregatedEngine(None, two CapsuleEngines): serve_pruned's 8
+    requests, classes held equal to one engine's."""
+    cfg = cfg_lib.get_config("capsnet-mnist")
+    deployed = (FastCapsPipeline(cfg, device=DEVICE).build(seed=0)
+                .prune(0.6, 0.9, type_keep=7).compact()
+                .compile(routing="cuda"))
+    requests = make_requests(8, deployed.cfg)
+    single, _, _ = serve(deployed, requests)
+    pool = DisaggregatedEngine(None, [deployed.serve(batch_size=BATCH)
+                                      for _ in range(DISAGG_DECODES)])
+    pool.warmup()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = pool.serve([ImageRequest(images=r.images, rid=r.rid)
+                       for r in requests])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = pool.stats()
+    by_rid = {c.rid: c for c in single}
+    if len(done) != len(requests):
+        fail(f"serve_disagg (capsnet): {len(done)} of {len(requests)} "
+             f"requests completed")
+    for c in done:
+        if not np.array_equal(c.classes, by_rid[c.rid].classes):
+            fail(f"serve_disagg (capsnet): rid {c.rid} classes differ from "
+                 f"a single engine's")
+    return ({"capsules": deployed.cfg.n_primary_caps, "engines":
+             DISAGG_DECODES, "requests": stats.completed,
+             "frames": stats.frames, "ticks": stats.ticks,
+             "fps": stats.frames / wall, "engine_fps": stats.fps,
+             "routing_launches": counts["fused_routing"]}, counts)
+
+
+def disagg_trace(cfg, params) -> tuple:
+    """A 2 s seeded bursty trace replayed live against the dense
+    disaggregated pool, autoscaled from one decode engine up to
+    TRACE_MAX_ENGINES, a PriorityScheduler on each decode engine; every
+    grow's time and device memory are measured."""
+    classes = default_classes()
+    trace = bursty_trace(classes, rates=[TRACE_RATE / 6, TRACE_RATE],
+                         dwell=[0.4, 0.2], horizon=TRACE_HORIZON,
+                         seed=TRACE_SEED)
+    kw = dict(n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN, decode_kernel=True,
+              device=DEVICE)
+    grows = []
+
+    def grow():
+        torch.cuda.synchronize()
+        mem0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        eng = DecodeEngine(cfg, params, scheduler=PriorityScheduler(), **kw)
+        torch.cuda.synchronize()
+        grows.append({"s": time.perf_counter() - t0,
+                      "bytes": torch.cuda.memory_allocated() - mem0})
+        return eng
+
+    pool = disaggregated_lm_engine(
+        cfg, params, n_decode=1, prefill_slots=LM_SLOTS,
+        decode_schedulers=[PriorityScheduler()], transport="in_process",
+        **kw)
+    warm_disagg(pool)
+    ctrl = AutoscaleController(grow, min_engines=1,
+                               max_engines=TRACE_MAX_ENGINES)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = replay(pool, trace,
+                 factory=default_factory(trace, vocab=cfg.vocab // 2),
+                 controller=ctrl)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = rep.stats
+    if rep.dropped != 0 or rep.submitted != len(trace) \
+            or rep.completed != rep.submitted:
+        fail(f"serve_disagg (trace): submitted {rep.submitted} of "
+             f"{len(trace)}, completed {rep.completed}, dropped "
+             f"{rep.dropped}")
+    return ({"arrivals": len(trace), "horizon_s": trace.horizon,
+             "trace_rate": trace.rate(), "submitted": rep.submitted,
+             "completed": rep.completed, "rejected": rep.rejected,
+             "dropped": rep.dropped, "preempted": st.preempted,
+             "wall_s": wall, "drain_s": rep.drain_s,
+             "new_tokens": st.items, "tok_per_s": st.items / wall,
+             "scale_events": [{"t": e.t, "action": e.action,
+                               "n_live": e.n_live}
+                              for e in rep.scale_events],
+             "mean_live_engines": rep.mean_live_engines, "grows": grows,
+             "latency_ms": {k: {"n": n, "p50": p50, "p95": p95}
+                            for k, (n, p50, p95)
+                            in st.latency_summary().items()},
+             "launches": {k: counts[k] for k in ("flash_attention", "dense",
+                                                 "fused_sampling")}},
+            counts)
+
+
+def phase_serve_disagg() -> dict:
+    """Full-width llama3.2-1b served disaggregated: a PrefillEngine (flash
+    prefill) handing each request's cache rows to two DecodeEngines
+    (decode attention and fused sampling) under each transport, then from
+    bf16 and int8 pages, each held against the unified kernel engine by
+    serve_lm's margin rule; the pruned CapsNet behind a pool of two
+    engines; and a seeded bursty trace against the autoscaled pool."""
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, params, _, _ = init_lm()
+    reqs = lm_requests(cfg.vocab)
+    launches = {}
+
+    def add(counts, keys):
+        for row, key in keys.items():
+            launches[row] = launches.get(row, 0) + counts[key]
+
+    lm_rows = {"flash_attention": "flash_attention",
+               "decode_attention": "dense", "fused_sampling": "fused_sampling"}
+    tok_ref, margins, unified = unified_reference(cfg, params, reqs)
+    first, results = None, []
+    for transport in DISAGG_TRANSPORTS:
+        tok, numbers, counts = disagg_transport(cfg, params, reqs, transport)
+        compared, ambiguous, first_diff = compare_with_plain(
+            f"serve_disagg ({transport})", reqs, tok, tok_ref,
+            first if first is not None else tok, margins, cfg.vocab)
+        first = first if first is not None else tok
+        numbers.update(greedy_tokens_compared=compared,
+                       ambiguous_positions=ambiguous,
+                       first_divergence=first_diff,
+                       seeded_bit_identical_across_transports=True)
+        results.append(numbers)
+        add(counts, lm_rows)
+    bounds = copy_bounds(results[0]["legs"]["bytes_per_handoff"])
+    emit("serve_disagg", part="dense", arch=LM_ARCH, prefill_slots=LM_SLOTS,
+         decode_engines=DISAGG_DECODES, decode_slots=DISAGG_SLOTS,
+         max_len=LM_MAX_LEN, margin=LM_MARGIN, unified=unified,
+         copy_bounds=bounds, transports=results)
+
+    preqs = paged_requests(cfg.vocab)
+    for quantize in (False, True):
+        numbers, counts = disagg_paged(cfg, params, preqs, quantize)
+        emit("serve_disagg", part="paged", arch=LM_ARCH, page_size=PAGE,
+             margin=LM_MARGIN, **numbers)
+        mode = numbers["mode"]
+        add(counts, {"flash_attention": "flash_attention",
+                     DECODE_ROWS[mode]: mode,
+                     "fused_sampling": "fused_sampling"})
+
+    numbers, counts = disagg_capsnet()
+    emit("serve_disagg", part="capsnet", **numbers)
+    add(counts, {"fused_routing": "fused_routing"})
+
+    numbers, counts = disagg_trace(cfg, params)
+    emit("serve_disagg", part="trace", transport="in_process", **numbers)
+    add(counts, lm_rows)
+
+    for row in ("flash_attention", "decode_attention", "decode_attention_paged",
+                "decode_attention_paged_dequant", "fused_sampling",
+                "fused_routing"):
+        if launches.get(row, 0) < 1:
+            fail(f"serve_disagg: {row} was never launched on the "
+                 f"disaggregated path")
+    emit("serve_disagg", part="launches", launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def flash_bound(case, int8: bool = False):
     """Causal attention: 4 * B * H * D operations per unmasked (i, t) pair
     (QK and PV, a multiply and an add each; query i at position q_offset + i
@@ -1815,16 +2203,19 @@ def main() -> None:
     launches_train = phase_train_capsnet()
     launches_lm = phase_serve_lm()
     launches_paged = phase_serve_paged()
+    launches_disagg = phase_serve_disagg()
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
                     **{f"{k} (train)": v for k, v in launches_train.items()},
                     **launches_lm, **{f"{k} (paged)": v
-                                      for k, v in launches_paged.items()}
-                    }.items():
+                                      for k, v in launches_paged.items()},
+                    **{f"{k} (disagg)": v
+                       for k, v in launches_disagg.items()}}.items():
         if n < 1:
             fail(f"{name} was never launched on its path")
     for k, n in (list(launches_train.items()) + list(launches_lm.items())
-                 + list(launches_paged.items())):
+                 + list(launches_paged.items())
+                 + list(launches_disagg.items())):
         launches[k] = launches.get(k, 0) + n
     # no model path calls flash_attention_dequant: its row counts the
     # kernel phase's launches

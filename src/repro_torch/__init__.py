@@ -2,8 +2,8 @@
 TPU) for an NVIDIA H100.
 
 Same sub-packages as the reference (``core``, ``kernels``, ``deploy``,
-``models``, ``configs``, ``serving``, ``launch``), so the two trees can be
-read side by side.  The package imports ``torch`` and ``numpy`` only.  Its
+``models``, ``configs``, ``serving``, ``traffic``, ``launch``, ...), so the
+two trees can be read side by side.  The package imports ``torch`` and ``numpy`` only.  Its
 entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is none; pass ``device="cpu"`` to run the plain PyTorch versions.
 """

@@ -29,6 +29,24 @@ through the ``repro_torch.serving`` engine API
         --requests 8 --batch 16 --routing optimized --scheduler slo \
         --slo-ms 50 --device cpu
 
+    # LM, disaggregated: a prefill engine and 2 decode engines joined by
+    # cache handoffs over a transport (add --paged [--quantize-pages] for
+    # page handoffs with prefix dedup; drop --device cpu and add
+    # --no-reduced for the published size on the card)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --scheduler disagg --decode-engines 2 --transport host_staged \
+        --decode-kernel --attn-impl cuda --device cpu
+
+    # CapsNet, disaggregated: a stateless load balancer over 2 engines
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch capsnet-mnist \
+        --scheduler disagg --decode-engines 2 --device cpu
+
+    # Traffic replay: seeded bursty arrivals against an autoscaled
+    # disaggregated pool, with priority preemption + SLO admission
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --trace bursty --autoscale --priority --admission \
+        --trace-rate 30 --trace-horizon 2 --decode-engines 3 --device cpu
+
 The first call on the card builds the CUDA kernels into ``build/``.
 """
 
@@ -40,9 +58,9 @@ import dataclasses
 import numpy as np
 
 from repro_torch import configs as cfg_lib
-from repro_torch.serving import (FIFOScheduler, ImageRequest,
-                                 InterleavingScheduler, PriorityScheduler,
-                                 SLOBatchScheduler)
+from repro_torch.serving import (DisaggregatedEngine, FIFOScheduler,
+                                 ImageRequest, InterleavingScheduler,
+                                 PriorityScheduler, SLOBatchScheduler)
 
 
 def _make_scheduler(args):
@@ -76,16 +94,27 @@ def _print_latency(stats) -> None:
     for phase, (n, p50, p95, peak) in stats.depth_summary().items():
         print(f"  depth[{phase}]: ticks={n} p50={p50:.0f} p95={p95:.0f} "
               f"peak={peak}")
+    for stage, (n, p50, p95) in stats.transfer_summary().items():
+        print(f"  transfer[{stage}]: n={n} p50={p50:.2f} ms "
+              f"p95={p95:.2f} ms")
 
 
-def serve_lm(args) -> None:
-    """Continuous-batching ragged prefill + decode through ServeEngine,
-    random weights from seed 0."""
+def _print_scale_events(events) -> None:
+    if not events:
+        print("  autoscale: no scale events")
+        return
+    for e in events:
+        print(f"  autoscale[{e.action}]: t={e.t:.3f}s -> "
+              f"{e.n_live} live engine(s)")
+
+
+def _init_lm(args):
+    """(cfg, params, device): the LM config with the chosen prefill
+    attention, random weights from seed 0 drawn on the device."""
     import torch
 
     from repro_torch.device import resolve_device
     from repro_torch.models import lm
-    from repro_torch.serving import Request, ServeEngine
 
     cfg = cfg_lib.get_config(args.arch)
     if args.reduced:
@@ -94,13 +123,108 @@ def serve_lm(args) -> None:
     device = resolve_device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    params = lm.init(cfg, gen, device)
-    engine = ServeEngine(cfg, params, n_slots=args.slots,
-                         max_len=args.max_len,
-                         scheduler=_make_scheduler(args),
-                         kernel_tune=args.kernel_tune or None,
-                         decode_kernel=args.decode_kernel, device=device,
-                         **_paged_kwargs(args))
+    return cfg, lm.init(cfg, gen, device), device
+
+
+def _lm_engine_kwargs(args, device) -> dict:
+    """Per-engine kwargs every LM engine of the launcher shares."""
+    return dict(n_slots=args.slots, max_len=args.max_len,
+                decode_kernel=args.decode_kernel, device=device,
+                **_paged_kwargs(args))
+
+
+def serve_traffic(args) -> None:
+    """Replay a seeded arrival trace (``--trace poisson|bursty``) against
+    an LM engine — optionally a disaggregated pool with closed-loop
+    autoscaling (``--autoscale``), priority preemption (``--priority``)
+    and SLO admission control (``--admission``)."""
+    from repro_torch.serving import (DecodeEngine, ServeEngine,
+                                     disaggregated_lm_engine)
+    from repro_torch.traffic import (AutoscaleController, SLOAdmission,
+                                     bursty_trace, default_classes,
+                                     default_factory, poisson_trace, replay)
+
+    cfg, params, device = _init_lm(args)
+    classes = default_classes()
+    if args.trace == "bursty":
+        trace = bursty_trace(classes, rates=[args.trace_rate / 6,
+                                             args.trace_rate],
+                             dwell=[0.4, 0.2], horizon=args.trace_horizon,
+                             seed=args.trace_seed)
+    else:
+        trace = poisson_trace(classes, rate=args.trace_rate,
+                              horizon=args.trace_horizon,
+                              seed=args.trace_seed)
+
+    kw = _lm_engine_kwargs(args, device)
+    controller = None
+    if args.autoscale:
+        def mk():
+            return DecodeEngine(
+                cfg, params, scheduler=PriorityScheduler()
+                if args.priority else None, **kw)
+        engine = disaggregated_lm_engine(
+            cfg, params, n_decode=1, transport=args.transport,
+            decode_schedulers=[PriorityScheduler()] if args.priority
+            else None, **kw)
+        controller = AutoscaleController(mk, min_engines=1,
+                                         max_engines=args.decode_engines)
+    elif args.scheduler == "disagg":
+        engine = disaggregated_lm_engine(
+            cfg, params, n_decode=args.decode_engines,
+            transport=args.transport,
+            decode_schedulers=[PriorityScheduler()
+                               for _ in range(args.decode_engines)]
+            if args.priority else None, **kw)
+    else:
+        engine = ServeEngine(cfg, params, scheduler=_make_scheduler(args),
+                             **kw)
+    admission = SLOAdmission() if args.admission else None
+
+    rep = replay(engine, trace,
+                 factory=default_factory(trace, vocab=cfg.vocab // 2),
+                 controller=controller, admission=admission)
+
+    stats = rep.stats
+    print(f"[{cfg.arch_id}] on {device}: trace={args.trace} "
+          f"seed={args.trace_seed}: {len(trace)} arrivals over "
+          f"{trace.horizon:.1f}s ({trace.rate():.1f} req/s)")
+    print(f"  submitted={rep.submitted} completed={rep.completed} "
+          f"rejected={rep.rejected} dropped={rep.dropped} "
+          f"preempted={stats.preempted}")
+    if rep.dropped:
+        raise RuntimeError(f"{rep.dropped} admitted request(s) dropped")
+    print(f"  served {stats.items} new tokens in {stats.wall_s:.2f}s "
+          f"({stats.throughput:.1f} tok/s, {stats.ms_per_tick:.1f} "
+          f"ms/tick)")
+    _print_latency(stats)
+    _print_pages(stats)
+    if controller is not None:
+        _print_scale_events(rep.scale_events)
+        if rep.mean_live_engines is not None:
+            print(f"  autoscale: mean live engines = "
+                  f"{rep.mean_live_engines:.2f} "
+                  f"(max {args.decode_engines})")
+
+
+def serve_lm(args) -> None:
+    """Continuous-batching ragged prefill + decode through ServeEngine (or,
+    with ``--scheduler disagg``, a prefill engine and ``--decode-engines``
+    decode engines joined by cache handoffs over ``--transport``), random
+    weights from seed 0."""
+    from repro_torch.serving import (Request, ServeEngine,
+                                     disaggregated_lm_engine)
+
+    cfg, params, device = _init_lm(args)
+    kw = _lm_engine_kwargs(args, device)
+    if args.scheduler == "disagg":
+        engine = disaggregated_lm_engine(
+            cfg, params, n_decode=args.decode_engines,
+            kernel_tune=args.kernel_tune or None,
+            transport=args.transport, **kw)
+    else:
+        engine = ServeEngine(cfg, params, scheduler=_make_scheduler(args),
+                             kernel_tune=args.kernel_tune or None, **kw)
     del params
     rng = np.random.RandomState(0)
     reqs = [Request(prompt=list(rng.randint(1, cfg.vocab // 2,
@@ -127,7 +251,7 @@ def serve_lm(args) -> None:
         completions = engine.serve(reqs)
     stats = engine.stats()
     # Completion.tokens includes the prompt; stats count generated tokens.
-    print(f"[{cfg.arch_id}] on {engine.device}: served {stats.completed} "
+    print(f"[{cfg.arch_id}] on {device}: served {stats.completed} "
           f"requests ({stats.items} new tokens) in {stats.wall_s:.2f}s "
           f"({stats.throughput:.1f} tok/s, {stats.ms_per_tick:.1f} ms/tick)")
     _print_latency(stats)
@@ -155,9 +279,16 @@ def serve_capsnet(args) -> None:
           f"{deployed.n_params:,} params, "
           f"{deployed.flops_per_image / 1e6:.1f} MFLOP/image")
 
-    engine = deployed.serve(batch_size=args.batch,
-                            scheduler=_make_scheduler(args),
-                            kernel_tune=args.kernel_tune or None)
+    if args.scheduler == "disagg":
+        # stateless disaggregation: dispatch frames over an engine pool
+        engine = DisaggregatedEngine(
+            None, [deployed.serve(batch_size=args.batch,
+                                  kernel_tune=args.kernel_tune or None)
+                   for _ in range(args.decode_engines)])
+    else:
+        engine = deployed.serve(batch_size=args.batch,
+                                scheduler=_make_scheduler(args),
+                                kernel_tune=args.kernel_tune or None)
     engine.warmup()
     rng = np.random.RandomState(0)
     for i in range(args.requests):
@@ -188,11 +319,27 @@ def main(argv=None):
                          "published size)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--scheduler", default="fifo",
-                    choices=["fifo", "slo", "interleave"],
+                    choices=["fifo", "slo", "interleave", "disagg"],
                     help="tick scheduler (slo adapts batch to --slo-ms; "
-                         "interleave separates prefill and decode ticks)")
+                         "interleave separates prefill and decode ticks; "
+                         "disagg splits prefill and decode onto separate "
+                         "engines joined by cache handoffs)")
     ap.add_argument("--slo-ms", type=float, default=100.0,
                     help="SLO scheduler p95 tick-latency target")
+    ap.add_argument("--decode-engines", type=int, default=2,
+                    help="disagg: number of decode engines behind the "
+                         "prefill engine (the CapsNet pool's size; with "
+                         "--autoscale the pool's maximum)")
+    ap.add_argument("--transport", default="auto",
+                    choices=["auto", "in_process", "host_staged",
+                             "device_to_device"],
+                    help="disagg: cache-handoff delivery route (auto picks "
+                         "device_to_device when a decode engine's device "
+                         "differs from the prefill engine's, in_process "
+                         "otherwise: on one card, in_process)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="disagg: prefill and decode engines on disjoint "
+                         "device meshes (not ported yet)")
     ap.add_argument("--kernel-tune", action="store_true",
                     help="autotune the kernels' launch geometry (routing "
                          "at warm-up, flash attention per prefill bucket) "
@@ -231,6 +378,26 @@ def main(argv=None):
                     choices=["chunked", "cuda"],
                     help="LM: prefill attention (cuda = the flash_attention "
                          "kernel)")
+    # Traffic-replay options
+    ap.add_argument("--trace", default="none",
+                    choices=["none", "poisson", "bursty"],
+                    help="replay a seeded arrival trace instead of a fixed "
+                         "request batch (LM only)")
+    ap.add_argument("--trace-rate", type=float, default=20.0,
+                    help="mean arrival rate (req/s); bursty uses it as the "
+                         "burst-state rate")
+    ap.add_argument("--trace-horizon", type=float, default=2.0,
+                    help="trace length in seconds")
+    ap.add_argument("--trace-seed", type=int, default=0,
+                    help="trace RNG seed (same seed -> same arrivals and "
+                         "payloads)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="traffic: start one decode engine and let the "
+                         "depth-signal controller grow/drain the pool up "
+                         "to --decode-engines")
+    ap.add_argument("--admission", action="store_true",
+                    help="traffic: SLO admission control (shed arrivals "
+                         "whose class SLO is already unattainable)")
     # CapsNet options
     ap.add_argument("--batch", type=int, default=16,
                     help="CapsuleEngine capacity (max frames per tick)")
@@ -242,10 +409,20 @@ def main(argv=None):
                     help="where the model runs; cuda raises when no card "
                          "is present")
     args = ap.parse_args(argv)
+    if args.multihost:
+        if args.scheduler != "disagg":
+            ap.error("--multihost requires --scheduler disagg")
+        ap.exit(2, "--multihost: prefill and decode engines on disjoint "
+                   "device meshes need the sharding slice, which is not "
+                   "ported yet; see ROADMAP.md, queue A item 5\n")
     if args.paged and args.arch in cfg_lib.PAPER_ARCHS:
         ap.error("--paged applies to LM serving only")
     if args.arch in cfg_lib.PAPER_ARCHS:
+        if args.trace != "none":
+            ap.error("--trace applies to LM serving only")
         serve_capsnet(args)
+    elif args.trace != "none":
+        serve_traffic(args)
     else:
         serve_lm(args)
 

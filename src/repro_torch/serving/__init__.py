@@ -7,8 +7,14 @@ admission, batch shape, device placement and tick interleaving;
 :class:`CapsuleEngine` (CapsNet image frames, the paper's Fig. 1 workload)
 and :class:`ServeEngine` (LM decode over dense slot caches or the paged
 :class:`PagePool`) are the workload adapters, with the ``submit() / poll()
-/ run_until_idle() / stats()`` surface and true async admission.  The
-disaggregated front-end and the sharded scheduler are not ported yet.
+/ run_until_idle() / stats()`` surface and true async admission.
+:class:`DisaggregatedEngine` (``repro_torch.serving.disagg``) keeps that
+same surface while splitting prefill and decode onto dedicated engines
+joined by typed :class:`CacheHandoff`\\ s, whose rows a swappable
+:class:`Transport` (``repro_torch.serving.transport``) delivers; with
+``prefill=None`` it load-balances over a pool of :class:`CapsuleEngine`\\ s.
+The sharded scheduler and the multi-host disaggregated engine are not
+ported yet.
 """
 
 from repro_torch.serving.capsule_engine import (CapsuleEngine,  # noqa: F401
@@ -16,6 +22,10 @@ from repro_torch.serving.capsule_engine import (CapsuleEngine,  # noqa: F401
 from repro_torch.serving.core import (DepthHistogram,  # noqa: F401
                                       EngineCore, EngineStats,
                                       LatencyHistogram, SlotTask, StreamEvent)
+from repro_torch.serving.disagg import (CacheHandoff,  # noqa: F401
+                                        DecodeEngine, DisaggregatedEngine,
+                                        HandoffRequest, PrefillEngine,
+                                        disaggregated_lm_engine)
 from repro_torch.serving.engine import (Completion, Request,  # noqa: F401
                                         ServeEngine)
 from repro_torch.serving.pages import (PagePool,  # noqa: F401
@@ -26,3 +36,7 @@ from repro_torch.serving.schedulers import (DisaggScheduler,  # noqa: F401
                                             PriorityScheduler, Scheduler,
                                             SLOBatchScheduler, TickRecord,
                                             pow2_bucket)
+from repro_torch.serving.transport import (  # noqa: F401
+    DeviceToDeviceTransport, HostStagedTransport, InProcessTransport,
+    TransferRecord, Transport, TransportError, make_transport,
+    select_transport)

@@ -277,7 +277,8 @@ class InterleavingScheduler(Scheduler):
 
 
 class DisaggScheduler(Scheduler):
-    """Phase policy for a disaggregated.
+    """Phase policy for a disaggregated front-end
+    (:class:`repro_torch.serving.DisaggregatedEngine`).
 
     Priorities: drain the **handoff** queue first (a stranded handoff is
     finished prefill work resident on *neither* engine — it holds cache

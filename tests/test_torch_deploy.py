@@ -275,7 +275,9 @@ class TestLauncher:
         assert "deployed on cpu" in out and "served 3 requests" in out
 
     def test_cli_rejects_waiting_options(self):
-        for bad in (["--scheduler", "disagg"], ["--routing", "pallas"],
+        for bad in (["--scheduler", "sharded"],
+                    ["--scheduler", "disagg", "--multihost"],
+                    ["--routing", "pallas"],
                     ["--arch", "mistral-large-123b"]):
             with pytest.raises(SystemExit):
                 port_serve.main(["--arch", "capsnet-mnist", "--device", "cpu"]
@@ -306,7 +308,10 @@ def test_port_has_files_to_check():
                 "kernels/sampling/ref.py", "configs/llama3p2_1b.py",
                 "configs/qwen3_1p7b.py", "data/synthetic_digits.py",
                 "optim/adamw.py", "checkpointing/checkpoint.py",
-                "training/trainer.py", "core/pruning.py", "launch/train.py"):
+                "training/trainer.py", "core/pruning.py", "launch/train.py",
+                "serving/transport.py", "serving/disagg.py",
+                "traffic/traces.py", "traffic/replay.py",
+                "traffic/controller.py", "traffic/admission.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 

@@ -8,7 +8,12 @@ are initialised by the reference and carried over leaf by leaf with
 
 ``PortToyEngine`` is ``engine_testlib.ToyEngine`` rebuilt on the port's
 ``EngineCore`` (same hooks, same instrumentation), so the scheduler contract
-can be re-run against the port's schedulers.
+can be re-run against the port's schedulers.  ``PortToyPrefillEngine`` /
+``PortToyDecodeEngine`` / ``PortFlakyTransport`` are the disaggregated pair
+and the fault-injecting transport of ``engine_testlib`` on the port's
+``repro_torch.serving`` types: prefill completes every request with a
+``CacheHandoff`` whose rows (tensors) encode the handoff identity
+(:func:`port_toy_rows`), and decode verifies them bit-exactly on admission.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from repro.core import capsnet as ref_capsnet
 from repro_torch import convert
 from repro_torch.core import capsnet as port_capsnet
 from repro_torch.serving.core import EngineCore, SlotTask
+from repro_torch.serving.disagg import CacheHandoff, HandoffRequest
+from repro_torch.serving.transport import InProcessTransport, TransportError
 
 
 def rand(seed: int, shape, scale: float = 1.0) -> np.ndarray:
@@ -134,3 +141,98 @@ class PortToyEngine(EngineCore):
     def _finalize(self, entry, latency_s: float) -> ToyCompletion:
         return ToyCompletion(rid=entry.request.rid, items=len(entry.tasks),
                              latency_s=latency_s)
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated toy pair and fault-injecting transport on the port's types
+# ---------------------------------------------------------------------------
+
+
+def port_toy_rows(rid: int, steps: int) -> Dict[str, torch.Tensor]:
+    """Deterministic cache-row payload derived from the handoff identity
+    (mixed shapes and dtypes, like a real cache tree)."""
+    return {"state": torch.full((2, 3), float(rid * 1000 + steps)),
+            "tag": torch.tensor([rid, steps], dtype=torch.int32)}
+
+
+class PortToyPrefillEngine(PortToyEngine):
+    """``engine_testlib.ToyPrefillEngine`` on the port: slots live one
+    admission, the engine never streams, and every request completes at
+    prefill with a ``CacheHandoff`` (``family="toy"``, ``left`` = the
+    request's ``steps``, rows from :func:`port_toy_rows`); zero-task
+    requests complete with the identity ``ToyCompletion``."""
+
+    def _wants_stream(self, request: ToyRequest) -> bool:
+        return False                  # streaming starts on the decode side
+
+    def _expand(self, request: ToyRequest
+                ) -> Tuple[List[SlotTask], Dict[str, Any]]:
+        tasks, extra = super()._expand(request)
+        return [SlotTask(payload=1) for _ in tasks[:1]], extra
+
+    def _finalize(self, entry, latency_s: float):
+        if not entry.tasks:
+            return super()._finalize(entry, latency_s)
+        req = entry.request
+        return CacheHandoff(
+            rid=req.rid, request=req, family="toy", arch_id="toy",
+            max_len=0, rows=port_toy_rows(req.rid, req.steps), tok=0, pos=0,
+            out=[], left=int(req.steps), stream=bool(req.stream),
+            cls=self._request_class(req))
+
+
+class PortToyDecodeEngine(PortToyEngine):
+    """Decode half of the toy pair: verifies a handoff's rows bit-exactly
+    against :func:`port_toy_rows` (keys, shapes, dtypes, values), raising
+    ``ValueError`` on any mismatch, then counts down ``left`` ticks."""
+
+    def _expand(self, request: Any
+                ) -> Tuple[List[SlotTask], Dict[str, Any]]:
+        if not isinstance(request, HandoffRequest):
+            return super()._expand(request)
+        h = request.handoff
+        if h.family != "toy":
+            raise ValueError(
+                f"toy decode engine got family {h.family!r} handoff")
+        if not h.done:
+            want = port_toy_rows(h.rid, h.left)
+            got = h.rows if isinstance(h.rows, dict) else {}
+            for key, w in want.items():
+                g = got.get(key)
+                if (not isinstance(g, torch.Tensor) or g.shape != w.shape
+                        or g.dtype != w.dtype or not torch.equal(g, w)):
+                    raise ValueError(
+                        f"handoff rid={h.rid}: rows leaf {key!r} corrupted "
+                        f"in transit")
+        return [SlotTask(payload=max(int(h.left), 1))], {}
+
+    def _request_class(self, request: Any) -> str:
+        if isinstance(request, HandoffRequest):
+            return request.handoff.cls
+        return super()._request_class(request)
+
+
+class PortFlakyTransport(InProcessTransport):
+    """In-process delivery with scripted synthetic delays and injected
+    failures: ``fail_on`` holds 0-based delivery-attempt indices that raise
+    ``TransportError``; ``delays`` cycle into the recorded ``pass`` leg as
+    synthetic seconds (recorded, never slept)."""
+
+    name = "flaky"
+    LEGS = ("pass",)
+
+    def __init__(self, delays=(), fail_on=(), **kwargs):
+        super().__init__(**kwargs)
+        self.delays = list(delays)
+        self.fail_on = set(fail_on)
+        self.calls = 0                              # guarded-by: _lock
+
+    def _move(self, rows: Any, target: Any):
+        with self._lock:
+            i = self.calls
+            self.calls += 1
+        if i in self.fail_on:
+            raise TransportError(f"injected failure on delivery {i}")
+        delay = float(self.delays[i % len(self.delays)]) if self.delays \
+            else 0.0
+        return rows, {"pass": delay}, None
