@@ -20,7 +20,11 @@ serves it disaggregated (a prefill engine and two decode engines joined by
 cache handoffs under each transport, dense and paged, held against the
 unified engine), serves the pruned CapsNet through a pool of two engines,
 replays a seeded bursty trace against an autoscaled disaggregated pool,
-and times the nine kernels (routing also at the dense shape; routing,
+serves a full-size ``deepseek-moe-16b`` (bf16 parameters) from dense slots
+and bf16 and int8 pages and a full-width ``llama-3.2-vision-90b`` (10
+layers: 8 self-attention, 2 cross-attention; bf16 parameters) from dense
+slots and bf16 pages, each against its plain path, and times the nine
+kernels (routing also at the dense shape; routing,
 softmax, decode and sampling at every point of their tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
 size and threads; and sampling on a served decode tick's logits).  One JSON
@@ -148,6 +152,27 @@ DISAGG_TRANSPORTS = ("in_process", "host_staged", "device_to_device")
 TRACE_RATE, TRACE_HORIZON, TRACE_SEED = 60.0, 2.0, 0
 TRACE_MAX_ENGINES = 3
 
+# The moe and vlm serving paths (phases serve_moe, serve_vlm):
+# deepseek-moe-16b at full width and depth (28 layers, d_model 2048, 16 x
+# 128 heads over 16 KV heads, 64 routed + 2 shared experts of 1408, top-6,
+# vocab 102400) and llama-3.2-vision-90b at full width with its depth cut to
+# 10 layers (two units of 4 self-attention blocks and one cross-attention
+# block; d_model 8192, 64 x 128 query heads over 8 KV heads, d_ff 28672,
+# vocab 128256, 1024 image tokens), both with bf16 parameters, random
+# weights from seed 0, the engine width and cache length of serve_lm and
+# the first FAMILY_REQUESTS of its (or serve_paged's) requests: one wave of
+# 8, which keeps the two phases near 3 minutes.  bf16 parameters are the
+# one cut of deepseek-moe-16b: float32 ones and the engine's bf16 copy
+# would need 101 GB.
+MOE_ARCH = "deepseek-moe-16b"
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 10
+FAMILY_REQUESTS = 8
+FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16"],
+               VLM_ARCH: ["param_dtype float32 -> bfloat16",
+                          "n_layers 100 -> 10 (2 units: 8 self-attention "
+                          "+ 2 cross-attention blocks)"]}
+
 # Valid lengths of the kernel phase's paged and int8 decode cases: 0, 1, a
 # page boundary, the full 1024 rows and lengths in between.  (The timing
 # rows use the serve_paged tick's own lengths, paged_valid().)
@@ -266,6 +291,16 @@ QWEN_LAYOUTS = (
 )
 SPLIT_VALID = ((0, 1, 31, 32, 33, 1024, 100, 200),
                (255, 256, 257, 127, 129, 1023, 511, 513))
+# decode_attention at serve_moe's widths (D 128, G 1; its pool of 512 pages
+# of 16 rows) and serve_vlm's (D 128, G 8)
+MOE_PAGED = {"dims": (LM_SLOTS, LM_MAX_LEN, 16, 16, 128),
+             "paged": (N_PAGES, PAGE, LM_MAX_LEN // PAGE), "shuffled": True}
+MOE_LAYOUTS = (
+    {"dims": (LM_SLOTS, LM_MAX_LEN, 16, 16, 128), "dtype": "bfloat16"},
+    {**MOE_PAGED, "dtype": "bfloat16"},
+    {**MOE_PAGED, "dtype": "bfloat16", "quant": True},
+)
+VLM_DECODE = {"dims": (LM_SLOTS, LM_MAX_LEN, 64, 8, 128), "dtype": "bfloat16"}
 
 # Main-path shapes beyond the registry's example cases.  Tolerances: the
 # kernels sum in another order than the plain versions and use rsqrtf/expf,
@@ -351,6 +386,14 @@ EXTRA_CASES = {
          "causal": True, "atol": 1e-2},
         {"dims": (2, 128, 128, 8, 4, 16), "dtype": "bfloat16",
          "causal": True, "atol": 1e-2},
+        # serve_moe's prefill (G = 1, D = 128) and serve_vlm's: the
+        # self-attention (G = 8) and the non-causal cross-attention over
+        # 1024 image tokens, at the full bucket and a short prompt's
+        *({"dims": dims, "dtype": "bfloat16", "causal": causal, "atol": 1e-2}
+          for dims, causal in (((8, 1024, 1024, 16, 16, 128), True),
+                               ((8, 1024, 1024, 64, 8, 128), True),
+                               ((8, 1024, 1024, 64, 8, 128), False),
+                               ((8, 32, 1024, 64, 8, 128), False))),
     ),
     "decode_attention": (
         {"dims": (8, 1024, 32, 8, 64), "dtype": "bfloat16",
@@ -392,6 +435,11 @@ EXTRA_CASES = {
         *({**lay, "valid": (512, 100, 0, 333), "atol": 1e-2,
            "config": {"kv_splits": n}}
           for lay in QWEN_LAYOUTS for n in DECODE_SPLITS),
+        # serve_moe's decode (G = 1, D = 128: dense slots, bf16 and int8
+        # pages) and serve_vlm's self-attention decode (G = 8, D = 128)
+        *({**lay, "valid": valid, "atol": 1e-2}
+          for lay in MOE_LAYOUTS + (VLM_DECODE,)
+          for valid in (PAGED_VALID,) + SPLIT_VALID),
     ),
     "flash_attention_dequant": (
         # a continuation prefill of 256 rows after 768 cached int8 rows
@@ -418,6 +466,9 @@ EXTRA_CASES = {
         {"dims": (8, 128257), **MIXED_ROWS, "atol": 0},
         {"dims": (4, 100003), "temperature": (0.0, 1.0, 0.7, 0.0),
          "top_k": (0, 0, 20, 0), "top_p": (1.0, 0.5, 1.0, 1.0), "atol": 0},
+        # serve_moe's vocabulary
+        *({"dims": (8, 102400), **rows, "atol": 0}
+          for rows in ({"temperature": (0.0,) * 8}, MIXED, MIXED_ROWS)),
     ),
 }
 
@@ -1060,14 +1111,14 @@ def phase_train_capsnet() -> dict:
             "taylor_softmax": counts["taylor_softmax"]}
 
 
-def lm_requests(vocab: int) -> list:
+def lm_requests(vocab: int, n_requests: int = LM_REQUESTS) -> list:
     """16 requests from RandomState(0): prompts of 16-700 tokens with ids in
     [1, vocab / 2), 32 new tokens; every fourth samples at temperature 0.8
     with top-k 50 and top-p 0.9 and a seed of its own, the others are
-    greedy."""
+    greedy.  ``n_requests`` takes the first n of them."""
     rng = np.random.RandomState(0)
     reqs = []
-    for i in range(LM_REQUESTS):
+    for i in range(n_requests):
         n = int(rng.randint(16, 701))
         prompt = [int(t) for t in rng.randint(1, vocab // 2, size=n)]
         kw = {}
@@ -1378,17 +1429,17 @@ def phase_serve_lm() -> dict:
             "fused_sampling": counts["fused_sampling"]}
 
 
-def paged_requests(vocab: int) -> list:
+def paged_requests(vocab: int, n_requests: int = LM_REQUESTS) -> list:
     """16 requests from RandomState(1), 32 new tokens each: the even ones
     begin with one shared 256-token prefix (16 full pages) followed by
     16-300 tokens of their own, the odd ones have prompts of 16-700 tokens
     of their own; ids in [1, vocab / 2).  Every fourth request samples at
     temperature 0.8 with top-k 50 and top-p 0.9 and a seed of its own, the
-    others are greedy."""
+    others are greedy.  ``n_requests`` takes the first n of them."""
     rng = np.random.RandomState(1)
     shared = [int(t) for t in rng.randint(1, vocab // 2, size=SHARED_PREFIX)]
     reqs = []
-    for i in range(LM_REQUESTS):
+    for i in range(n_requests):
         if i % 2 == 0:
             own = rng.randint(1, vocab // 2, size=int(rng.randint(16, 301)))
             prompt = shared + [int(t) for t in own]
@@ -1939,6 +1990,261 @@ def phase_serve_disagg() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The moe and vlm families
+# ---------------------------------------------------------------------------
+
+
+def family_cfg(arch: str, n_layers: int = 0):
+    """``arch`` at full width with bf16 parameters and prefill attention in
+    the flash kernel; its depth cut to ``n_layers`` when one is given."""
+    cut = {"param_dtype": "bfloat16", "attn_impl": "cuda"}
+    if n_layers:
+        cut["n_layers"] = n_layers
+    return dataclasses.replace(cfg_lib.get_config(arch), **cut)
+
+
+def init_family(cfg) -> tuple:
+    """Random weights from seed 0 drawn on the card: (params, seconds,
+    parameter count, parameter bytes)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, DEVICE)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    return (params, time.perf_counter() - t0,
+            sum(int(x.numel()) for x in leaves),
+            sum(int(x.numel()) * x.element_size() for x in leaves))
+
+
+def watch_flash() -> tuple:
+    """Count the flash_attention wrapper's calls by its ``causal`` flag
+    (vlm prefill: causal self-attention, non-causal cross-attention); the
+    launches themselves are the wrapper's own count.  Returns (calls,
+    a function that removes the watch)."""
+    from repro_torch import kernels as kernels_pkg
+
+    calls = {"causal": 0, "non_causal": 0}
+    inner = kernels_pkg.flash_attention
+
+    def watched(q, k, v, **kw):
+        calls["causal" if kw.get("causal", True) else "non_causal"] += 1
+        return inner(q, k, v, **kw)
+
+    kernels_pkg.flash_attention = watched
+    return calls, lambda: setattr(kernels_pkg, "flash_attention", inner)
+
+
+def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
+    """One cache mode (dense slots, bf16 or int8 pages) of a family phase:
+    the kernel engine (flash prefill, decode attention, fused sampling)
+    against the plain engine of the same mode (chunked attention, host
+    sampling) on ``reqs``, by serve_lm's margin rule.  Returns (numbers,
+    launch counts of the kernel run, the kernel engine)."""
+    paged = mode != "dense"
+    name = f"{phase} ({mode})"
+    kw = dict(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, device=DEVICE)
+    if paged:
+        kw.update(page_size=PAGE, quantize_pages=mode == "paged_int8")
+    kern = ServeEngine(cfg, params, decode_kernel=True, **kw)
+    plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
+                        **kw)
+    for eng in (kern, plain):
+        eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+
+    groups = count_calls(kern, "_prefill_paged_group" if paged
+                         else "_prefill_group")
+    ticks = count_calls(kern, "_step")
+    flash, unwatch = watch_flash()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        done = kern.serve(fresh(reqs))
+    finally:
+        unwatch()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = kern.stats()
+    n_groups, n_ticks = groups[0], ticks[0]
+    if len(done) != len(reqs):
+        fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+    # vlm decodes a gathered view of its pages through the dense body
+    body = mode if paged and cfg.family != "vlm" else "dense"
+    n_self, n_cross = cfg.n_self_layers(), cfg.n_cross_layers()
+    want = {"flash_attention": (n_self + n_cross) * n_groups,
+            "decode_attention": n_self * n_ticks, body: n_self * n_ticks,
+            "fused_sampling": n_ticks}
+    for key, n in want.items():
+        if counts[key] != n or n < 1:
+            fail(f"{name}: {key} launched {counts[key]} times, expected {n} "
+                 f"({n_groups} prefill groups, {n_ticks} decode ticks)")
+    if (flash["causal"] != n_self * n_groups
+            or flash["non_causal"] != n_cross * n_groups):
+        fail(f"{name}: flash calls {flash}, expected {n_self * n_groups} "
+             f"causal and {n_cross * n_groups} non-causal")
+    check_prefill_bodies(name, counts)
+    if paged and stats.pages.get("prefix_hits", 0) < 1:
+        fail(f"{name}: no prefix hit: {dict(stats.pages)}")
+
+    margins = record_margins(plain)
+    done_plain = plain.serve(fresh(reqs))
+    del plain
+    # a paged engine's second run would meet a warm prefix cache: a fresh
+    # engine gives every prefill group the first run's composition
+    again_eng = (ServeEngine(cfg, params, decode_kernel=True, **kw) if paged
+                 else kern)
+    again = again_eng.serve(fresh(reqs))
+    del again_eng
+    tok = {c.rid: c.tokens for c in done}
+    tok_plain = {c.rid: c.tokens for c in done_plain}
+    compared, ambiguous, first_diff = compare_with_plain(
+        name, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
+        margins, cfg.vocab)
+    lat = stats.latency_summary()
+    numbers = dict(
+        mode=mode, requests=stats.completed, new_tokens=stats.items,
+        ticks=stats.ticks, prefill_groups=n_groups, decode_ticks=n_ticks,
+        wall_s=wall, tok_per_s=stats.throughput,
+        ms_per_tick=stats.ms_per_tick,
+        latency_ms={k: {"n": n, "p50": p50, "p95": p95}
+                    for k, (n, p50, p95) in lat.items()},
+        launches={k: counts[k] for k in want}, flash_calls=flash,
+        prefill_launches_by_body={
+            b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
+        greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
+        margin=LM_MARGIN, first_divergence=first_diff,
+        greedy_sequences_equal_plain=sum(
+            1 for r in reqs if r.temperature == 0
+            and tok[r.rid] == tok_plain[r.rid]),
+        seeded_bit_identical=True)
+    if paged:
+        numbers.update(pages=dict(stats.pages), pool_bytes=pool_nbytes(kern))
+    return numbers, counts, kern
+
+
+def routing_counts(params, cfg, x, token_mask) -> dict:
+    """What one moe layer's dispatch does with the tokens of a prefill:
+    the capacity of its buffers and of each row (from the row's real
+    tokens), the (token, expert) pairs routed, and those dropped because
+    their expert's buffer was full (serve_lm's rank rule, recomputed with
+    the module's own helpers)."""
+    from repro_torch.models import moe as moe_lib
+
+    m = cfg.moe
+    b, s, _ = x.shape
+    mask = (token_mask.to(torch.bool) if token_mask is not None
+            else torch.ones((b, s), dtype=torch.bool, device=x.device))
+    cap = moe_lib._capacity(s, m)
+    cap_rows = torch.clamp(moe_lib._capacity_dyn(mask.sum(1), m), max=cap)
+    logits = x.float() @ params["router"].float() \
+        + params["router_b"].float()
+    _, ids = moe_lib.top_k(logits, m.top_k)
+    ids = torch.where(mask[..., None], ids, torch.full_like(ids, m.n_experts))
+    rank = moe_lib._rank_within_expert(ids, m.n_experts)
+    kept = int(((rank < cap_rows[:, None, None]) & mask[..., None]).sum())
+    routed = int(mask.sum()) * m.top_k
+    load = torch.stack([torch.bincount(r[r < m.n_experts],
+                                       minlength=m.n_experts)
+                        for r in ids.reshape(b, -1)])
+    return {"capacity": cap, "row_capacity": cap_rows.tolist(),
+            "routed": routed, "dropped": routed - kept,
+            "busiest_expert_load": int(load.max())}
+
+
+def moe_admission(kern, reqs, cfg) -> dict:
+    """The admission tick of the first LM_SLOTS requests of ``reqs`` on
+    ``kern`` with every moe layer's prefill watched: the aux loss the
+    forward sums over the layers (the reference's training term), the
+    buffer and per-row capacities, and the pairs routed and dropped."""
+    from repro_torch.models import moe as moe_lib
+
+    layers, aux = [], []
+    inner = moe_lib.moe_apply
+
+    def watched(p, c, x, token_mask=None):
+        y, a = inner(p, c, x, token_mask=token_mask)
+        if x.shape[1] > 1:
+            aux.append(float(a))
+            layers.append(routing_counts(p, c, x, token_mask))
+        return y, a
+
+    moe_lib.moe_apply = watched
+    try:
+        for r in fresh(reqs[:LM_SLOTS]):
+            kern.submit(r)
+        kern.tick()
+    finally:
+        moe_lib.moe_apply = inner
+    kern.run_until_idle()
+    if len(layers) != cfg.n_layers or not all(np.isfinite(aux)):
+        fail(f"serve_moe: admission watched {len(layers)} moe layers, aux "
+             f"{aux}")
+    return {"aux_loss": sum(aux), "aux_by_layer": aux,
+            "capacity": layers[0]["capacity"],
+            "row_capacity": layers[0]["row_capacity"],
+            "routed_pairs_per_layer": layers[0]["routed"],
+            "dropped_pairs": sum(lay["dropped"] for lay in layers),
+            "dropped_by_layer": [lay["dropped"] for lay in layers],
+            "busiest_expert_load": max(lay["busiest_expert_load"]
+                                       for lay in layers)}
+
+
+def phase_serve_family(phase: str, cfg, modes) -> dict:
+    """A full-width moe or vlm model through ServeEngine in each cache mode
+    of ``modes`` (dense slots on serve_lm's requests, pages on
+    serve_paged's), the kernel path against the plain path; returns the
+    launches by kernel-table row."""
+    t_phase = time.perf_counter()
+    params, init_s, n_params, n_bytes = init_family(cfg)
+    params = lm.compute_params(cfg, params)       # bf16: the same tensors
+    launches = {}
+    for mode in modes:
+        reqs = (lm_requests(cfg.vocab, FAMILY_REQUESTS) if mode == "dense"
+                else paged_requests(cfg.vocab, FAMILY_REQUESTS))
+        numbers, counts, kern = serve_family_mode(phase, cfg, params, reqs,
+                                                  mode)
+        if cfg.moe is not None and mode == "dense":
+            numbers["admission"] = moe_admission(kern, reqs, cfg)
+        numbers.update(decode_tick_breakdown(kern, cfg.vocab))
+        del kern
+        emit(phase, arch=cfg.arch_id, params=n_params, param_bytes=n_bytes,
+             init_s=init_s, reduced=FAMILY_CUTS[cfg.arch_id],
+             n_layers=cfg.n_layers, self_layers=cfg.n_self_layers(),
+             cross_layers=cfg.n_cross_layers(), slots=LM_SLOTS,
+             max_len=LM_MAX_LEN, page_size=PAGE if mode != "dense" else None,
+             **numbers)
+        body = mode if mode != "dense" and cfg.family != "vlm" else "dense"
+        for row, key in (("flash_attention", "flash_attention"),
+                         (DECODE_ROWS[body], body),
+                         ("fused_sampling", "fused_sampling")):
+            launches[row] = launches.get(row, 0) + counts[key]
+    del params
+    torch.cuda.empty_cache()
+    emit(phase, part="launches", launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_serve_moe() -> dict:
+    """deepseek-moe-16b at full width and depth (bf16 parameters): dense
+    slots, bf16 pages (read in place by the paged decode body), int8
+    pages; the admission tick's aux loss and expert drops."""
+    return phase_serve_family("serve_moe", family_cfg(MOE_ARCH),
+                              ("dense", "paged", "paged_int8"))
+
+
+def phase_serve_vlm() -> dict:
+    """llama-3.2-vision-90b at full width, 10 layers (bf16 parameters):
+    dense slots and bf16 pages (a gathered view through the dense decode
+    body, as the reference); prefill runs the flash kernel causal in the
+    self-attention blocks and non-causal over the (zero, imageless) cross
+    cache's 1024 rows in the cross-attention blocks."""
+    return phase_serve_family("serve_vlm", family_cfg(VLM_ARCH, VLM_LAYERS),
+                              ("dense", "paged"))
+
+
 def flash_bound(case, int8: bool = False):
     """Causal attention: 4 * B * H * D operations per unmasked (i, t) pair
     (QK and PV, a multiply and an add each; query i at position q_offset + i
@@ -2120,6 +2426,29 @@ def sweep(name, case) -> dict:
     return out
 
 
+# Timing rows at serve_moe's and serve_vlm's shapes (the PERF.md table's
+# slice lines): (registry kernel, label, case).
+SLICE_TIMINGS = (
+    ("flash_attention", "deepseek-moe-16b self, G 1",
+     {"dims": (LM_SLOTS, LM_MAX_LEN, LM_MAX_LEN, 16, 16, 128),
+      "dtype": "bfloat16", "causal": True}),
+    ("flash_attention", "llama-3.2-vision self, G 8",
+     {"dims": (LM_SLOTS, LM_MAX_LEN, LM_MAX_LEN, 64, 8, 128),
+      "dtype": "bfloat16", "causal": True}),
+    ("flash_attention", "llama-3.2-vision cross, G 8, non-causal",
+     {"dims": (LM_SLOTS, LM_MAX_LEN, 1024, 64, 8, 128),
+      "dtype": "bfloat16", "causal": False}),
+    ("decode_attention", "deepseek-moe-16b dense, G 1", MOE_LAYOUTS[0]),
+    ("decode_attention", "deepseek-moe-16b paged", MOE_LAYOUTS[1]),
+    ("decode_attention", "deepseek-moe-16b paged int8", MOE_LAYOUTS[2]),
+    ("decode_attention", "llama-3.2-vision dense, G 8", VLM_DECODE),
+    ("fused_sampling", "V 102400 greedy",
+     {"dims": (LM_SLOTS, 102400), "temperature": (0.0,) * LM_SLOTS}),
+    ("fused_sampling", "V 102400 mixed", {"dims": (LM_SLOTS, 102400),
+                                          **MIXED}),
+)
+
+
 def phase_timings(launches: dict, worst: dict) -> list:
     """One row per TPU entry point at its main path's shape.  The decode
     rows take the decode tick's valid lengths: serve_lm's first 8 requests
@@ -2140,6 +2469,16 @@ def phase_timings(launches: dict, worst: dict) -> list:
                **timing_row(info["kernel"], case)}
         table.append(row)
         emit("timings", **row)
+    # the moe and vlm phases' shapes, beside the main rows (the decode
+    # rows at the same ticks' lengths)
+    for name, label, case in SLICE_TIMINGS:
+        if name == "decode_attention":
+            case = dict(case, valid=paged_valid(vocab) if case.get("paged")
+                        else valid)
+        row = timing_row(name, case)
+        if "mixed" in label:
+            row.pop("library_ms")
+        emit("timings", name=name, case=label, **row)
     # the serve mix's sampling rows (temperature 0.8, top-k 50, top-p 0.9)
     case = {"dims": (LM_SLOTS, 128256), **MIXED}
     emit("timings", name="fused_sampling", case="mixed",
@@ -2204,18 +2543,24 @@ def main() -> None:
     launches_lm = phase_serve_lm()
     launches_paged = phase_serve_paged()
     launches_disagg = phase_serve_disagg()
+    launches_moe = phase_serve_moe()
+    launches_vlm = phase_serve_vlm()
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
                     **{f"{k} (train)": v for k, v in launches_train.items()},
                     **launches_lm, **{f"{k} (paged)": v
                                       for k, v in launches_paged.items()},
                     **{f"{k} (disagg)": v
-                       for k, v in launches_disagg.items()}}.items():
+                       for k, v in launches_disagg.items()},
+                    **{f"{k} (moe)": v for k, v in launches_moe.items()},
+                    **{f"{k} (vlm)": v
+                       for k, v in launches_vlm.items()}}.items():
         if n < 1:
             fail(f"{name} was never launched on its path")
     for k, n in (list(launches_train.items()) + list(launches_lm.items())
                  + list(launches_paged.items())
-                 + list(launches_disagg.items())):
+                 + list(launches_disagg.items())
+                 + list(launches_moe.items()) + list(launches_vlm.items())):
         launches[k] = launches.get(k, 0) + n
     # no model path calls flash_attention_dequant: its row counts the
     # kernel phase's launches

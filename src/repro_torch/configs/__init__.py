@@ -1,5 +1,7 @@
-"""Config registry of the port: the paper's two CapsNets and the dense LM
-architectures served so far (llama3.2-1b, qwen3-1.7b).
+"""Config registry of the port: the paper's two CapsNets and the LM
+architectures of the families the port serves: dense (llama3.2-1b,
+qwen3-1.7b, mistral-large-123b, qwen1.5-110b), moe (deepseek-moe-16b,
+dbrx-132b) and vlm (llama-3.2-vision-90b).
 
 ``get_config(arch_id)`` returns the full published config;
 ``reduced(cfg)`` returns a CPU-smoke-sized config of the same family, by
@@ -11,19 +13,28 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List
 
-from repro_torch.configs import (capsnet_fmnist, capsnet_mnist, llama3p2_1b,
-                                 qwen3_1p7b)
+from repro_torch.configs import (capsnet_fmnist, capsnet_mnist, dbrx_132b,
+                                 deepseek_moe_16b, llama3p2_1b,
+                                 llama3p2_vision_90b, mistral_large_123b,
+                                 qwen1p5_110b, qwen3_1p7b)
 from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.models.common import LMConfig, MoEConfig, SSMConfig, XLSTMConfig
 
 _MODULES = {
     "llama3.2-1b": llama3p2_1b,
     "qwen3-1.7b": qwen3_1p7b,
+    "mistral-large-123b": mistral_large_123b,
+    "qwen1.5-110b": qwen1p5_110b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "dbrx-132b": dbrx_132b,
+    "llama-3.2-vision-90b": llama3p2_vision_90b,
     "capsnet-mnist": capsnet_mnist,
     "capsnet-fmnist": capsnet_fmnist,
 }
 
-LM_ARCHS: List[str] = ["llama3.2-1b", "qwen3-1.7b"]
+LM_ARCHS: List[str] = ["llama3.2-1b", "qwen3-1.7b", "mistral-large-123b",
+                       "qwen1.5-110b", "deepseek-moe-16b", "dbrx-132b",
+                       "llama-3.2-vision-90b"]
 PAPER_ARCHS: List[str] = ["capsnet-mnist", "capsnet-fmnist"]
 
 

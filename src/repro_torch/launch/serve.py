@@ -7,9 +7,13 @@ through the ``repro_torch.serving`` engine API
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --no-reduced --decode-kernel --attn-impl cuda --requests 8
 
-    # LM, smoke-sized, on the host (the kernels' plain versions)
+    # LM, smoke-sized, on the host (the kernels' plain versions); the moe
+    # and vlm families too (--arch deepseek-moe-16b | dbrx-132b |
+    # llama-3.2-vision-90b)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --requests 3 --max-new 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --decode-kernel --attn-impl cuda --device cpu
 
     # LM, paged KV cache: global page pool + per-slot page tables,
     # content-addressed prefix reuse, int8 pages; decode reads the pages
@@ -47,13 +51,18 @@ through the ``repro_torch.serving`` engine API
         --trace bursty --autoscale --priority --admission \
         --trace-rate 30 --trace-horizon 2 --decode-engines 3 --device cpu
 
-The first call on the card builds the CUDA kernels into ``build/``.
+The first call on the card builds the CUDA kernels into ``build/``.  At
+``--no-reduced`` on the card the launcher refuses, before it draws a
+weight, a model whose parameters (in ``param_dtype``, plus the engine's
+compute-type copy) exceed the card's free memory, and names both numbers
+(a float32 deepseek-moe-16b needs about 101 GB).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 
 import numpy as np
 
@@ -108,9 +117,37 @@ def _print_scale_events(events) -> None:
               f"{e.n_live} live engine(s)")
 
 
+def param_bytes_served(cfg) -> int:
+    """Bytes an engine holds for ``cfg``'s parameters: the parameters in
+    ``param_dtype`` plus, when the compute type differs, the one
+    compute-type copy ``ServeEngine`` casts (``lm.compute_params``)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    n = lm.param_bytes(cfg)
+    if cfg.param_dtype == cfg.compute_dtype:
+        return n
+    size = torch.empty((), dtype=cfg.pdtype()).element_size()
+    return n + n // size * torch.empty((), dtype=cfg.cdtype()).element_size()
+
+
+def check_fits(cfg, free_bytes: int) -> None:
+    """Exit, naming both numbers, when ``cfg``'s served parameters do not
+    fit in ``free_bytes`` of device memory."""
+    need = param_bytes_served(cfg)
+    if need > free_bytes:
+        sys.exit(f"{cfg.arch_id}: the parameters need {need:,} bytes on the "
+                 f"card ({cfg.param_dtype}, plus the engine's "
+                 f"{cfg.compute_dtype} copy), more than the {free_bytes:,} "
+                 f"bytes torch.cuda.mem_get_info() reports free; serve it "
+                 f"--reduced or on a card with more memory")
+
+
 def _init_lm(args):
     """(cfg, params, device): the LM config with the chosen prefill
-    attention, random weights from seed 0 drawn on the device."""
+    attention, random weights from seed 0 drawn on the device (after a
+    check that they fit there)."""
     import torch
 
     from repro_torch.device import resolve_device
@@ -121,6 +158,8 @@ def _init_lm(args):
         cfg = cfg_lib.reduced(cfg)
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        check_fits(cfg, torch.cuda.mem_get_info(device)[0])
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     return cfg, lm.init(cfg, gen, device), device

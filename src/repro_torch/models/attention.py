@@ -1,4 +1,5 @@
-"""Attention: GQA/MHA with RoPE, qk-norm, qkv-bias and a dense KV cache.
+"""Attention: GQA/MHA with RoPE, qk-norm, qkv-bias, cross-attention and a
+dense KV cache.
 
 Three interchangeable inner implementations (``cfg.attn_impl``):
 
@@ -457,6 +458,38 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
         raise ValueError(f"decode_impl must be chunked or cuda, got "
                          f"{cfg.decode_impl!r}")
     return _out_proj(params, cfg, out), cache
+
+
+def cross_attention(params, cfg: LMConfig, x: torch.Tensor,
+                    kv_feats: Optional[torch.Tensor] = None,
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Cross-attention onto (precomputed) image features, output gated by
+    ``tanh(gate)``.
+
+    With ``kv_feats`` the K/V are projected from them (and written in place
+    into ``cache`` when one is given); with a cache and no ``kv_feats``
+    (decode, or a prompt without an image) the cached K/V are read.  The
+    attention is non-causal: a prefill (S > 1) with ``attn_impl ==
+    "cuda"`` runs the ``flash_attention`` kernel, the one-token decode step
+    the chunked path, as in self-attention.
+    """
+    cd = cfg.cdtype()
+    if cache is not None and kv_feats is None:
+        k, v = cache["k"].to(cd), cache["v"].to(cd)
+        q = torch.einsum("bsd,dhk->bshk", x.to(cd), params["wq"].to(cd))
+        if cfg.qkv_bias:
+            q = q + params["bq"].to(cd)
+        if cfg.qk_norm:
+            q = common.rms_norm_simple(q) * params["q_norm"].to(cd)
+    else:
+        q, k, v = _project_qkv(params, cfg, x, kv_feats)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    out = _inner_attention(q, k, v, cfg, causal=False)
+    y = _out_proj(params, cfg, out)
+    return y * torch.tanh(params["gate"].to(y.dtype)), cache
 
 
 def make_kv_cache(cfg: LMConfig, batch: int, max_len: int, n_layers: int,

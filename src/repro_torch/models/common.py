@@ -37,7 +37,12 @@ InitFn = Callable[[torch.Generator, Tuple[int, ...], torch.dtype], torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """Declaration only: the moe family is served by a later slice."""
+    """Fine-grained mixture of experts (``repro_torch.models.moe``):
+    ``n_experts`` routed experts of width ``d_expert``, ``top_k`` of them a
+    token, ``n_shared`` always-on experts fused into one dense FFN.
+    ``dispatch`` is ``onehot`` (GShard einsums) or ``scatter`` (per-row
+    sort and scatter); ``global_decode_dispatch`` routes a one-token decode
+    step's batch as one row, so the capacity floor applies once."""
 
     n_experts: int
     top_k: int
@@ -247,18 +252,30 @@ def param_specs(defs: Any, dtype: torch.dtype) -> Any:
     """A tree of ParamDefs -> the tree of their :class:`LeafSpec`."""
     if isinstance(defs, ParamDef):
         return LeafSpec(tuple(defs.shape), dtype, tuple(defs.axes))
+    if isinstance(defs, list):
+        return [param_specs(v, dtype) for v in defs]
     return {k: param_specs(v, dtype) for k, v in defs.items()}
+
+
+def param_numel(defs: Any) -> int:
+    """Elements of a tree of ParamDefs, without allocating them."""
+    if isinstance(defs, ParamDef):
+        return math.prod(defs.shape)
+    vals = defs if isinstance(defs, list) else defs.values()
+    return sum(param_numel(v) for v in vals)
 
 
 def init_params(defs: Any, generator: torch.Generator, dtype: torch.dtype,
                 device: Any = "cpu") -> Any:
-    """Initialise a (nested dict) tree of ParamDefs into tensors.
+    """Initialise a tree (dicts and lists) of ParamDefs into tensors.
 
     Values are drawn on the generator's device from ``generator`` in the
     tree's key order (so one seed and one generator device give one model)
     and then moved to ``device``."""
     if isinstance(defs, ParamDef):
         return defs.init(generator, defs.shape, dtype).to(device)
+    if isinstance(defs, list):
+        return [init_params(v, generator, dtype, device) for v in defs]
     return {k: init_params(v, generator, dtype, device)
             for k, v in defs.items()}
 
@@ -275,6 +292,8 @@ def init_stacked(defs: Any, n: int, generator: torch.Generator,
         for i in range(n):
             out[i] = defs.init(generator, defs.shape, dtype).to(device)
         return out
+    if isinstance(defs, list):
+        return [init_stacked(v, n, generator, dtype, device) for v in defs]
     return {k: init_stacked(v, n, generator, dtype, device)
             for k, v in defs.items()}
 

@@ -1,20 +1,28 @@
-"""LM assembly, dense family: stacked transformer blocks, prefill and decode
-steps, and the slot-axis cache row movement serving needs.
+"""LM assembly, dense / moe / vlm families: stacked transformer units,
+prefill and decode steps, and the slot-axis cache row movement serving
+needs.
 
 Parameters keep the reference's layout so they convert leaf by leaf:
-``{"embed": {...}, "final_ln": {...}, "units": {"block": {...}}}``, every
-unit leaf stacked on a leading ``n_layers`` axis.  ``forward`` loops over
-the stacked layers in Python where the reference scans them; sharding
-constraints are left out until the port shards.  Caches are
-``{"kv": {"k", "v"}}`` of shape (L, B, T, K, D), bfloat16, and are updated
-**in place** by the steps (the reference returns new trees; the steps here
-return the same dict they were given).  A ``"kv"`` dict may also carry
-``k_scale`` / ``v_scale`` (L, B, T) leaves (an int8 cache), and with
-``paged_tables`` its leaves are the page pool's (L, n_pages, page, K, D)
+``{"embed": {...}, "final_ln": {...}, "units": {...}}``, every unit leaf
+stacked on a leading ``n_units`` axis.  A unit is one transformer block
+(``{"block": ...}``) for dense and moe (whose feed-forward is the expert
+layer, ``repro_torch.models.moe``), and for vlm a group of
+``cross_attn_every`` self-attention blocks and one cross-attention block
+(``{"selfs": [...], "cross": ...}``, a list in the tree).  ``forward``
+loops over the stacked units in Python where the reference scans them;
+sharding constraints are left out until the port shards.
+
+Caches are bfloat16 and updated **in place** by the steps (the reference
+returns new trees; the steps here return the same dict they were given):
+``{"kv": {"k", "v"}}`` of shape (L, B, T, K, D) for dense and moe, and for
+vlm ``{"units": {"kv": {"k", "v"} (nu, k, B, T, K, D), "cross": {"k", "v"}
+(nu, B, n_image_tokens, K, D)}}``.  A ``"kv"`` dict may also carry
+``k_scale`` / ``v_scale`` leaves (an int8 cache), and with ``paged_tables``
+(dense and moe) its leaves are the page pool's (L, n_pages, page, K, D)
 (``repro_torch.serving.pages``).
 
-The moe, hybrid, ssm, audio and vlm families raise ``NotImplementedError``
-(``make_caches`` also builds the moe shape, which is the dense one).
+The hybrid, ssm and audio families raise ``NotImplementedError`` (ROADMAP
+A6).
 """
 
 from __future__ import annotations
@@ -27,17 +35,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.common import (LMConfig, init_params, init_stacked,
-                                       tree_leaves)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import (LMConfig, ParamDef, init_params,
+                                       init_stacked, tree_leaves)
 
 NORM_KEYS = ("ln1", "ln2", "final_ln")
+# kept in the parameter type: the router computes its logits in float32
+# from the parameter itself, and a bfloat16 copy would move the top-k
+ROUTER_KEYS = ("router", "router_b")
+SERVED_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _dense_only(cfg: LMConfig, what: str) -> None:
-    if cfg.family != "dense":
+def _served_only(cfg: LMConfig, what: str) -> None:
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"{what}: the port serves the dense family so far, not "
-            f"{cfg.family!r} ({cfg.arch_id})")
+            f"{what}: the port serves the dense, moe and vlm families so "
+            f"far, not {cfg.family!r} ({cfg.arch_id}); see ROADMAP.md, "
+            f"queue A item 6")
 
 
 # ---------------------------------------------------------------------------
@@ -46,38 +60,64 @@ def _dense_only(cfg: LMConfig, what: str) -> None:
 
 
 def _block_defs(cfg: LMConfig, kind: str) -> Dict[str, Any]:
-    """One transformer block; the port has the ``self`` kind."""
-    if kind != "self":
+    """One transformer block (kind: self | cross)."""
+    if kind not in ("self", "cross"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    if cfg.moe is not None:
-        raise NotImplementedError("moe blocks are not ported yet")
-    return {"ln1": common.norm_defs(cfg),
-            "attn": attn_lib.attention_defs(cfg),
-            "ln2": common.norm_defs(cfg),
-            "ffn": mlp_lib.mlp_defs(cfg)}
+    d: Dict[str, Any] = {"ln1": common.norm_defs(cfg),
+                         "attn": attn_lib.attention_defs(
+                             cfg, cross=(kind == "cross")),
+                         "ln2": common.norm_defs(cfg)}
+    if cfg.moe is not None and kind == "self":
+        d["ffn"] = moe_lib.moe_defs(cfg)
+    else:
+        d["ffn"] = mlp_lib.mlp_defs(cfg)
+    return d
 
 
 def unit_defs(cfg: LMConfig) -> Dict[str, Any]:
-    """Parameter defs of ONE stacked unit (a transformer block)."""
-    _dense_only(cfg, "unit_defs")
+    """Parameter defs of ONE stacked unit of this family."""
+    _served_only(cfg, "unit_defs")
+    if cfg.family == "vlm":
+        return {"selfs": [_block_defs(cfg, "self")
+                          for _ in range(cfg.cross_attn_every)],
+                "cross": _block_defs(cfg, "cross")}
     return {"block": _block_defs(cfg, "self")}
 
 
 def n_units(cfg: LMConfig) -> int:
-    _dense_only(cfg, "n_units")
+    _served_only(cfg, "n_units")
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every + 1
+        if cfg.n_layers % k:
+            raise ValueError(f"vlm: n_layers={cfg.n_layers} is no multiple "
+                             f"of cross_attn_every + 1 = {k}")
+        return cfg.n_layers // k
     return cfg.n_layers
 
 
 def model_defs(cfg: LMConfig) -> Dict[str, Any]:
-    _dense_only(cfg, "model_defs")
-    return {"embed": common.embedding_defs(cfg),
-            "final_ln": common.norm_defs(cfg)}
+    _served_only(cfg, "model_defs")
+    defs: Dict[str, Any] = {"embed": common.embedding_defs(cfg)}
+    if cfg.cross_attn_every:
+        defs["embed"]["img_proj"] = ParamDef(
+            (cfg.d_model, cfg.d_model), ("embed", "embed_tp"),
+            common.fanin_init())
+    defs["final_ln"] = common.norm_defs(cfg)
+    return defs
+
+
+def param_bytes(cfg: LMConfig) -> int:
+    """Bytes of the parameters in ``cfg.param_dtype``, from the defs (no
+    allocation)."""
+    n = (common.param_numel(model_defs(cfg))
+         + n_units(cfg) * common.param_numel(unit_defs(cfg)))
+    return n * torch.empty((), dtype=cfg.pdtype()).element_size()
 
 
 def init(cfg: LMConfig, generator: torch.Generator,
          device: Any = None) -> Dict[str, Any]:
     """Random parameters in ``cfg.param_dtype``: the top-level leaves, then
-    ``n_layers`` stacked draws of the unit.  Values are drawn on the
+    ``n_units`` stacked draws of the unit.  Values are drawn on the
     generator's device (a CUDA generator keeps a full-size init on the
     card) and placed on ``device`` (``None`` means the card)."""
     device = resolve_device(device)
@@ -91,15 +131,19 @@ def compute_params(cfg: LMConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """The parameters as the forward reads them, cast once: every weight in
     ``cfg.compute_dtype`` (the reference casts at each use; the values are
     the same), norm scales and biases left as they are (``apply_norm``
-    reads them in float32), the float32 embedding table kept for the
-    lookup and its compute-type copy added as ``tok_cd`` for the tied
-    unembedding."""
+    reads them in float32), the router's ``router`` / ``router_b`` left in
+    the parameter type (the reference computes router logits from the
+    float32 parameter), the float32 embedding table kept for the lookup and
+    its compute-type copy added as ``tok_cd`` for the tied unembedding."""
     cd = cfg.cdtype()
 
     def cast(tree, path):
         if isinstance(tree, dict):
             return {k: cast(v, path + (k,)) for k, v in tree.items()}
-        if any(p in NORM_KEYS for p in path) or path[-1] == "tok":
+        if isinstance(tree, list):
+            return [cast(v, path) for v in tree]
+        if (any(p in NORM_KEYS for p in path) or path[-1] == "tok"
+                or path[-1] in ROUTER_KEYS):
             return tree
         return tree.to(cd)
 
@@ -110,10 +154,12 @@ def compute_params(cfg: LMConfig, params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def layer_params(params: Dict[str, Any], i: int) -> Any:
-    """Layer ``i``'s slice of the stacked unit parameters (views)."""
+    """Unit ``i``'s slice of the stacked unit parameters (views)."""
     def take(tree):
         if isinstance(tree, dict):
             return {k: take(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [take(v) for v in tree]
         return tree[i]
 
     return take(params["units"])
@@ -125,7 +171,8 @@ def layer_params(params: Dict[str, Any], i: int) -> Any:
 
 
 def _apply_self_block(p, cfg: LMConfig, x, positions, kv_cache, cache_index,
-                      prefill_offset: int = 0, paged_tables=None):
+                      token_mask=None, prefill_offset: int = 0,
+                      paged_tables=None):
     h = common.apply_norm(p["ln1"], x, cfg)
     a, new_kv = attn_lib.self_attention(p["attn"], cfg, h, positions,
                                         kv_cache, cache_index,
@@ -133,8 +180,25 @@ def _apply_self_block(p, cfg: LMConfig, x, positions, kv_cache, cache_index,
                                         paged_tables=paged_tables)
     x = x + a
     h = common.apply_norm(p["ln2"], x, cfg)
-    x = x + mlp_lib.mlp_apply(p["ffn"], cfg, h)
-    return x, new_kv, 0.0
+    if cfg.moe is not None and "router" in p["ffn"]:
+        y, aux = moe_lib.moe_apply(p["ffn"], cfg, h, token_mask=token_mask)
+    else:
+        y, aux = mlp_lib.mlp_apply(p["ffn"], cfg, h), 0.0
+    return x + y, new_kv, aux
+
+
+def _apply_cross_block(p, cfg: LMConfig, x, img_feats, cross_cache):
+    h = common.apply_norm(p["ln1"], x, cfg)
+    a, new_cache = attn_lib.cross_attention(p["attn"], cfg, h, img_feats,
+                                            cross_cache)
+    x = x + a
+    h = common.apply_norm(p["ln2"], x, cfg)
+    return x + mlp_lib.mlp_apply(p["ffn"], cfg, h), new_cache
+
+
+def _slice(tree: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
+    """One layer's leaves of a stacked cache dict (views)."""
+    return {name: leaf[idx] for name, leaf in tree.items()}
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig,
@@ -143,15 +207,23 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
             cache_index: Any = None,
             prefill_offset: int = 0,
             paged_tables=None,
-            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], float]:
-    """Returns (final hidden states (B, S, d), caches, aux loss 0.0).
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Any]:
+    """Returns (final hidden states (B, S, d), caches, aux loss: the moe
+    layers' load-balance losses summed, 0.0 for a model without them).
 
+    ``batch`` may carry ``token_mask`` (B, S) (moe: real tokens of a ragged
+    batch) and, for vlm, ``image_features`` (B, n_image_tokens, d_model),
+    projected by ``img_proj`` and cross-attended (cached at prefill; a
+    prompt without them reads the cross cache as it is).
     ``prefill_offset``: continuation prefill; the caches already hold rows
     ``[0, prefill_offset)`` and this forward writes the next S rows.
-    ``paged_tables`` (B, P) int: paged decode; ``caches["kv"]`` leaves are
-    the page pool's (L, n_pages, page, K, D) and every layer reads and
-    writes its pages through the per-slot tables."""
-    _dense_only(cfg, "forward")
+    ``paged_tables`` (B, P) int: paged decode (dense and moe); the
+    ``caches["kv"]`` leaves are the page pool's (L, n_pages, page, K, D)
+    and every layer reads and writes its pages through the per-slot
+    tables."""
+    _served_only(cfg, "forward")
+    if paged_tables is not None and cfg.family == "vlm":
+        raise ValueError("paged_tables: dense / moe decode only")
     x = common.embed_inputs(params["embed"], cfg, batch)
     b, s = x.shape[0], x.shape[1]
     if "positions" in batch:
@@ -166,16 +238,36 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
     else:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-    for i in range(n_units(cfg)):
-        kv = None
-        if caches is not None:
-            kv = {name: leaf[i] for name, leaf in caches["kv"].items()}
-        x, _, _ = _apply_self_block(layer_params(params, i)["block"], cfg, x,
-                                    positions, kv, cache_index,
-                                    prefill_offset=prefill_offset,
-                                    paged_tables=paged_tables)
+    token_mask = batch.get("token_mask")
+    aux: Any = 0.0
+    if cfg.family == "vlm":
+        img = batch.get("image_features")
+        if img is not None:
+            cd = cfg.cdtype()
+            img = img.to(cd) @ params["embed"]["img_proj"].to(cd)
+        cu = None if caches is None else caches["units"]
+        for i in range(n_units(cfg)):
+            p = layer_params(params, i)
+            for j, pj in enumerate(p["selfs"]):
+                kv = None if cu is None else _slice(cu["kv"], i, j)
+                x, _, a = _apply_self_block(pj, cfg, x, positions, kv,
+                                            cache_index,
+                                            token_mask=token_mask,
+                                            prefill_offset=prefill_offset)
+                aux = aux + a
+            cross = None if cu is None else _slice(cu["cross"], i)
+            x, _ = _apply_cross_block(p["cross"], cfg, x, img, cross)
+    else:
+        for i in range(n_units(cfg)):
+            kv = None if caches is None else _slice(caches["kv"], i)
+            x, _, a = _apply_self_block(layer_params(params, i)["block"], cfg,
+                                        x, positions, kv, cache_index,
+                                        token_mask=token_mask,
+                                        prefill_offset=prefill_offset,
+                                        paged_tables=paged_tables)
+            aux = aux + a
     x = common.apply_norm(params["final_ln"], x, cfg)
-    return x, caches, 0.0
+    return x, caches, aux
 
 
 def prefill_step(params, cfg: LMConfig, batch: Dict[str, torch.Tensor],
@@ -207,6 +299,22 @@ def _last_real(params, cfg: LMConfig, x: torch.Tensor,
     return common.unembed(params["embed"], cfg, last[:, None, :])[:, 0]
 
 
+def _prefill_batch(cfg: LMConfig, batch: Dict[str, torch.Tensor],
+                   offset: int) -> Dict[str, torch.Tensor]:
+    """The forward batch of a ragged prefill: ``lengths`` dropped,
+    positions ``offset .. offset+S-1``, and for moe the ``token_mask`` of
+    each row's real tokens."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cols = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+    fwd = {k: v for k, v in batch.items() if k != "lengths"}
+    fwd["positions"] = (cols + offset).expand(b, s)
+    if cfg.moe is not None:
+        fwd["token_mask"] = cols < batch["lengths"].to(
+            device=tokens.device, dtype=torch.int32)[:, None]
+    return fwd
+
+
 def ragged_prefill_step(params, cfg: LMConfig, batch: Dict[str, torch.Tensor],
                         caches: Dict[str, Any]
                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -214,16 +322,14 @@ def ragged_prefill_step(params, cfg: LMConfig, batch: Dict[str, torch.Tensor],
 
     ``tokens`` (B, S) left-aligned with a zero pad suffix, ``lengths`` (B,)
     the real lengths.  Positions run 0..S-1 and the causal mask keeps real
-    tokens from attending the pad, so the dense family is exact.  Returns
-    the logits at each prompt's last real token; cache rows at indices >=
-    length hold pad values that the decode masks by valid length."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    fwd = {k: v for k, v in batch.items() if k != "lengths"}
-    fwd["positions"] = positions
-    x, caches, _ = forward(params, cfg, fwd, caches)
+    tokens from attending the pad, so dense and vlm are exact; moe is exact
+    too: a ``token_mask`` built from ``lengths`` keeps pad tokens out of
+    expert routing and gives each row the capacity of its real token
+    count.  Returns the logits at each prompt's last real token; cache rows
+    at indices >= length hold pad values that the decode masks by valid
+    length."""
+    x, caches, _ = forward(params, cfg, _prefill_batch(cfg, batch, 0),
+                           caches)
     return _last_real(params, cfg, x, batch["lengths"]), caches
 
 
@@ -234,16 +340,13 @@ def continuation_prefill_step(params, cfg: LMConfig,
     """Ragged prefill of prompt suffixes against cached rows ``[0,
     offset)``: positions run ``offset .. offset+S-1`` and attention covers
     the cached prefix plus the fresh span.  ``offset == 0`` is
-    :func:`ragged_prefill_step`."""
+    :func:`ragged_prefill_step`.  moe: expert capacity derives from the
+    suffix's token count, where ``generate()`` derives it from the whole
+    prompt, so drops may differ when capacity binds."""
     if offset == 0:
         return ragged_prefill_step(params, cfg, batch, caches)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(offset, offset + s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    fwd = {k: v for k, v in batch.items() if k != "lengths"}
-    fwd["positions"] = positions
-    x, caches, _ = forward(params, cfg, fwd, caches, prefill_offset=offset)
+    x, caches, _ = forward(params, cfg, _prefill_batch(cfg, batch, offset),
+                           caches, prefill_offset=offset)
     return _last_real(params, cfg, x, batch["lengths"]), caches
 
 
@@ -254,25 +357,37 @@ def continuation_prefill_step(params, cfg: LMConfig,
 
 def make_caches(cfg: LMConfig, batch: int, max_len: int,
                 device: Any = None) -> Dict[str, Any]:
-    """Decode/prefill caches of the dense and moe families: ``{"kv": {"k",
-    "v"}}`` (L, B, T, K, D) zeros, always bfloat16, on ``device``
-    (``None`` means the card)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"make_caches: the {cfg.family!r} family's caches are not "
-            f"ported yet")
-    return {"kv": attn_lib.make_kv_cache(cfg, batch, max_len, cfg.n_layers,
-                                         dtype=torch.bfloat16,
-                                         device=resolve_device(device))}
+    """Decode/prefill caches, bfloat16 zeros on ``device`` (``None`` means
+    the card): ``{"kv": {"k", "v"}}`` (L, B, T, K, D) for dense and moe;
+    for vlm ``{"units": {"kv": (nu, k, B, T, K, D), "cross": (nu, B,
+    n_image_tokens, K, D)}}``."""
+    _served_only(cfg, "make_caches")
+    device = resolve_device(device)
+    if cfg.family != "vlm":
+        return {"kv": attn_lib.make_kv_cache(cfg, batch, max_len,
+                                             cfg.n_layers,
+                                             dtype=torch.bfloat16,
+                                             device=device)}
+    nu, k = n_units(cfg), cfg.cross_attn_every
+    kv = (nu, k, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cross = (nu, batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.head_dim)
+    return {"units": {
+        "kv": {n: torch.zeros(kv, dtype=torch.bfloat16, device=device)
+               for n in ("k", "v")},
+        "cross": {n: torch.zeros(cross, dtype=torch.bfloat16, device=device)
+                  for n in ("k", "v")}}}
 
 
 def cache_specs(cfg: LMConfig) -> Dict[str, Any]:
     """Logical-axis tree matching :func:`make_caches`."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"cache_specs: the {cfg.family!r} family is not ported yet")
-    axes = ("layers", "batch", "kv_seq", "kv_heads", "kv_head_dim")
-    return {"kv": {"k": axes, "v": axes}}
+    _served_only(cfg, "cache_specs")
+    if cfg.family != "vlm":
+        axes = ("layers", "batch", "kv_seq", "kv_heads", "kv_head_dim")
+        return {"kv": {"k": axes, "v": axes}}
+    kv = ("layers", None, "batch", "kv_seq", "kv_heads", "kv_head_dim")
+    cross = ("layers", "batch", None, "kv_heads", "kv_head_dim")
+    return {"units": {"kv": {"k": kv, "v": kv},
+                      "cross": {"k": cross, "v": cross}}}
 
 
 def _map_leaves(fn, specs, *trees):

@@ -6,10 +6,14 @@ prompt lengths and position ids), and one ``decode_step`` advances every
 slot per tick with per-slot cache indices.  Finished slots are recycled
 without disturbing the others.
 
-Ragged prefill is exact for the dense family: prompts are left-aligned with
-a zero pad suffix, so causal attention keeps real tokens from attending
-pads; each slot's last-token logits seed its generation, and the vector
-``pos`` decode masks each slot's cache beyond its own length.
+The engine serves the dense, moe and vlm families (the hybrid, ssm and
+audio families raise ``NotImplementedError``, ROADMAP A6).  Ragged prefill
+is exact for all three: prompts are left-aligned with a zero pad suffix,
+so causal attention keeps real tokens from attending pads, and moe masks
+pad tokens out of expert routing and capacity; each slot's last-token
+logits seed its generation, and the vector ``pos`` decode masks each
+slot's cache beyond its own length.  Serving prompts carry no image
+features, so a vlm's cross-attention reads a zero cross cache.
 
 On the card with ``decode_kernel=True``, a decode tick runs the
 ``decode_attention`` kernel in every layer and draws every slot's token
@@ -32,10 +36,12 @@ prefixes prefill once; later requests pin the shared read-only pages and
 prefill only their suffix via ``lm.continuation_prefill_step``), optional
 int8 pages (``quantize_pages``), preemption by reference (the table row is
 saved, no device traffic) and a host spill when the pool runs dry.  With
-``decode_kernel=True`` a paged decode tick hands the pool's leaves and the
-tables to the model (``paged_tables``), so the ``decode_attention`` kernel
-reads each slot's pages in place; otherwise the tick gathers a dense view
-through the tables, decodes it and scatters the new rows back.
+``decode_kernel=True`` a dense or moe paged decode tick hands the pool's
+leaves and the tables to the model (``paged_tables``), so the
+``decode_attention`` kernel reads each slot's pages in place; otherwise (and
+for vlm, as in the reference) the tick gathers a dense view through the
+tables, decodes it (with ``decode_kernel=True`` through the dense
+``decode_attention`` kernel) and scatters the new rows back.
 """
 
 from __future__ import annotations
@@ -96,10 +102,10 @@ class ServeEngine(EngineCore):
                  prefix_cache: bool = True,
                  decode_kernel: bool = False,
                  device: Any = None):
-        if cfg.family != "dense":
+        if cfg.family not in lm.SERVED_FAMILIES:
             raise NotImplementedError(
-                f"ServeEngine serves the dense family so far, not "
-                f"{cfg.family!r}")
+                f"ServeEngine serves the dense, moe and vlm families so "
+                f"far, not {cfg.family!r}; see ROADMAP.md, queue A item 6")
         self._decode_kernel = bool(decode_kernel)
         if self._decode_kernel:
             cfg = dataclasses.replace(cfg, decode_impl="cuda")
@@ -114,8 +120,11 @@ class ServeEngine(EngineCore):
         if page_size is not None:
             self._pages = PagePool(cfg, n_slots, max_len, page_size,
                                    n_pages=n_pages, quantize=quantize_pages)
-        # paged kernel decode threads the per-slot tables into the model
-        self._paged_kernel = self._decode_kernel and self._pages is not None
+        # paged kernel decode threads the per-slot tables into the model;
+        # vlm decodes a gathered view (its per-site kv slicing, as in the
+        # reference)
+        self._paged_kernel = (self._decode_kernel and self._pages is not None
+                              and cfg.family in ("dense", "moe"))
         super().__init__(capacity=n_slots, scheduler=scheduler, clock=clock,
                          kernel_tune=kernel_tune)
         if self._pages is not None:
@@ -723,4 +732,6 @@ class ServeEngine(EngineCore):
 def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
     return tree.to(device)

@@ -9,9 +9,11 @@ replaces that layout with the paged one:
   * **Page pool** — every cache leaf whose :func:`lm.cache_specs` axes
     contain both ``batch`` and ``kv_seq`` is re-shaped so the slot axis
     becomes a *page* axis (``n_pages``) and the sequence axis becomes the
-    *within-page* axis (``page_size``): for the dense family the pool
-    leaves are (L, n_pages, page, K, D).  Leaves without a ``kv_seq`` axis
-    stay dense slot-axis "residual" state (the dense family has none).
+    *within-page* axis (``page_size``): for dense and moe the pool
+    leaves are (L, n_pages, page, K, D), for vlm's self-attention
+    (nu, k, n_pages, page, K, D).  Leaves without a ``kv_seq`` axis stay
+    dense slot-axis "residual" state: vlm's cross-attention cache (nu, B,
+    n_image_tokens, K, D); dense and moe have none.
   * **Page tables** — host-side ``(n_slots, max_len // page_size)`` int32
     maps from slot-local page index to pool page id (``-1`` = unmapped).
     The device ops below take a copy of them per tick.

@@ -43,7 +43,9 @@ class TestConfigs:
         assert port_configs.PAPER_ARCHS == ["capsnet-mnist", "capsnet-fmnist"]
         assert port_configs.PAPER_ARCHS == ref_configs.PAPER_ARCHS
         assert port_configs.list_archs(include_paper=False) == [
-            "llama3.2-1b", "qwen3-1.7b"]
+            "llama3.2-1b", "qwen3-1.7b", "mistral-large-123b",
+            "qwen1.5-110b", "deepseek-moe-16b", "dbrx-132b",
+            "llama-3.2-vision-90b"]
 
     @pytest.mark.parametrize("arch", ["capsnet-mnist", "capsnet-fmnist"])
     def test_published_configs_match_reference(self, arch):
@@ -68,7 +70,7 @@ class TestConfigs:
 
     def test_unknown_arch_and_config_raise(self):
         with pytest.raises(ValueError, match="unknown arch"):
-            port_configs.get_config("mistral-large-123b")
+            port_configs.get_config("xlstm-1.3b")
         with pytest.raises(TypeError):
             port_configs.reduced(object())
 
@@ -278,7 +280,7 @@ class TestLauncher:
         for bad in (["--scheduler", "sharded"],
                     ["--scheduler", "disagg", "--multihost"],
                     ["--routing", "pallas"],
-                    ["--arch", "mistral-large-123b"]):
+                    ["--arch", "xlstm-1.3b"]):
             with pytest.raises(SystemExit):
                 port_serve.main(["--arch", "capsnet-mnist", "--device", "cpu"]
                                 + bad)

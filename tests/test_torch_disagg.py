@@ -18,8 +18,9 @@ streaming order across the boundary, the stats histograms, typed handoff
 rejection that leaves the engine clean, failover with a killed engine or a
 flaky transport (requeued, never dropped), page dedup, the stateless
 CapsNet pool, and the launcher.  Each reference engine runs once per
-module.  The vlm, ssm, hybrid and moe families wait for their models in
-the port; the multi-host and 2-device cases wait for its sharding slice.
+module.  The vlm and moe families are served disaggregated in
+``test_torch_family_engine.py``; ssm and hybrid wait for their models in
+the port, the multi-host and 2-device cases for its sharding slice.
 """
 
 import dataclasses

@@ -139,7 +139,9 @@ def _assert_cache_close(got, want):
 class TestConfigs:
     def test_archs(self):
         assert port_configs.list_archs() == [
-            "llama3.2-1b", "qwen3-1.7b", "capsnet-mnist", "capsnet-fmnist"]
+            "llama3.2-1b", "qwen3-1.7b", "mistral-large-123b",
+            "qwen1.5-110b", "deepseek-moe-16b", "dbrx-132b",
+            "llama-3.2-vision-90b", "capsnet-mnist", "capsnet-fmnist"]
         for arch in port_configs.LM_ARCHS:
             assert arch in ref_configs.list_archs()
 
@@ -151,6 +153,19 @@ class TestConfigs:
         assert (dataclasses.asdict(port_configs.reduced(port_cfg))
                 == dataclasses.asdict(ref_configs.reduced(ref_cfg)))
         assert port_cfg.head_dim == ref_cfg.head_dim
+
+    @pytest.mark.parametrize("arch", [
+        "mistral-large-123b", "qwen1.5-110b", "deepseek-moe-16b",
+        "dbrx-132b", "llama-3.2-vision-90b"])
+    def test_moe_vlm_and_large_dense_configs_match_reference(self, arch):
+        """The configs of the families this slice serves, field by field,
+        published and reduced (MoEConfig compared field by field too)."""
+        ref_cfg = ref_configs.get_config(arch)
+        port_cfg = port_configs.get_config(arch)
+        assert dataclasses.asdict(port_cfg) == dataclasses.asdict(ref_cfg)
+        assert (dataclasses.asdict(port_configs.reduced(port_cfg))
+                == dataclasses.asdict(ref_configs.reduced(ref_cfg)))
+        assert port_cfg.family in port_lm.SERVED_FAMILIES
 
     def test_lmconfig_has_every_reference_field(self):
         from repro.models.common import LMConfig as RefLMConfig
@@ -172,6 +187,17 @@ class TestParams:
                             convert.params_to_numpy(pp)) == shapes
         back = convert.params_to_numpy(convert.params_from_numpy(jp))
         jax.tree.map(np.testing.assert_array_equal, back, jp)
+
+    def test_convert_round_trips_a_tree_with_lists(self):
+        tree = {"a": np.arange(3, dtype=np.float32),
+                "selfs": [{"w": np.ones((2, 2), np.float32)},
+                          {"w": np.zeros((2, 2), np.float32)}]}
+        tt = convert.params_from_numpy(tree)
+        assert isinstance(tt["selfs"], list)
+        assert isinstance(tt["selfs"][1]["w"], torch.Tensor)
+        back = convert.params_to_numpy(tt)
+        assert isinstance(back["selfs"], list)
+        jax.tree.map(np.testing.assert_array_equal, back, tree)
 
     def test_init_draws_per_unit_with_declared_fan_in(self):
         _, pcfg = _cfgs("llama3.2-1b")
@@ -365,8 +391,8 @@ class TestCaches:
                 torch.zeros(1, 1, pcfg.d_model), torch.zeros(1, 1),
                 cache={"k": q8, "v": q8, "k_scale": torch.ones(1, 4),
                        "v_scale": torch.ones(1, 4)}, cache_index=1)
-        with pytest.raises(NotImplementedError, match="dense family"):
-            port_lm.forward(pp, dataclasses.replace(pcfg, family="vlm"),
+        with pytest.raises(NotImplementedError, match="moe and vlm families"):
+            port_lm.forward(pp, dataclasses.replace(pcfg, family="ssm"),
                             {"tokens": tokens})
         with pytest.raises(ValueError, match="attn_impl"):
             port_lm.forward(pp, dataclasses.replace(pcfg, attn_impl="pallas"),

@@ -169,7 +169,7 @@ def test_engine_checks():
     assert ServeEngine(CFG, port_params(), page_size=8, device="cpu").paged
     with pytest.raises(ValueError, match="divide"):
         ServeEngine(CFG, port_params(), page_size=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense family"):
+    with pytest.raises(NotImplementedError, match="moe and vlm families"):
         ServeEngine(dataclasses.replace(CFG, family="ssm"), port_params(),
                     device="cpu")
     [c] = engine().serve([Request(prompt=[1, 2], max_new_tokens=0)])
@@ -199,3 +199,33 @@ def test_launcher_serves_an_lm_on_the_cpu(capsys, extra):
                      "--max-new", "4", "--device", "cpu"] + extra)
     out = capsys.readouterr().out
     assert "on cpu: served 3 requests (12 new tokens)" in out
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("deepseek-moe-16b", ["--decode-kernel", "--attn-impl", "cuda"]),
+    ("dbrx-132b", ["--paged", "--quantize-pages", "--decode-kernel"]),
+    ("llama-3.2-vision-90b", ["--decode-kernel", "--attn-impl", "cuda"]),
+    ("llama-3.2-vision-90b", ["--paged", "--scheduler", "disagg",
+                              "--transport", "host_staged"])])
+def test_launcher_serves_moe_and_vlm_on_the_cpu(capsys, arch, extra):
+    port_serve.main(["--arch", arch, "--requests", "3", "--max-new", "4",
+                     "--device", "cpu"] + extra)
+    assert f"[{arch}] on cpu: served 3 requests (12 new tokens)" in \
+        capsys.readouterr().out
+
+
+def test_launcher_refuses_parameters_the_card_cannot_hold():
+    """A float32 deepseek-moe-16b holds 67.5 GB of parameters and the
+    engine's 33.8 GB bf16 copy: past an 80 GB card's free memory, refused
+    before a weight is drawn, with both numbers named."""
+    from repro_torch import configs as port_configs
+
+    cfg = port_configs.get_config("deepseek-moe-16b")
+    need = port_serve.param_bytes_served(cfg)
+    assert 100e9 < need < 102e9
+    free = 79_000_000_000
+    with pytest.raises(SystemExit, match=f"{need:,} bytes.*{free:,} bytes"):
+        port_serve.check_fits(cfg, free)
+    bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    assert port_serve.param_bytes_served(bf16) == need // 3
+    port_serve.check_fits(bf16, free)           # 33.8 GB fits

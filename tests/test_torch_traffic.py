@@ -18,7 +18,7 @@ The slice as a whole: a seeded bursty trace replayed on a virtual clock
 against the disaggregated LM pool with autoscaling, priority schedulers
 and SLO admission gives the reference's report (schedule, counts,
 per-class latency, scale events) and tokens.  The reference's ragged-moe
-case waits for the moe family in the port.
+case runs in ``test_torch_family_engine.py``.
 """
 
 import dataclasses
