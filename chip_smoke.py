@@ -23,8 +23,12 @@ replays a seeded bursty trace against an autoscaled disaggregated pool,
 serves a full-size ``deepseek-moe-16b`` (bf16 parameters) from dense slots
 and bf16 and int8 pages and a full-width ``llama-3.2-vision-90b`` (10
 layers: 8 self-attention, 2 cross-attention; bf16 parameters) from dense
-slots and bf16 pages, each against its plain path, and times the nine
-kernels (routing also at the dense shape; routing,
+slots and bf16 pages, each against its plain path, serves a full-size
+``xlstm-1.3b`` and ``zamba2-1.2b`` (float32 parameters; admitted in one
+prefill group per prompt length) against their plain paths and
+disaggregated, runs a full-size ``hubert-xlarge`` encoder (flash attention
+at head dim 80, non-causal) against its plain and float32 forwards, and
+times the nine kernels (routing also at the dense shape; routing,
 softmax, decode and sampling at every point of their tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
 size and threads; and sampling on a served decode tick's logits).  One JSON
@@ -173,6 +177,27 @@ FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16"],
                           "n_layers 100 -> 10 (2 units: 8 self-attention "
                           "+ 2 cross-attention blocks)"]}
 
+# The recurrent and audio paths (phases serve_ssm, serve_hybrid,
+# encode_audio), each at the published size with float32 parameters and no
+# cut: xlstm-1.3b (48 layers: 6 units of 7 mLSTM blocks and 1 sLSTM block,
+# d_model 2048, 4 heads, vocab 50304) and zamba2-1.2b (38 Mamba-2 layers
+# and one shared attention + MLP block at 6 sites, 32 heads of 64, vocab
+# 32000) on serve_lm's engine width and cache length and the first
+# FAMILY_REQUESTS of its requests, unified, then disaggregated (one
+# prefill engine of LM_SLOTS slots, DISAGG_DECODES decode engines of
+# DISAGG_SLOTS, in_process); hubert-xlarge (48 bidirectional layers,
+# d_model 1280, 16 heads of 80) through lm.forward on AUDIO_CLIPS clips of
+# AUDIO_FRAMES frames of features drawn from seed 0.  The audio bar: the
+# kernel forward (flash_attention) and the plain forward (chunked
+# attention), both bf16, differ by at most AUDIO_RATIO times what the plain
+# bf16 forward differs from the float32 forward, as largest absolute
+# difference of the final hidden states over their RMS.
+SSM_ARCH = "xlstm-1.3b"
+HYBRID_ARCH = "zamba2-1.2b"
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000
+AUDIO_RATIO = 2.0
+
 # Valid lengths of the kernel phase's paged and int8 decode cases: 0, 1, a
 # page boundary, the full 1024 rows and lengths in between.  (The timing
 # rows use the serve_paged tick's own lengths, paged_valid().)
@@ -301,6 +326,14 @@ MOE_LAYOUTS = (
     {**MOE_PAGED, "dtype": "bfloat16", "quant": True},
 )
 VLM_DECODE = {"dims": (LM_SLOTS, LM_MAX_LEN, 64, 8, 128), "dtype": "bfloat16"}
+# encode_audio's flash call, serve_hybrid's prefill (the longest prompt) and
+# decode (one of its 6 sites)
+AUDIO_FLASH = {"dims": (AUDIO_CLIPS, AUDIO_FRAMES, AUDIO_FRAMES, 16, 16, 80),
+               "dtype": "bfloat16", "causal": False, "atol": 1e-2}
+HYBRID_FLASH = {"dims": (1, 700, 700, 32, 32, 64), "dtype": "bfloat16",
+                "causal": True, "atol": 1e-2}
+HYBRID_DECODE = {"dims": (LM_SLOTS, LM_MAX_LEN, 32, 32, 64),
+                 "dtype": "bfloat16"}
 
 # Main-path shapes beyond the registry's example cases.  Tolerances: the
 # kernels sum in another order than the plain versions and use rsqrtf/expf,
@@ -394,6 +427,17 @@ EXTRA_CASES = {
                                ((8, 1024, 1024, 64, 8, 128), True),
                                ((8, 1024, 1024, 64, 8, 128), False),
                                ((8, 32, 1024, 64, 8, 128), False))),
+        # encode_audio's attention (D = 80, padded to 128 in shared memory,
+        # non-causal) in both bodies, causal and ragged too; serve_hybrid's
+        # shared-block prefill (G = 1, D = 64, one exact-length prompt)
+        AUDIO_FLASH,
+        {"dims": (2, 1000, 1000, 16, 16, 80), "causal": False, "atol": 2e-5},
+        {"dims": (2, 300, 300, 16, 16, 80), "dtype": "bfloat16",
+         "causal": True, "atol": 1e-2},
+        {"dims": (1, 77, 77, 16, 16, 80), "causal": True, "atol": 2e-5},
+        {"dims": (1, 77, 77, 16, 16, 80), "dtype": "bfloat16",
+         "causal": False, "softmax_mode": "taylor", "atol": 5e-2},
+        HYBRID_FLASH,
     ),
     "decode_attention": (
         {"dims": (8, 1024, 32, 8, 64), "dtype": "bfloat16",
@@ -440,6 +484,9 @@ EXTRA_CASES = {
         *({**lay, "valid": valid, "atol": 1e-2}
           for lay in MOE_LAYOUTS + (VLM_DECODE,)
           for valid in (PAGED_VALID,) + SPLIT_VALID),
+        # serve_hybrid's decode at each shared-attention site (G = 1, D 64)
+        *({**HYBRID_DECODE, "valid": valid, "atol": 1e-2}
+          for valid in (PAGED_VALID,) + SPLIT_VALID),
     ),
     "flash_attention_dequant": (
         # a continuation prefill of 256 rows after 768 cached int8 rows
@@ -466,8 +513,9 @@ EXTRA_CASES = {
         {"dims": (8, 128257), **MIXED_ROWS, "atol": 0},
         {"dims": (4, 100003), "temperature": (0.0, 1.0, 0.7, 0.0),
          "top_k": (0, 0, 20, 0), "top_p": (1.0, 0.5, 1.0, 1.0), "atol": 0},
-        # serve_moe's vocabulary
-        *({"dims": (8, 102400), **rows, "atol": 0}
+        # serve_moe's vocabulary, serve_ssm's and serve_hybrid's
+        *({"dims": (8, v), **rows, "atol": 0}
+          for v in (102400, 50304, 32000)
           for rows in ({"temperature": (0.0,) * 8}, MIXED, MIXED_ROWS)),
     ),
 }
@@ -2245,6 +2293,277 @@ def phase_serve_vlm() -> dict:
                               ("dense", "paged"))
 
 
+# ---------------------------------------------------------------------------
+# The ssm, hybrid and audio families
+# ---------------------------------------------------------------------------
+
+
+def init_full(arch: str) -> tuple:
+    """``arch`` at its published size with prefill attention in the flash
+    kernel and the config's float32 parameters, random weights from seed 0
+    drawn on the card: (cfg, params, seconds, parameter count, parameter
+    bytes)."""
+    cfg = dataclasses.replace(cfg_lib.get_config(arch), attn_impl="cuda")
+    params, init_s, n_params, n_bytes = init_family(cfg)
+    return cfg, params, init_s, n_params, n_bytes
+
+
+def time_groups(engine) -> list:
+    """Record each prefill group of a recurrent engine as (prompt length,
+    prompts, host ms); a group ends in the copy of its logits to the host,
+    so the host clock holds its device work."""
+    groups = []
+    inner = engine._prefill_group
+
+    def timed(new, plen):
+        t0 = time.perf_counter()
+        out = inner(new, plen)
+        groups.append({"plen": int(plen), "prompts": len(new),
+                       "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    engine._prefill_group = timed
+    return groups
+
+
+def recurrent_disagg(cfg, params, reqs, tok_plain, margins) -> tuple:
+    """The recurrent model disaggregated: a PrefillEngine of LM_SLOTS slots
+    handing each request's state rows to DISAGG_DECODES DecodeEngines
+    (in_process), held against the plain engine's tokens by the margin
+    rule, as the unified kernel engine is; returns (numbers, launch
+    counts)."""
+    eng = disaggregated_lm_engine(
+        cfg, params, n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN,
+        n_decode=DISAGG_DECODES, prefill_slots=LM_SLOTS,
+        transport=make_transport("in_process", keep_records=len(reqs)),
+        decode_kernel=True, device=DEVICE)
+    warm_disagg(eng)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.serve(fresh(reqs))
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = eng.stats()
+    name = f"serve_{cfg.family} (disagg)"
+    if len(done) != len(reqs):
+        fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+    recs = eng.transport.records
+    row_bytes = lm.cache_nbytes(cfg, 1, LM_MAX_LEN)
+    if len(recs) != len(reqs) or any(r.nbytes != row_bytes for r in recs):
+        fail(f"{name}: {len(recs)} deliveries, bytes "
+             f"{sorted({r.nbytes for r in recs})}, expected {row_bytes}")
+    tok = {c.rid: c.tokens for c in done}
+    # greedy tokens against the plain engine's by the margin rule; seeded
+    # ones are held within the run, as serve_disagg holds them (the decode
+    # engines' batch is DISAGG_SLOTS wide, the unified engine's LM_SLOTS)
+    compared, ambiguous, first_diff = compare_with_plain(
+        name, reqs, tok, tok_plain, tok, margins, cfg.vocab)
+    del eng
+    torch.cuda.empty_cache()
+    return {"transport": "in_process", "prefill_slots": LM_SLOTS,
+            "decode_engines": DISAGG_DECODES, "decode_slots": DISAGG_SLOTS,
+            "requests": stats.completed, "new_tokens": stats.items,
+            "wall_s": wall, "tok_per_s": stats.items / wall,
+            "handoff_bytes_per_request": row_bytes,
+            "greedy_tokens_compared": compared,
+            "ambiguous_positions": ambiguous,
+            "first_divergence": first_diff,
+            "launches": {k: counts[k] for k in ("flash_attention", "dense",
+                                                "fused_sampling")}}, counts
+
+
+def phase_serve_recurrent(phase: str, arch: str) -> dict:
+    """A recurrent model at its published size (float32 parameters)
+    through ServeEngine: the kernel engine (fused sampling in every decode
+    tick; for the hybrid, flash prefill and decode attention in the shared
+    block at each site) against the plain engine on FAMILY_REQUESTS of
+    serve_lm's requests, admitted in exact-length groups; then
+    disaggregated.  Returns the launches by kernel-table row."""
+    t_phase = time.perf_counter()
+    cfg, params, init_s, n_params, n_bytes = init_full(arch)
+    reqs = lm_requests(cfg.vocab, FAMILY_REQUESTS)
+    kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                       decode_kernel=True, device=DEVICE)
+    plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
+                        n_slots=LM_SLOTS, max_len=LM_MAX_LEN, device=DEVICE)
+    for eng in (kern, plain):
+        eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+
+    groups = time_groups(kern)
+    ticks = count_calls(kern, "_step")
+    flash, unwatch = watch_flash()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        done = kern.serve(fresh(reqs))
+    finally:
+        unwatch()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = kern.stats()
+    admission = sorted(groups, key=lambda g: g["plen"])
+    n_groups, n_ticks = len(admission), ticks[0]
+    if len(done) != len(reqs):
+        fail(f"{phase}: {len(done)} of {len(reqs)} requests completed")
+    if n_groups != len({len(r.prompt) for r in reqs}):
+        fail(f"{phase}: {n_groups} prefill groups for "
+             f"{len({len(r.prompt) for r in reqs})} prompt lengths")
+    n_sites = len(lm.hybrid_sites(cfg)) if cfg.family == "hybrid" else 0
+    want = {"flash_attention": n_sites * n_groups,
+            "decode_attention": n_sites * n_ticks,
+            "dense": n_sites * n_ticks, "fused_sampling": n_ticks}
+    for key, n in want.items():
+        if counts[key] != n or counts["fused_sampling"] < 1:
+            fail(f"{phase}: {key} launched {counts[key]} times, expected {n} "
+                 f"({n_groups} prefill groups, {n_ticks} decode ticks)")
+    if flash["non_causal"] or flash["causal"] != n_sites * n_groups:
+        fail(f"{phase}: flash calls {flash}, expected "
+             f"{n_sites * n_groups} causal")
+    if n_sites:
+        check_prefill_bodies(phase, counts)
+
+    margins = record_margins(plain)
+    done_plain = plain.serve(fresh(reqs))
+    del plain
+    # the seeded requests once more, for their bit-identity
+    again = kern.serve(fresh([r for r in reqs if r.temperature > 0]))
+    tok = {c.rid: c.tokens for c in done}
+    tok_plain = {c.rid: c.tokens for c in done_plain}
+    compared, ambiguous, first_diff = compare_with_plain(
+        phase, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
+        margins, cfg.vocab)
+    breakdown = decode_tick_breakdown(kern, cfg.vocab)
+    state_bytes = lm.cache_nbytes(cfg, LM_SLOTS, LM_MAX_LEN)
+    del kern
+    torch.cuda.empty_cache()
+    disagg, dcounts = recurrent_disagg(cfg, params, reqs, tok_plain, margins)
+    del params
+    torch.cuda.empty_cache()
+    lat = stats.latency_summary()
+    emit(phase, arch=arch, params=n_params, param_bytes=n_bytes,
+         param_dtype=cfg.param_dtype, init_s=init_s, reduced=[],
+         n_layers=cfg.n_layers, shared_attention_sites=n_sites,
+         slots=LM_SLOTS, max_len=LM_MAX_LEN, cache_bytes=state_bytes,
+         requests=stats.completed, new_tokens=stats.items,
+         ticks=stats.ticks, prefill_groups=n_groups, decode_ticks=n_ticks,
+         wall_s=wall, tok_per_s=stats.throughput,
+         ms_per_tick=stats.ms_per_tick,
+         admission_by_length=admission,
+         latency_ms={k: {"n": n, "p50": p50, "p95": p95}
+                     for k, (n, p50, p95) in lat.items()},
+         launches={k: counts[k] for k in want}, flash_calls=flash,
+         greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
+         margin=LM_MARGIN, first_divergence=first_diff,
+         greedy_sequences_equal_plain=sum(
+             1 for r in reqs if r.temperature == 0
+             and tok[r.rid] == tok_plain[r.rid]),
+         seeded_bit_identical=True, disagg=disagg, **breakdown)
+    launches = {"fused_sampling": counts["fused_sampling"]
+                + dcounts["fused_sampling"]}
+    if n_sites:
+        launches["flash_attention"] = (counts["flash_attention"]
+                                       + dcounts["flash_attention"])
+        launches["decode_attention"] = counts["dense"] + dcounts["dense"]
+    emit(phase, part="launches", launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_serve_ssm() -> dict:
+    """xlstm-1.3b at its published size: fused sampling in every tick
+    (the mLSTM and sLSTM blocks are plain PyTorch, as the reference's are
+    plain jnp)."""
+    return phase_serve_recurrent("serve_ssm", SSM_ARCH)
+
+
+def phase_serve_hybrid() -> dict:
+    """zamba2-1.2b at its published size: the shared block's flash prefill
+    and decode attention at each of its 6 sites, fused sampling."""
+    return phase_serve_recurrent("serve_hybrid", HYBRID_ARCH)
+
+
+def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest absolute difference of ``a`` and ``b`` over ``b``'s RMS."""
+    bf = b.float()
+    return float((a.float() - bf).abs().max() / bf.square().mean().sqrt())
+
+
+def phase_encode_audio() -> dict:
+    """hubert-xlarge at its published size (float32 parameters) through
+    lm.forward on AUDIO_CLIPS clips of AUDIO_FRAMES frames: the kernel
+    forward (non-causal flash_attention at D = 80 in every layer) against
+    the plain bf16 forward and the float32 forward; returns the launches
+    by kernel-table row."""
+    t_phase = time.perf_counter()
+    cfg, params, init_s, n_params, n_bytes = init_full(AUDIO_ARCH)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    f32_cfg = dataclasses.replace(plain_cfg, compute_dtype="float32")
+    feats = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model)).astype(np.float32)
+        ).to(DEVICE)
+    batch = {"features": feats}
+    cp = lm.compute_params(cfg, params)
+
+    def run(c, p):
+        with torch.inference_mode():
+            x, caches, _ = lm.forward(p, c, batch)
+        torch.cuda.synchronize()
+        return x
+
+    run(cfg, cp)                                  # warm-up
+    reset_counts()
+    flash, unwatch = watch_flash()
+    try:
+        t0 = time.perf_counter()
+        x_kern = run(cfg, cp)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        unwatch()
+    counts = launch_counts()
+    if (counts["flash_attention"] != cfg.n_layers or flash["causal"]
+            or counts["flash_attention/tensor_core"] != cfg.n_layers):
+        fail(f"encode_audio: flash launched {counts['flash_attention']} "
+             f"times (tensor core {counts['flash_attention/tensor_core']}), "
+             f"calls {flash}, expected {cfg.n_layers} non-causal")
+    kernels, _ = profile_ms(lambda: run(cfg, cp), 1)
+    busy = sum(kernels.values())
+    x_plain = run(plain_cfg, cp)
+    x_f32 = run(f32_cfg, params)
+    shape = (AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model)
+    for name, x in (("kernel", x_kern), ("plain", x_plain),
+                    ("float32", x_f32)):
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            fail(f"encode_audio: the {name} forward gave "
+                 f"{tuple(x.shape)}, finite {bool(torch.isfinite(x).all())}")
+    kern_vs_plain = rel_max(x_kern, x_plain)
+    plain_vs_f32 = rel_max(x_plain, x_f32)
+    kern_vs_f32 = rel_max(x_kern, x_f32)
+    if kern_vs_plain > AUDIO_RATIO * plain_vs_f32:
+        fail(f"encode_audio: the kernel forward differs from the plain one "
+             f"by {kern_vs_plain} of the RMS, more than {AUDIO_RATIO} x the "
+             f"plain bf16 forward's {plain_vs_f32} from float32")
+    flash_ms = sum(v for k, v in kernels.items()
+                   if KERNEL_EVENT["flash_attention"] in k)
+    emit("encode_audio", arch=AUDIO_ARCH, params=n_params,
+         param_bytes=n_bytes, param_dtype=cfg.param_dtype, init_s=init_s,
+         reduced=[], clips=AUDIO_CLIPS, frames=AUDIO_FRAMES,
+         head_dim=cfg.head_dim, forward_wall_ms=wall,
+         device_busy_ms=busy if busy > 0 else None,
+         device_idle_share=(max(0.0, 1.0 - busy / wall) if busy > 0
+                            else None),
+         flash_ms=flash_ms,
+         device_ms_by_kernel=dict(sorted(kernels.items(),
+                                         key=lambda kv: -kv[1])[:8]),
+         flash_launches=counts["flash_attention"], flash_calls=flash,
+         max_diff_over_rms={"kernel_vs_plain": kern_vs_plain,
+                            "plain_vs_float32": plain_vs_f32,
+                            "kernel_vs_float32": kern_vs_f32},
+         ratio_bar=AUDIO_RATIO, seconds=time.perf_counter() - t_phase)
+    del params, cp
+    torch.cuda.empty_cache()
+    return {"flash_attention": counts["flash_attention"]}
+
+
 def flash_bound(case, int8: bool = False):
     """Causal attention: 4 * B * H * D operations per unmasked (i, t) pair
     (QK and PV, a multiply and an add each; query i at position q_offset + i
@@ -2446,6 +2765,15 @@ SLICE_TIMINGS = (
      {"dims": (LM_SLOTS, 102400), "temperature": (0.0,) * LM_SLOTS}),
     ("fused_sampling", "V 102400 mixed", {"dims": (LM_SLOTS, 102400),
                                           **MIXED}),
+    ("flash_attention", "hubert-xlarge, D 80, non-causal",
+     {k: v for k, v in AUDIO_FLASH.items() if k != "atol"}),
+    ("flash_attention", "zamba2-1.2b shared block, G 1, S 700",
+     {k: v for k, v in HYBRID_FLASH.items() if k != "atol"}),
+    ("decode_attention", "zamba2-1.2b site, G 1", HYBRID_DECODE),
+    *(("fused_sampling", f"V {v} {label}", {"dims": (LM_SLOTS, v), **rows})
+      for v in (50304, 32000)
+      for label, rows in (("greedy", {"temperature": (0.0,) * LM_SLOTS}),
+                          ("mixed", MIXED))),
 )
 
 
@@ -2471,9 +2799,14 @@ def phase_timings(launches: dict, worst: dict) -> list:
         emit("timings", **row)
     # the moe and vlm phases' shapes, beside the main rows (the decode
     # rows at the same ticks' lengths)
+    hybrid_valid = tuple(
+        len(r.prompt) + 16
+        for r in lm_requests(cfg_lib.get_config(HYBRID_ARCH).vocab,
+                             LM_SLOTS))
     for name, label, case in SLICE_TIMINGS:
         if name == "decode_attention":
             case = dict(case, valid=paged_valid(vocab) if case.get("paged")
+                        else hybrid_valid if case is HYBRID_DECODE
                         else valid)
         row = timing_row(name, case)
         if "mixed" in label:
@@ -2545,22 +2878,33 @@ def main() -> None:
     launches_disagg = phase_serve_disagg()
     launches_moe = phase_serve_moe()
     launches_vlm = phase_serve_vlm()
+    launches_ssm = phase_serve_ssm()
+    launches_hybrid = phase_serve_hybrid()
+    launches_audio = phase_encode_audio()
+    # the rows each new phase must launch: ssm samples, the hybrid also runs
+    # flash and decode attention in its shared block, audio runs flash
+    for phase, got, rows in (
+            ("ssm", launches_ssm, ("fused_sampling",)),
+            ("hybrid", launches_hybrid, ("flash_attention",
+                                         "decode_attention",
+                                         "fused_sampling")),
+            ("audio", launches_audio, ("flash_attention",))):
+        missing = [r for r in rows if got.get(r, 0) < 1]
+        if missing:
+            fail(f"serve_{phase}: {missing} never launched on its path")
+    later = {"train": launches_train, "paged": launches_paged,
+             "disagg": launches_disagg, "moe": launches_moe,
+             "vlm": launches_vlm, "ssm": launches_ssm,
+             "hybrid": launches_hybrid, "audio": launches_audio}
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
-                    **{f"{k} (train)": v for k, v in launches_train.items()},
-                    **launches_lm, **{f"{k} (paged)": v
-                                      for k, v in launches_paged.items()},
-                    **{f"{k} (disagg)": v
-                       for k, v in launches_disagg.items()},
-                    **{f"{k} (moe)": v for k, v in launches_moe.items()},
-                    **{f"{k} (vlm)": v
-                       for k, v in launches_vlm.items()}}.items():
+                    **launches_lm,
+                    **{f"{k} ({tag})": v for tag, got in later.items()
+                       for k, v in got.items()}}.items():
         if n < 1:
             fail(f"{name} was never launched on its path")
-    for k, n in (list(launches_train.items()) + list(launches_lm.items())
-                 + list(launches_paged.items())
-                 + list(launches_disagg.items())
-                 + list(launches_moe.items()) + list(launches_vlm.items())):
+    for k, n in (list(launches_lm.items())
+                 + [kv for got in later.values() for kv in got.items()]):
         launches[k] = launches.get(k, 0) + n
     # no model path calls flash_attention_dequant: its row counts the
     # kernel phase's launches

@@ -1,7 +1,8 @@
-"""Config registry of the port: the paper's two CapsNets and the LM
-architectures of the families the port serves: dense (llama3.2-1b,
+"""Config registry of the port: the paper's two CapsNets and the ten LM
+architectures of the reference, every family: dense (llama3.2-1b,
 qwen3-1.7b, mistral-large-123b, qwen1.5-110b), moe (deepseek-moe-16b,
-dbrx-132b) and vlm (llama-3.2-vision-90b).
+dbrx-132b), vlm (llama-3.2-vision-90b), ssm (xlstm-1.3b), hybrid
+(zamba2-1.2b) and audio (hubert-xlarge, an encoder).
 
 ``get_config(arch_id)`` returns the full published config;
 ``reduced(cfg)`` returns a CPU-smoke-sized config of the same family, by
@@ -14,9 +15,10 @@ import dataclasses
 from typing import Any, Dict, List
 
 from repro_torch.configs import (capsnet_fmnist, capsnet_mnist, dbrx_132b,
-                                 deepseek_moe_16b, llama3p2_1b,
+                                 deepseek_moe_16b, hubert_xlarge, llama3p2_1b,
                                  llama3p2_vision_90b, mistral_large_123b,
-                                 qwen1p5_110b, qwen3_1p7b)
+                                 qwen1p5_110b, qwen3_1p7b, xlstm_1p3b,
+                                 zamba2_1p2b)
 from repro_torch.core.capsnet import CapsNetConfig
 from repro_torch.models.common import LMConfig, MoEConfig, SSMConfig, XLSTMConfig
 
@@ -28,13 +30,17 @@ _MODULES = {
     "deepseek-moe-16b": deepseek_moe_16b,
     "dbrx-132b": dbrx_132b,
     "llama-3.2-vision-90b": llama3p2_vision_90b,
+    "xlstm-1.3b": xlstm_1p3b,
+    "zamba2-1.2b": zamba2_1p2b,
+    "hubert-xlarge": hubert_xlarge,
     "capsnet-mnist": capsnet_mnist,
     "capsnet-fmnist": capsnet_fmnist,
 }
 
 LM_ARCHS: List[str] = ["llama3.2-1b", "qwen3-1.7b", "mistral-large-123b",
                        "qwen1.5-110b", "deepseek-moe-16b", "dbrx-132b",
-                       "llama-3.2-vision-90b"]
+                       "llama-3.2-vision-90b", "xlstm-1.3b", "zamba2-1.2b",
+                       "hubert-xlarge"]
 PAPER_ARCHS: List[str] = ["capsnet-mnist", "capsnet-fmnist"]
 
 

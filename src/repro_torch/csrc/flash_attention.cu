@@ -70,6 +70,19 @@
 //           single bf16 p (2^-9) would not at magnitudes >= 2;
 //   order   under the causal mask the q tiles run heaviest first (the tile
 //           index is reversed and is the grid's slow axis).
+//   D = 80  (hubert-xlarge's 1280 / 16 heads) is padded to 128 columns in
+//           shared memory: an 80-column bf16 row is 160 bytes, which no
+//           swizzle of wgmma.cuh lays out, so Q, K and V tiles are stored
+//           in the D = 128 layout (a B128 panel of 64 columns and one of
+//           which 16 columns are used).  Only the 80 columns are copied.
+//           QK^T runs the 5 k16 steps of the real columns, so the scores
+//           are exact and cost what D = 80 costs; P V runs at N = 128, and
+//           the accumulator's columns 80..127 (whatever the unwritten V
+//           columns hold: a column of the product depends on its own V
+//           column only) are never stored.  What it wastes: 1.6x the P V
+//           products and registers of D = 80, and 1.6x the shared memory
+//           of its tiles (int8 K/V, flash_attention_dequant, and the
+//           decode kernel keep D in {16, 32, 64, 128}).
 //
 // FMA body (flash_attention_kernel, 256 threads, float32 q):
 //
@@ -295,6 +308,12 @@ __host__ __device__ constexpr int tc_smem_bytes() {
          1024;
 }
 
+// The width a head of D columns is stored at in shared memory: 80 -> 128.
+template <int D>
+__host__ __device__ constexpr int tc_tile_dim() {
+  return D == 80 ? 128 : D;
+}
+
 // Four blocks on an SM for D <= 64 (at most 128 registers a thread).
 template <typename TKV, int D, bool kTaylor>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 4 : 1)
@@ -306,9 +325,11 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
                           int H, int K, int G, int q_block, int causal,
                           int q_offset, float scale) {
   constexpr bool kDequant = std::is_same<TKV, int8_t>::value;
-  constexpr int kTile = TileGeom<D>::kTileBytes;
+  constexpr int DP = tc_tile_dim<D>();          // the tiles' width
+  static_assert(DP == D || !kDequant, "int8 K/V take D in {16, 32, 64, 128}");
+  constexpr int kTile = TileGeom<DP>::kTileBytes;
   constexpr int CPR = D / 8;                    // 16-byte bf16 chunks a row
-  constexpr int NO = D / 2;                     // accumulator floats a thread
+  constexpr int NO = DP / 2;                    // accumulator floats a thread
   extern __shared__ uint8_t tc_smem[];
   const uint32_t raw = smem_addr(tc_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -334,7 +355,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
     const bool ok = r < rows && i < S;
     const __nv_bfloat16* src =
         ok ? q + (((size_t)b * S + i) * H + kvh * G + r % G) * D + c * 8 : q;
-    cp_async16(q_tile + tile_offset<D>(r, c * 8), src, ok);
+    cp_async16(q_tile + tile_offset<DP>(r, c * 8), src, ok);
   }
 
   auto load_tile = [&](int tile, int st) {
@@ -347,7 +368,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
         const int t = t0 + j;
         const bool ok = t < T_len;
         const size_t off = ok ? (((size_t)b * T_len + t) * K + kvh) * D + c * 8 : 0;
-        const uint32_t so = tile_offset<D>(j, c * 8);
+        const uint32_t so = tile_offset<DP>(j, c * 8);
         cp_async16(kt + so, k + off, ok);
         cp_async16(vt + so, v + off, ok);
       }
@@ -388,7 +409,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
       y.z = pack_bf16x2((float)x[4], (float)x[5]);
       y.w = pack_bf16x2((float)x[6], (float)x[7]);
       *reinterpret_cast<uint4*>(base_ptr + (1 + which) * kTile +
-                                tile_offset<D>(j, c * 8)) = y;
+                                tile_offset<DP>(j, c * 8)) = y;
     }
   };
 
@@ -437,7 +458,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(s, kmajor_desc<D>(q_tile, kk), kmajor_desc<D>(kt, kk));
+      wgmma_m64n64k16_ss(s, kmajor_desc<DP>(q_tile, kk), kmajor_desc<DP>(kt, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_operands(s);
@@ -523,9 +544,9 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const uint64_t dv = mnmajor_desc<D>(vt, j);
-      wgmma_rs<D>(o, ahi[j], dv);
-      wgmma_rs<D>(o, alo[j], dv);
+      const uint64_t dv = mnmajor_desc<DP>(vt, j);
+      wgmma_rs<DP>(o, ahi[j], dv);
+      wgmma_rs<DP>(o, alo[j], dv);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -582,7 +603,8 @@ int launch_flash_tc(const void* q, const void* k, const void* v,
                     int T_len, int H, int K, int q_block, int causal,
                     int q_offset, cudaStream_t stream) {
   auto kernel = flash_attention_kernel_tc<TKV, D, kTaylor>;
-  constexpr int smem = tc_smem_bytes<D, std::is_same<TKV, int8_t>::value>();
+  constexpr int smem =
+      tc_smem_bytes<tc_tile_dim<D>(), std::is_same<TKV, int8_t>::value>();
   static const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -618,6 +640,10 @@ int dispatch_flash(int D, const void* q, const void* k, const void* v,
     case 16: return launch_flash<kBf16, TKV, 16, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
     case 32: return launch_flash<kBf16, TKV, 32, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
     case 64: return launch_flash<kBf16, TKV, 64, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
+    case 80:
+      // hubert-xlarge's heads; not for int8 K/V (no model path reads them)
+      if constexpr (std::is_same<TKV, int8_t>::value) return (int)cudaErrorInvalidValue;
+      else return launch_flash<kBf16, TKV, 80, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
     case 128: return launch_flash<kBf16, TKV, 128, kTaylor>(q, k, v, ks, vs, out, B, S, T_len, H, K, q_block, causal, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -644,7 +670,7 @@ inline bool flash_shape_ok(int B, int S, int T_len, int H, int K, int q_block,
 
 // q, out (B, S, H, D); k, v (B, T, K, D); all contiguous, one type: float32
 // (is_bf16 = 0, the FMA body) or bfloat16 (1, the tensor-core body).  H a
-// multiple of K, D in {16, 32, 64, 128}, q_block a power of two with
+// multiple of K, D in {16, 32, 64, 80, 128}, q_block a power of two with
 // (H / K) * q_block <= kFlashRows (FLASH_ROWS in
 // kernels/attention/kernel.py, which a CPU test holds equal to this file).
 // Launches on `stream`, does not synchronise, allocates nothing.  Returns the

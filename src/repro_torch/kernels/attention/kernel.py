@@ -11,7 +11,9 @@
   with one float32 scale per row.  No model path of either package calls
   it.
 
-  Both take their body from q's type (:func:`flash_body`): bfloat16 q runs
+  ``flash_attention`` takes head dims :data:`HEAD_DIMS` (80 padded to 128
+  in shared memory), the dequantizing one :data:`CACHE_HEAD_DIMS`.  Both
+  take their body from q's type (:func:`flash_body`): bfloat16 q runs
   the ``tensor_core`` body (wgmma on bf16 operands with float32
   accumulation, the scale applied after the dot, p split into two bf16
   terms for PV; held at 1e-2 of the float32 oracle), float32 q the ``fma``
@@ -52,7 +54,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attention.ref import NEG_INF
 
 MAX_DYNAMIC_SMEM = 232448           # bytes a Hopper block may ask for
-HEAD_DIMS = (16, 32, 64, 128)
+# flash_attention's head dims: 80 (hubert-xlarge, 1280 / 16) is padded to
+# 128 columns in shared memory (csrc/flash_attention.cu says what it costs)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+# the head dims of the kernels that read a cache (flash_attention_dequant,
+# decode_attention): no model path gives them another
+CACHE_HEAD_DIMS = (16, 32, 64, 128)
 # The kernels' block geometry, which the registry needs to plan block sizes
 # on hosts without the library: kFlashRows, kFlashKv and the kDecode*
 # constants of the sources (tests/test_torch_attention.py holds them
@@ -261,9 +268,9 @@ def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
         raise TypeError(f"flash_attention_dequant takes a float32 or bfloat16 "
                         f"q, int8 kq, vq and float32 scales, got {q.dtype}, "
                         f"{kq.dtype}, {vq.dtype}, {ks.dtype}, {vs.dtype}")
-    if d not in HEAD_DIMS:
+    if d not in CACHE_HEAD_DIMS:
         raise ValueError(f"flash_attention_dequant: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+                         f"{CACHE_HEAD_DIMS}")
     if not all(x.is_contiguous() for x in (q, kq, ks, vq, vs)):
         raise ValueError("flash_attention_dequant: inputs must be contiguous")
     if min(b, s, t) < 1:
@@ -426,8 +433,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         + (f", ks {ks.dtype}, vs {vs.dtype}" if int8 else ""))
     b, _, h, d = q.shape
     nkv = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {d} not in {HEAD_DIMS}")
+    if d not in CACHE_HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {d} not in "
+                         f"{CACHE_HEAD_DIMS}")
     if h // nkv > DECODE_MAX_GROUP:
         raise ValueError(f"decode_attention: {h // nkv} query heads per KV "
                          f"head, the kernel takes {DECODE_MAX_GROUP}")

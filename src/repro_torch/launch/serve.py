@@ -7,9 +7,11 @@ through the ``repro_torch.serving`` engine API
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --no-reduced --decode-kernel --attn-impl cuda --requests 8
 
-    # LM, smoke-sized, on the host (the kernels' plain versions); the moe
-    # and vlm families too (--arch deepseek-moe-16b | dbrx-132b |
-    # llama-3.2-vision-90b)
+    # LM, smoke-sized, on the host (the kernels' plain versions); the moe,
+    # vlm, ssm and hybrid families too (--arch deepseek-moe-16b |
+    # dbrx-132b | llama-3.2-vision-90b | xlstm-1.3b | zamba2-1.2b; the
+    # recurrent two are admitted in exact-length groups and cannot be
+    # --paged).  hubert-xlarge is an encoder: the launcher refuses it.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --requests 3 --max-new 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -54,8 +56,9 @@ through the ``repro_torch.serving`` engine API
 The first call on the card builds the CUDA kernels into ``build/``.  At
 ``--no-reduced`` on the card the launcher refuses, before it draws a
 weight, a model whose parameters (in ``param_dtype``, plus the engine's
-compute-type copy) exceed the card's free memory, and names both numbers
-(a float32 deepseek-moe-16b needs about 101 GB).
+compute-type copy) and slot caches exceed the card's free memory, and
+names both numbers (a float32 deepseek-moe-16b needs about 101 GB; the
+float32 recurrent state of xlstm-1.3b is 5.66 GB at 8 slots).
 """
 
 from __future__ import annotations
@@ -132,13 +135,19 @@ def param_bytes_served(cfg) -> int:
     return n + n // size * torch.empty((), dtype=cfg.cdtype()).element_size()
 
 
-def check_fits(cfg, free_bytes: int) -> None:
-    """Exit, naming both numbers, when ``cfg``'s served parameters do not
-    fit in ``free_bytes`` of device memory."""
+def check_fits(cfg, free_bytes: int, n_slots: int = 0,
+               max_len: int = 0) -> None:
+    """Exit, naming both numbers, when ``cfg``'s served parameters and an
+    engine's ``n_slots`` x ``max_len`` caches (KV and recurrent state,
+    ``lm.cache_nbytes``) do not fit in ``free_bytes`` of device memory."""
+    from repro_torch.models import lm
+
     need = param_bytes_served(cfg)
+    if n_slots:
+        need += lm.cache_nbytes(cfg, n_slots, max_len)
     if need > free_bytes:
-        sys.exit(f"{cfg.arch_id}: the parameters need {need:,} bytes on the "
-                 f"card ({cfg.param_dtype}, plus the engine's "
+        sys.exit(f"{cfg.arch_id}: the parameters and caches need {need:,} "
+                 f"bytes on the card ({cfg.param_dtype}, plus the engine's "
                  f"{cfg.compute_dtype} copy), more than the {free_bytes:,} "
                  f"bytes torch.cuda.mem_get_info() reports free; serve it "
                  f"--reduced or on a card with more memory")
@@ -156,10 +165,13 @@ def _init_lm(args):
     cfg = cfg_lib.get_config(args.arch)
     if args.reduced:
         cfg = cfg_lib.reduced(cfg)
+    if cfg.family == "audio":
+        raise SystemExit("encoder-only arch has no decode path")
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        check_fits(cfg, torch.cuda.mem_get_info(device)[0])
+        check_fits(cfg, torch.cuda.mem_get_info(device)[0], args.slots,
+                   args.max_len)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     return cfg, lm.init(cfg, gen, device), device

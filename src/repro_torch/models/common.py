@@ -56,7 +56,11 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
-    """Declaration only: the Mamba-2 (hybrid) family is a later slice."""
+    """Mamba-2 (SSD) block of the hybrid family
+    (``repro_torch.models.mamba2``): ``expand * d_model`` inner channels in
+    heads of ``head_dim``, ``n_groups`` groups of B / C of ``d_state``, a
+    causal convolution of ``d_conv`` taps, scanned in chunks of
+    ``chunk_size``."""
 
     d_state: int = 64
     d_conv: int = 4
@@ -74,7 +78,11 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class XLSTMConfig:
-    """Declaration only: the xLSTM (ssm) family is a later slice."""
+    """xLSTM blocks of the ssm family (``repro_torch.models.xlstm``): every
+    ``slstm_every``-th block an sLSTM (a ``slstm_ff_factor`` gated FFN
+    after it), the others mLSTM blocks with a ``mlstm_proj_factor`` up
+    projection, a ``d_conv``-tap causal convolution and a chunked scan of
+    ``chunk_size``."""
 
     slstm_every: int = 8
     mlstm_proj_factor: float = 2.0

@@ -36,10 +36,12 @@ The moving parts:
 Disaggregated serving is **exact**: prefill uses the same ragged admission
 as the unified engine, and the gathered rows are the same state, so the
 decoded tokens match per-request ``generate()``.  The port serves the
-dense, moe and vlm families (a vlm handoff carries its nested
+dense, moe, vlm, ssm and hybrid families (a vlm handoff carries its nested
 ``{"units": {"kv", "cross"}}`` rows whole, or its pages plus the cross
-cache as residual rows); it has no device meshes yet (the multi-host form
-waits for the sharding slice).
+cache as residual rows; an ssm or hybrid handoff carries its float32
+recurrent state rows, gathered and scattered along each leaf's own batch
+axis, with the hybrid's shared-attention KV rows beside them); it has no
+device meshes yet (the multi-host form waits for the sharding slice).
 """
 
 from __future__ import annotations

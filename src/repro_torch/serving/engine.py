@@ -6,14 +6,21 @@ prompt lengths and position ids), and one ``decode_step`` advances every
 slot per tick with per-slot cache indices.  Finished slots are recycled
 without disturbing the others.
 
-The engine serves the dense, moe and vlm families (the hybrid, ssm and
-audio families raise ``NotImplementedError``, ROADMAP A6).  Ragged prefill
-is exact for all three: prompts are left-aligned with a zero pad suffix,
-so causal attention keeps real tokens from attending pads, and moe masks
-pad tokens out of expert routing and capacity; each slot's last-token
-logits seed its generation, and the vector ``pos`` decode masks each
-slot's cache beyond its own length.  Serving prompts carry no image
-features, so a vlm's cross-attention reads a zero cross cache.
+The engine serves every decoding family: dense, moe, vlm, ssm and hybrid
+(audio is an encoder and is refused: it has no decode path).  Ragged
+prefill is exact for the attention families: prompts are left-aligned with
+a zero pad suffix, so causal attention keeps real tokens from attending
+pads, and moe masks pad tokens out of expert routing and capacity; each
+slot's last-token logits seed its generation, and the vector ``pos``
+decode masks each slot's cache beyond its own length.  Serving prompts
+carry no image features, so a vlm's cross-attention reads a zero cross
+cache.  Recurrent families (ssm, hybrid) cannot mask a pad suffix out of
+their state after the fact, so their admission is *length-bucketed*: each
+tick's new prompts are grouped by exact length and each group prefills
+with no pad suffix at all (exact; one prefill shape per distinct prompt
+length).  ``generate()`` raises on a ragged recurrent batch instead of
+approximating it.  Their decode advances every slot's state, idle ones
+too; admission overwrites a slot's rows, so that is harmless.
 
 On the card with ``decode_kernel=True``, a decode tick runs the
 ``decode_attention`` kernel in every layer and draws every slot's token
@@ -102,10 +109,8 @@ class ServeEngine(EngineCore):
                  prefix_cache: bool = True,
                  decode_kernel: bool = False,
                  device: Any = None):
-        if cfg.family not in lm.SERVED_FAMILIES:
-            raise NotImplementedError(
-                f"ServeEngine serves the dense, moe and vlm families so "
-                f"far, not {cfg.family!r}; see ROADMAP.md, queue A item 6")
+        if cfg.family == "audio":
+            raise ValueError("encoder models have no decode path")
         self._decode_kernel = bool(decode_kernel)
         if self._decode_kernel:
             cfg = dataclasses.replace(cfg, decode_impl="cuda")
@@ -114,6 +119,9 @@ class ServeEngine(EngineCore):
         self.params = lm.compute_params(cfg, _to_device(params, self.device))
         self.n_slots = n_slots
         self.max_len = max_len
+        # recurrent state (ssm / hybrid) cannot mask a pad suffix the way
+        # attention masks cache rows: admission is length-bucketed instead
+        self._recurrent = cfg.family in lm.RECURRENT_FAMILIES
         self._seed0 = int(seed)       # base of engine-derived request seeds
         self._prefix_cache = bool(prefix_cache)
         self._pages: Optional[PagePool] = None
@@ -286,18 +294,31 @@ class ServeEngine(EngineCore):
                  temperature: float = 0.0, seed: Optional[int] = None,
                  top_k: int = 0, top_p: float = 1.0) -> List[List[int]]:
         """Batched prefill + greedy/temperature decode on fresh caches of
-        its own, sampled on the host.  Ragged-correct: each prompt keeps its
-        own length and positions, so the result matches per-request
-        generation.  Row ``i`` samples with seed ``(base ^ ((i + 1) *
-        0x9E3779B1)) & 0x7FFFFFFF`` (base = ``seed`` or the engine seed)
-        and counter = the token's sequence position."""
+        its own, sampled on the host.  Ragged-correct for the attention
+        families: each prompt keeps its own length and positions, so the
+        result matches per-request generation; a recurrent family's batch
+        must have one prompt length (``ValueError`` otherwise).  Row ``i``
+        samples with seed ``(base ^ ((i + 1) * 0x9E3779B1)) & 0x7FFFFFFF``
+        (base = ``seed`` or the engine seed) and counter = the token's
+        sequence position."""
         b = len(prompts)
         for p in prompts:
             self._check_prompt(p)
         if max_new_tokens <= 0:
             return [list(p) for p in prompts]
+        plens = sorted({len(p) for p in prompts})
+        if self._recurrent and len(plens) > 1:
+            raise ValueError(
+                f"ragged prompts (lengths {plens}) in one generate() batch "
+                f"would fold pad tokens into the recurrent "
+                f"({self.cfg.family}) state; pass uniform-length prompts, "
+                f"or submit() them: the engine admits recurrent prompts in "
+                f"exact-length buckets")
         caches = lm.make_caches(self.cfg, b, self.max_len, self.device)
-        plen = pow2_bucket(max(len(p) for p in prompts), self.max_len)
+        # recurrent: no pad suffix at all (the exact length); attention
+        # families mask the pad, so pow2 bucketing is free
+        plen = (plens[-1] if self._recurrent
+                else pow2_bucket(plens[-1], self.max_len))
         tokens = np.zeros((b, plen), np.int32)
         lengths = np.ones((b,), np.int32)
         for i, p in enumerate(prompts):
@@ -354,10 +375,12 @@ class ServeEngine(EngineCore):
                ) -> Tuple[List[int], int]:
         """Ragged batched prefill of the newly admitted slots only: one
         pow2-bucketed sub-batch whose cache rows are scattered into the
-        slot caches.  Tasks preempted earlier (``_evict`` saved their cache
-        rows) take the *resume* path instead: one batched scatter
-        re-injects their rows at the new slots and decode continues from
-        the saved token and position, exactly as if never preempted."""
+        slot caches.  Recurrent families take one sub-batch per distinct
+        prompt length instead, shortest first, each with no pad suffix.
+        Tasks preempted earlier (``_evict`` saved their cache rows) take
+        the *resume* path instead: one batched scatter re-injects their
+        rows at the new slots and decode continues from the saved token and
+        position, exactly as if never preempted."""
         if self._pages is not None:
             return self._admit_paged(new)
         resume = [(s, t) for s, t in new if "resume_rows" in t.state]
@@ -376,6 +399,15 @@ class ServeEngine(EngineCore):
                     pre_finished.append(s)
         if not new:
             return pre_finished, 0
+        if self._recurrent:
+            groups: Dict[int, List[Tuple[int, SlotTask]]] = {}
+            for s, task in new:
+                groups.setdefault(len(task.payload.prompt),
+                                  []).append((s, task))
+            finished = list(pre_finished)
+            for plen in sorted(groups):
+                finished += self._prefill_group(groups[plen], plen)
+            return finished, len(new)
         plen = pow2_bucket(
             max(len(t.payload.prompt) for _, t in new), self.max_len)
         return pre_finished + self._prefill_group(new, plen), len(new)

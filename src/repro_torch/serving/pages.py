@@ -13,7 +13,10 @@ replaces that layout with the paged one:
     leaves are (L, n_pages, page, K, D), for vlm's self-attention
     (nu, k, n_pages, page, K, D).  Leaves without a ``kv_seq`` axis stay
     dense slot-axis "residual" state: vlm's cross-attention cache (nu, B,
-    n_image_tokens, K, D); dense and moe have none.
+    n_image_tokens, K, D); dense and moe have none.  The recurrent
+    families (ssm, hybrid) are not pageable, as in the reference: their
+    state has no ``kv_seq`` axis, so :class:`PagePool` refuses them (and
+    audio, which has no cache).
   * **Page tables** — host-side ``(n_slots, max_len // page_size)`` int32
     maps from slot-local page index to pool page id (``-1`` = unmapped).
     The device ops below take a copy of them per tick.

@@ -45,7 +45,8 @@ class TestConfigs:
         assert port_configs.list_archs(include_paper=False) == [
             "llama3.2-1b", "qwen3-1.7b", "mistral-large-123b",
             "qwen1.5-110b", "deepseek-moe-16b", "dbrx-132b",
-            "llama-3.2-vision-90b"]
+            "llama-3.2-vision-90b", "xlstm-1.3b", "zamba2-1.2b",
+            "hubert-xlarge"]
 
     @pytest.mark.parametrize("arch", ["capsnet-mnist", "capsnet-fmnist"])
     def test_published_configs_match_reference(self, arch):
@@ -70,7 +71,7 @@ class TestConfigs:
 
     def test_unknown_arch_and_config_raise(self):
         with pytest.raises(ValueError, match="unknown arch"):
-            port_configs.get_config("xlstm-1.3b")
+            port_configs.get_config("no-such-arch-1b")
         with pytest.raises(TypeError):
             port_configs.reduced(object())
 
@@ -280,7 +281,7 @@ class TestLauncher:
         for bad in (["--scheduler", "sharded"],
                     ["--scheduler", "disagg", "--multihost"],
                     ["--routing", "pallas"],
-                    ["--arch", "xlstm-1.3b"]):
+                    ["--arch", "no-such-arch-1b"]):
             with pytest.raises(SystemExit):
                 port_serve.main(["--arch", "capsnet-mnist", "--device", "cpu"]
                                 + bad)

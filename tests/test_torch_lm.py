@@ -141,7 +141,10 @@ class TestConfigs:
         assert port_configs.list_archs() == [
             "llama3.2-1b", "qwen3-1.7b", "mistral-large-123b",
             "qwen1.5-110b", "deepseek-moe-16b", "dbrx-132b",
-            "llama-3.2-vision-90b", "capsnet-mnist", "capsnet-fmnist"]
+            "llama-3.2-vision-90b", "xlstm-1.3b", "zamba2-1.2b",
+            "hubert-xlarge", "capsnet-mnist", "capsnet-fmnist"]
+        assert sorted(port_configs.list_archs()) == sorted(
+            ref_configs.list_archs())
         for arch in port_configs.LM_ARCHS:
             assert arch in ref_configs.list_archs()
 
@@ -304,8 +307,12 @@ class TestCaches:
         assert c["kv"]["v"].dtype == torch.bfloat16
         moe = dataclasses.replace(pcfg, family="moe")
         assert port_lm.make_caches(moe, 1, 4, device="cpu")["kv"]["k"].shape[1] == 1
-        with pytest.raises(NotImplementedError):
-            port_lm.make_caches(dataclasses.replace(pcfg, family="ssm"), 1, 4)
+        # the recurrent families need their block config; audio has none
+        with pytest.raises(ValueError, match="no xlstm config"):
+            port_lm.make_caches(dataclasses.replace(pcfg, family="ssm"), 1, 4,
+                                device="cpu")
+        assert port_lm.make_caches(dataclasses.replace(pcfg, family="audio"),
+                                   1, 4, device="cpu") is None
         assert port_lm.cache_specs(pcfg) == ref_lm.cache_specs(
             ref_configs.reduced(ref_configs.get_config("qwen3-1.7b")))
 
@@ -372,8 +379,9 @@ class TestCaches:
 
     def test_paged_and_other_families_raise(self):
         """Paged and int8 caches are served (TestInt8AndPaged); what still
-        raises is a paged or int8 decode without a per-slot index, and the
-        families the port does not serve yet."""
+        raises is a paged or int8 decode without a per-slot index, paged
+        decode of a recurrent family (ssm, hybrid: as in the reference),
+        and a cache for audio, an encoder (``make_caches`` gives None)."""
         _, pcfg = _cfgs("llama3.2-1b")
         pp = port_lm.init(pcfg, torch.Generator().manual_seed(7), "cpu")
         tokens = torch.ones((1, 1), dtype=torch.int32)
@@ -391,9 +399,17 @@ class TestCaches:
                 torch.zeros(1, 1, pcfg.d_model), torch.zeros(1, 1),
                 cache={"k": q8, "v": q8, "k_scale": torch.ones(1, 4),
                        "v_scale": torch.ones(1, 4)}, cache_index=1)
-        with pytest.raises(NotImplementedError, match="moe and vlm families"):
-            port_lm.forward(pp, dataclasses.replace(pcfg, family="ssm"),
-                            {"tokens": tokens})
+        for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+            rcfg = port_configs.reduced(port_configs.get_config(arch))
+            rp = port_lm.init(rcfg, torch.Generator().manual_seed(7), "cpu")
+            with pytest.raises(ValueError, match="dense / moe decode only"):
+                port_lm.forward(rp, rcfg, {"tokens": tokens},
+                                port_lm.make_caches(rcfg, 1, 8, "cpu"),
+                                cache_index=torch.zeros(1),
+                                paged_tables=torch.zeros((1, 1)))
+        audio = port_configs.reduced(port_configs.get_config("hubert-xlarge"))
+        assert port_lm.make_caches(audio, 1, 8, "cpu") is None
+        assert port_lm.cache_specs(audio) is None
         with pytest.raises(ValueError, match="attn_impl"):
             port_lm.forward(pp, dataclasses.replace(pcfg, attn_impl="pallas"),
                             {"tokens": tokens})

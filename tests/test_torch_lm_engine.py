@@ -21,12 +21,14 @@ from repro.models import lm as ref_lm
 from repro.models.common import LMConfig as RefLMConfig
 from repro.serving import Request as RefRequest
 from repro.serving import ServeEngine as RefServeEngine
+from repro_torch import configs as port_configs
 from repro_torch import convert
 from repro_torch.launch import serve as port_serve
 from repro_torch.models import lm as port_lm
 from repro_torch.models.common import LMConfig
 from repro_torch.serving import (FIFOScheduler, InterleavingScheduler,
-                                 PriorityScheduler, Request, ServeEngine)
+                                 PagePool, PriorityScheduler, Request,
+                                 ServeEngine)
 
 torch.set_num_threads(1)
 
@@ -169,9 +171,14 @@ def test_engine_checks():
     assert ServeEngine(CFG, port_params(), page_size=8, device="cpu").paged
     with pytest.raises(ValueError, match="divide"):
         ServeEngine(CFG, port_params(), page_size=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe and vlm families"):
-        ServeEngine(dataclasses.replace(CFG, family="ssm"), port_params(),
+    # an encoder has no decode path; a recurrent family's state has no
+    # sequence axis to page (both as in the reference)
+    with pytest.raises(ValueError, match="encoder models have no decode"):
+        ServeEngine(dataclasses.replace(CFG, family="audio"), port_params(),
                     device="cpu")
+    ssm = port_configs.reduced(port_configs.get_config("xlstm-1.3b"))
+    with pytest.raises(ValueError, match="recurrent"):
+        PagePool(ssm, 2, MAX_LEN, 8)
     [c] = engine().serve([Request(prompt=[1, 2], max_new_tokens=0)])
     assert c.tokens == [1, 2]
 
