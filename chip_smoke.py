@@ -10,8 +10,13 @@ hand-written kernel, trains a full-width ``capsnet-mnist`` on the card and
 carries it through the paper's Fig. 6 pipeline (LAKP prune, masked
 fine-tune, compact, deploy through the routing and softmax kernels, serve
 the test set; with a save / crash / resume check and a save / reload of the
-deployed model), serves a full-width ``llama3.2-1b`` (random weights,
-seed 0) through ``ServeEngine`` with prefill attention, decode attention and
+deployed model), trains a full-width ``llama3.2-1b`` on the synthetic
+token stream (chunked attention, remat; its attention backward held
+against the reference attention's, the attention kernels' refusal of a
+gradient checked), LAKP-prunes every layer's FFN blocks and KV-head groups
+and serves the pruned model through the kernels against the plain path,
+serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
+``ServeEngine`` with prefill attention, decode attention and
 sampling in the hand-written kernels, serves it again from the paged KV
 cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
 decode reading the pages in place through the paged decode kernels, holds
@@ -44,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -63,6 +69,7 @@ from repro_torch import configs as cfg_lib  # noqa: E402
 from repro_torch.checkpointing import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.core import capsnet, pruning  # noqa: E402
 from repro_torch.data import synthetic_digits as sd  # noqa: E402
+from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
 from repro_torch.deploy import FastCapsPipeline, RoutingSpec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
@@ -75,9 +82,11 @@ from repro_torch.kernels.routing.routing_kernel import (  # noqa: E402
 from repro_torch.kernels.sampling.kernel import fused_sampling_cuda  # noqa: E402
 from repro_torch.kernels.softmax.kernel import taylor_softmax_cuda  # noqa: E402
 from repro_torch.launch.train import accuracy  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.common import tree_leaves  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.models.common import (tree_leaves,  # noqa: E402
+                                       tree_unflatten)
+from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
 from repro_torch.serving import (DecodeEngine,  # noqa: E402
                                  DisaggregatedEngine, DisaggScheduler,
                                  ImageRequest, PriorityScheduler, Request,
@@ -117,11 +126,22 @@ LM_MAX_LEN = 1024
 LM_REQUESTS = 16
 LM_MAX_NEW = 32
 # Greedy tokens of the kernel path and the plain path must agree up to the
-# first position whose top-2 logit margin (on the plain path) is below this:
-# logits are bf16 products (about |45| at this width, where a bf16 step is
-# 0.25) after 16 layers whose attention sums run in another order on the two
-# paths, so margins under four steps may flip.
-LM_MARGIN = 1.0
+# first position whose top-2 logit margin (on the path the margins were
+# read on) is below MARGIN_STEPS bf16 steps of that row's largest |logit|:
+# logits are bf16 products after layers whose attention sums run in another
+# order on the two paths, so a margin under four steps of the row's own
+# scale may flip.  At llama3.2-1b's |45| (a step of 0.25) the threshold is
+# 1.0; at the N(0, 1)-scale logits of the other families (|3|), 0.0625.
+MARGIN_STEPS = 4
+MARGIN_RULE = (f"{MARGIN_STEPS} bf16 steps of the row's largest |logit|: "
+               f"{MARGIN_STEPS} * 2^(floor(log2 max|z|) - 7)")
+
+
+def margin_threshold(max_abs: float) -> float:
+    """MARGIN_STEPS bf16 steps at a row's largest |logit| ``max_abs``."""
+    return MARGIN_STEPS * 2.0 ** (
+        math.floor(math.log2(max(max_abs, 1e-30))) - 7)
+
 
 # The training path (phase train_capsnet): full-width capsnet-mnist from
 # seed 0, the synthetic digits (2048 train / 512 test, seed 0), batch 32;
@@ -137,6 +157,42 @@ RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 12, 4, 10
 # classes of the kernel deployments must equal the reference's on every
 # test image whose top-two capsule lengths (reference) differ by more
 TRAIN_MARGIN = 1e-3
+
+# The LM training path (phase train_lm): llama3.2-1b at full width (16
+# layers, d_model 2048, 32 x 64 heads over 8 KV heads, d_ff 8192, vocab
+# 128256, tied embeddings), float32 parameters, bf16 compute, attn_impl
+# "chunked" (the attention kernels have no backward, as the reference's
+# Pallas kernels refuse jax.grad), remat on; TRAIN_LM_STEPS Trainer steps
+# from seed 0 on the token stream (vocab 128256), batch 8 x 512, AdamW lr
+# 1e-3 after 3 warmup steps.  Bars: every loss finite, the mean of the last
+# five below the mean of the first five.  Then the chunked attention's
+# backward against the reference attention's on one batch: the loss within
+# TRAIN_LM_LOSS_TOL relative; every gradient leaf's difference within
+# TRAIN_LM_GRAD_TOL of the leaf in L2 norm, and each dense leaf's largest
+# difference within TRAIN_LM_GRAD_TOL of its RMS.  Both paths round p and
+# the products to bf16 at other places, which the backward carries through
+# 16 layers (the dense leaves' largest differences were 0.07-0.15 of their
+# RMS on the card); a lost or wrong attention gradient moves a leaf by its
+# own size.  The embedding table's gradient lives on the rows the batch's
+# tokens index (about 4,000 of 128,256) beside the tied unembedding's small
+# dense part, so its RMS over all rows is no scale for its largest
+# difference (1.56 of it on the card) and only its L2 norm is held.  Then the
+# attention wrappers' refusal of a gradient on the card, LAKP pruning in
+# every layer (FFN: 8 blocks at sparsity 0.5; heads: 2 of 8 KV groups) and
+# serving the pruned model through the kernels against the plain path.
+TRAIN_LM_STEPS = 30
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 512
+TRAIN_LM_LR, TRAIN_LM_WARMUP = 1e-3, 3
+TRAIN_LM_PROFILE_STEPS = 3
+TRAIN_LM_HELD_OUT_SEED = 99_991
+TRAIN_LM_LOSS_TOL = 2.0 ** -7           # two bf16 steps, relative
+TRAIN_LM_GRAD_TOL = 0.25                # of the leaf's L2 norm / RMS
+SPARSE_GRAD_LEAVES = ("embed/tok",)
+PRUNE_FFN_BLOCKS, PRUNE_FFN_SPARSITY = 8, 0.5
+PRUNE_HEAD_SPARSITY = 0.25
+# train_mfu's peak: BF16_FLOP_PER_S, the H100 SXM part's (nvidia-smi names
+# it "NVIDIA H100 80GB HBM3")
+BF16_PEAK_NAME = "H100 SXM dense bf16, NVIDIA data sheet"
 
 # The paged serving path (phase serve_paged): the same model, engine width
 # and cache length, pages of 16 rows in the default pool of 8 x 1024 / 16 =
@@ -1195,15 +1251,24 @@ def count_calls(engine, method: str) -> list:
     return calls
 
 
+def margin_of(logits_row) -> dict:
+    """The top-2 margin of one row of logits and the margin rule's
+    threshold for it (MARGIN_RULE)."""
+    row = np.asarray(logits_row, dtype=np.float32)
+    top2 = np.partition(row, -2)[-2:]
+    return {"margin": float(abs(top2[1] - top2[0])),
+            "threshold": margin_threshold(float(np.abs(row).max()))}
+
+
 def record_margins(engine) -> dict:
     """Record, for each host-sampled token of ``engine``, the top-2 margin
-    of the logits it was drawn from, keyed by (rid, position)."""
+    of the logits it was drawn from and its threshold (margin_of), keyed
+    by (rid, position)."""
     margins = {}
     inner = engine._sample_task_row
 
     def wrapped(logits_row, task, pos):
-        top2 = np.partition(logits_row, -2)[-2:]
-        margins[(task.rid, pos)] = float(abs(top2[1] - top2[0]))
+        margins[(task.rid, pos)] = margin_of(logits_row)
         return inner(logits_row, task, pos)
 
     engine._sample_task_row = wrapped
@@ -1380,9 +1445,10 @@ def compare_with_plain(phase: str, reqs, tok, tok_plain, tok_again, margins,
                        vocab: int):
     """Every request has its new tokens inside the vocabulary; seeded ones
     are bit-identical across two kernel runs; greedy ones equal the plain
-    path's up to the first position whose top-2 margin there is below
-    LM_MARGIN.  Returns (tokens compared, ambiguous positions, where each
-    such sequence first parts from the plain one)."""
+    path's up to the first position whose top-2 margin there is below its
+    threshold (MARGIN_RULE).  Returns (tokens compared, ambiguous
+    positions, where each such sequence first parts from the plain one,
+    with the margin and threshold there)."""
     compared = ambiguous = 0
     first_diff = {}
     for r in reqs:
@@ -1402,21 +1468,23 @@ def compare_with_plain(phase: str, reqs, tok, tok_plain, tok_again, margins,
             if a[j] == b[j]:
                 continue
             m = margins[(r.rid, j)]
-            if m >= LM_MARGIN:
+            if m["margin"] >= m["threshold"]:
                 fail(f"{phase}: rid {r.rid} token {j} differs from the plain "
-                     f"path at a top-2 margin of {m} >= {LM_MARGIN}")
+                     f"path at a top-2 margin of {m['margin']} >= "
+                     f"{m['threshold']} ({MARGIN_RULE})")
             ambiguous += 1
-            first_diff[r.rid] = {"position": j, "margin": m}
+            first_diff[r.rid] = {"position": j, **m}
             break                         # the sequences part ways here
     return compared, ambiguous, first_diff
 
 
-def phase_serve_lm() -> dict:
-    """Full-width llama3.2-1b through ServeEngine: the kernel path
-    (flash_attention in prefill, decode_attention and fused_sampling in
-    every decode tick) against the plain path (chunked attention, host
-    sampling) on the same parameters and requests."""
-    cfg, params, init_s, n_params = init_lm()
+def serve_against_plain(phase: str, cfg, params, breakdown: bool) -> tuple:
+    """``params`` of full-width llama3.2-1b through ServeEngine: the kernel
+    path (flash_attention in prefill, decode_attention and fused_sampling
+    in every decode tick) against the plain path (chunked attention, host
+    sampling) on lm_requests, held by the margin rule; with
+    ``breakdown``, decode_tick_breakdown after.  Returns (the phase's
+    numbers, the launches of the first kernel run by kernel-table row)."""
     kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                        decode_kernel=True, device=DEVICE)
     plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
@@ -1437,44 +1505,407 @@ def phase_serve_lm() -> dict:
     stats = kern.stats()
     n_groups, n_ticks = groups[0], ticks[0]
     if len(done) != LM_REQUESTS:
-        fail(f"serve_lm: {len(done)} of {LM_REQUESTS} requests completed")
+        fail(f"{phase}: {len(done)} of {LM_REQUESTS} requests completed")
     want = {"flash_attention": cfg.n_layers * n_groups,
             "decode_attention": cfg.n_layers * n_ticks,
             "dense": cfg.n_layers * n_ticks,
             "fused_sampling": n_ticks}
     for name, n in want.items():
         if counts[name] != n or n < 1:
-            fail(f"serve_lm: {name} launched {counts[name]} times, expected "
+            fail(f"{phase}: {name} launched {counts[name]} times, expected "
                  f"{n} ({n_groups} prefill groups, {n_ticks} decode ticks)")
-    check_prefill_bodies("serve_lm", counts)
+    check_prefill_bodies(phase, counts)
 
     margins = record_margins(plain)
     done_plain = plain.serve(fresh(reqs))
+    del plain
     again = kern.serve(fresh(reqs))
+    tok = {c.rid: c.tokens for c in done}
+    tok_plain = {c.rid: c.tokens for c in done_plain}
     compared, ambiguous, first_diff = compare_with_plain(
-        "serve_lm", reqs, {c.rid: c.tokens for c in done},
-        {c.rid: c.tokens for c in done_plain},
-        {c.rid: c.tokens for c in again}, margins, cfg.vocab)
-
-    breakdown = decode_tick_breakdown(kern, cfg.vocab)
+        phase, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
+        margins, cfg.vocab)
     lat = stats.latency_summary()
+    greedy = [margins[(r.rid, j)] for r in reqs if r.temperature == 0
+              for j in range(len(r.prompt), len(r.prompt) + LM_MAX_NEW)
+              if (r.rid, j) in margins]
+    thresholds = [m["threshold"] for m in greedy]
+    numbers = dict(
+        slots=LM_SLOTS, max_len=LM_MAX_LEN, requests=stats.completed,
+        new_tokens=stats.items, ticks=stats.ticks, prefill_groups=n_groups,
+        decode_ticks=n_ticks, tok_per_s=stats.throughput,
+        ms_per_tick=stats.ms_per_tick,
+        latency_ms={k: {"n": n, "p50": p50, "p95": p95}
+                    for k, (n, p50, p95) in lat.items()},
+        launches={k: counts[k] for k in want},
+        prefill_launches_by_body={
+            b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
+        greedy_tokens_compared=compared,
+        ambiguous_positions=ambiguous, margin_rule=MARGIN_RULE,
+        plain_threshold_range=[min(thresholds), max(thresholds)],
+        plain_positions_under_threshold=sum(
+            1 for m in greedy if m["margin"] < m["threshold"]),
+        first_divergence=first_diff,
+        greedy_sequences_equal_plain=sum(
+            1 for r in reqs if r.temperature == 0
+            and tok[r.rid] == tok_plain[r.rid]),
+        seeded_bit_identical=True)
+    if breakdown:
+        numbers.update(decode_tick_breakdown(kern, cfg.vocab))
+    return numbers, {"flash_attention": counts["flash_attention"],
+                     "decode_attention": counts["dense"],
+                     "fused_sampling": counts["fused_sampling"]}
+
+
+def phase_serve_lm() -> dict:
+    """Full-width llama3.2-1b, random weights from seed 0, through
+    serve_against_plain with the decode tick's breakdown."""
+    cfg, params, init_s, n_params = init_lm()
+    numbers, launches = serve_against_plain("serve_lm", cfg, params,
+                                            breakdown=True)
     emit("serve_lm", arch=LM_ARCH, params=n_params, init_s=init_s,
-         slots=LM_SLOTS, max_len=LM_MAX_LEN, requests=stats.completed,
-         new_tokens=stats.items, ticks=stats.ticks, prefill_groups=n_groups,
-         decode_ticks=n_ticks, tok_per_s=stats.throughput,
-         ms_per_tick=stats.ms_per_tick,
-         latency_ms={k: {"n": n, "p50": p50, "p95": p95}
-                     for k, (n, p50, p95) in lat.items()},
-         launches={k: counts[k] for k in want},
-         prefill_launches_by_body={
-             b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
-         greedy_tokens_compared=compared,
-         ambiguous_positions=ambiguous, margin=LM_MARGIN,
-         first_divergence=first_diff,
-         seeded_bit_identical=True, **breakdown)
-    return {"flash_attention": counts["flash_attention"],
-            "decode_attention": counts["dense"],
-            "fused_sampling": counts["fused_sampling"]}
+         **numbers)
+    return launches
+
+
+def flat_paths(tree, path: tuple = ()) -> list:
+    """``(path, leaf)`` of a tree of dicts and lists, in tree_leaves'
+    order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in flat_paths(v, path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in flat_paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def event_timed_steps(trainer, events: list) -> None:
+    """Wrap the trainer's step so a pair of CUDA events brackets each one
+    on the device's timeline (read after the run)."""
+    inner = trainer.train_step
+
+    def step(params, opt_state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(params, opt_state, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.train_step = step
+
+
+def kernel_class(name: str) -> str:
+    """The class of a kernel by its name: GEMMs (cuBLAS / CUTLASS),
+    elementwise, reductions, copies and fills, other."""
+    n = name.lower()
+    if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                            "sm90_", "splitk")):
+        return "gemm"
+    if any(t in n for t in ("elementwise", "vectorized", "unrolled")):
+        return "elementwise"
+    if any(t in n for t in ("reduce", "softmax", "logsumexp", "norm")):
+        return "reduction"
+    if any(t in n for t in ("copy", "memcpy", "memset", "fill", "cat")):
+        return "copy_fill"
+    return "other"
+
+
+def train_lm_components(cfg, params, x_shape) -> dict:
+    """Device ms, by the profiler, of the step's parts taken alone at the
+    step's shapes: the chunked attention of one layer forward and forward
+    plus backward (the step runs every layer's forward twice under remat
+    and its backward once), the chunked cross-entropy forward plus backward,
+    and one AdamW update of every parameter."""
+    b, s, _ = x_shape
+    cd = cfg.cdtype()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=cd).requires_grad_(True)
+
+    q = rnd(b, s, cfg.n_heads, cfg.head_dim)
+    k = rnd(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = rnd(b, s, cfg.n_kv_heads, cfg.head_dim)
+
+    def attn_fwd():
+        with torch.no_grad():
+            attn_lib._chunked_attention(q, k, v, cfg, causal=True)
+
+    def attn_fwd_bwd():
+        out = attn_lib._chunked_attention(q, k, v, cfg, causal=True)
+        torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    x = rnd(b, s, cfg.d_model)
+    labels = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=DEVICE)
+    tok = params["embed"]["tok"].detach().requires_grad_(True)
+
+    def ce_fwd_bwd():
+        loss = lm.chunked_ce_loss({"embed": {"tok": tok}}, cfg, x, labels)
+        torch.autograd.grad(loss, (x, tok))
+
+    grads = [torch.zeros_like(p) for p in tree_leaves(params)]
+    state = adamw.init_state(tree_leaves(params))
+    ocfg = AdamWConfig(lr=TRAIN_LM_LR)
+
+    def update():
+        adamw.apply_updates(tree_leaves(params), grads, state, ocfg)
+
+    out = {}
+    for name, fn in (("attention_fwd_ms_per_layer", attn_fwd),
+                     ("attention_fwd_bwd_ms_per_layer", attn_fwd_bwd),
+                     ("ce_fwd_bwd_ms", ce_fwd_bwd),
+                     ("adamw_update_ms", update)):
+        fn()
+        kernels, _ = profile_ms(fn, 3)
+        out[name] = sum(kernels.values()) or None
+    del grads, state
+    a, ab = (out["attention_fwd_ms_per_layer"],
+             out["attention_fwd_bwd_ms_per_layer"])
+    out["attention_ms_per_step"] = (cfg.n_layers * (a + ab) if a and ab
+                                    else None)
+    return out
+
+
+def attention_grad_check(cfg, params, batch) -> dict:
+    """Loss and gradients of attn_impl "chunked" against "reference" on one
+    batch at full width: each one's largest difference over the reference
+    path's RMS (the loss's over |loss|)."""
+    out = {}
+    for impl in ("chunked", "reference"):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = lm.loss_fn(tree_unflatten(params, live),
+                             dataclasses.replace(cfg, attn_impl=impl), batch)
+        out[impl] = (loss.detach(), torch.autograd.grad(loss, live))
+        del live, loss
+    (lc, gc), (lr, gr) = out["chunked"], out["reference"]
+    max_rms, l2 = {}, {}
+    paths = [p for p, _ in flat_paths(params)]
+    for path, a, b in zip(paths, gc, gr):
+        key = "/".join(map(str, path))
+        d, b = a.float() - b.float(), b.float()
+        max_rms[key] = float(d.abs().max() / b.square().mean().sqrt()
+                             .clamp(min=1e-30))
+        l2[key] = float(d.norm() / b.norm().clamp(min=1e-30))
+    dense = {k: v for k, v in max_rms.items() if k not in SPARSE_GRAD_LEAVES}
+    return {"loss_chunked": float(lc), "loss_reference": float(lr),
+            "loss_rel_diff": abs(float(lc - lr)) / abs(float(lr)),
+            "grad_max_diff_over_rms": max_rms, "grad_l2_rel_diff": l2,
+            "grad_worst_dense_leaf": max(dense, key=dense.get),
+            "grad_worst_dense": max(dense.values()),
+            "grad_worst_l2_leaf": max(l2, key=l2.get),
+            "grad_worst_l2": max(l2.values()),
+            "grads_finite": all(bool(torch.isfinite(g).all()) for g in gc)}
+
+
+def refusal_cases() -> list:
+    """Each attention wrapper on CUDA tensors, one of which needs a
+    gradient, with autograd on: each must raise RuntimeError (and launch
+    nothing)."""
+    def t(*shape, dtype=torch.bfloat16, grad=False):
+        x = torch.zeros(shape, dtype=dtype, device=DEVICE)
+        return x.requires_grad_(grad) if grad else x
+
+    valid = torch.full((1,), 64, dtype=torch.int32, device=DEVICE)
+    cases = (
+        ("flash_attention", lambda: flash_attention_cuda(
+            t(1, 64, 2, 64, grad=True), t(1, 64, 1, 64), t(1, 64, 1, 64))),
+        ("flash_attention_dequant", lambda: flash_attention_dequant_cuda(
+            t(1, 64, 2, 64, grad=True), t(1, 64, 1, 64, dtype=torch.int8),
+            t(1, 64, dtype=torch.float32), t(1, 64, 1, 64, dtype=torch.int8),
+            t(1, 64, dtype=torch.float32))),
+        ("decode_attention", lambda: decode_attention_cuda(
+            t(1, 1, 2, 64, grad=True), t(1, 64, 1, 64), t(1, 64, 1, 64),
+            valid)))
+    lines = []
+    reset_counts()
+    for name, call in cases:
+        try:
+            call()
+        except RuntimeError as err:
+            lines.append({"wrapper": name, "raised": "RuntimeError",
+                          "message": str(err)})
+            emit("train_lm", part="refusal", **lines[-1])
+            continue
+        fail(f"train_lm: {name} returned for a CUDA q that needs a gradient")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if any(counts[n] for n, _ in cases):
+        fail(f"train_lm: a refused wrapper launched: {counts}")
+    return lines
+
+
+def prune_lm(cfg, params) -> dict:
+    """LAKP in every layer, in place: prune_lm_ffn (PRUNE_FFN_BLOCKS blocks
+    at PRUNE_FFN_SPARSITY) and prune_lm_heads (PRUNE_HEAD_SPARSITY of the
+    KV groups).  Returns the masks' survivors."""
+    block = params["units"]["block"]
+    ffn_kept, heads_kept = [], []
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            ffn = {k: block["ffn"][k][i] for k in ("wi", "wg", "wo")}
+            new, mask = pruning.prune_lm_ffn(ffn, PRUNE_FFN_BLOCKS,
+                                             PRUNE_FFN_SPARSITY)
+            for k in ffn:
+                block["ffn"][k][i].copy_(new[k])
+            ffn_kept.append(int(mask.sum()))
+            attn = {k: block["attn"][k][i] for k in ("wq", "wk", "wv", "wo")}
+            new, mask = pruning.prune_lm_heads(attn, cfg.n_heads,
+                                               cfg.n_kv_heads,
+                                               PRUNE_HEAD_SPARSITY)
+            for k in attn:
+                block["attn"][k][i].copy_(new[k])
+            heads_kept.append(mask.to(torch.int32).tolist())
+    return {"ffn_blocks_kept": ffn_kept, "kv_groups_kept": heads_kept}
+
+
+def phase_train_lm() -> dict:
+    """The LM analogue of train_capsnet: full-width llama3.2-1b trained on
+    the card (chunked attention, remat), its chunked attention's backward
+    held against the reference attention's, the attention wrappers'
+    refusal of a gradient checked on the card, LAKP-pruned in every layer,
+    then served through the kernels against the plain path.  Returns the
+    launches of the serve by kernel-table row."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg_lib.get_config(LM_ARCH),
+                              attn_impl="chunked")
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab))
+    tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+
+    def loss_fn(p, b):
+        return lm.loss_fn(p, cfg, b)
+
+    # 1. train, every step bracketed by CUDA events
+    tcfg = TrainerConfig(optim=AdamWConfig(
+        lr=TRAIN_LM_LR, warmup_steps=TRAIN_LM_WARMUP,
+        total_steps=TRAIN_LM_STEPS), log_every=1)
+    trainer = Trainer(tcfg, loss_fn, lambda g: lm.init(cfg, g, DEVICE),
+                      device=DEVICE)
+    events = []
+    event_timed_steps(trainer, events)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = trainer.run(stream.batches(TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+                                     TRAIN_LM_STEPS), TRAIN_LM_STEPS,
+                      generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    losses = [h["loss"] for h in res.history]
+    n_params = sum(int(x.numel()) for x in tree_leaves(res.params))
+    if len(losses) != TRAIN_LM_STEPS or not all(np.isfinite(losses)):
+        fail(f"train_lm: losses {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        fail(f"train_lm: the loss did not fall: mean of the first five "
+             f"{first5}, of the last five {last5}")
+    card = nvidia_smi_line()
+    if "H100" not in card:
+        fail(f"train_lm: train_mfu takes the H100's bf16 peak; the card is "
+             f"{card}")
+    median = step_ms[len(step_ms) // 2]
+    flops_per_step = lm.model_flops_per_token(cfg, n_params) * tokens
+
+    # the step's device time by kernel class, from a trace of a few more
+    step = make_train_step(loss_fn, tcfg, donate=False)
+    held = {k: torch.as_tensor(v, device=DEVICE) for k, v in stream.sample(
+        TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_HELD_OUT_SEED).items()}
+    state = [res.params, res.opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], held)
+
+    one_step()
+    kernels, host = profile_ms(one_step, TRAIN_LM_PROFILE_STEPS)
+    del state, one_step, step
+    busy = sum(kernels.values())
+    by_class = {}
+    for name, ms in kernels.items():
+        c = kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    components = train_lm_components(cfg, res.params,
+                                     (TRAIN_LM_BATCH, TRAIN_LM_SEQ,
+                                      cfg.d_model))
+    emit("train_lm", part="train", arch=LM_ARCH, params=n_params,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         attn_impl=cfg.attn_impl, remat=cfg.remat, loss_remat=cfg.loss_remat,
+         batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ, steps=res.step,
+         train_s=train_s, step_ms_median=median, step_ms_min=step_ms[0],
+         step_ms_max=step_ms[-1], tokens_per_s=tokens / (median / 1e3),
+         model_flops_per_step=flops_per_step,
+         train_mfu=flops_per_step / (median / 1e3) / BF16_FLOP_PER_S,
+         mfu_peak={"name": BF16_PEAK_NAME, "flop_per_s": BF16_FLOP_PER_S,
+                   "card": card},
+         losses=losses, loss_first5_mean=first5, loss_last5_mean=last5,
+         max_memory_allocated_bytes=peak_bytes,
+         step_device_busy_ms=busy if busy > 0 else None,
+         step_device_idle_share=(max(0.0, 1.0 - busy / median)
+                                 if busy > 0 else None),
+         step_device_ms_by_class=by_class,
+         step_device_ms_by_kernel=dict(sorted(
+             kernels.items(), key=lambda kv: -kv[1])[:10]),
+         step_host_self_ms=sum(host.values()),
+         components=components)
+
+    # 2. the chunked attention's backward against the reference attention's
+    check = attention_grad_check(cfg, res.params, held)
+    emit("train_lm", part="attention_backward", loss_tol=TRAIN_LM_LOSS_TOL,
+         grad_tol=TRAIN_LM_GRAD_TOL, **check)
+    if not check["grads_finite"]:
+        fail("train_lm: the chunked path's gradients are not finite")
+    if check["loss_rel_diff"] > TRAIN_LM_LOSS_TOL:
+        fail(f"train_lm: chunked and reference losses differ by "
+             f"{check['loss_rel_diff']} relative > {TRAIN_LM_LOSS_TOL}")
+    if check["grad_worst_dense"] > TRAIN_LM_GRAD_TOL:
+        fail(f"train_lm: chunked and reference gradients of "
+             f"{check['grad_worst_dense_leaf']} differ by "
+             f"{check['grad_worst_dense']} of its RMS > {TRAIN_LM_GRAD_TOL}")
+    if check["grad_worst_l2"] > TRAIN_LM_GRAD_TOL:
+        fail(f"train_lm: chunked and reference gradients of "
+             f"{check['grad_worst_l2_leaf']} differ by "
+             f"{check['grad_worst_l2']} of its L2 norm > {TRAIN_LM_GRAD_TOL}")
+
+    # 3. the attention wrappers refuse a gradient on the card
+    refused = refusal_cases()
+
+    # 4. LAKP in every layer, held-out loss before and after
+    params = res.params
+    del res, trainer
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        held_before = float(lm.loss_fn(params, cfg, held)[0])
+        kept = prune_lm(cfg, params)
+        held_after = float(lm.loss_fn(params, cfg, held)[0])
+    if not (np.isfinite(held_before) and np.isfinite(held_after)):
+        fail(f"train_lm: held-out loss {held_before} -> {held_after}")
+    emit("train_lm", part="prune", held_out_seed=TRAIN_LM_HELD_OUT_SEED,
+         held_out_loss_trained=held_before, held_out_loss_pruned=held_after,
+         ffn_sparsity=PRUNE_FFN_SPARSITY, ffn_blocks=PRUNE_FFN_BLOCKS,
+         head_sparsity=PRUNE_HEAD_SPARSITY, **kept)
+
+    # 5. serve the pruned, trained model through the kernels
+    torch.cuda.empty_cache()
+    serve_cfg = dataclasses.replace(cfg, attn_impl="cuda")
+    numbers, launches = serve_against_plain("train_lm (serve)", serve_cfg,
+                                            params, breakdown=False)
+    del params
+    torch.cuda.empty_cache()
+    # 6. the serve half's path went through rows 3, 5 and 9
+    for row in ("flash_attention", "decode_attention", "fused_sampling"):
+        if launches.get(row, 0) < 1:
+            fail(f"train_lm: {row} was never launched serving the pruned "
+                 f"model")
+    emit("train_lm", part="serve", refusals=len(refused), **numbers,
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def paged_requests(vocab: int, n_requests: int = LM_REQUESTS) -> list:
@@ -1523,7 +1954,7 @@ def b6_cross_check(kern, reqs, cfg) -> dict:
     in the same order, so the logits are expected to be equal; they are
     held to 0.25, one bfloat16 step at the logits' magnitude (about 45),
     and the greedy argmax must agree wherever the top-2 margin is at least
-    LM_MARGIN."""
+    its threshold (MARGIN_RULE)."""
     for r in fresh(reqs[:LM_SLOTS]):
         kern.submit(r)
     kern.tick()                                   # admission + first step
@@ -1559,8 +1990,8 @@ def b6_cross_check(kern, reqs, cfg) -> dict:
     if not (np.isfinite(a).all() and np.isfinite(b).all()):
         fail("serve_paged: cross-check logits are not finite")
     err = float(np.abs(a - b).max())
-    top2 = np.sort(b, axis=-1)[:, -2:]
-    clear = (top2[:, 1] - top2[:, 0]) >= LM_MARGIN
+    clear = np.array([m["margin"] >= m["threshold"]
+                      for m in map(margin_of, b)])
     if err > 0.25:
         fail(f"serve_paged: int8 and paged int8 decode logits differ by "
              f"{err} > 0.25")
@@ -1641,7 +2072,7 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
         prefill_launches_by_body={
             b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
         greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
-        margin=LM_MARGIN, first_divergence=first_diff,
+        margin_rule=MARGIN_RULE, first_divergence=first_diff,
         seeded_bit_identical=True, **breakdown)
     return out, counts
 
@@ -1686,9 +2117,9 @@ def record_kernel_margins(engine) -> dict:
     inner = engine._sample_batch_device
 
     def wrapped(logits, active, pos_of):
-        top2 = torch.topk(logits.float(), 2, dim=-1).values.cpu().numpy()
+        rows = logits.float().cpu().numpy()
         for s, task in active:
-            margins[(task.rid, pos_of(s))] = float(top2[s, 0] - top2[s, 1])
+            margins[(task.rid, pos_of(s))] = margin_of(rows[s])
         return inner(logits, active, pos_of)
 
     engine._sample_batch_device = wrapped
@@ -2006,14 +2437,14 @@ def phase_serve_disagg() -> dict:
     bounds = copy_bounds(results[0]["legs"]["bytes_per_handoff"])
     emit("serve_disagg", part="dense", arch=LM_ARCH, prefill_slots=LM_SLOTS,
          decode_engines=DISAGG_DECODES, decode_slots=DISAGG_SLOTS,
-         max_len=LM_MAX_LEN, margin=LM_MARGIN, unified=unified,
+         max_len=LM_MAX_LEN, margin_rule=MARGIN_RULE, unified=unified,
          copy_bounds=bounds, transports=results)
 
     preqs = paged_requests(cfg.vocab)
     for quantize in (False, True):
         numbers, counts = disagg_paged(cfg, params, preqs, quantize)
         emit("serve_disagg", part="paged", arch=LM_ARCH, page_size=PAGE,
-             margin=LM_MARGIN, **numbers)
+             margin_rule=MARGIN_RULE, **numbers)
         mode = numbers["mode"]
         add(counts, {"flash_attention": "flash_attention",
                      DECODE_ROWS[mode]: mode,
@@ -2162,7 +2593,7 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
         prefill_launches_by_body={
             b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
         greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
-        margin=LM_MARGIN, first_divergence=first_diff,
+        margin_rule=MARGIN_RULE, first_divergence=first_diff,
         greedy_sequences_equal_plain=sum(
             1 for r in reqs if r.temperature == 0
             and tok[r.rid] == tok_plain[r.rid]),
@@ -2453,7 +2884,7 @@ def phase_serve_recurrent(phase: str, arch: str) -> dict:
                      for k, (n, p50, p95) in lat.items()},
          launches={k: counts[k] for k in want}, flash_calls=flash,
          greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
-         margin=LM_MARGIN, first_divergence=first_diff,
+         margin_rule=MARGIN_RULE, first_divergence=first_diff,
          greedy_sequences_equal_plain=sum(
              1 for r in reqs if r.temperature == 0
              and tok[r.rid] == tok_plain[r.rid]),
@@ -2873,6 +3304,7 @@ def main() -> None:
     launches = phase_serve("serve_pruned", prune=True, n_requests=8)
     launches_dense = phase_serve("serve_dense", prune=False, n_requests=4)
     launches_train = phase_train_capsnet()
+    launches_train_lm = phase_train_lm()
     launches_lm = phase_serve_lm()
     launches_paged = phase_serve_paged()
     launches_disagg = phase_serve_disagg()
@@ -2892,7 +3324,8 @@ def main() -> None:
         missing = [r for r in rows if got.get(r, 0) < 1]
         if missing:
             fail(f"serve_{phase}: {missing} never launched on its path")
-    later = {"train": launches_train, "paged": launches_paged,
+    later = {"train": launches_train, "train_lm": launches_train_lm,
+             "paged": launches_paged,
              "disagg": launches_disagg, "moe": launches_moe,
              "vlm": launches_vlm, "ssm": launches_ssm,
              "hybrid": launches_hybrid, "audio": launches_audio}

@@ -8,6 +8,13 @@ the LM's unit leaves stacked on a leading layer axis, ``wq`` as (d, H, hd),
 permutation.  The reference's
 side hands over numpy arrays (``jax.tree.map(np.asarray, params)``); this
 module never sees a JAX array.
+
+bfloat16 leaves cross bit for bit: a numpy leaf whose dtype is named
+``bfloat16`` (``ml_dtypes``' type, which JAX hands over) becomes a
+``torch.bfloat16`` tensor with the same bits, and a bfloat16 tensor comes
+back as the same bits in such an array.  numpy has no bfloat16 of its own,
+so that direction imports ``ml_dtypes`` when it meets one, and only then
+(a host without it converts every other type).
 """
 
 from __future__ import annotations
@@ -25,7 +32,11 @@ def params_from_numpy(tree: Any, device: Any = "cpu") -> Any:
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_to_numpy(tree: Any) -> Any:
@@ -35,4 +46,17 @@ def params_to_numpy(tree: Any) -> Any:
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_numpy_bfloat16())
+    return t.numpy()
+
+
+def _numpy_bfloat16() -> np.dtype:
+    try:
+        import ml_dtypes
+    except ImportError as err:
+        raise ImportError(
+            "params_to_numpy: a bfloat16 leaf needs ml_dtypes, which gives "
+            "numpy its bfloat16 type; it is not installed") from err
+    return np.dtype(ml_dtypes.bfloat16)

@@ -33,10 +33,16 @@ Baselines implemented alongside (the paper compares against both):
   * ``kp_scores``           — magnitude-based Kernel Pruning [14] (Mao et al.)
   * ``unstructured_mask``   — per-weight magnitude pruning [21] (Han et al.)
 
-This is the PyTorch counterpart of ``repro.core.lakp`` (conv half; the
-block scores for LM structures come with the LM slice).  Masks must equal
-the reference's bit for bit, so every ranking is a *stable* argsort and the
-index vectors are ascending ``nonzero`` results.
+Generalization to LM structures: ``block_lookahead_scores`` scores any
+structured block (FFN hidden unit, attention head, MoE expert) as
+n(W_in block) * n(W_out block), the look-ahead product restricted to the
+structure's own fan-in and fan-out matrices; ``prune_blocks`` masks the
+lowest-scored blocks and ``compact_blocks`` removes them.
+
+This is the PyTorch counterpart of ``repro.core.lakp``.  Masks must equal
+the reference's bit for bit, so every ranking is a *stable* argsort (ties go
+to the lower index, in both packages) and the index vectors are ascending
+``nonzero`` results.
 """
 
 from __future__ import annotations
@@ -251,3 +257,76 @@ def effective_compression(masks: Sequence[torch.Tensor],
         kept += int((m > 0).sum()) * kernel_size
         total += int(w.numel())
     return 1.0 - kept / max(total, 1)
+
+
+# ---------------------------------------------------------------------------
+# Generalization to LM structures: FFN units, heads, experts
+# ---------------------------------------------------------------------------
+
+
+def _block_sums(w_in: torch.Tensor, w_out: torch.Tensor, n_blocks: int,
+                fn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(w)`` summed over each block's columns of ``w_in`` (d, f) and rows
+    of ``w_out`` (f, d): two (n_blocks,) vectors."""
+    d, f = w_in.shape
+    if w_out.shape[0] != f or f % n_blocks:
+        raise ValueError(f"blocks: w_in {tuple(w_in.shape)}, w_out "
+                         f"{tuple(w_out.shape)}, {n_blocks} blocks")
+    blk = f // n_blocks
+    a = fn(w_in).reshape(d, n_blocks, blk).sum(dim=(0, 2))
+    b = fn(w_out).reshape(n_blocks, blk, -1).sum(dim=(1, 2))
+    return a, b
+
+
+def block_lookahead_scores(w_in: torch.Tensor, w_out: torch.Tensor,
+                           n_blocks: int, norm: str = "l1") -> torch.Tensor:
+    """Look-ahead scores of ``n_blocks`` structured blocks of a paired
+    (W_in: (d, f), W_out: (f, d)) layer — FFN hidden units grouped into
+    blocks, attention heads (f = n_heads * head_dim), MoE experts.
+
+    score(block) = n(W_in[:, block]) * n(W_out[block, :])"""
+    if norm == "l1":
+        a, b = _block_sums(w_in, w_out, n_blocks, torch.abs)
+    else:
+        a, b = _block_sums(w_in, w_out, n_blocks, torch.square)
+        a, b = torch.sqrt(a), torch.sqrt(b)
+    return a * b
+
+
+def block_magnitude_scores(w_in: torch.Tensor, w_out: torch.Tensor,
+                           n_blocks: int) -> torch.Tensor:
+    """Magnitude (KP-style) block scores: n1(W_in block) + n1(W_out block)."""
+    a, b = _block_sums(w_in, w_out, n_blocks, torch.abs)
+    return a + b
+
+
+def prune_blocks(w_in: torch.Tensor, w_out: torch.Tensor, n_blocks: int,
+                 sparsity: float, method: str = "lakp", norm: str = "l1"
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask whole blocks of a paired FFN-like layer; returns (w_in~, w_out~,
+    block mask (n_blocks,))."""
+    if method == "lakp":
+        scores = block_lookahead_scores(w_in, w_out, n_blocks, norm)
+    elif method == "kp":
+        scores = block_magnitude_scores(w_in, w_out, n_blocks)
+    else:
+        raise ValueError(f"method must be lakp or kp, got {method!r}")
+    mask = mask_from_scores(scores, sparsity)             # (n_blocks,)
+    m_f = torch.repeat_interleave(mask, w_in.shape[1] // n_blocks)   # (f,)
+    return (w_in * m_f[None, :].to(w_in.dtype),
+            w_out * m_f[:, None].to(w_out.dtype), mask)
+
+
+def compact_blocks(w_in: torch.Tensor, w_out: torch.Tensor,
+                   mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Physically remove pruned blocks (compaction, not sparse indexing).
+    Returns the compacted (w_in, w_out) and the surviving block indices."""
+    idx = torch.nonzero(mask > 0)[:, 0]
+    n_blocks = mask.shape[0]
+    d, f = w_in.shape
+    blk = f // n_blocks
+    w_in_b = w_in.reshape(d, n_blocks, blk)[:, idx].reshape(d, -1)
+    w_out_b = w_out.reshape(n_blocks, blk, -1)[idx].reshape(
+        -1, w_out.shape[1])
+    return w_in_b, w_out_b, idx

@@ -1,3 +1,4 @@
-"""Datasets of the port: the procedural digit / fashion sets (numpy)."""
+"""Datasets of the port (numpy): the procedural digit / fashion sets and
+the synthetic token stream."""
 
-from repro_torch.data import synthetic_digits  # noqa: F401
+from repro_torch.data import synthetic_digits, tokens  # noqa: F401

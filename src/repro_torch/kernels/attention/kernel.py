@@ -39,7 +39,11 @@ tiles, in float32 as the FMA bodies do: q scaled in float32, the masked exp
 of the chosen mode, ``acc / max(l, 1e-30)``.  In exact mode they agree with
 the oracles of :mod:`repro_torch.kernels.attention.ref` to float32
 rounding.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches.  The kernels have no
+backward: each wrapper, given a tensor that needs a gradient with autograd
+on, raises ``RuntimeError`` on every device (``build.refuse_grad``), as the
+reference's Pallas kernels refuse ``jax.grad``; a model trains through
+``attn_impl="chunked"`` or ``"reference"``.
 """
 
 from __future__ import annotations
@@ -159,6 +163,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softmax_mode: str = "exact",
                          q_block: int = 64) -> torch.Tensor:
     """GQA flash attention: q (B, S, H, D); k, v (B, T, K, D); H = K * G."""
+    build.refuse_grad("flash_attention", q, k, v, hint=build.ATTENTION_HINT)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q must be (B, S, H, D) and k, v "
                          f"(B, T, K, D), got {tuple(q.shape)}, "
@@ -238,6 +243,8 @@ def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
     the KV heads.  ``page_size`` is the page length the rows were written
     in; it must be positive, and the kernel, which reads a scale per row,
     needs no tile alignment to it."""
+    build.refuse_grad("flash_attention_dequant", q, ks, vs,
+                      hint=build.ATTENTION_HINT)
     if q.dim() != 4 or kq.dim() != 4 or kq.shape != vq.shape:
         raise ValueError(f"flash_attention_dequant: q must be (B, S, H, D) "
                          f"and kq, vq (B, T, K, D), got {tuple(q.shape)}, "
@@ -406,6 +413,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by the valid length); int8 caches carry per-row scales ``ks``, ``vs``;
     kv_valid_len (B,) integer -> (B, 1, H, D).  ``kv_splits`` blocks of
     ``threads`` threads serve one (slot, KV head)."""
+    build.refuse_grad("decode_attention", q, k, v, ks, vs,
+                      hint=build.ATTENTION_HINT)
     _check_mode(softmax_mode)
     body, t, p_per, page, n_pages = _check_decode_cache(
         q, k, v, kv_valid_len, tables, ks, vs)

@@ -186,13 +186,20 @@ def check_launch(code: int, what: str) -> None:
             f"{what}: launch refused with CUDA error code {code}")
 
 
-def refuse_grad(what: str, x) -> None:
+ROUTING_HINT = ("train through RoutingSpec.reference() (as the reference "
+                "package does)")
+ATTENTION_HINT = ('train with attn_impl="chunked" or "reference" (as the '
+                  'reference package does)')
+
+
+def refuse_grad(what: str, *xs, hint: str = ROUTING_HINT) -> None:
     """The kernels have no backward.  A wrapper given a tensor that needs a
     gradient, with autograd on, raises on every device (on the CPU too,
     where its plain version could differentiate) rather than hand back an
-    output the gradient cannot pass through."""
-    if torch.is_grad_enabled() and x.requires_grad:
+    output the gradient cannot pass through.  ``hint`` names the plain path
+    the caller should train through."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
         raise RuntimeError(
-            f"{what} has no backward: train through RoutingSpec.reference() "
-            f"(as the reference package does), or call it under "
-            f"torch.no_grad() on a tensor that needs no gradient")
+            f"{what} has no backward: {hint}, or call it under "
+            f"torch.no_grad() on tensors that need no gradient")

@@ -1,4 +1,4 @@
-"""Training launcher: the paper's Fig. 6 pipeline end to end on the card.
+"""Training launcher: any registered architecture, end to end on the card.
 
     # the paper's model at its published size, on the card: train, LAKP
     # prune, masked fine-tune, compact, and evaluate through the routing
@@ -7,21 +7,30 @@
         --steps 300 --batch 32 --n-train 2048 --n-test 512 \\
         --prune lakp:0.9 --finetune-steps 100
 
-    # reduced config on the host (the kernels' plain versions)
+    # an LM on the synthetic token stream, on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --steps 30 --batch 8 --seq 512
+
+    # reduced configs on the host (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.train --arch capsnet-mnist \\
         --reduced --steps 8 --prune lakp:0.7 --finetune-steps 4 \\
         --n-train 64 --n-test 32 --batch 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --reduced --steps 4 --device cpu
 
-Training runs through the config's routing spec (``reference`` for both
-CapsNets: the kernels have no backward).  The compacted model is compiled
-twice, with the config's spec and with ``cuda`` (the hand-written routing
-kernel), and both are evaluated.  The LM archs train with the LM training
-surface, which is not ported yet (ROADMAP.md, queue A item 6).
+CapsNet training runs through the config's routing spec (``reference`` for
+both CapsNets: the kernels have no backward).  The compacted model is
+compiled twice, with the config's spec and with ``cuda`` (the hand-written
+routing kernel), and both are evaluated.  An LM trains with ``lm.loss_fn``
+through its config's ``attn_impl`` (``chunked``: the attention kernels have
+no backward either), the port's ``Trainer`` and functional AdamW, on the
+token stream of ``repro_torch.data.tokens``.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -30,9 +39,10 @@ import torch
 from repro_torch import configs as cfg_lib
 from repro_torch.core import capsnet as capsnet_lib
 from repro_torch.core import pruning as pruning_lib
-from repro_torch.data import synthetic_digits
+from repro_torch.data import synthetic_digits, tokens
 from repro_torch.deploy import FastCapsPipeline
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig
 from repro_torch.training import Trainer, TrainerConfig
 
@@ -48,6 +58,31 @@ def accuracy(classify: Callable[[torch.Tensor], torch.Tensor],
             xb = torch.from_numpy(x[i:i + batch]).to(device)
             right += int((classify(xb).cpu().numpy() == y[i:i + batch]).sum())
     return right / len(x)
+
+
+def train_lm(args) -> None:
+    device = resolve_device(args.device)
+    cfg = cfg_lib.get_config(args.arch)
+    if args.reduced:
+        cfg = cfg_lib.reduced(cfg)
+    stream = tokens.TokenStream(tokens.TokenStreamConfig(vocab=cfg.vocab))
+    tcfg = TrainerConfig(
+        optim=AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                          total_steps=args.steps),
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        log_every=args.log_every)
+    trainer = Trainer(tcfg, lambda p, b: lm.loss_fn(p, cfg, b),
+                      lambda g: lm.init(cfg, g, device), device=device)
+    t0 = time.time()
+    res = trainer.run(stream.batches(args.batch, args.seq, args.steps),
+                      args.steps)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    print(f"[{cfg.arch_id}] {res.step} steps in {dt:.1f}s "
+          f"({res.step / dt:.2f} steps/s) on {device}")
+    for h in res.history:
+        print("  ", {k: round(v, 4) for k, v in h.items()})
 
 
 def train_capsnet(args) -> None:
@@ -143,11 +178,10 @@ def main(argv: Optional[list] = None) -> None:
                     help="where to run (default: the card; raises when "
                          "there is none)")
     args = ap.parse_args(argv)
-    if not args.arch.startswith("capsnet"):
-        ap.exit(2, f"{args.arch}: the LM training surface (lm.loss_fn, "
-                   f"data/tokens.py) is not ported yet; see ROADMAP.md, "
-                   f"queue A item 6\n")
-    train_capsnet(args)
+    if args.arch.startswith("capsnet"):
+        train_capsnet(args)
+    else:
+        train_lm(args)
 
 
 if __name__ == "__main__":

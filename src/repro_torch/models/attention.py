@@ -499,3 +499,12 @@ def make_kv_cache(cfg: LMConfig, batch: int, max_len: int, n_layers: int,
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_specs(stacked: bool = True) -> Dict[str, Tuple[Any, ...]]:
+    """Logical axes of :func:`make_kv_cache`'s leaves (the leading
+    ``layers`` axis when ``stacked``)."""
+    axes: Tuple[Any, ...] = ("batch", None, "kv_heads", None)
+    if stacked:
+        axes = ("layers",) + axes
+    return {"k": axes, "v": axes}

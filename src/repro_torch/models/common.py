@@ -10,10 +10,11 @@ scales.  Values are drawn on the generator's device, so a CUDA generator
 initialises a full-size model on the card without a host round trip.
 
 :class:`LMConfig` carries every field of the reference's config, so the
-config files copy verbatim.  The port reads the inference fields; ``remat``,
-``remat_group``, ``scan_layers``, ``attn_scan_remat``, ``loss_chunks`` and
-``loss_remat`` shape training and compilation in the reference and are kept
-but ignored here.  ``attn_impl`` is ``chunked | reference | cuda`` and
+config files copy verbatim.  Training reads ``remat``, ``remat_group``
+and ``loss_remat`` (``repro_torch.models.lm``); ``scan_layers`` and
+``attn_scan_remat`` shape the reference's compiled scans and are kept but
+ignored (the port loops eagerly), and so is ``loss_chunks``, which the
+reference's ``loss_fn`` does not read either.  ``attn_impl`` is ``chunked | reference | cuda`` and
 ``decode_impl`` is ``chunked | cuda`` (the reference's ``pallas`` is the
 port's ``cuda``: the hand-written kernel).
 """
@@ -121,16 +122,16 @@ class LMConfig:
     frontend: Optional[str] = None   # None | audio | vision
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: bool = True            # kept, ignored (training)
-    remat_group: int = 1          # kept, ignored (training)
-    loss_chunks: int = 0          # kept, ignored (training)
+    remat: bool = True            # checkpoint each unit group (training)
+    remat_group: int = 1          # units per checkpointed group
+    loss_chunks: int = 0          # kept, ignored (as by the reference's loss)
     scan_layers: bool = True      # kept, ignored (the port loops)
     attn_q_block: int = 512
     attn_kv_block: int = 1024     # chunked attention's KV block
     attn_impl: str = "chunked"    # chunked | reference | cuda
     decode_impl: str = "chunked"  # chunked | cuda (the decode kernel)
-    attn_scan_remat: bool = True  # kept, ignored (training)
-    loss_remat: bool = True       # kept, ignored (training)
+    attn_scan_remat: bool = True  # kept, ignored (the port loops)
+    loss_remat: bool = True       # checkpoint each CE chunk (training)
     softmax_mode: str = "exact"   # exact | taylor (FastCaps Eq. 2)
     max_seq_len: int = 8192
 
@@ -263,6 +264,18 @@ def param_specs(defs: Any, dtype: torch.dtype) -> Any:
     if isinstance(defs, list):
         return [param_specs(v, dtype) for v in defs]
     return {k: param_specs(v, dtype) for k, v in defs.items()}
+
+
+def stack_specs(specs: Any, n: int) -> Any:
+    """Prepend the stacked ``layers`` axis, of ``n`` units, to every
+    :class:`LeafSpec` of a unit's spec tree (the reference's
+    ``stack_specs``, which prepends the axis name alone)."""
+    if isinstance(specs, LeafSpec):
+        return LeafSpec((n,) + specs.shape, specs.dtype,
+                        ("layers",) + specs.axes)
+    if isinstance(specs, list):
+        return [stack_specs(v, n) for v in specs]
+    return {k: stack_specs(v, n) for k, v in specs.items()}
 
 
 def param_numel(defs: Any) -> int:

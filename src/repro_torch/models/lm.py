@@ -18,6 +18,12 @@ the tree where the reference has them.  ``forward`` loops over the stacked
 units in Python where the reference scans them; sharding constraints are
 left out until the port shards.
 
+Training: ``loss_fn`` is the reference's (chunked cross-entropy plus
+``AUX_LOSS_COEF`` times the moe aux loss), differentiated by autograd.
+``cfg.remat`` runs each group of ``cfg.remat_group`` units under
+``torch.utils.checkpoint`` and ``cfg.loss_remat`` each cross-entropy chunk,
+where the reference wraps the same bodies in ``jax.checkpoint``.
+
 Caches are updated **in place** by the steps (the reference returns new
 trees; the steps here return the same dict they were given).  KV leaves
 are bfloat16, recurrent state float32, as the reference makes them:
@@ -35,9 +41,10 @@ D)}``; for ssm ``{"units": {"mlstm": {"c", "n", "m", "conv"} (nu, k-1, B,
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -47,7 +54,10 @@ from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (LMConfig, ParamDef, init_params,
-                                       init_stacked, tree_leaves)
+                                       init_stacked, param_specs,
+                                       stack_specs, tree_leaves)
+
+AUX_LOSS_COEF = 0.01
 
 NORM_KEYS = ("ln", "ln1", "ln2", "final_ln")
 # kept in the parameter type: the reference reads these leaves in float32
@@ -166,6 +176,22 @@ def init(cfg: LMConfig, generator: torch.Generator,
     return params
 
 
+def specs(cfg: LMConfig) -> Dict[str, Any]:
+    """Shape, type and logical axes of every parameter (a tree of
+    ``LeafSpec``), the unit leaves stacked on their ``layers`` axis;
+    nothing allocated.  A target for ``repro_torch.checkpointing.load``."""
+    sp = param_specs(model_defs(cfg), cfg.pdtype())
+    sp["units"] = stack_specs(param_specs(unit_defs(cfg), cfg.pdtype()),
+                              n_units(cfg))
+    return sp
+
+
+def param_structs(cfg: LMConfig) -> Dict[str, Any]:
+    """The shapes and types :func:`init` gives, nothing allocated (the
+    reference's ``eval_shape`` of ``init``): the tree of :func:`specs`."""
+    return specs(cfg)
+
+
 def compute_params(cfg: LMConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """The parameters as the forward reads them, cast once: every weight in
     ``cfg.compute_dtype`` (the reference casts at each use; the values are
@@ -249,11 +275,40 @@ def _store(views: Optional[Dict[str, torch.Tensor]],
             leaf.copy_(new[name])
 
 
-def _ssm_units(params, cfg: LMConfig, x, caches):
-    """The ssm stack: per unit ``slstm_every - 1`` mLSTM blocks and one
-    sLSTM block, each a pre-norm residual."""
+def _run_units(cfg: LMConfig, x, n: int,
+               unit: Callable[[int, torch.Tensor], Tuple[torch.Tensor, Any]],
+               remat: bool):
+    """``x`` through ``unit(i, x) -> (x, aux)`` for i = 0..n-1, summing the
+    aux losses.  With ``remat`` each group of ``cfg.remat_group`` units (one
+    unit when the group does not divide n) runs under
+    ``torch.utils.checkpoint``: only the group's input is saved and the
+    backward recomputes the rest, as the reference's ``jax.checkpoint`` of
+    its scan body does."""
+    g = max(1, cfg.remat_group)
+    if n % g:
+        g = 1
+    aux: Any = 0.0
+    for first in range(0, n, g):
+        def group(x, first=first):
+            a: Any = 0.0
+            for i in range(first, first + g):
+                x, ai = unit(i, x)
+                a = a + ai
+            return x, a
+        if remat:
+            x, a = checkpoint(group, x, use_reentrant=False)
+        else:
+            x, a = group(x)
+        aux = aux + a
+    return x, aux
+
+
+def _ssm_unit(params, cfg: LMConfig, caches):
+    """The ssm unit: ``slstm_every - 1`` mLSTM blocks and one sLSTM block,
+    each a pre-norm residual."""
     cu = None if caches is None else caches["units"]
-    for u in range(n_units(cfg)):
+
+    def unit(u, x):
         p = layer_params(params, u)
         for i, pi in enumerate(p["mlstm"]):
             st = None if cu is None else _slice(cu["mlstm"], u, i)
@@ -266,16 +321,18 @@ def _ssm_units(params, cfg: LMConfig, x, caches):
         y, new = xlstm_lib.slstm_apply(
             ps["mixer"], cfg, common.apply_norm(ps["ln"], x, cfg), st)
         _store(st, new)
-        x = x + y
-    return x
+        return x + y, 0.0
+
+    return unit
 
 
-def _hybrid_layers(params, cfg: LMConfig, x, positions, caches, cache_index):
-    """zamba2: the Mamba-2 stack, with the one shared attention block run
-    after the layers of :func:`hybrid_sites`, its KV cache indexed by
-    site."""
+def _hybrid_unit(params, cfg: LMConfig, positions, caches, cache_index):
+    """zamba2's unit: Mamba-2 layer i, then, after the layers of
+    :func:`hybrid_sites`, the one shared attention block, its KV cache
+    indexed by site."""
     sites = hybrid_sites(cfg)
-    for i in range(cfg.n_layers):
+
+    def unit(i, x):
         p = layer_params(params, i)["block"]
         st = None if caches is None else _slice(caches["mamba"], i)
         y, new = mamba_lib.mamba2_apply(
@@ -287,7 +344,31 @@ def _hybrid_layers(params, cfg: LMConfig, x, positions, caches, cache_index):
                   else _slice(caches["shared_kv"], sites.index(i)))
             x, _, _ = _apply_self_block(params["shared"], cfg, x, positions,
                                         kv, cache_index)
-    return x
+        return x, 0.0
+
+    return unit
+
+
+def _vlm_unit(params, cfg: LMConfig, positions, caches, cache_index,
+              token_mask, prefill_offset, img):
+    """The vlm unit: ``cross_attn_every`` self-attention blocks, then one
+    cross-attention block onto the projected image features."""
+    cu = None if caches is None else caches["units"]
+
+    def unit(i, x):
+        p = layer_params(params, i)
+        aux: Any = 0.0
+        for j, pj in enumerate(p["selfs"]):
+            kv = None if cu is None else _slice(cu["kv"], i, j)
+            x, _, a = _apply_self_block(pj, cfg, x, positions, kv,
+                                        cache_index, token_mask=token_mask,
+                                        prefill_offset=prefill_offset)
+            aux = aux + a
+        cross = None if cu is None else _slice(cu["cross"], i)
+        x, _ = _apply_cross_block(p["cross"], cfg, x, img, cross)
+        return x, aux
+
+    return unit
 
 
 def forward(params: Dict[str, Any], cfg: LMConfig,
@@ -310,7 +391,11 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
     ``caches["kv"]`` leaves are the page pool's (L, n_pages, page, K, D)
     and every layer reads and writes its pages through the per-slot
     tables.  audio takes ``features`` (B, S, d_model) where the others
-    take ``tokens``, and no caches."""
+    take ``tokens``, and no caches.
+
+    With ``cfg.remat``, autograd on and no caches (training), the units
+    run under ``torch.utils.checkpoint`` (:func:`_run_units`); serving
+    (caches, or ``inference_mode``) runs them as they are."""
     fam = cfg.family
     if paged_tables is not None and fam not in ("dense", "moe"):
         raise ValueError("paged_tables: dense / moe decode only")
@@ -331,39 +416,78 @@ def forward(params: Dict[str, Any], cfg: LMConfig,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     token_mask = batch.get("token_mask")
-    aux: Any = 0.0
     if fam == "vlm":
         img = batch.get("image_features")
         if img is not None:
             cd = cfg.cdtype()
             img = img.to(cd) @ params["embed"]["img_proj"].to(cd)
-        cu = None if caches is None else caches["units"]
-        for i in range(n_units(cfg)):
-            p = layer_params(params, i)
-            for j, pj in enumerate(p["selfs"]):
-                kv = None if cu is None else _slice(cu["kv"], i, j)
-                x, _, a = _apply_self_block(pj, cfg, x, positions, kv,
-                                            cache_index,
-                                            token_mask=token_mask,
-                                            prefill_offset=prefill_offset)
-                aux = aux + a
-            cross = None if cu is None else _slice(cu["cross"], i)
-            x, _ = _apply_cross_block(p["cross"], cfg, x, img, cross)
+        unit = _vlm_unit(params, cfg, positions, caches, cache_index,
+                         token_mask, prefill_offset, img)
     elif fam == "ssm":
-        x = _ssm_units(params, cfg, x, caches)
+        unit = _ssm_unit(params, cfg, caches)
     elif fam == "hybrid":
-        x = _hybrid_layers(params, cfg, x, positions, caches, cache_index)
+        unit = _hybrid_unit(params, cfg, positions, caches, cache_index)
     else:
-        for i in range(n_units(cfg)):
+        def unit(i, x):
             kv = None if caches is None else _slice(caches["kv"], i)
             x, _, a = _apply_self_block(layer_params(params, i)["block"], cfg,
                                         x, positions, kv, cache_index,
                                         token_mask=token_mask,
                                         prefill_offset=prefill_offset,
                                         paged_tables=paged_tables)
-            aux = aux + a
+            return x, a
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    x, aux = _run_units(cfg, x, n_units(cfg), unit, remat)
     x = common.apply_norm(params["final_ln"], x, cfg)
     return x, caches, aux
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def chunked_ce_loss(params, cfg: LMConfig, x: torch.Tensor,
+                    labels: torch.Tensor, n_chunks: int = 0) -> torch.Tensor:
+    """Mean cross-entropy over (B, S) without materializing (B, S, V).
+
+    The unembed matmul and the logsumexp run per sequence chunk, the logits
+    float32: ``max(1, S // 1024)`` chunks by default, one fewer until the
+    count divides S (the reference's rule).  With ``cfg.loss_remat`` and
+    autograd on, each chunk runs under ``torch.utils.checkpoint``, so the
+    backward recomputes a chunk's logits instead of keeping them all (the
+    reference's ``jax.checkpoint`` of its scan body)."""
+    b, s, _ = x.shape
+    if n_chunks <= 0:
+        n_chunks = max(1, s // 1024)
+    while s % n_chunks:
+        n_chunks -= 1
+    cs = s // n_chunks
+
+    def chunk_loss(xk, lk):
+        logits = common.unembed(params["embed"], cfg, xk)   # float32
+        gold = torch.gather(logits, -1, lk[..., None].long())[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+    remat = cfg.loss_remat and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        xk, lk = x[:, c * cs:(c + 1) * cs], labels[:, c * cs:(c + 1) * cs]
+        total = total + (checkpoint(chunk_loss, xk, lk, use_reentrant=False)
+                         if remat else chunk_loss(xk, lk))
+    return total / (b * s)
+
+
+def loss_fn(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy plus ``AUX_LOSS_COEF`` times the moe aux
+    loss: ``(loss, {"loss", "ce", "aux"})``, each a float32 0-d tensor.
+    ``batch`` holds ``labels`` (B, S) beside the forward's inputs."""
+    x, _, aux = forward(params, cfg, batch)
+    ce = chunked_ce_loss(params, cfg, x, batch["labels"])
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    loss = ce + AUX_LOSS_COEF * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def prefill_step(params, cfg: LMConfig, batch: Dict[str, torch.Tensor],
@@ -589,3 +713,11 @@ def cache_row_nbytes(rows: Any) -> int:
     if rows is None:
         return 0
     return int(sum(t.numel() * t.element_size() for t in tree_leaves(rows)))
+
+
+def model_flops_per_token(cfg: LMConfig, params_total: int,
+                          params_active: Optional[int] = None) -> float:
+    """Training FLOPs per token, about 6 N of the active parameters (the
+    forward's 2 N and the backward's 4 N)."""
+    n = params_active if params_active is not None else params_total
+    return 6.0 * n

@@ -21,8 +21,16 @@ is the reference's; an odd S (Q = 1) still costs S iterations of the loop.
 A one-token step (decode) takes :func:`_mlstm_step`.
 
 sLSTM keeps a scalar memory with a recurrent weight on h_{t-1}, so it is a
-loop over time; a fresh state starts at m = -1e30.  The reference's custom
-VJP of that loop serves training and is not ported (the port serves).
+loop over time; a fresh state starts at m = -1e30.  Training differentiates
+both blocks by eager autograd through these loops.  The reference gives its
+sLSTM scan a custom VJP that replays the forward and forms the recurrent
+weight's gradient in one einsum after the scan (one reduction on a sharded
+batch); autograd accumulates it step by step instead, which the unsharded
+port does not pay for, and computes the same gradients.  The stabilisers
+give no NaN gradient: a fresh m of -1e30 (sLSTM) or -inf (mLSTM) enters
+only through ``exp`` terms that are exactly 0 with a zero derivative, and
+the -1e30 clamp of the mLSTM's row maximum passes its gradient to the
+larger argument.
 
 Plain PyTorch, as the reference is plain ``jnp``: no kernel.  As in the
 reference, the mLSTM's ``w_gates`` / ``b_gates`` and ``norm_scale`` and

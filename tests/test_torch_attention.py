@@ -14,6 +14,7 @@ the rounding of the flash kernels' bf16 tensor-core body here and holds it
 against the Pallas kernels and the float32 oracle.
 """
 
+import dataclasses
 import importlib
 import math
 
@@ -25,12 +26,14 @@ import torch
 from repro import kernels as ref_kernels
 from repro.kernels.attention import ref as jref
 from repro.models import attention as ref_attention
+from repro_torch import configs as port_configs
 from repro_torch import kernels as port_kernels
 from repro_torch.kernels.attention import kernel as port_attn
 from repro_torch.core import approx_math as port_approx
 from repro_torch.kernels.attention import ref as pref
 from repro_torch.kernels.registry import registry as port_registry
 from repro_torch.models import attention as port_attention
+from repro_torch.models import lm as port_lm
 from torch_testlib import f32, rand, to_jax, to_torch
 
 torch.set_num_threads(1)
@@ -364,6 +367,55 @@ class TestWrapperChecks:
             before = dict(wrapper.launches_by_body)
             assert wrapper(*args).dtype == dtype
             assert wrapper.launches_by_body == before
+
+
+class TestRefuseGradient:
+    """The attention kernels have no backward: each wrapper raises
+    ``RuntimeError`` for an input that needs a gradient with autograd on,
+    on the CPU too (where its plain version could differentiate), as rows
+    1-2 do and as the reference's Pallas kernels refuse ``jax.grad``."""
+
+    @staticmethod
+    def _args(name, grad_on):
+        spec = port_registry.get(name)
+        case = next(c for c in spec.example_cases
+                    if name != "decode_attention" or not c.get("paged"))
+        args, kwargs = spec.make_example(case, device="cpu")
+        args = list(args)
+        args[0] = args[0].float().requires_grad_(grad_on == "q")
+        if grad_on == "k":
+            i = 1 if name != "flash_attention_dequant" else 2   # k or ks
+            args[i] = args[i].float().requires_grad_(True)
+        return spec, args, kwargs
+
+    @pytest.mark.parametrize("grad_on", ["q", "k"])
+    @pytest.mark.parametrize("name", NAMES)
+    def test_wrapper_raises_for_an_input_that_needs_a_gradient(self, name,
+                                                               grad_on):
+        spec, args, kwargs = self._args(name, grad_on)
+        wrapper = spec.build()
+        with pytest.raises(RuntimeError, match="no backward.*attn_impl"):
+            wrapper(*args, **kwargs)
+        with pytest.raises(RuntimeError, match="no backward"):
+            port_registry.call(name, *args, **kwargs)
+        with torch.no_grad():
+            wrapper(*args, **kwargs)            # no gradient: served
+
+    def test_self_attention_cuda_refuses_to_train(self):
+        """``attn_impl="cuda"`` under autograd raises; ``chunked`` trains."""
+        cfg = port_configs.reduced(port_configs.get_config("llama3.2-1b"))
+        pp = port_lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = {"tokens": torch.ones((1, 8), dtype=torch.int32),
+                 "labels": torch.ones((1, 8), dtype=torch.int32)}
+        for p in (pp["units"]["block"]["attn"]["wq"],):
+            p.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="flash_attention has no "
+                                               "backward"):
+            port_lm.loss_fn(pp, dataclasses.replace(cfg, attn_impl="cuda"),
+                            batch)
+        loss, _ = port_lm.loss_fn(pp, cfg, batch)
+        loss.backward()
+        assert pp["units"]["block"]["attn"]["wq"].grad.abs().sum() > 0
 
 
 class TestLegalize:

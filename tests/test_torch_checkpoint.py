@@ -17,6 +17,9 @@ from repro.optim import adamw as ref_adamw
 from repro_torch.checkpointing import checkpoint as ck
 from repro_torch.core import capsnet as cn
 from repro_torch.data import synthetic_digits as sd
+from repro_torch.data.tokens import TokenStream, TokenStreamConfig
+from repro_torch.models import lm
+from repro_torch.models.common import LMConfig
 from repro_torch.models.common import tree_leaves
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim import adamw
@@ -255,3 +258,65 @@ class TestCrashResume:
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
                                        rtol=0)
         assert int(res.opt_state["step"]) == 12
+
+
+class TestCrashResumeLM:
+    """The reference's ``tests/test_checkpoint.py`` ``TestCrashResume`` on
+    the port: an LM on the token stream, checkpointed and resumed."""
+
+    @staticmethod
+    def _trainer(cfg, d):
+        tcfg = TrainerConfig(
+            optim=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=30),
+            ckpt_dir=str(d), ckpt_every=10, log_every=10)
+        return Trainer(tcfg, lambda p, b: lm.loss_fn(p, cfg, b),
+                       lambda g: lm.init(cfg, g, "cpu"), device="cpu")
+
+    @staticmethod
+    def _batches(cfg, skip=0):
+        stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab))
+        for i, b in enumerate(stream.batches(4, 16, 30, seed=3)):
+            if i >= skip:
+                yield b
+
+    def test_kill_and_resume_bit_exact(self, tmp_path):
+        """Crash at step 25 (last ckpt 20) -> resume completes to 30 and
+        matches an uninterrupted run (same data order)."""
+        cfg = LMConfig(arch_id="t", family="dense", n_layers=2, d_model=32,
+                       n_heads=4, n_kv_heads=2, d_ff=64, vocab=64,
+                       remat=False)
+        d1, d2 = tmp_path / "a", tmp_path / "b"
+        ref = self._trainer(cfg, d1).run(self._batches(cfg), 30)
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            self._trainer(cfg, d2).run(self._batches(cfg), 30, crash_at=25)
+        assert ck.list_steps(str(d2))[-1] == 20
+        # the resumed run replays from step 20 -> feed batches 21..30
+        res = self._trainer(cfg, d2).run(self._batches(cfg, skip=20), 30)
+        assert res.step == 30
+        for a, b in zip(tree_leaves(ref.params), tree_leaves(res.params)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
+                                       rtol=0)
+        assert int(res.opt_state["step"]) == 30
+
+    def test_checkpoint_loads_onto_lm_specs(self, tmp_path):
+        """A saved LM state restores onto ``lm.specs`` (nothing allocated
+        for the target), and a checkpoint of the port loads in the
+        reference onto its own init."""
+        from repro.models import lm as ref_lm
+        from repro.models.common import LMConfig as RefLMConfig
+        kw = dict(arch_id="t", family="vlm", n_layers=3, d_model=16,
+                  n_heads=2, n_kv_heads=1, d_ff=32, vocab=64,
+                  cross_attn_every=2, n_image_tokens=4)
+        cfg = LMConfig(**kw)
+        params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        ck.save(str(tmp_path), 3, params)
+        got = ck.load(str(tmp_path), 3, lm.specs(cfg), device="cpu")
+        assert isinstance(got["units"]["selfs"], list)
+        assert_trees_equal(got, params)
+        ref = ref_ck.load(str(tmp_path), 3,
+                          ref_lm.init(RefLMConfig(**kw), jax.random.key(0)))
+        jax.tree.map(np.testing.assert_array_equal,
+                     jax.tree.map(np.asarray, ref),
+                     jax.tree.map(lambda t: t.numpy(), params,
+                                  is_leaf=lambda x: isinstance(
+                                      x, torch.Tensor)))

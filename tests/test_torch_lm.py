@@ -202,6 +202,27 @@ class TestParams:
         assert isinstance(back["selfs"], list)
         jax.tree.map(np.testing.assert_array_equal, back, tree)
 
+    @pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-moe-16b",
+                                      "llama-3.2-vision-90b", "xlstm-1.3b"])
+    def test_convert_carries_bfloat16_bit_exactly(self, arch):
+        """The reference's bf16 parameters (``ml_dtypes.bfloat16`` leaves,
+        0-d ones included) become bf16 tensors with the same bits, and come
+        back as the same bits in bf16 arrays."""
+        jcfg = dataclasses.replace(ref_configs.reduced(
+            ref_configs.get_config(arch)), param_dtype="bfloat16")
+        jp = jax.tree.map(np.asarray, ref_lm.init(jcfg, jax.random.key(0)))
+        tt = convert.params_from_numpy(jp)
+        back = convert.params_to_numpy(tt)
+
+        def same_bits(a, t, b):
+            assert a.dtype.name == "bfloat16" and t.dtype == torch.bfloat16
+            assert b.dtype == a.dtype and b.shape == a.shape
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          a.view(np.int16))
+            np.testing.assert_array_equal(b.view(np.int16), a.view(np.int16))
+
+        jax.tree.map(same_bits, jp, tt, back)
+
     def test_init_draws_per_unit_with_declared_fan_in(self):
         _, pcfg = _cfgs("llama3.2-1b")
         pp = port_lm.init(pcfg, torch.Generator().manual_seed(1), "cpu")

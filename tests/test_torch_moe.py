@@ -33,7 +33,7 @@ from repro_torch import convert
 from repro_torch.models import lm as port_lm
 from repro_torch.models import moe as port_moe
 from repro_torch.models.common import LMConfig, MoEConfig, tree_leaves
-from torch_testlib import f32
+from torch_testlib import f32, lm_parity_bf16
 
 torch.set_num_threads(1)
 
@@ -323,3 +323,22 @@ class TestMoeLM:
         full = port_configs.get_config("deepseek-moe-16b")
         # 16.9 B parameters: 67.5 GB in float32
         assert 67e9 < port_lm.param_bytes(full) < 68e9
+
+
+def test_bfloat16_parameters_match_reference():
+    """Reduced deepseek-moe-16b with bfloat16 parameters and compute, from
+    the reference's bf16 parameters converted bit for bit: the forward, the
+    prefill logits and a decode step's logits within four bf16 steps of
+    each row's largest value (``torch_testlib.lm_parity_bf16``)."""
+    arch = "deepseek-moe-16b"
+    kw = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(ref_configs.reduced(
+        ref_configs.get_config(arch)), **kw)
+    pcfg = dataclasses.replace(port_configs.reduced(
+        port_configs.get_config(arch)), **kw)
+    jp = ref_lm.init(jcfg, jax.random.key(0))
+    pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+    assert pp["units"]["block"]["ffn"]["router"].dtype == torch.bfloat16
+    tokens = np.random.RandomState(3).randint(1, 128, (2, 13)).astype(
+        np.int32)
+    lm_parity_bf16(jcfg, pcfg, jp, pp, {"tokens": tokens})

@@ -47,7 +47,7 @@ from repro_torch.serving import (DecodeEngine, PrefillEngine,
                                  PriorityScheduler, Request, ServeEngine,
                                  disaggregated_lm_engine)
 from repro_torch.serving.disagg import _flatten
-from torch_testlib import f32
+from torch_testlib import f32, lm_parity_bf16
 
 torch.set_num_threads(1)
 
@@ -126,6 +126,26 @@ def _assert_caches_close(port_caches, ref_caches):
                                        err_msg=str(path))
         else:
             _assert_leaf_close(g, w, path)
+
+
+class TestBFloat16:
+    """The card's types, held against the reference on the CPU: bfloat16
+    compute with float32 parameters (the leaves of ``lm.FLOAT32_KEYS`` read
+    in float32), and bfloat16 parameters converted bit for bit.  Hidden
+    states and the prefill and decode logits within four bf16 steps of each
+    row's largest value (``torch_testlib.lm_parity_bf16``); the float32
+    cases above keep their 1e-4."""
+
+    @pytest.mark.parametrize("arch,param_dtype", [
+        (a, d) for a in ARCHS for d in ("float32", "bfloat16")
+        if a in DECODING or d == "float32"])
+    def test_bf16_compute_matches_reference(self, arch, param_dtype):
+        kw = dict(compute_dtype="bfloat16", param_dtype=param_dtype)
+        jcfg, pcfg = _cfgs(arch, **kw)
+        jp = ref_lm.init(jcfg, jax.random.key(0))
+        pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+        lm_parity_bf16(jcfg, pcfg, jp, pp, _batch(arch),
+                       b=B, t=T)
 
 
 class TestConfigs:

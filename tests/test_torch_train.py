@@ -515,10 +515,13 @@ def test_launch_train_needs_a_card_by_default(monkeypatch):
 
 
 def test_launch_train_lm_names_the_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_train.main(["--arch", "llama3.2-1b", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    """The roadmap item this named (queue A item 6, the LM training
+    surface) is done: an LM arch no longer exits 2 naming it, it trains."""
+    port_train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "2",
+                     "--seq", "8", "--batch", "2", "--device", "cpu"])
+    captured = capsys.readouterr()
+    assert "ROADMAP.md" not in captured.err
+    assert captured.out.startswith("[llama3.2-1b] 2 steps in ")
 
 
 def _run_example(name, argv, monkeypatch):

@@ -30,7 +30,7 @@ from repro_torch import convert
 from repro_torch.models import attention as port_attention
 from repro_torch.models import lm as port_lm
 from repro_torch.models.common import tree_leaves, tree_map
-from torch_testlib import f32
+from torch_testlib import f32, lm_parity_bf16
 
 torch.set_num_threads(1)
 
@@ -355,3 +355,20 @@ class TestPagePool:
                                                                 f32(w)),
                      want, got)
         assert torch.equal(got["units"]["cross"]["v"], pres["units/cross/v"])
+
+
+def test_bfloat16_parameters_match_reference():
+    """The reduced vision model with bfloat16 parameters and compute (the
+    cross gates at GATE, image features given), from the reference's bf16
+    parameters converted bit for bit: the forward, the prefill logits and a
+    decode step's logits within four bf16 steps of each row's largest value
+    (``torch_testlib.lm_parity_bf16``)."""
+    jcfg, pcfg = cfgs(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jp = ref_lm.init(jcfg, jax.random.key(0))
+    cross = jp["units"]["cross"]["attn"]
+    cross["gate"] = jnp.full_like(cross["gate"], GATE)
+    pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+    assert pp["units"]["cross"]["attn"]["gate"].dtype == torch.bfloat16
+    tokens, _, img = inputs()
+    lm_parity_bf16(jcfg, pcfg, jp, pp,
+                   {"tokens": tokens, "image_features": img}, b=B, t=T)

@@ -28,8 +28,10 @@ import numpy as np
 import torch
 
 from repro.core import capsnet as ref_capsnet
+from repro.models import lm as ref_lm
 from repro_torch import convert
 from repro_torch.core import capsnet as port_capsnet
+from repro_torch.models import lm as port_lm
 from repro_torch.serving.core import EngineCore, SlotTask
 from repro_torch.serving.disagg import CacheHandoff, HandoffRequest
 from repro_torch.serving.transport import InProcessTransport, TransportError
@@ -53,6 +55,64 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to(torch.float32).cpu().numpy()
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def bf16_steps(x: np.ndarray) -> np.ndarray:
+    """One bfloat16 step at each row's largest |value| (last axis):
+    2^(floor(log2 max|x|) - 7)."""
+    top = np.maximum(np.abs(x).max(axis=-1, keepdims=True), 1e-30)
+    return 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+BF16_ROW_STEPS = 4
+
+
+def assert_rows_within_bf16_steps(got, want, name,
+                                  steps: int = BF16_ROW_STEPS):
+    """bfloat16 compute: every element within ``steps`` bf16 steps of its
+    row's largest |value| (the two frameworks round a bf16 stack's
+    products at other places, and the rounding compounds over the layers;
+    four steps is the rule the card's greedy check uses), and the argmax
+    equal in every row whose top-2 margin is at least that."""
+    got, want = f32(got), f32(want)
+    assert got.shape == want.shape, name
+    tol = steps * bf16_steps(want)
+    err = np.abs(got - want)
+    assert (err <= tol).all(), (
+        f"{name}: {float((err / tol).max()) * steps:.2f} bf16 steps")
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) >= tol[..., 0]
+    np.testing.assert_array_equal(got.argmax(-1)[clear],
+                                  want.argmax(-1)[clear], err_msg=name)
+
+
+def lm_parity_bf16(jcfg, pcfg, jp, pp, inputs, b: int = 2, t: int = 32):
+    """The forward's hidden states, the prefill logits and one decode
+    step's logits of both packages on ``inputs`` (numpy, the forward's
+    batch) at ``jcfg`` / ``pcfg``, held by
+    :func:`assert_rows_within_bf16_steps`.  An encoder (no caches) runs the
+    forward only."""
+    jb = {k: jnp.asarray(v) for k, v in inputs.items()}
+    tb = {k: torch.from_numpy(np.array(v, copy=True))
+          for k, v in inputs.items()}
+    xj, _, _ = ref_lm.forward(jp, jcfg, jb)
+    xp, _, _ = port_lm.forward(pp, pcfg, tb)
+    assert_rows_within_bf16_steps(xp, xj, f"{jcfg.arch_id} forward")
+    if jcfg.family == "audio":
+        return
+    s = inputs["tokens"].shape[1]
+    jl, jc = ref_lm.prefill_step(jp, jcfg, jb, ref_lm.make_caches(jcfg, b, t))
+    pl, pc = port_lm.prefill_step(pp, pcfg, tb,
+                                  port_lm.make_caches(pcfg, b, t,
+                                                      device="cpu"))
+    assert_rows_within_bf16_steps(pl, jl, f"{jcfg.arch_id} prefill")
+    nxt = np.random.RandomState(9).randint(1, 128, (b, 1)).astype(np.int32)
+    jl, _ = ref_lm.decode_step(jp, jcfg, {
+        "tokens": jnp.asarray(nxt), "pos": jnp.full((b,), s, jnp.int32)}, jc)
+    pl, _ = port_lm.decode_step(pp, pcfg, {
+        "tokens": torch.from_numpy(nxt),
+        "pos": torch.full((b,), s, dtype=torch.int32)}, pc)
+    assert_rows_within_bf16_steps(pl, jl, f"{jcfg.arch_id} decode")
 
 
 SMALL = dict(conv1_channels=8, caps_types=4, decoder_hidden=(32, 64))
