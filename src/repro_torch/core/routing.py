@@ -21,8 +21,10 @@ Variants (``mode``):
         agreement step on every iteration; the oracle.
   * ``optimized``  — the FastCaps §III-B simplifications, one operation
         per step: Taylor-series exp (Eq. 2) in the softmax (the
-        ``taylor_softmax`` kernel on the card), optional exp/log division
-        (Eq. 3), ``squash_fast``.
+        ``taylor_softmax`` kernel on the card, differentiable through its
+        backward kernel ``taylor_softmax_bwd``, so this variant trains as
+        the reference's does), optional exp/log division (Eq. 3),
+        ``squash_fast``.
   * ``cuda``       — kernels/routing: the whole r-iteration loop fused in
         one hand-written kernel, an image's input capsules split over a
         thread-block cluster of ``i_splits`` blocks, each holding its slice
@@ -47,8 +49,9 @@ def _softmax_parents(b: torch.Tensor, mode: str,
     """Softmax over the parent axis (last axis of (B, N_in, N_out)).
 
     The Eq. 2 softmax goes through the ``taylor_softmax`` kernel's wrapper
-    (the kernel on the card, its plain version on the host); the Eq. 3
-    division is not part of that kernel and stays plain PyTorch."""
+    (the kernel on the card, its plain version on the host; with autograd
+    on, the backward kernel too); the Eq. 3 division is not part of that
+    kernel and stays plain PyTorch."""
     if mode == "taylor":
         if use_div_exp_log:
             return approx_math.taylor_softmax(

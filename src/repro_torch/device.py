@@ -20,3 +20,11 @@ def resolve_device(device: Union[None, str, torch.device] = None
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
+
+
+def indexed(device: Union[str, torch.device]) -> torch.device:
+    """``device`` with its index: ``cuda`` names the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

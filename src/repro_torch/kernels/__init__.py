@@ -16,4 +16,5 @@ from repro_torch.kernels.registry import (KernelRegistry,  # noqa: F401
                                           flash_attention_dequant,
                                           fused_routing,
                                           fused_sampling, registry,
-                                          taylor_softmax)
+                                          taylor_softmax,
+                                          taylor_softmax_bwd)

@@ -124,6 +124,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_routing_launch.restype = i
     lib.taylor_softmax_launch.argtypes = [p, p, i, i, i, i, i, i, i, p]
     lib.taylor_softmax_launch.restype = i
+    lib.taylor_softmax_bwd_launch.argtypes = [p, p, p, i, i, i, i, i, i, i,
+                                              p]
+    lib.taylor_softmax_bwd_launch.restype = i
     lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, i, i, i, p]
     lib.flash_attention_launch.restype = i
@@ -186,14 +189,15 @@ def check_launch(code: int, what: str) -> None:
             f"{what}: launch refused with CUDA error code {code}")
 
 
-ROUTING_HINT = ("train through RoutingSpec.reference() (as the reference "
-                "package does)")
+ROUTING_HINT = ("train through RoutingSpec.reference() or "
+                "RoutingSpec.optimized() (as the reference package does)")
 ATTENTION_HINT = ('train with attn_impl="chunked" or "reference" (as the '
                   'reference package does)')
 
 
 def refuse_grad(what: str, *xs, hint: str = ROUTING_HINT) -> None:
-    """The kernels have no backward.  A wrapper given a tensor that needs a
+    """A kernel without a backward (every one but ``taylor_softmax``, whose
+    backward is ``taylor_softmax_bwd``).  A wrapper given a tensor that needs a
     gradient, with autograd on, raises on every device (on the CPU too,
     where its plain version could differentiate) rather than hand back an
     output the gradient cannot pass through.  ``hint`` names the plain path

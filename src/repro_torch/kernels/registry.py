@@ -311,6 +311,68 @@ registry.register(KernelSpec(
 ))
 
 
+# -- taylor_softmax_bwd -----------------------------------------------------
+# The backward of row 2, which has no TPU kernel (the reference
+# differentiates its plain-jnp softmax with jax.grad): (x, g) -> dx.  The
+# tunable is row 2's.  The last case puts entries exactly on the clip edge
+# (x - max(x) = -32, where the derivative is 1/2) and past it.
+
+
+def _build_taylor_softmax_bwd():
+    from repro_torch.kernels.softmax.kernel import taylor_softmax_bwd_cuda
+
+    return taylor_softmax_bwd_cuda
+
+
+def _softmax_bwd_reference():
+    from repro_torch.kernels.softmax.ref import taylor_softmax_bwd_ref
+
+    return taylor_softmax_bwd_ref
+
+
+def _softmax_bwd_example(case, device="cpu"):
+    import torch
+
+    shape = case.get("shape", (8, 16))
+    dtype = case.get("dtype", "float32")
+    x = _rand(case.get("seed", 0), shape, "float32",
+              scale=case.get("scale", 5.0))
+    if case.get("edge"):
+        # row r holds a maximum of 0 and an entry at exactly -32 (and one
+        # below it) wherever the row is long enough
+        x[..., 0] = 0.0
+        x = torch.clamp(x, min=-31.0, max=-1e-3)
+        x[..., 0] = 0.0
+        x[..., 1] = -32.0
+        if shape[-1] > 2:
+            x[..., 2] = -40.0
+    g = _rand(case.get("seed", 0) + 1, shape, "float32")
+    return (x.to(getattr(torch, dtype)).to(device),
+            g.to(getattr(torch, dtype)).to(device)), {}
+
+
+registry.register(KernelSpec(
+    name="taylor_softmax_bwd",
+    build=_build_taylor_softmax_bwd,
+    reference=_softmax_bwd_reference,
+    space={"threads": (128, 256, 512, 1024)},
+    tuned=("threads",),
+    base_config={"threads": 256},
+    legalize=_legalize_threads,
+    make_example=_softmax_bwd_example,
+    example_cases=(
+        {"shape": (8, 16), "atol": 1e-6},
+        {"shape": (33, 250), "atol": 1e-6},
+        {"shape": (4, 7, 64), "atol": 1e-6},
+        {"shape": (1, 1024), "atol": 1e-6},
+        {"shape": (16, 64), "dtype": "bfloat16", "scale": 3.0,
+         "atol": 1e-2},
+        {"shape": (6, 5, 10), "scale": 1.0, "edge": True, "atol": 1e-6},
+    ),
+    ref_accepts=(),
+))
+
+
 # -- flash_attention --------------------------------------------------------
 # The example cases are the reference's.  The tunable is the CUDA kernel's
 # own: ``q_block`` query positions per thread block, each with all G heads of
@@ -698,6 +760,14 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0,
     return registry.call("flash_attention", q, k, v, causal=causal,
                          q_offset=q_offset, softmax_mode=softmax_mode,
                          config={"q_block": q_block}, tune=tune)
+
+
+def taylor_softmax_bwd(x, g, threads: Optional[int] = None,
+                       tune: Optional[bool] = None):
+    """The gradient of ``taylor_softmax(x)`` against the output cotangent
+    ``g`` (same shape and type) -> dx in ``x``'s type."""
+    return registry.call("taylor_softmax_bwd", x, g,
+                         config={"threads": threads}, tune=tune)
 
 
 def flash_attention_dequant(q, kq, ks, vq, vs, causal: bool = True,

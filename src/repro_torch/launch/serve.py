@@ -43,6 +43,19 @@ through the ``repro_torch.serving`` engine API
         --scheduler disagg --decode-engines 2 --transport host_staged \
         --decode-kernel --attn-impl cuda --device cpu
 
+    # LM, data-parallel: slots (and their caches or pages) split over a
+    # 1-axis "data" mesh of every visible card (one CPU entry under
+    # --device cpu); --slots must divide over the cards
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --scheduler sharded --device cpu
+
+    # LM, multi-host-shaped disaggregation: the prefill engine and each
+    # decode engine on a mesh of its own over disjoint cards (shared
+    # round-robin when there are fewer cards than engines); --transport
+    # auto picks device_to_device when the meshes' cards differ
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --scheduler disagg --multihost --device cpu
+
     # CapsNet, disaggregated: a stateless load balancer over 2 engines
     PYTHONPATH=src python -m repro_torch.launch.serve --arch capsnet-mnist \
         --scheduler disagg --decode-engines 2 --device cpu
@@ -75,7 +88,22 @@ from repro_torch.serving import (DisaggregatedEngine, FIFOScheduler,
                                  PriorityScheduler, SLOBatchScheduler)
 
 
+def _mesh_devices(args):
+    """The devices of the launcher's meshes: every visible card, or one
+    CPU entry under ``--device cpu``."""
+    from repro_torch.launch.mesh import visible_devices
+
+    return ["cpu"] if args.device == "cpu" else visible_devices()
+
+
 def _make_scheduler(args):
+    if args.scheduler == "sharded":
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.serving import ShardedScheduler
+
+        devices = _mesh_devices(args)
+        return ShardedScheduler(make_mesh((len(devices),), ("data",),
+                                          devices=devices))
     if args.scheduler == "slo":
         return SLOBatchScheduler(target_p95_ms=args.slo_ms)
     if args.scheduler == "interleave":
@@ -264,11 +292,22 @@ def serve_lm(args) -> None:
     decode engines joined by cache handoffs over ``--transport``), random
     weights from seed 0."""
     from repro_torch.serving import (Request, ServeEngine,
-                                     disaggregated_lm_engine)
+                                     disaggregated_lm_engine,
+                                     multihost_disaggregated_lm_engine)
 
     cfg, params, device = _init_lm(args)
     kw = _lm_engine_kwargs(args, device)
-    if args.scheduler == "disagg":
+    if args.multihost:
+        kw.pop("device")
+        engine = multihost_disaggregated_lm_engine(
+            cfg, params, n_decode=args.decode_engines,
+            kernel_tune=args.kernel_tune or None, transport=args.transport,
+            devices=_mesh_devices(args), **kw)
+        meshes = [str(e.scheduler.mesh)
+                  for e in [engine.prefill] + engine.decodes]
+        print(f"  multihost: transport {engine.transport.name}, meshes "
+              f"{meshes}")
+    elif args.scheduler == "disagg":
         engine = disaggregated_lm_engine(
             cfg, params, n_decode=args.decode_engines,
             kernel_tune=args.kernel_tune or None,
@@ -370,9 +409,12 @@ def main(argv=None):
                          "published size)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--scheduler", default="fifo",
-                    choices=["fifo", "slo", "interleave", "disagg"],
+                    choices=["fifo", "slo", "interleave", "sharded",
+                             "disagg"],
                     help="tick scheduler (slo adapts batch to --slo-ms; "
                          "interleave separates prefill and decode ticks; "
+                         "sharded places slots or frames across every "
+                         "visible card, one CPU entry under --device cpu; "
                          "disagg splits prefill and decode onto separate "
                          "engines joined by cache handoffs)")
     ap.add_argument("--slo-ms", type=float, default=100.0,
@@ -389,8 +431,8 @@ def main(argv=None):
                          "differs from the prefill engine's, in_process "
                          "otherwise: on one card, in_process)")
     ap.add_argument("--multihost", action="store_true",
-                    help="disagg: prefill and decode engines on disjoint "
-                         "device meshes (not ported yet)")
+                    help="disagg: prefill and each decode engine on a mesh "
+                         "of its own over disjoint cards (LM only)")
     ap.add_argument("--kernel-tune", action="store_true",
                     help="autotune the kernels' launch geometry (routing "
                          "at warm-up, flash attention per prefill bucket) "
@@ -463,9 +505,8 @@ def main(argv=None):
     if args.multihost:
         if args.scheduler != "disagg":
             ap.error("--multihost requires --scheduler disagg")
-        ap.exit(2, "--multihost: prefill and decode engines on disjoint "
-                   "device meshes need the sharding slice, which is not "
-                   "ported yet; see ROADMAP.md, queue A item 5\n")
+        if args.arch in cfg_lib.PAPER_ARCHS or args.trace != "none":
+            ap.error("--multihost applies to LM serving without --trace")
     if args.paged and args.arch in cfg_lib.PAPER_ARCHS:
         ap.error("--paged applies to LM serving only")
     if args.arch in cfg_lib.PAPER_ARCHS:

@@ -19,7 +19,9 @@
         --reduced --steps 4 --device cpu
 
 CapsNet training runs through the config's routing spec (``reference`` for
-both CapsNets: the kernels have no backward).  The compacted model is
+both CapsNets; ``optimized`` trains too, its Eq. 2 softmax differentiated
+by the ``taylor_softmax_bwd`` kernel, and the fused routing kernel has no
+backward).  The compacted model is
 compiled twice, with the config's spec and with ``cuda`` (the hand-written
 routing kernel), and both are evaluated.  An LM trains with ``lm.loss_fn``
 through its config's ``attn_impl`` (``chunked``: the attention kernels have

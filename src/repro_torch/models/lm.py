@@ -657,6 +657,22 @@ def cache_specs(cfg: LMConfig) -> Optional[Dict[str, Any]]:
     raise ValueError(f"unknown family {fam!r}")
 
 
+def cache_shardings(cfg: LMConfig, caches: Any, mesh: Any,
+                    rules: Any = None) -> Any:
+    """Where each leaf of a :func:`make_caches` tree lives on ``mesh``: a
+    ``parallel.sharding.Sharding`` per leaf, from :func:`cache_specs` and
+    the shape-aware policy (the cache's ``batch`` axis, the *slot* axis of
+    continuous batching, claims the data-parallel mesh axes when the slot
+    count divides them, so each device owns an equal contiguous block of
+    slots; indivisible dims replicate).  ``caches`` may be tensors or
+    structs on the meta device."""
+    from repro_torch.parallel import sharding as sharding_lib
+
+    if rules is None:
+        rules = sharding_lib.DEFAULT_RULES
+    return sharding_lib.shardings_for(caches, cache_specs(cfg), rules, mesh)
+
+
 def _map_leaves(fn, specs, *trees):
     if isinstance(specs, dict):
         return {k: _map_leaves(fn, specs[k], *(t[k] for t in trees))

@@ -51,6 +51,12 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
+def state_specs(param_axes: Any) -> Dict[str, Any]:
+    """Logical axes of :func:`init_state`'s tree: the moments shard exactly
+    like their parameters, ``step`` is replicated."""
+    return {"m": param_axes, "v": param_axes, "step": None}
+
+
 def init_state(params: Any) -> Dict[str, Any]:
     zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)

@@ -13,8 +13,9 @@ same surface while splitting prefill and decode onto dedicated engines
 joined by typed :class:`CacheHandoff`\\ s, whose rows a swappable
 :class:`Transport` (``repro_torch.serving.transport``) delivers; with
 ``prefill=None`` it load-balances over a pool of :class:`CapsuleEngine`\\ s.
-The sharded scheduler and the multi-host disaggregated engine are not
-ported yet.
+:class:`ShardedScheduler` serves data-parallel over a mesh (one block of
+slots or frames per device), and :func:`multihost_disaggregated_lm_engine`
+puts the prefill engine and each decode engine on a mesh of its own.
 """
 
 from repro_torch.serving.capsule_engine import (CapsuleEngine,  # noqa: F401
@@ -25,7 +26,8 @@ from repro_torch.serving.core import (DepthHistogram,  # noqa: F401
 from repro_torch.serving.disagg import (CacheHandoff,  # noqa: F401
                                         DecodeEngine, DisaggregatedEngine,
                                         HandoffRequest, PrefillEngine,
-                                        disaggregated_lm_engine)
+                                        disaggregated_lm_engine,
+                                        multihost_disaggregated_lm_engine)
 from repro_torch.serving.engine import (Completion, Request,  # noqa: F401
                                         ServeEngine)
 from repro_torch.serving.pages import (PagePool,  # noqa: F401
@@ -34,6 +36,7 @@ from repro_torch.serving.schedulers import (DisaggScheduler,  # noqa: F401
                                             FIFOScheduler,
                                             InterleavingScheduler,
                                             PriorityScheduler, Scheduler,
+                                            ShardedScheduler,
                                             SLOBatchScheduler, TickRecord,
                                             pow2_bucket)
 from repro_torch.serving.transport import (  # noqa: F401

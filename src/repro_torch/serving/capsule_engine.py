@@ -21,6 +21,12 @@ copy to the device -> ``deployed.forward`` (two convolutions, one einsum,
 one launch of the routing kernel) -> copy of the lengths back to the host,
 which is also the tick's synchronisation.
 
+Under a :class:`repro_torch.serving.ShardedScheduler` each distinct
+device of the mesh's batch axes holds one replica of the deployed model;
+a tick's padded frame batch is split by ``place()`` into one contiguous
+block per device, every block's forward is launched before the first
+copy back, and the lengths come back in frame order.
+
 ``engine = deployed.serve(scheduler=...)`` (on a
 :class:`repro_torch.deploy.DeployedCapsNet`) is the canonical way in.
 """
@@ -34,9 +40,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import indexed, resolve_device
 from repro_torch.serving.core import EngineCore, SlotTask
-from repro_torch.serving.schedulers import Scheduler, pow2_bucket
+from repro_torch.serving.schedulers import (Scheduler, ShardedScheduler,
+                                            pow2_bucket)
 
 
 @dataclasses.dataclass
@@ -80,7 +87,9 @@ class CapsuleEngine(EngineCore):
                  device: Any = None):
         self.deployed = deployed
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        sharded = isinstance(scheduler, ShardedScheduler)
+        self.device = (resolve_device(scheduler.devices[0]) if sharded
+                       else resolve_device(device))
         if self.device.type != torch.device(deployed.device).type:
             raise ValueError(
                 f"engine device {self.device} differs from the deployed "
@@ -90,6 +99,17 @@ class CapsuleEngine(EngineCore):
         self._n_classes = cfg.n_classes
         super().__init__(capacity=batch_size, scheduler=scheduler,
                          clock=clock, kernel_tune=kernel_tune)
+        # the model for each block of the batch axes: one replica per
+        # distinct device, shared by the blocks on it
+        self._replicas: List[Any] = []
+        if sharded:
+            by_device: Dict[torch.device, Any] = {}
+            for dev in scheduler.devices:
+                if dev not in by_device:
+                    by_device[dev] = (
+                        deployed if dev == indexed(deployed.device)
+                        else dataclasses.replace(deployed, device=dev))
+                self._replicas.append(by_device[dev])
 
     # -- workload hooks ----------------------------------------------------
 
@@ -108,8 +128,15 @@ class CapsuleEngine(EngineCore):
     def forward_host(self, batch: np.ndarray) -> np.ndarray:
         """One forward of a host batch; returns the lengths on the host.
         The copy back waits for the device, so no other synchronisation
-        is needed."""
+        is needed.  Sharded: one forward per block on its device's
+        replica, all launched before the first copy back."""
         x = torch.from_numpy(np.ascontiguousarray(batch))
+        if self._replicas:
+            # place() gives a block per device in order (or the whole
+            # batch, on the first device, when it does not divide)
+            outs = [self._replicas[k].forward(b)
+                    for k, b in enumerate(self.scheduler.place(x))]
+            return np.concatenate([o.cpu().numpy() for o in outs])
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
         lengths = self.deployed.forward(self.scheduler.place(x))

@@ -40,8 +40,12 @@ dense, moe, vlm, ssm and hybrid families (a vlm handoff carries its nested
 ``{"units": {"kv", "cross"}}`` rows whole, or its pages plus the cross
 cache as residual rows; an ssm or hybrid handoff carries its float32
 recurrent state rows, gathered and scattered along each leaf's own batch
-axis, with the hybrid's shared-attention KV rows beside them); it has no
-device meshes yet (the multi-host form waits for the sharding slice).
+axis, with the hybrid's shared-attention KV rows beside them).
+:func:`multihost_disaggregated_lm_engine` puts the prefill engine and each
+decode engine on a mesh of its own (disjoint device groups, each engine
+data-parallel over its group); a handoff's rows then travel to the decode
+engine's first device, and its admission moves them to the device of the
+slot they are injected into.
 """
 
 from __future__ import annotations
@@ -59,9 +63,10 @@ from repro_torch.models import lm
 from repro_torch.serving.core import (DepthHistogram, EngineCore, EngineStats,
                                       LatencyHistogram, SlotTask, StreamEvent,
                                       allocate_rid)
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, _to_device
 from repro_torch.serving.pages import PagePool
-from repro_torch.serving.schedulers import DisaggScheduler, Scheduler
+from repro_torch.serving.schedulers import (DisaggScheduler, Scheduler,
+                                            ShardedScheduler)
 from repro_torch.serving.transport import (InProcessTransport, Transport,
                                            make_transport, select_transport,
                                            wait_ready)
@@ -212,38 +217,41 @@ class PrefillEngine(ServeEngine):
         pending = [(s, task) for s, task in new
                    if not task.state["handoff"].done]
         if pending and self._pages is not None:
-            # paged export: one pool-wide page copy for the whole group,
+            # paged export: one page copy per block for the whole group,
             # split per slot.  Slots retire right after this, so registered
             # pages demote to *cached* on the prefill pool — a later
             # request with the same prompt prefix still hits.
-            per_slot = [self._pages.slot_pages(s) for s, _ in pending]
-            flat = [p for ids in per_slot for p in ids]
-            payload = self._pages.export_pages(self._pool, flat)
-            res_all = self._pages.gather_residual_rows(
-                self._residual, [s for s, _ in pending])
-            base = 0
-            for i, (s, task) in enumerate(pending):
-                h = task.state["handoff"]
-                n = len(per_slot[i])
-                h.paged = True
-                h.page_size = self._pages.page_size
-                h.quantized = self._pages.quantize
-                h.n_pages = n
-                h.page_hashes = self._pages.slot_page_hashes(s)
-                h.page_missing = list(range(n))
-                h.rows = {
-                    "pages": self._pages.take_payload(
-                        payload, range(base, base + n)),
-                    "residual": self._pages.gather_residual_rows(
-                        res_all, [i]),
-                }
-                base += n
+            for sh, members in self._by_shard(pending):
+                per_slot = [self._pages.slot_pages(s) for s, _ in members]
+                flat = [p for ids in per_slot for p in ids]
+                payload = self._pages.export_pages(
+                    sh.pool, self._local_pages(sh, flat))
+                res_all = self._pages.gather_residual_rows(
+                    sh.residual, [s - sh.lo for s, _ in members])
+                base = 0
+                for i, (s, task) in enumerate(members):
+                    h = task.state["handoff"]
+                    n = len(per_slot[i])
+                    h.paged = True
+                    h.page_size = self._pages.page_size
+                    h.quantized = self._pages.quantize
+                    h.n_pages = n
+                    h.page_hashes = self._pages.slot_page_hashes(s)
+                    h.page_missing = list(range(n))
+                    h.rows = {
+                        "pages": self._pages.take_payload(
+                            payload, range(base, base + n)),
+                        "residual": self._pages.gather_residual_rows(
+                            res_all, [i]),
+                    }
+                    base += n
         elif pending:
-            rows_all = lm.gather_cache_rows(
-                self.cfg, [s for s, _ in pending], self._caches)
-            for i, (_, task) in enumerate(pending):
-                task.state["handoff"].rows = lm.gather_cache_rows(
-                    self.cfg, [i], rows_all)
+            for sh, members in self._by_shard(pending):
+                rows_all = lm.gather_cache_rows(
+                    self.cfg, [s - sh.lo for s, _ in members], sh.caches)
+                for i, (_, task) in enumerate(members):
+                    task.state["handoff"].rows = lm.gather_cache_rows(
+                        self.cfg, [i], rows_all)
         # every admitted slot retires this tick: the slot's state left in
         # the handoff, the slot itself is free for the next admission
         return [s for s, _ in new], items
@@ -392,10 +400,14 @@ class DecodeEngine(ServeEngine):
         if live and self._pages is not None:
             self._admit_paged_handoffs(live)
         elif live:
-            rows = lm.concat_cache_rows(self.cfg, [h.rows for _, h in live])
-            self._caches = lm.scatter_cache_rows(
-                self.cfg, np.asarray([s for s, _ in live], np.int64), rows,
-                self._caches)
+            # each group's rows go to the device that owns its slots
+            for sh, members in self._by_shard(live):
+                rows = lm.concat_cache_rows(
+                    self.cfg, [_to_device(h.rows, sh.device)
+                               for _, h in members])
+                sh.caches = lm.scatter_cache_rows(
+                    self.cfg, np.asarray([s - sh.lo for s, _ in members],
+                                         np.int64), rows, sh.caches)
         for s, task in hand:
             h = task.payload.handoff
             h.rows = h.ready = None   # the state lives in this engine now
@@ -417,36 +429,39 @@ class DecodeEngine(ServeEngine):
         front-end-pinned pages reused in place (their reference transfers
         to the slot binding), fresh pages registered under the hashes the
         prefill side advertised so *later* handoffs dedup against them."""
-        all_ids: List[int] = []
-        all_payloads: List[Dict[str, Any]] = []
-        for s, h in live:
-            pinned = h.page_pinned or {}
-            missing = (h.page_missing if h.page_missing is not None
-                       else list(range(h.n_pages)))
-            fresh = self._alloc_pages(len(missing), s)
-            allp: List[int] = [-1] * h.n_pages
-            for pos, pg in pinned.items():
-                allp[pos] = pg
-            for j, pos in enumerate(missing):
-                allp[pos] = fresh[j]
-            hashes = h.page_hashes or []
-            for j, pos in enumerate(missing):
-                if pos < len(hashes) and hashes[pos] is not None:
-                    self._pages.register_hash(fresh[j], hashes[pos])
-            self._pages.bind_slot(s, allp)
-            if fresh:
-                all_ids.extend(fresh)
-                all_payloads.append(h.rows["pages"])
-        if all_ids:
-            payload = {k: torch.cat([p[k] for p in all_payloads])
-                       for k in all_payloads[0]}
-            self._pool = self._pages.import_pages(self._pool, payload,
-                                                  all_ids)
-        res = [h.rows["residual"] for _, h in live]
-        if res and self._pages.residual_specs():
-            self._residual = self._pages.scatter_residual_rows(
-                self._residual, self._pages.concat_residual_rows(res),
-                np.asarray([s for s, _ in live], np.int32))
+        for sh, members in self._by_shard(live):
+            all_ids: List[int] = []
+            all_payloads: List[Dict[str, Any]] = []
+            for s, h in members:
+                pinned = h.page_pinned or {}
+                missing = (h.page_missing if h.page_missing is not None
+                           else list(range(h.n_pages)))
+                fresh = self._alloc_pages(len(missing), s)
+                allp: List[int] = [-1] * h.n_pages
+                for pos, pg in pinned.items():
+                    allp[pos] = pg
+                for j, pos in enumerate(missing):
+                    allp[pos] = fresh[j]
+                hashes = h.page_hashes or []
+                for j, pos in enumerate(missing):
+                    if pos < len(hashes) and hashes[pos] is not None:
+                        self._pages.register_hash(fresh[j], hashes[pos])
+                self._pages.bind_slot(s, allp)
+                if fresh:
+                    all_ids.extend(self._local_pages(sh, fresh))
+                    all_payloads.append(h.rows["pages"])
+            if all_ids:
+                payload = {k: torch.cat([p[k].to(sh.device)
+                                         for p in all_payloads])
+                           for k in all_payloads[0]}
+                sh.pool = self._pages.import_pages(sh.pool, payload,
+                                                   all_ids)
+            res = [_to_device(h.rows["residual"], sh.device)
+                   for _, h in members]
+            if res and self._pages.residual_specs():
+                sh.residual = self._pages.scatter_residual_rows(
+                    sh.residual, self._pages.concat_residual_rows(res),
+                    np.asarray([s - sh.lo for s, _ in members], np.int32))
 
     def _request_class(self, request: Any) -> str:
         if isinstance(request, HandoffRequest):
@@ -990,6 +1005,51 @@ def disaggregated_lm_engine(cfg, params, n_slots: int = 4,
                         kernel_tune=kernel_tune, **pk)
     dec = [DecodeEngine(cfg, params, n_slots=n_slots, max_len=max_len,
                         seed=seed, scheduler=decode_schedulers[i],
+                        clock=clock, kernel_tune=kernel_tune, **pk)
+           for i in range(n_decode)]
+    return DisaggregatedEngine(pre, dec, scheduler=scheduler, clock=clock,
+                               transport=transport)
+
+
+def multihost_disaggregated_lm_engine(cfg, params, n_slots: int = 4,
+                                      max_len: int = 512, seed: int = 0,
+                                      n_decode: int = 1,
+                                      prefill_slots: Optional[int] = None,
+                                      scheduler: Optional[Scheduler] = None,
+                                      clock: Callable[[], float]
+                                      = time.perf_counter,
+                                      kernel_tune: Optional[bool] = None,
+                                      transport: Optional[Any] = "auto",
+                                      devices: Optional[List[Any]] = None,
+                                      page_size: Optional[int] = None,
+                                      n_pages: Optional[int] = None,
+                                      quantize_pages: bool = False,
+                                      decode_kernel: bool = False
+                                      ) -> DisaggregatedEngine:
+    """Multi-host-shaped LM disaggregation: the prefill engine and every
+    decode engine own **distinct meshes** over disjoint device groups
+    (:func:`repro_torch.parallel.sharding.disjoint_submeshes` over
+    ``devices``, default every visible card), each under a
+    :class:`repro_torch.serving.ShardedScheduler`, so a cache handoff
+    crosses a device boundary and the transport does real work.  Each
+    engine keeps its own compute copy of ``params`` on its devices and its
+    slots there.  With fewer devices than engines the meshes reuse devices
+    round-robin (on one card every engine is on it).
+
+    ``transport`` defaults to ``"auto"``, which selects by placement:
+    device-to-device when a decode engine's devices differ from the
+    prefill engine's, in-process when they are the same (one card)."""
+    from repro_torch.parallel.sharding import disjoint_submeshes
+
+    meshes = disjoint_submeshes(1 + n_decode, devices=devices)
+    pk = dict(page_size=page_size, n_pages=n_pages,
+              quantize_pages=quantize_pages, decode_kernel=decode_kernel)
+    pre = PrefillEngine(cfg, params, n_slots=prefill_slots or n_slots,
+                        max_len=max_len, seed=seed,
+                        scheduler=ShardedScheduler(meshes[0]), clock=clock,
+                        kernel_tune=kernel_tune, **pk)
+    dec = [DecodeEngine(cfg, params, n_slots=n_slots, max_len=max_len,
+                        seed=seed, scheduler=ShardedScheduler(meshes[1 + i]),
                         clock=clock, kernel_tune=kernel_tune, **pk)
            for i in range(n_decode)]
     return DisaggregatedEngine(pre, dec, scheduler=scheduler, clock=clock,

@@ -49,6 +49,23 @@ leaves and the tables to the model (``paged_tables``), so the
 for vlm, as in the reference) the tick gathers a dense view through the
 tables, decodes it (with ``decode_kernel=True`` through the dense
 ``decode_attention`` kernel) and scatters the new rows back.
+
+Data-parallel mode (a :class:`repro_torch.serving.ShardedScheduler`): the
+slots split into one contiguous block per device of the mesh's ``batch``
+axes (slot ``s`` lives on block ``s * n_dev // n_slots``, the reference's
+layout of a sharded slot axis), and every block's device holds that block's
+caches (or its block of the page pool) and nothing else; each distinct
+device holds one compute copy of the parameters.  One host thread drives
+every device: a tick launches ``lm.decode_step`` (and ``fused_sampling``)
+once per block, back to back, then copies each block's tokens back;
+admission prefills each group on the device that owns its slots;
+preemption gathers a slot's rows from its device and resume injects them
+onto the device of the slot it lands in.  In paged mode the page
+allocator stays within the slot's block (it spills or raises as when the
+pool runs dry, where the reference's would take a page of another block),
+prefix hits are looked up within the block, and the decode kernel reads
+each block's table rows in the block's local page ids.  No collective is
+needed: the parameters are replicated and each device owns its slots.
 """
 
 from __future__ import annotations
@@ -65,7 +82,27 @@ from repro_torch.models import lm
 from repro_torch.models.common import LMConfig
 from repro_torch.serving.core import EngineCore, SlotTask
 from repro_torch.serving.pages import PagePool, PagePoolExhausted
-from repro_torch.serving.schedulers import Scheduler, pow2_bucket
+from repro_torch.serving.schedulers import (Scheduler, ShardedScheduler,
+                                            pow2_bucket)
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One block of slots ``[lo, hi)`` and the device that holds it: the
+    compute-type parameters of that device (shared by every block on it)
+    and the block's dense caches, or its block of the page pool (pages
+    ``[page_lo, page_lo + n)`` of the pool, local ids ``0..n-1``) and
+    residual rows.  An engine that does not shard has one."""
+
+    index: int
+    device: torch.device
+    params: Any
+    lo: int
+    hi: int
+    page_lo: int = 0
+    caches: Any = None
+    pool: Optional[Dict[str, torch.Tensor]] = None
+    residual: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclasses.dataclass
@@ -95,7 +132,8 @@ class ServeEngine(EngineCore):
     ``tick`` / ``run_until_idle`` assume a single ticker thread.  Prompts
     are 1-D int token lists with ``0 < len < max_len``; completions carry
     ``prompt + generated`` tokens; stats count generated tokens as items.
-    ``device=None`` means the card (and raises when there is none).
+    ``device=None`` means the card (and raises when there is none); under
+    a :class:`ShardedScheduler` the blocks' devices are the mesh's.
     """
 
     def __init__(self, cfg: LMConfig, params: Any, n_slots: int = 4,
@@ -115,8 +153,6 @@ class ServeEngine(EngineCore):
         if self._decode_kernel:
             cfg = dataclasses.replace(cfg, decode_impl="cuda")
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.params = lm.compute_params(cfg, _to_device(params, self.device))
         self.n_slots = n_slots
         self.max_len = max_len
         # recurrent state (ssm / hybrid) cannot mask a pad suffix the way
@@ -133,47 +169,121 @@ class ServeEngine(EngineCore):
         # reference)
         self._paged_kernel = (self._decode_kernel and self._pages is not None
                               and cfg.family in ("dense", "moe"))
+        # binds the scheduler: a ShardedScheduler checks that the slots
+        # divide over its devices before anything is allocated
         super().__init__(capacity=n_slots, scheduler=scheduler, clock=clock,
                          kernel_tune=kernel_tune)
-        if self._pages is not None:
-            # no dense slot caches: resident capacity is bounded by pages,
-            # not slots x max_len (generate() makes caches of its own)
-            self._caches = None
-            self._pool = self._pages.init_pool_arrays(self.device)
-            self._residual = self._pages.init_residual_arrays(self.device)
-        else:
-            self._caches = lm.make_caches(cfg, n_slots, max_len, self.device)
+        self._shards = self._make_shards(params, device)
+        self.device = self._shards[0].device
+        self.params = self._shards[0].params
         self._tok = np.zeros((n_slots,), np.int32)   # pending token per slot
         self._pos = np.zeros((n_slots,), np.int32)   # its cache index
 
+    def _make_shards(self, params: Any, device: Any) -> List[_Shard]:
+        """One block of slots per device of a ShardedScheduler's mesh (one
+        block on ``device`` otherwise), with its caches or pool block; the
+        parameters are cast once per distinct device."""
+        if isinstance(self.scheduler, ShardedScheduler):
+            devices = [resolve_device(d) for d in self.scheduler.devices]
+            if device is not None and \
+                    torch.device(device).type != devices[0].type:
+                raise ValueError(
+                    f"engine device {device} differs from the mesh's "
+                    f"{devices[0]}")
+        else:
+            devices = [resolve_device(device)]
+        n = len(devices)
+        per = self.n_slots // n
+        ppb = 0
+        if self._pages is not None:
+            if self._pages.n_pages % n:
+                raise ValueError(
+                    f"{self._pages.n_pages} pages not divisible by the {n} "
+                    f"batch-axis devices of the mesh")
+            ppb = self._pages.n_pages // n
+            if n > 1:
+                self._pages.set_device_blocks(n, strict=True)
+        replicas: Dict[torch.device, Any] = {}
+        shards = []
+        for k, dev in enumerate(devices):
+            if dev not in replicas:
+                replicas[dev] = lm.compute_params(self.cfg,
+                                                  _to_device(params, dev))
+            sh = _Shard(index=k, device=dev, params=replicas[dev],
+                        lo=k * per, hi=(k + 1) * per, page_lo=k * ppb)
+            if self._pages is not None:
+                # no dense slot caches: resident capacity is bounded by
+                # pages, not slots x max_len (generate() makes its own)
+                sh.pool = self._pages.init_pool_arrays(dev, n_pages=ppb)
+                sh.residual = self._pages.init_residual_arrays(dev,
+                                                               n_slots=per)
+            else:
+                sh.caches = lm.make_caches(self.cfg, per, self.max_len, dev)
+            shards.append(sh)
+        return shards
+
+    # the first block's state (with one block, the engine's)
+    _caches = property(lambda self: self._shards[0].caches)
+    _pool = property(lambda self: self._shards[0].pool)
+    _residual = property(lambda self: self._shards[0].residual)
+
+    def _shard_of(self, slot: int) -> _Shard:
+        return self._shards[slot * len(self._shards) // self.n_slots]
+
+    def _shard_of_page(self, page: int) -> _Shard:
+        return self._shards[page * len(self._shards) // self._pages.n_pages]
+
+    def _by_shard(self, pairs: List[Tuple[int, Any]]
+                  ) -> List[Tuple[_Shard, List[Tuple[int, Any]]]]:
+        """``(slot, x)`` pairs grouped by the block that owns the slot, in
+        block order (order kept within a block); empty blocks left out."""
+        groups: Dict[int, List[Tuple[int, Any]]] = {}
+        for pair in pairs:
+            groups.setdefault(self._shard_of(pair[0]).index, []).append(pair)
+        return [(self._shards[k], groups[k]) for k in sorted(groups)]
+
+    def _local_pages(self, sh: _Shard, pages: List[int]) -> List[int]:
+        return [p - sh.page_lo for p in pages]
+
     # -- device steps --------------------------------------------------------
 
-    def _to_dev(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+    def _to_dev(self, x: np.ndarray, device: Any = None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            self.device if device is None else device)
 
-    def _prefill_scatter(self, tokens: np.ndarray, lengths: np.ndarray,
-                         slot_idx: np.ndarray, caches: Any):
-        """Prefill a (bucketed) sub-batch on fresh caches, then scatter its
-        rows into ``caches`` at ``slot_idx`` (pad rows carry an index past
-        the slots and are dropped); returns (logits on the device, caches).
-        Admission cost scales with the admitted slots, not the capacity."""
+    def _blocks(self, arr: np.ndarray) -> List[torch.Tensor]:
+        """A tick array (slot axis leading) as one tensor per block, each
+        on its block's device: the ShardedScheduler's ``place()``, or the
+        whole array on the engine's device."""
+        if isinstance(self.scheduler, ShardedScheduler):
+            return self.scheduler.place(arr)
+        return [self._to_dev(self.scheduler.place(arr))]
+
+    def _prefill_scatter(self, sh: _Shard, tokens: np.ndarray,
+                         lengths: np.ndarray, slot_idx: np.ndarray,
+                         caches: Any):
+        """Prefill a (bucketed) sub-batch on fresh caches on block ``sh``'s
+        device, then scatter its rows into ``caches`` at the block-local
+        ``slot_idx`` (pad rows carry an index past the block and are
+        dropped); returns (logits on the device, caches).  Admission cost
+        scales with the admitted slots, not the capacity."""
         sub = lm.make_caches(self.cfg, tokens.shape[0], self.max_len,
-                             self.device)
+                             sh.device)
         logits, sub = lm.ragged_prefill_step(
-            self.params, self.cfg,
-            {"tokens": self._to_dev(tokens), "lengths": self._to_dev(lengths)},
-            sub)
+            sh.params, self.cfg,
+            {"tokens": self._to_dev(tokens, sh.device),
+             "lengths": self._to_dev(lengths, sh.device)}, sub)
         return logits, lm.scatter_cache_rows(self.cfg, slot_idx, sub, caches)
 
-    def _decode(self, tok: np.ndarray, pos: np.ndarray, caches: Any):
-        return lm.decode_step(
-            self.params, self.cfg,
-            {"tokens": self._to_dev(tok), "pos": self._to_dev(pos)}, caches)
+    def _decode(self, sh: _Shard, tok: torch.Tensor, pos: torch.Tensor,
+                caches: Any):
+        return lm.decode_step(sh.params, self.cfg,
+                              {"tokens": tok, "pos": pos}, caches)
 
-    def _decode_paged_impl(self, tok: np.ndarray, pos: np.ndarray,
-                           tables: np.ndarray, pool: Dict[str, Any],
-                           residual: Dict[str, Any]):
-        """One paged decode tick; returns (logits on the device, pool).
+    def _decode_paged_impl(self, sh: _Shard, tok: torch.Tensor,
+                           pos: torch.Tensor, tables: np.ndarray):
+        """One paged decode tick of block ``sh`` (``tables``: its slots'
+        rows in local page ids); returns (logits on the device, pool).
 
         Kernel path (``decode_kernel=True``): the pool leaves pass straight
         through (:meth:`PagePool.pool_tree`, no gather) and every layer's
@@ -186,45 +296,45 @@ class ServeEngine(EngineCore):
         back into its mapped page.  Residual (non-paged) leaves are
         read-only during decode."""
         pages = self._pages
-        batch = {"tokens": self._to_dev(tok), "pos": self._to_dev(pos)}
-        tables_t = self._to_dev(tables)
+        batch = {"tokens": tok, "pos": pos}
+        tables_t = self._to_dev(tables, sh.device)
         if self._paged_kernel:
-            tree = pages.pool_tree(pool, residual)
-            logits, tree = lm.decode_step(self.params, self.cfg, batch, tree,
+            tree = pages.pool_tree(sh.pool, sh.residual)
+            logits, tree = lm.decode_step(sh.params, self.cfg, batch, tree,
                                           paged_tables=tables_t)
             return logits, pages.pool_untree(tree)[0]
-        view = pages.build_view(pool, residual, tables_t)
-        logits, view = lm.decode_step(self.params, self.cfg, batch, view)
-        return logits, pages.scatter_decode_rows(pool, view, tables_t,
+        view = pages.build_view(sh.pool, sh.residual, tables_t)
+        logits, view = lm.decode_step(sh.params, self.cfg, batch, view)
+        return logits, pages.scatter_decode_rows(sh.pool, view, tables_t,
                                                  batch["pos"])
 
-    def _prefill_paged_impl(self, off: int, tokens: np.ndarray,
+    def _prefill_paged_impl(self, sh: _Shard, off: int, tokens: np.ndarray,
                             lengths: np.ndarray, page_map: np.ndarray,
-                            prefix_rows: np.ndarray, slot_idx: np.ndarray,
-                            pool: Dict[str, Any], residual: Dict[str, Any]):
-        """Paged (possibly continuation) prefill: a fresh sub cache just
-        long enough for the written page span, prefilled from position
-        ``off`` (0 = ordinary ragged prefill; > 0 continues from the
-        dequantized shared-prefix pages ``prefix_rows``), then scattered
-        into the pool at page granularity.  Returns (logits, pool,
-        residual)."""
+                            prefix_rows: np.ndarray, slot_idx: np.ndarray):
+        """Paged (possibly continuation) prefill on block ``sh``: a fresh
+        sub cache just long enough for the written page span, prefilled
+        from position ``off`` (0 = ordinary ragged prefill; > 0 continues
+        from the dequantized shared-prefix pages ``prefix_rows``), then
+        scattered into the block's pool at page granularity (``page_map``
+        and ``prefix_rows`` in local page ids, ``slot_idx`` block-local).
+        Returns (logits, pool, residual)."""
         pages = self._pages
         nb = tokens.shape[0]
         total = off + page_map.shape[1] * pages.page_size
-        batch = {"tokens": self._to_dev(tokens),
-                 "lengths": self._to_dev(lengths)}
+        batch = {"tokens": self._to_dev(tokens, sh.device),
+                 "lengths": self._to_dev(lengths, sh.device)}
         if off == 0:
-            sub = lm.make_caches(self.cfg, nb, total, self.device)
-            logits, sub = lm.ragged_prefill_step(self.params, self.cfg,
+            sub = lm.make_caches(self.cfg, nb, total, sh.device)
+            logits, sub = lm.ragged_prefill_step(sh.params, self.cfg,
                                                  batch, sub)
         else:
-            sub = pages.make_continuation_caches(pool, prefix_rows, nb,
+            sub = pages.make_continuation_caches(sh.pool, prefix_rows, nb,
                                                  total)
             logits, sub = lm.continuation_prefill_step(
-                self.params, self.cfg, batch, sub, off)
-        pool = pages.write_prefill_pages(pool, sub, page_map, off)
+                sh.params, self.cfg, batch, sub, off)
+        pool = pages.write_prefill_pages(sh.pool, sub, page_map, off)
         residual = pages.scatter_residual_rows(
-            residual, pages.residual_rows_from(sub), slot_idx)
+            sh.residual, pages.residual_rows_from(sub), slot_idx)
         return logits, pool, residual
 
     # -- sampling ----------------------------------------------------------
@@ -263,15 +373,16 @@ class ServeEngine(EngineCore):
             top_k=int(getattr(req, "top_k", 0) or 0),
             top_p=float(getattr(req, "top_p", 1.0)))
 
-    def _sample_batch_device(self, logits: torch.Tensor, active, pos_of
-                             ) -> np.ndarray:
-        """Kernel-path sampling: one fused_sampling launch draws every
-        slot's token where the logits are; only the (n_slots,) int32 token
-        vector is copied to the host (which is also the tick's
-        synchronisation).  Free slots sample greedily and are ignored."""
+    def _sample_batch_device(self, logits: torch.Tensor, active, pos_of,
+                             lo: int = 0) -> torch.Tensor:
+        """Kernel-path sampling: one fused_sampling launch draws the token
+        of every slot of a block (``logits`` row ``i`` is slot ``lo + i``)
+        where the logits are; returns the (n,) int32 tokens on the device
+        (the caller's copy to the host is the tick's synchronisation).
+        Free slots sample greedily and are ignored."""
         from repro_torch import kernels
 
-        n = self._tok.shape[0]
+        n = logits.shape[0]
         temp = np.zeros((n,), np.float32)
         seeds = np.zeros((n,), np.uint32)
         poss = np.zeros((n,), np.int32)
@@ -279,14 +390,14 @@ class ServeEngine(EngineCore):
         tps = np.ones((n,), np.float32)
         for s, task in active:
             req = task.payload
-            temp[s] = float(getattr(req, "temperature", 0.0))
-            seeds[s] = self._bind_seed(task)
-            poss[s] = pos_of(s)
-            tks[s] = int(getattr(req, "top_k", 0) or 0)
-            tps[s] = float(getattr(req, "top_p", 1.0))
-        toks = kernels.fused_sampling(logits, temp, seeds, poss, top_k=tks,
+            i = s - lo
+            temp[i] = float(getattr(req, "temperature", 0.0))
+            seeds[i] = self._bind_seed(task)
+            poss[i] = pos_of(s)
+            tks[i] = int(getattr(req, "top_k", 0) or 0)
+            tps[i] = float(getattr(req, "top_p", 1.0))
+        return kernels.fused_sampling(logits, temp, seeds, poss, top_k=tks,
                                       top_p=tps, tune=False)
-        return toks.cpu().numpy()
 
     # -- single-batch convenience ------------------------------------------
 
@@ -294,8 +405,8 @@ class ServeEngine(EngineCore):
                  temperature: float = 0.0, seed: Optional[int] = None,
                  top_k: int = 0, top_p: float = 1.0) -> List[List[int]]:
         """Batched prefill + greedy/temperature decode on fresh caches of
-        its own, sampled on the host.  Ragged-correct for the attention
-        families: each prompt keeps its own length and positions, so the
+        its own (on the first block's device), sampled on the host.
+        Ragged-correct for the attention families: each prompt keeps its own length and positions, so the
         result matches per-request generation; a recurrent family's batch
         must have one prompt length (``ValueError`` otherwise).  Row ``i``
         samples with seed ``(base ^ ((i + 1) * 0x9E3779B1)) & 0x7FFFFFFF``
@@ -324,7 +435,8 @@ class ServeEngine(EngineCore):
         for i, p in enumerate(prompts):
             tokens[i, :len(p)] = p                   # left-aligned, pad right
             lengths[i] = len(p)
-        logits, caches = self._prefill_scatter(tokens, lengths,
+        sh = self._shards[0]
+        logits, caches = self._prefill_scatter(sh, tokens, lengths,
                                                np.arange(b), caches)
         logits = logits.cpu().numpy()
         out = [list(p) for p in prompts]
@@ -347,7 +459,8 @@ class ServeEngine(EngineCore):
             nxt = np.array([out[i][-1] if alive[i] else 0
                             for i in range(b)], np.int32)
             logits, caches = self._decode(
-                nxt[:, None], np.minimum(pos, self.max_len - 1), caches)
+                sh, self._to_dev(nxt[:, None]),
+                self._to_dev(np.minimum(pos, self.max_len - 1)), caches)
             logits = logits.cpu().numpy()
             pos += 1
         return out
@@ -386,17 +499,19 @@ class ServeEngine(EngineCore):
         resume = [(s, t) for s, t in new if "resume_rows" in t.state]
         new = [(s, t) for s, t in new if "resume_rows" not in t.state]
         pre_finished: List[int] = []
-        if resume:
+        for sh, members in self._by_shard(resume):
+            # the rows come from the device the task was evicted on
             rows = lm.concat_cache_rows(
-                self.cfg, [t.state.pop("resume_rows") for _, t in resume])
-            self._caches = lm.scatter_cache_rows(
-                self.cfg, np.asarray([s for s, _ in resume], np.int64), rows,
-                self._caches)
-            for s, task in resume:
-                self._tok[s] = task.state.pop("resume_tok")
-                self._pos[s] = task.state.pop("resume_pos")
-                if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
-                    pre_finished.append(s)
+                self.cfg, [_to_device(t.state.pop("resume_rows"), sh.device)
+                           for _, t in members])
+            sh.caches = lm.scatter_cache_rows(
+                self.cfg, np.asarray([s - sh.lo for s, _ in members],
+                                     np.int64), rows, sh.caches)
+        for s, task in resume:
+            self._tok[s] = task.state.pop("resume_tok")
+            self._pos[s] = task.state.pop("resume_pos")
+            if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
+                pre_finished.append(s)
         if not new:
             return pre_finished, 0
         if self._recurrent:
@@ -414,31 +529,38 @@ class ServeEngine(EngineCore):
 
     def _prefill_group(self, new: List[Tuple[int, SlotTask]], plen: int
                        ) -> List[int]:
-        """Prefill one sub-batch whose prompts all fit in ``plen``."""
-        nb = pow2_bucket(len(new), self.capacity)
-        self._maybe_tune_prefill(nb, plen)
-        tokens = np.zeros((nb, plen), np.int32)
-        lengths = np.ones((nb,), np.int32)
-        slot_idx = np.full((nb,), self.capacity, np.int64)  # pad rows: OOB
-        for i, (s, task) in enumerate(new):
-            p = task.payload.prompt
-            tokens[i, :len(p)] = p
-            lengths[i] = len(p)
-            slot_idx[i] = s
-        logits, self._caches = self._prefill_scatter(
-            self.scheduler.place(tokens), lengths, slot_idx, self._caches)
-        logits = logits.cpu().numpy()
+        """Prefill one sub-batch whose prompts all fit in ``plen``: one
+        prefill on each block's device for the slots it owns, all launched
+        before the first copy of logits to the host."""
+        runs = []
+        for sh, members in self._by_shard(new):
+            nb = pow2_bucket(len(members), sh.hi - sh.lo)
+            self._maybe_tune_prefill(nb, plen)
+            tokens = np.zeros((nb, plen), np.int32)
+            lengths = np.ones((nb,), np.int32)
+            # pad rows carry an index past the block: dropped
+            slot_idx = np.full((nb,), self.capacity, np.int64)
+            for i, (s, task) in enumerate(members):
+                p = task.payload.prompt
+                tokens[i, :len(p)] = p
+                lengths[i] = len(p)
+                slot_idx[i] = s - sh.lo
+            logits, sh.caches = self._prefill_scatter(sh, tokens, lengths,
+                                                      slot_idx, sh.caches)
+            runs.append((members, logits, lengths))
         finished = []
-        for i, (s, task) in enumerate(new):
-            req = task.payload
-            tok = self._sample_task_row(logits[i], task, int(lengths[i]))
-            task.state = {"out": list(req.prompt) + [tok],
-                          "left": req.max_new_tokens - 1}
-            self._emit(task.rid, tok)
-            self._tok[s] = tok
-            self._pos[s] = lengths[i]
-            if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
-                finished.append(s)
+        for members, logits, lengths in runs:
+            logits = logits.cpu().numpy()
+            for i, (s, task) in enumerate(members):
+                req = task.payload
+                tok = self._sample_task_row(logits[i], task, int(lengths[i]))
+                task.state = {"out": list(req.prompt) + [tok],
+                              "left": req.max_new_tokens - 1}
+                self._emit(task.rid, tok)
+                self._tok[s] = tok
+                self._pos[s] = lengths[i]
+                if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
+                    finished.append(s)
         return finished
 
     # -- paged-cache admission / lifecycle ---------------------------------
@@ -463,12 +585,14 @@ class ServeEngine(EngineCore):
         fresh = [(s, t) for s, t in new if id(t) not in resumed]
         pre_finished: List[int] = []
         for s, task in resume:
+            sh = self._shard_of(s)
             if "resume_spill" in task.state:
                 payload, n = task.state.pop("resume_spill")
                 pgs = self._alloc_pages(n, s)
-                self._pool = pages.import_pages(self._pool, payload, pgs)
+                sh.pool = pages.import_pages(sh.pool, payload,
+                                             self._local_pages(sh, pgs))
             else:
-                pgs = task.state.pop("resume_pages")
+                pgs = self._move_pages(task.state.pop("resume_pages"), s)
             pages.bind_slot(s, pgs)
             self._tok[s] = task.state.pop("resume_tok")
             self._pos[s] = task.state.pop("resume_pos")
@@ -480,7 +604,7 @@ class ServeEngine(EngineCore):
         for s, task in fresh:
             hashes = (pages.chain_hashes(task.payload.prompt)
                       if self._prefix_cache else [])
-            hits = pages.acquire_prefix(hashes) if hashes else []
+            hits = pages.acquire_prefix(hashes, slot=s) if hashes else []
             infos.append([s, task, hashes, hits])
         finished = list(pre_finished)
         while infos:
@@ -499,66 +623,73 @@ class ServeEngine(EngineCore):
                 group.append(info)
             finished += self._prefill_paged_group(group, min_hit * ps)
             for info in defer:   # hits can only grow as groups register
-                info[3] += pages.extend_prefix(info[2], len(info[3]))
+                info[3] += pages.extend_prefix(info[2], len(info[3]),
+                                               slot=info[0])
             infos = defer
         return finished, len(fresh)
 
     def _prefill_paged_group(self, group: List[List[Any]], off: int
                              ) -> List[int]:
         """Prefill one wave of tasks sharing prefix-hit length ``off`` (0 =
-        full prefill).  Suffixes pad to the dense engine's pow2 bucket (so
-        full prefills compute what the dense path computes), pages past
-        each task's own span map to the drop sentinel, and full suffix
-        pages register into the prefix index."""
+        full prefill), one prefill on each block's device for the slots it
+        owns.  Suffixes pad to the dense engine's pow2 bucket (so full
+        prefills compute what the dense path computes), pages past each
+        task's own span map to the drop sentinel, and full suffix pages
+        register into the prefix index."""
         pages = self._pages
         ps = pages.page_size
-        nb = pow2_bucket(len(group), self.capacity)
         smax = max(len(info[1].payload.prompt) - off for info in group)
         splen = pow2_bucket(smax, self.max_len - off)
         npg = -(-splen // ps)
-        if off == 0:
-            self._maybe_tune_prefill(nb, splen)
-        tokens = np.zeros((nb, splen), np.int32)
-        lengths = np.ones((nb,), np.int32)
-        slot_idx = np.full((nb,), self.capacity, np.int64)  # pad rows: OOB
-        page_rows = np.full((nb, npg), pages.n_pages, np.int64)
-        prefix_rows = np.zeros((nb, off // ps), np.int64)
         hit_reqs = hit_pages = 0
-        for i, (s, task, hashes, hits) in enumerate(group):
-            p = task.payload.prompt
-            suffix = p[off:]
-            tokens[i, :len(suffix)] = suffix
-            lengths[i] = len(suffix)
-            slot_idx[i] = s
-            # pages covering positions [0, len(p)]: the prompt plus the
-            # first decode write; later pages are allocated in _step
-            own = self._alloc_pages(len(p) // ps + 1 - len(hits), s)
-            allp = list(hits) + own
-            pages.bind_slot(s, allp)
-            for j in range(len(hits), len(hashes)):
-                pages.register_hash(allp[j], hashes[j])
-            base = off // ps
-            for j in range(min(npg, len(allp) - base)):
-                page_rows[i, j] = allp[base + j]
-            prefix_rows[i, :] = allp[:base]
-            if hits:
-                hit_reqs += 1
-                hit_pages += len(hits)
-        logits, self._pool, self._residual = self._prefill_paged_impl(
-            off, self.scheduler.place(tokens), lengths, page_rows,
-            prefix_rows, slot_idx, self._pool, self._residual)
-        logits = logits.cpu().numpy()
+        runs = []
+        for sh, members in self._by_shard(group):
+            nb = pow2_bucket(len(members), sh.hi - sh.lo)
+            if off == 0:
+                self._maybe_tune_prefill(nb, splen)
+            tokens = np.zeros((nb, splen), np.int32)
+            lengths = np.ones((nb,), np.int32)
+            slot_idx = np.full((nb,), self.capacity, np.int64)  # pads: OOB
+            # the sentinel n_pages lies past every block: dropped
+            page_rows = np.full((nb, npg), pages.n_pages, np.int64)
+            prefix_rows = np.zeros((nb, off // ps), np.int64)
+            for i, (s, task, hashes, hits) in enumerate(members):
+                p = task.payload.prompt
+                suffix = p[off:]
+                tokens[i, :len(suffix)] = suffix
+                lengths[i] = len(suffix)
+                slot_idx[i] = s - sh.lo
+                # pages covering positions [0, len(p)]: the prompt plus the
+                # first decode write; later pages are allocated in _step
+                own = self._alloc_pages(len(p) // ps + 1 - len(hits), s)
+                allp = list(hits) + own
+                pages.bind_slot(s, allp)
+                for j in range(len(hits), len(hashes)):
+                    pages.register_hash(allp[j], hashes[j])
+                base = off // ps
+                local = self._local_pages(sh, allp)
+                for j in range(min(npg, len(allp) - base)):
+                    page_rows[i, j] = local[base + j]
+                prefix_rows[i, :] = local[:base]
+                if hits:
+                    hit_reqs += 1
+                    hit_pages += len(hits)
+            logits, sh.pool, sh.residual = self._prefill_paged_impl(
+                sh, off, tokens, lengths, page_rows, prefix_rows, slot_idx)
+            runs.append((members, logits))
         finished = []
-        for i, (s, task, hashes, hits) in enumerate(group):
-            req = task.payload
-            tok = self._sample_task_row(logits[i], task, len(req.prompt))
-            task.state = {"out": list(req.prompt) + [tok],
-                          "left": req.max_new_tokens - 1}
-            self._emit(task.rid, tok)
-            self._tok[s] = tok
-            self._pos[s] = len(req.prompt)
-            if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
-                finished.append(s)
+        for members, logits in runs:
+            logits = logits.cpu().numpy()
+            for i, (s, task, hashes, hits) in enumerate(members):
+                req = task.payload
+                tok = self._sample_task_row(logits[i], task, len(req.prompt))
+                task.state = {"out": list(req.prompt) + [tok],
+                              "left": req.max_new_tokens - 1}
+                self._emit(task.rid, tok)
+                self._tok[s] = tok
+                self._pos[s] = len(req.prompt)
+                if task.state["left"] <= 0 or self._pos[s] >= self.max_len:
+                    finished.append(s)
         self._count_pages(
             prefill_ticks=1, prefix_hits=hit_reqs,
             prefix_pages_hit=hit_pages,
@@ -579,6 +710,22 @@ class ServeEngine(EngineCore):
                 raise
             return self._pages.allocate(n, slot)
 
+    def _move_pages(self, pgs: List[int], slot: int) -> List[int]:
+        """A preempted task's pages, on the block of the slot it resumes
+        in: as they are when that is the block they lie in, else copied
+        into fresh pages of the slot's block and released."""
+        if not pgs or self._shard_of_page(pgs[0]) is self._shard_of(slot):
+            return pgs
+        src, dst = self._shard_of_page(pgs[0]), self._shard_of(slot)
+        payload = self._pages.export_pages(src.pool,
+                                           self._local_pages(src, pgs))
+        fresh = self._alloc_pages(len(pgs), slot)
+        dst.pool = self._pages.import_pages(dst.pool, payload,
+                                            self._local_pages(dst, fresh))
+        self._pages.release(pgs)
+        self._count_pages(block_moved_pages=len(pgs))
+        return fresh
+
     def _spill_preempted(self) -> bool:
         """Copy every queued preempted task's pages to host memory and
         release them; resume re-imports them into fresh pages.  Returns
@@ -588,8 +735,12 @@ class ServeEngine(EngineCore):
         spilled = 0
         for task in targets:
             pgs = task.state.pop("resume_pages")
-            payload = {k: v.cpu() for k, v in
-                       self._pages.export_pages(self._pool, pgs).items()}
+            if pgs:
+                sh = self._shard_of_page(pgs[0])
+                payload = {k: v.cpu() for k, v in self._pages.export_pages(
+                    sh.pool, self._local_pages(sh, pgs)).items()}
+            else:
+                payload = {}
             task.state["resume_spill"] = (payload, len(pgs))
             self._pages.release(pgs)
             spilled += len(pgs)
@@ -622,8 +773,10 @@ class ServeEngine(EngineCore):
     def pin_page_hashes(self, hashes: List[Optional[bytes]]
                         ) -> Dict[int, int]:
         """Pin prefix-index hits on this engine's pool (empty when not
-        paged)."""
-        if self._pages is None:
+        paged, and when the pool is split over several devices: the slot a
+        handoff will land in, and so the block its pages must lie in, is
+        not known yet)."""
+        if self._pages is None or len(self._shards) > 1:
             return {}
         return self._pages.pin_hashes(hashes)
 
@@ -665,8 +818,9 @@ class ServeEngine(EngineCore):
             task.state["resume_tok"] = int(self._tok[slot])
             task.state["resume_pos"] = int(self._pos[slot])
             return
+        sh = self._shard_of(slot)
         task.state["resume_rows"] = lm.gather_cache_rows(
-            self.cfg, [slot], self._caches)
+            self.cfg, [slot - sh.lo], sh.caches)
         task.state["resume_tok"] = int(self._tok[slot])
         task.state["resume_pos"] = int(self._pos[slot])
 
@@ -705,28 +859,38 @@ class ServeEngine(EngineCore):
 
     def _step(self, active: List[Tuple[int, SlotTask]], n_batch: int
               ) -> Tuple[List[int], int]:
+        """One decode tick: ``lm.decode_step`` (and, with the kernels, one
+        ``fused_sampling`` launch) on each block, back to back, then
+        each block's tokens (or logits) copied to the host."""
+        tables = None
         if self._pages is not None:
             self._ensure_decode_pages(active)
-            logits, self._pool = self._decode_paged_impl(
-                self.scheduler.place(self._tok[:, None]), self._pos,
-                self._pages.tables_snapshot(), self._pool, self._residual)
-        else:
-            logits, self._caches = self._decode(
-                self.scheduler.place(self._tok[:, None]), self._pos,
-                self._caches)
-        if self._decode_kernel:
-            # fused sampling where the logits are; each token's counter is
-            # the position it will occupy (pos + 1)
-            toks = self._sample_batch_device(
-                logits, active, lambda s: int(self._pos[s]) + 1)
-        else:
-            logits = logits.cpu().numpy()
+            tables = self._pages.tables_snapshot()
+        toks = self._blocks(self._tok[:, None])
+        poss = self._blocks(self._pos)
+        outs = []
+        for sh, tok, pos in zip(self._shards, toks, poss):
+            if tables is not None:
+                rows = tables[sh.lo:sh.hi]
+                local = np.where(rows >= 0, rows - sh.page_lo, -1)
+                logits, sh.pool = self._decode_paged_impl(sh, tok, pos,
+                                                          local)
+            else:
+                logits, sh.caches = self._decode(sh, tok, pos, sh.caches)
+            if self._decode_kernel:
+                # fused sampling where the logits are; each token's
+                # counter is the position it will occupy (pos + 1)
+                mine = [(s, t) for s, t in active if sh.lo <= s < sh.hi]
+                logits = self._sample_batch_device(
+                    logits, mine, lambda s: int(self._pos[s]) + 1, sh.lo)
+            outs.append(logits)
+        host = np.concatenate([o.cpu().numpy() for o in outs])
         finished = []
         for s, task in active:
             if self._decode_kernel:
-                nxt = int(toks[s])
+                nxt = int(host[s])
             else:
-                nxt = self._sample_task_row(logits[s], task,
+                nxt = self._sample_task_row(host[s], task,
                                             int(self._pos[s]) + 1)
             task.state["out"].append(nxt)
             task.state["left"] -= 1

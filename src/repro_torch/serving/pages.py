@@ -230,7 +230,8 @@ class PagePool:
             range(self.n_pages))
         self._refs = np.zeros(              # guarded-by: _lock
             (self.n_pages,), np.int32)
-        self._prefix_index: Dict[bytes, int] = {}   # guarded-by: _lock
+        # hash -> page; (block, hash) -> page in a strict pool
+        self._prefix_index: Dict[Any, int] = {}     # guarded-by: _lock
         self._page_hash: Dict[int, bytes] = {}      # guarded-by: _lock
         self._evictable: "OrderedDict[int, None]" \
             = OrderedDict()                 # guarded-by: _lock
@@ -240,29 +241,48 @@ class PagePool:
             "allocated": 0, "freed": 0, "cache_evicted": 0,
             "registered": 0, "pinned": 0}
         self._n_blocks = 1                  # guarded-by: _lock
+        self._strict = False                # guarded-by: _lock
 
     # -- geometry / tensor construction (no host state) --------------------
 
-    def init_pool_arrays(self, device: Any = None) -> Dict[str, torch.Tensor]:
+    def init_pool_arrays(self, device: Any = None,
+                         n_pages: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
         """Zeroed pool tensors on ``device`` (``None`` means the card), one
         flat dict entry per paged leaf (plus its scale sibling when
-        quantized)."""
+        quantized).  ``n_pages`` sizes the page axis for one device's
+        block of a sharded pool (default: the whole pool); the device ops
+        below take such a block with the block's local page ids."""
         device = resolve_device(device)
+
+        def shaped(shape, bax):
+            if n_pages is None:
+                return shape
+            return shape[:bax] + (int(n_pages),) + shape[bax + 1:]
+
         out: Dict[str, torch.Tensor] = {}
         for lf in self._paged:
-            out[lf.key] = torch.zeros(lf.shape, dtype=lf.dtype, device=device)
+            out[lf.key] = torch.zeros(shaped(lf.shape, lf.bax),
+                                      dtype=lf.dtype, device=device)
             if lf.scale_key is not None:
-                out[lf.scale_key] = torch.zeros(lf.scale_shape,
-                                                dtype=torch.float32,
-                                                device=device)
+                out[lf.scale_key] = torch.zeros(
+                    shaped(lf.scale_shape, lf.bax), dtype=torch.float32,
+                    device=device)
         return out
 
-    def init_residual_arrays(self, device: Any = None
+    def init_residual_arrays(self, device: Any = None,
+                             n_slots: Optional[int] = None
                              ) -> Dict[str, torch.Tensor]:
-        """Zeroed dense slot-axis tensors for the non-paged leaves."""
+        """Zeroed dense slot-axis tensors for the non-paged leaves
+        (``n_slots`` of them for one device's block of slots)."""
         device = resolve_device(device)
-        return {rl.key: torch.zeros(rl.shape, dtype=rl.dtype, device=device)
-                for rl in self._residual}
+        out = {}
+        for rl in self._residual:
+            shape = list(rl.shape)
+            if n_slots is not None:
+                shape[rl.bax] = int(n_slots)
+            out[rl.key] = torch.zeros(shape, dtype=rl.dtype, device=device)
+        return out
 
     def pool_specs(self) -> Dict[str, Tuple[Optional[str], ...]]:
         """Logical-axis dict matching :meth:`init_pool_arrays`; the page
@@ -315,8 +335,15 @@ class PagePool:
                          + (tv.shape[0], tv.shape[1] * self.page_size)
                          + tuple(arr.shape[sax + 1:]))
 
-    def _clipped(self, tables: Any, device: torch.device) -> torch.Tensor:
-        return _index(tables, device).clamp(0, self.n_pages - 1)
+    def _pages_in(self, pool: Dict[str, torch.Tensor]) -> int:
+        """Pages of ``pool``: the whole pool, or one device's block."""
+        lf = self._paged[0]
+        return int(pool[lf.key].shape[lf.bax])
+
+    def _clipped(self, tables: Any, pool: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+        dev = next(iter(pool.values())).device
+        return _index(tables, dev).clamp(0, self._pages_in(pool) - 1)
 
     def build_view(self, pool: Dict[str, torch.Tensor],
                    residual: Dict[str, torch.Tensor], tables: Any,
@@ -328,7 +355,7 @@ class PagePool:
         yields a view in the model's cache type without scale leaves; by
         default the int8 + scale leaves pass through for dequant-on-read
         in the attention."""
-        tv = self._clipped(tables, next(iter(pool.values())).device)
+        tv = self._clipped(tables, pool)
         view: Dict[str, Any] = {}
         for lf in self._paged:
             g = self._gather_pages(pool[lf.key], tv, lf.bax, lf.sax)
@@ -384,7 +411,7 @@ class PagePool:
         pos = _index(pos, dev)
         b = tables.shape[0]
         pid, off, ok = attention.page_slot(tables, pos, self.page_size)
-        at = (pid.clamp(0, self.n_pages - 1), off)
+        at = (pid.clamp(0, self._pages_in(pool) - 1), off)
         rows_at = (torch.arange(b, device=dev),
                    pos.clamp(0, self.max_len - 1))
         for key, path, bax, sax in self._all_paged():
@@ -408,7 +435,7 @@ class PagePool:
         nb, npg = pmap.shape
         ps = self.page_size
         flat = pmap.reshape(-1)
-        keep = np.nonzero((flat >= 0) & (flat < self.n_pages))[0]
+        keep = np.nonzero((flat >= 0) & (flat < self._pages_in(pool)))[0]
         dev = next(iter(pool.values())).device
         sel = torch.from_numpy(keep).to(dev)
         dst = torch.from_numpy(flat[keep]).to(dev)
@@ -436,7 +463,7 @@ class PagePool:
         shared-prefix pages — the cache :func:`lm.continuation_prefill_step`
         continues from."""
         dev = next(iter(pool.values())).device
-        tv = self._clipped(prefix_tables, dev)
+        tv = self._clipped(prefix_tables, pool)
         off = tv.shape[1] * self.page_size
         fresh = lm.make_caches(self.cfg, nb, total_len, device=dev)
         out: Dict[str, Any] = {}
@@ -494,8 +521,9 @@ class PagePool:
         ``slot_idx`` (pad entries = ``n_slots``) drop (read on the
         host)."""
         idx = _host(slot_idx)
-        keep = np.nonzero((idx >= 0) & (idx < self.n_slots))[0]
         for rl in self._residual:
+            n = residual[rl.key].shape[rl.bax]      # a block's slots, or all
+            keep = np.nonzero((idx >= 0) & (idx < n))[0]
             dev = residual[rl.key].device
             src = torch.index_select(rows[rl.key], rl.bax,
                                      torch.from_numpy(keep).to(dev))
@@ -570,11 +598,17 @@ class PagePool:
         with self._lock:
             return dict(self._counters)
 
-    def set_device_blocks(self, n: int) -> None:
+    def set_device_blocks(self, n: int, strict: bool = False) -> None:
         """Partition pages into ``n`` contiguous blocks matching a sharded
-        page-axis layout; allocation then prefers a slot's own block."""
+        page-axis layout; allocation then prefers a slot's own block.  With
+        ``strict`` (the port's per-device pools, where a page of another
+        block lies on another device) allocation takes pages of the slot's
+        block only, raising :class:`PagePoolExhausted` when the block is
+        dry, and the prefix index is kept per block: a hit is a page of
+        the looking slot's block."""
         with self._lock:
             self._n_blocks = max(1, int(n))
+            self._strict = bool(strict) and self._n_blocks > 1
 
     def _block_of_locked(self, page: int) -> int:
         return page * self._n_blocks // self.n_pages
@@ -582,28 +616,37 @@ class PagePool:
     def _slot_block_locked(self, slot: int) -> int:
         return slot * self._n_blocks // self.n_slots
 
+    def _key_locked(self, h: bytes, block: int) -> Any:
+        """The prefix index's key of hash ``h`` registered in ``block``."""
+        return (block, h) if self._strict else h
+
     def _take_one_locked(self, block: int) -> int:
+        mine = (lambda p: self._block_of_locked(p) == block)
         if self._free:
             if self._n_blocks > 1:
                 for i, p in enumerate(self._free):
-                    if self._block_of_locked(p) == block:
+                    if mine(p):
                         return self._free.pop(i)
-            return self._free.pop()
+            if not self._strict:
+                return self._free.pop()
         if self._evictable:
             pick = None
             if self._n_blocks > 1:
                 for p in self._evictable:
-                    if self._block_of_locked(p) == block:
+                    if mine(p):
                         pick = p
                         break
-            if pick is None:
+            if pick is None and not self._strict:
                 pick = next(iter(self._evictable))   # LRU head
-            del self._evictable[pick]
-            h = self._page_hash.pop(pick, None)
-            if h is not None:
-                self._prefix_index.pop(h, None)
-            self._counters["cache_evicted"] += 1
-            return pick
+            if pick is not None:
+                del self._evictable[pick]
+                h = self._page_hash.pop(pick, None)
+                if h is not None:
+                    self._prefix_index.pop(
+                        self._key_locked(h, self._block_of_locked(pick)),
+                        None)
+                self._counters["cache_evicted"] += 1
+                return pick
         raise PagePoolExhausted(
             f"page pool exhausted: {self.n_pages} pages all owned "
             f"(resident + preempted demand exceeds the pool; raise "
@@ -615,7 +658,15 @@ class PagePool:
         atomically — on failure nothing is taken."""
         with self._lock:
             block = self._slot_block_locked(slot % max(self.n_slots, 1))
-            if n > len(self._free) + len(self._evictable):
+            if self._strict:
+                have = sum(self._block_of_locked(p) == block
+                           for p in list(self._free) + list(self._evictable))
+                if n > have:
+                    raise PagePoolExhausted(
+                        f"page pool block {block} of {self._n_blocks} "
+                        f"exhausted: need {n} pages, {have} available of "
+                        f"{self.n_pages // self._n_blocks}")
+            elif n > len(self._free) + len(self._evictable):
                 raise PagePoolExhausted(
                     f"page pool exhausted: need {n} pages, "
                     f"{len(self._free) + len(self._evictable)} available "
@@ -659,26 +710,30 @@ class PagePool:
         First writer wins; a duplicate hash keeps the existing entry (the
         new page simply stays private)."""
         with self._lock:
-            if h in self._prefix_index or page in self._page_hash:
+            key = self._key_locked(h, self._block_of_locked(page))
+            if key in self._prefix_index or page in self._page_hash:
                 return
-            self._prefix_index[h] = page
+            self._prefix_index[key] = page
             self._page_hash[page] = h
             self._counters["registered"] += 1
 
-    def acquire_prefix(self, hashes: Sequence[bytes]) -> List[int]:
+    def acquire_prefix(self, hashes: Sequence[bytes], slot: int = 0
+                       ) -> List[int]:
         """Pin the longest indexed chain prefix; returns the pinned page ids
-        (one reference each, in page order)."""
-        return self.extend_prefix(hashes, 0)
+        (one reference each, in page order).  ``slot`` names the block a
+        strict pool looks in."""
+        return self.extend_prefix(hashes, 0, slot=slot)
 
-    def extend_prefix(self, hashes: Sequence[bytes], start: int
-                      ) -> List[int]:
+    def extend_prefix(self, hashes: Sequence[bytes], start: int,
+                      slot: int = 0) -> List[int]:
         """Continue :meth:`acquire_prefix` from chain position ``start`` —
         used when a same-tick sibling registered more pages since the first
         lookup."""
         with self._lock:
+            block = self._slot_block_locked(slot % max(self.n_slots, 1))
             out: List[int] = []
             for h in hashes[start:] if start else hashes:
-                p = self._prefix_index.get(h)
+                p = self._prefix_index.get(self._key_locked(h, block))
                 if p is None:
                     break
                 self._retain_one_locked(p)
@@ -690,13 +745,14 @@ class PagePool:
                    ) -> Dict[int, int]:
         """Pin every individually indexed hash (no chain-prefix rule):
         ``{position: page}`` for the hits, each retained.  A caller that
-        does not use them must :meth:`release` the returned pages."""
+        does not use them must :meth:`release` the returned pages.  A
+        strict pool looks in block 0."""
         with self._lock:
             out: Dict[int, int] = {}
             for i, h in enumerate(hashes):
                 if h is None:
                     continue
-                p = self._prefix_index.get(h)
+                p = self._prefix_index.get(self._key_locked(h, 0))
                 if p is None:
                     continue
                 self._retain_one_locked(p)

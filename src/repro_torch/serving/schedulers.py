@@ -8,9 +8,9 @@ not the kernel alone):
     (the *effective batch size*);
   * **shape** — ``quantize()``: the concrete compiled batch the workload
     pads to (a small, bounded set of shapes keeps warm-up finite);
-  * **placement** — ``place()``: where the tick's batch lives (host,
-    or a single device; a sharded placement comes with the sharding
-    slice of the port);
+  * **placement** — ``place()``: where the tick's batch lives (host, a
+    single device, or — :class:`ShardedScheduler` — one contiguous block
+    per device of a mesh);
   * **interleaving** — ``phase()``: whether a tick admits new work
     (prefill), steps the resident work (decode), or does both.  The
     default ``"mixed"`` keeps the legacy behaviour where prefill rides
@@ -51,6 +51,7 @@ from collections import deque
 from typing import Any, Deque, Optional
 
 import numpy as np
+import torch
 
 
 def pow2_bucket(n: int, cap: int) -> int:
@@ -414,3 +415,102 @@ class PriorityScheduler(Scheduler):
             else:
                 break
         return tuple(out)
+
+
+class ShardedScheduler(Scheduler):
+    """Split each tick's batch across mesh devices (pure data-parallel
+    serving), the twin of the reference's.
+
+    ``n_devices`` is the product of the mesh axes the ``batch`` logical
+    axis maps to under ``rules`` (``("pod", "data")`` by default), and
+    ``devices`` the device of each block (``parallel.sharding.
+    batch_devices``; a degenerate mesh may name one device twice).
+    ``place()`` returns the tick array split into contiguous blocks along
+    its leading (batch) axis, each on its device.  Admission, latency
+    adaptation and tick phasing delegate to ``inner`` (FIFO unless given,
+    so an SLO or interleaving controller composes under sharding).
+
+    Workloads:
+
+      * **image** (:class:`repro_torch.serving.CapsuleEngine`) — stateless
+        ticks: the frame batch is split by ``place()`` and each block runs
+        through its device's replica of the model.
+      * **LM decode** (:class:`repro_torch.serving.ServeEngine`) —
+        stateful: the engine keeps each block of ``capacity / n_devices``
+        slots (caches or pages) on its device for the whole decode and
+        routes the per-tick token and position arrays through
+        ``place()``.  Engine capacity must divide evenly over the
+        batch-axis devices (checked in ``bind``).
+
+    One host thread drives every device, as the reference's single
+    controller does; there is no process group and no collective.
+    """
+
+    def __init__(self, mesh: Any, inner: Optional[Scheduler] = None,
+                 rules: Any = None):
+        from repro_torch.parallel import sharding as sharding_lib
+
+        self.mesh = mesh
+        self.inner = inner or FIFOScheduler()
+        self.rules = (rules if rules is not None
+                      else sharding_lib.DEFAULT_RULES)
+        axes = self.rules.lookup("batch", mesh.axis_names)
+        axes = (axes,) if isinstance(axes, str) else (axes or ())
+        self.n_devices = 1
+        for a in axes:
+            self.n_devices *= int(mesh.shape[a])
+        self.devices = sharding_lib.batch_devices(mesh, self.rules)
+
+    def bind(self, core: Any) -> None:
+        super().bind(core)
+        if self.capacity % self.n_devices:
+            raise ValueError(
+                f"engine capacity {self.capacity} not divisible by the "
+                f"{self.n_devices} batch-axis devices of the mesh")
+        self.inner.bind(core)
+
+    def plan(self, n_queued: int, n_active: int) -> int:
+        return self.inner.plan(n_queued, n_active)
+
+    def phase(self, n_queued: int, n_active: int) -> str:
+        return self.inner.phase(n_queued, n_active)
+
+    def quantize(self, n_active: int, capacity: int) -> int:
+        b = self.inner.quantize(n_active, capacity)
+        b = -(-b // self.n_devices) * self.n_devices     # ceil to multiple
+        return min(b, capacity)
+
+    def shapes(self, capacity: int) -> tuple:
+        return tuple(sorted({self.quantize(b, capacity)
+                             for b in self.inner.shapes(capacity)}))
+
+    def place(self, batch: Any) -> list:
+        """The batch (numpy or a tensor, batch axis leading) as a list of
+        contiguous blocks, block ``k`` on ``devices[k]``: as many blocks
+        as the shape-aware policy splits the batch axis into (one, on the
+        first device, when the batch does not divide)."""
+        from repro_torch.parallel import sharding as sharding_lib
+
+        x = (batch if isinstance(batch, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(batch)))
+        spec = sharding_lib.shape_aware_spec(
+            ("batch",) + (None,) * (x.dim() - 1), tuple(x.shape), self.rules,
+            self.mesh.shape)
+        axes = spec[0] if len(spec) else None
+        devices = (sharding_lib.batch_devices(
+            self.mesh, sharding_lib.AxisRules({"batch": axes}))
+            if axes is not None else self.devices[:1])
+        blocks = torch.split(x, x.shape[0] // len(devices))
+        return [_to(b, dev) for b, dev in zip(blocks, devices)]
+
+    def observe(self, record: TickRecord) -> None:
+        self.inner.observe(record)
+
+
+def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``: a host block is pinned and copied without
+    waiting (the copy is ordered before the block's work on its
+    stream)."""
+    if x.device.type == "cpu" and device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)

@@ -26,8 +26,11 @@ transfer a typed, measured, swappable stage:
     travels with the rows (``handoff.ready``), and the decode engine makes
     its stream wait on it before its scatter reads them.
 
-The port has no device meshes yet, so a target's placement is its
-``device`` attribute (:func:`target_device`).  Per-leg timings land in
+A target's placement is its mesh (:func:`target_mesh`: the mesh of a
+:class:`repro_torch.serving.ShardedScheduler`), else its ``device``
+attribute (:func:`target_device`, an engine's first device: where the
+rows are delivered; a sharded engine's admission moves them on to the
+device of the slot they land in).  Per-leg timings land in
 ``EngineStats.transfer`` as ``"<transport>/<leg>"`` histograms plus a
 ``"<transport>/total"`` critical-path histogram when a
 :class:`repro_torch.serving.DisaggregatedEngine` drives the transport.
@@ -45,6 +48,7 @@ from typing import Any, Callable, Deque, Dict, Optional
 
 import torch
 
+from repro_torch.device import indexed
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.lm import cache_row_nbytes
 
@@ -52,6 +56,7 @@ __all__ = [
     "TransferRecord", "Transport", "TransportError",
     "InProcessTransport", "HostStagedTransport", "DeviceToDeviceTransport",
     "TRANSPORTS", "make_transport", "select_transport", "target_device",
+    "target_mesh", "target_devices",
 ]
 
 
@@ -88,10 +93,23 @@ def target_device(target: Any) -> Optional[torch.device]:
     dev = getattr(target, "device", None)
     if dev is None:
         return None
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+    return indexed(dev)
+
+
+def target_mesh(target: Any):
+    """The mesh a delivery target decodes on (its scheduler's ``mesh``, a
+    ``ShardedScheduler``'s), or ``None`` for an engine without one."""
+    return getattr(getattr(target, "scheduler", None), "mesh", None)
+
+
+def target_devices(target: Any) -> Optional[frozenset]:
+    """The set of devices a target holds state on: its mesh's entries, or
+    its one device; ``None`` when it names neither."""
+    mesh = target_mesh(target)
+    if mesh is not None:
+        return frozenset(indexed(d) for d in mesh.device_list)
+    dev = target_device(target)
+    return None if dev is None else frozenset([dev])
 
 
 def wait_ready(handoff: Any) -> None:
@@ -321,16 +339,18 @@ def make_transport(kind: str, **kwargs: Any) -> Transport:
 
 
 def select_transport(prefill: Any, decodes: Any, **kwargs: Any) -> Transport:
-    """Auto-selection: device-to-device when any decode engine's device
-    differs from the prefill engine's (rows must actually move), else
-    in-process.  On a one-card host every engine shares the card, so this
-    picks in-process; so does a stateless pool (``prefill=None``), whose
-    handoffs carry no rows."""
+    """Auto-selection: device-to-device exactly when a decode engine's
+    devices (its mesh's, else its device) differ from the prefill
+    engine's (rows must actually move), else in-process.  On a one-card
+    host every engine shares the card, so this picks in-process, for
+    meshes that repeat the card too (the reference compares mesh objects
+    and would pick device-to-device there); so does a stateless pool
+    (``prefill=None``), whose handoffs carry no rows."""
     if prefill is None:
         return InProcessTransport(**kwargs)
-    pre = target_device(prefill)
+    pre = target_devices(prefill)
     for eng in decodes or ():
-        dev = target_device(eng)
-        if dev is not None and dev != pre:
+        devs = target_devices(eng)
+        if devs is not None and devs != pre:
             return DeviceToDeviceTransport(**kwargs)
     return InProcessTransport(**kwargs)

@@ -278,7 +278,9 @@ class TestLauncher:
         assert "deployed on cpu" in out and "served 3 requests" in out
 
     def test_cli_rejects_waiting_options(self):
-        for bad in (["--scheduler", "sharded"],
+        """``--scheduler sharded`` serves now; ``--multihost`` is for LM
+        serving behind ``--scheduler disagg`` only."""
+        for bad in (["--multihost"],
                     ["--scheduler", "disagg", "--multihost"],
                     ["--routing", "pallas"],
                     ["--arch", "no-such-arch-1b"]):

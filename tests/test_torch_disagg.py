@@ -585,13 +585,21 @@ def test_launcher_capsnet_pool_and_refusals(capsys):
                      "--batch", "8", "--scheduler", "disagg",
                      "--device", "cpu"])
     assert "served 3 requests" in capsys.readouterr().out
+    # --multihost serves (each engine on a mesh of its own) ...
+    port_serve.main(["--arch", "llama3.2-1b", "--requests", "2",
+                     "--max-new", "3", "--scheduler", "disagg",
+                     "--multihost", "--device", "cpu"])
+    assert "served 2 requests" in capsys.readouterr().out
+    # ... LM serving only
     with pytest.raises(SystemExit) as e:
-        port_serve.main(["--arch", "llama3.2-1b", "--scheduler", "disagg",
-                         "--multihost"])
+        port_serve.main(["--arch", "capsnet-mnist", "--scheduler", "disagg",
+                         "--multihost", "--device", "cpu"])
     assert e.value.code == 2
-    assert "queue A item 5" in capsys.readouterr().err
+    assert "LM serving" in capsys.readouterr().err
     if not torch.cuda.is_available():
         for argv in (["--arch", "llama3.2-1b", "--scheduler", "disagg"],
+                     ["--arch", "llama3.2-1b", "--scheduler", "disagg",
+                      "--multihost"],
                      ["--arch", "llama3.2-1b", "--trace", "bursty",
                       "--autoscale"],
                      ["--arch", "capsnet-mnist", "--scheduler", "disagg"]):

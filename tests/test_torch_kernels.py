@@ -52,10 +52,14 @@ def _case_input(case):
 
 class TestRegistryEntries:
     def test_inventory(self):
+        """The reference's kernels, plus the backward of row 2, which the
+        reference leaves to ``jax.grad`` of its plain softmax."""
         assert port_registry.names() == sorted(
             PORTED + ("flash_attention", "flash_attention_dequant",
-                      "decode_attention", "fused_sampling"))
-        assert port_registry.names() == ref_registry.names()
+                      "decode_attention", "fused_sampling",
+                      "taylor_softmax_bwd"))
+        assert port_registry.names() == sorted(
+            ref_registry.names() + ["taylor_softmax_bwd"])
 
     @pytest.mark.parametrize("name", PORTED)
     def test_example_cases_copied_from_reference(self, name):

@@ -448,9 +448,9 @@ class TestServing:
         seen = []
         inner = eng._prefill_scatter
 
-        def watched(tokens, lengths, slot_idx, caches):
+        def watched(sh, tokens, lengths, slot_idx, caches):
             seen.append((tokens.shape, lengths.copy(), slot_idx.copy()))
-            return inner(tokens, lengths, slot_idx, caches)
+            return inner(sh, tokens, lengths, slot_idx, caches)
 
         eng._prefill_scatter = watched
         prompts = PROMPTS + [[7, 7, 7]]

@@ -285,7 +285,28 @@ class TestSchedulersAgainstReference:
         assert pow2_bucket(n, cap) == ref_sched.pow2_bucket(n, cap)
 
     def test_sharded_scheduler_is_left_out(self):
-        assert not hasattr(port_sched, "ShardedScheduler")
+        """No longer left out: the port's ShardedScheduler counts the
+        mesh's batch-axis devices and rounds every tick shape up to a
+        multiple of them as the reference's does (both read the mesh's
+        ``axis_names`` and ``shape`` only, so one stand-in mesh serves)."""
+        class Mesh:
+            axis_names = ("pod", "data", "model")
+            shape = {"pod": 2, "data": 2, "model": 4}
+            devices = np.empty((2, 2, 4), dtype=object)
+
+        class Core:
+            capacity = 16
+
+        Mesh.devices[...] = torch.device("cpu")
+        ours = port_sched.ShardedScheduler(
+            Mesh(), inner=SLOBatchScheduler(target_p95_ms=10.0))
+        theirs = ref_sched.ShardedScheduler(
+            Mesh(), inner=ref_sched.SLOBatchScheduler(target_p95_ms=10.0))
+        ours.bind(Core()), theirs.bind(Core())
+        assert ours.n_devices == theirs.n_devices == 4
+        for n in range(17):
+            assert ours.quantize(n, 16) == theirs.quantize(n, 16), n
+        assert ours.shapes(16) == theirs.shapes(16)
 
     def test_slo_controller_tracks_the_reference(self):
         """The same tick latencies drive both controllers to the same

@@ -184,11 +184,24 @@ class TestKernelsRefuseGrad:
                                       RoutingSpec.optimized()),
                              ids=("cuda-taylor", "cuda-exact", "optimized"))
     def test_loss_backward_raises(self, model, spec):
+        """The fused routing kernel (``cuda``) refuses a gradient; the
+        ``optimized`` spec, whose Eq. 2 softmax has a backward kernel,
+        trains: every leaf gets a finite gradient (its agreement with the
+        reference is ``test_torch_softmax_grad.py``'s)."""
         _, port_cfg, _, port_p = model
         cfg = dataclasses.replace(port_cfg, routing=spec)
         x, y = _batch(0, 4, cfg)
         live = {k: {kk: v.clone().requires_grad_(True)
                     for kk, v in sub.items()} for k, sub in port_p.items()}
+        if spec.mode == "optimized":
+            loss, _ = cn.loss_fn(live, cfg, torch.from_numpy(x),
+                                 torch.from_numpy(y))
+            loss.backward()
+            for sub in live.values():
+                for v in sub.values():
+                    assert v.grad is not None
+                    assert bool(torch.isfinite(v.grad).all())
+            return
         with pytest.raises(RuntimeError, match=r"RoutingSpec\.reference\(\)"):
             loss, _ = cn.loss_fn(live, cfg, torch.from_numpy(x),
                                  torch.from_numpy(y))
@@ -205,12 +218,17 @@ class TestKernelsRefuseGrad:
             tr.run(iter([{"images": x, "labels": y}]), 1)
 
     def test_wrappers_refuse_a_tensor_that_needs_grad(self):
+        """``fused_routing`` refuses a tensor that needs a gradient;
+        ``taylor_softmax`` has a backward kernel and hands back an output
+        the gradient passes through."""
         u = torch.randn(2, 6, 3, 4, requires_grad=True)
         with pytest.raises(RuntimeError, match="fused_routing"):
             fused_routing_cuda(u)
         b = torch.randn(5, 10, requires_grad=True)
-        with pytest.raises(RuntimeError, match="taylor_softmax"):
-            taylor_softmax_cuda(b)
+        out = taylor_softmax_cuda(b)
+        assert out.grad_fn is not None
+        out[:, 0].sum().backward()
+        assert b.grad is not None and bool(torch.isfinite(b.grad).all())
 
     def test_no_grad_forwards_unchanged(self):
         g = torch.Generator().manual_seed(3)
