@@ -39,7 +39,14 @@ data-parallel (``serve_sharded``: ``llama3.2-1b`` under a ``ShardedScheduler``
 whose 2-way mesh names the one card twice, dense and paged, against the
 unsharded engine; the multi-host disaggregated engine with two decode
 engines under the auto and the device-to-device transport; the pruned
-CapsNet through a sharded ``CapsuleEngine``), and times the ten kernels
+CapsNet through a sharded ``CapsuleEngine``), checks the dry run against
+the card (``dryrun``: the production-mesh dry run of a few cells through
+``python -m repro_torch.launch.dryrun``, then five cells sized for one
+card, ``llama3.2-1b`` decode, prefill and train and ``capsnet-mnist``
+inference and training, counted on the meta device and run on the card:
+argument bytes against what the allocator holds, the counted peak against
+the measured one, the roofline bound against the measured step, the
+kernels of each path launched), and times the ten kernels
 (the nine TPU entry points and the softmax backward; routing also at the
 dense shape; routing, softmax, decode and sampling at every point of their
 tunables' spaces:
@@ -85,7 +92,10 @@ from repro_torch.kernels.attention.kernel import (  # noqa: E402
     flash_attention_dequant_cuda, flash_attention_dequant_plain,
     flash_attention_plain)
 from repro_torch.kernels.registry import registry  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.roofline import (BF16_FLOP_PER_S,  # noqa: E402
+                                         HBM_BYTES_PER_S)
 from repro_torch.kernels.routing.routing_kernel import (  # noqa: E402
     fused_routing_cuda, routing_smem_bytes)
 from repro_torch.kernels.sampling.kernel import fused_sampling_cuda  # noqa: E402
@@ -97,6 +107,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.common import (tree_leaves,  # noqa: E402
                                        tree_unflatten)
 from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
+from repro_torch.parallel import sharding as shard_lib  # noqa: E402
 from repro_torch.serving import (DecodeEngine,  # noqa: E402
                                  DisaggregatedEngine, DisaggScheduler,
                                  ImageRequest, PriorityScheduler, Request,
@@ -112,9 +123,6 @@ from repro_torch.training.trainer import make_train_step  # noqa: E402
 
 DEVICE = "cuda"
 BATCH = 32
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
-FP32_FLOP_PER_S = 67e12          # H100 SXM, float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12         # H100 SXM, bf16 tensor cores, dense
 
 WRAPPERS = {"fused_routing": fused_routing_cuda,
             "taylor_softmax": taylor_softmax_cuda,
@@ -1945,7 +1953,9 @@ def phase_train_lm() -> dict:
         fail(f"train_lm: train_mfu takes the H100's bf16 peak; the card is "
              f"{card}")
     median = step_ms[len(step_ms) // 2]
-    flops_per_step = lm.model_flops_per_token(cfg, n_params) * tokens
+    flops_per_step = roofline.model_flops(
+        LM_ARCH, {"batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ,
+                  "kind": "train"})
 
     # the step's device time by kernel class, from a trace of a few more
     step = make_train_step(loss_fn, tcfg, donate=False)
@@ -3445,66 +3455,6 @@ def phase_serve_sharded() -> dict:
     return launches
 
 
-def flash_bound(case, int8: bool = False):
-    """Causal attention: 4 * B * H * D operations per unmasked (i, t) pair
-    (QK and PV, a multiply and an add each; query i at position q_offset + i
-    sees min(T, q_offset + i + 1) keys) at the peak of the case's type (the
-    bf16 tensor cores, or float32 outside them); q, k, v read and the
-    output written once (2 or 4 bytes an element; int8 K/V at one byte per
-    element plus a float32 scale per row of each)."""
-    b, s, t, h, k, d = case["dims"]
-    width = 2 if case.get("dtype", "float32") == "bfloat16" else 4
-    off = case.get("q_offset", 0)
-    pairs = (sum(min(t, off + i + 1) for i in range(s))
-             if case.get("causal", True) else s * t)
-    kv_bytes = (2 * b * t * k * d + 2 * 4 * b * t) if int8 \
-        else 2 * width * b * t * k * d
-    nbytes = 2 * width * b * s * h * d + kv_bytes
-    peak = BF16_FLOP_PER_S if width == 2 else FP32_FLOP_PER_S
-    return nbytes / HBM_BYTES_PER_S, 4 * b * h * d * pairs / peak
-
-
-def decode_bound(case):
-    """The valid cache rows of K and V read once (2 B per element for bf16;
-    1 B per element plus a 4 B scale per row of each for int8), the used
-    table entries of a paged cache (4 B each), q and the lengths read and
-    the output written once; 4 * H * D operations per valid row."""
-    b, t, h, k, d = case["dims"]
-    paged = case.get("paged")
-    page = paged[1] if paged else t
-    lens = [min(max(v, 0), t) for v in case["valid"]]
-    rows = sum(lens)
-    qbytes = 2 if case.get("dtype") == "bfloat16" else 4
-    if case.get("quant"):
-        kv_bytes = 2 * rows * (k * d + 4)
-    else:
-        kv_bytes = 2 * rows * k * d * (2 if case.get("dtype", "float32")
-                                       == "bfloat16" else 4)
-    table_bytes = 4 * sum(-(-n // page) for n in lens) if paged else 0
-    nbytes = kv_bytes + table_bytes + 2 * b * h * d * qbytes + 4 * b
-    return nbytes / HBM_BYTES_PER_S, 4 * rows * h * d / BF16_FLOP_PER_S
-
-
-def sampling_bound(case):
-    """One read of the logits.  Operations per element, as this case's rows
-    need them: the argmax (1); for a row with temperature > 0 also the
-    division and the range (3), the hash, the two logarithms and the keep
-    test of the draw (about 25), a compare and an add per top-k bisection
-    step (60) when 0 < top_k < V, and the exponential, division and sum
-    (3) plus a compare and an add per top-p step (60) when top_p < 1."""
-    b, v = case["dims"]
-    ops = 0
-    for i in range(b):
-        ops += 1
-        if case.get("temperature", (1.0,) * b)[i] > 0:
-            ops += 3 + 25
-            if 0 < case.get("top_k", (0,) * b)[i] < v:
-                ops += 60
-            if case.get("top_p", (1.0,) * b)[i] < 1.0:
-                ops += 63
-    return 4 * b * v / HBM_BYTES_PER_S, ops * v / FP32_FLOP_PER_S
-
-
 def library_call(name, args, kwargs):
     """One PyTorch call that computes the same function, timed as a
     yardstick (the port never calls it), or None."""
@@ -3529,48 +3479,9 @@ def library_call(name, args, kwargs):
     return None
 
 
-def elem_bytes(case) -> int:
-    """Bytes an element of the case's type."""
-    return 2 if case.get("dtype", "float32") == "bfloat16" else 4
-
-
-def routing_bound(shape, elem: int = 4, n_iters: int = 3):
-    """u_hat read and v written once in the case's type, c written once in
-    float32; the routing's float32 operations at the float32 peak."""
-    b, i, j, d = shape
-    nbytes = elem * (b * i * j * d + b * j * d) + 4 * b * i * j
-    flops = (n_iters * 2 * b * i * j * d            # FC
-             + (n_iters - 1) * 2 * b * i * j * d    # agreement
-             + n_iters * 6 * b * i * j              # softmax
-             + n_iters * 6 * b * j * d)             # squash
-    return nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-
-
-def softmax_bound(shape, elem: int = 4):
-    n = int(np.prod(shape))
-    # per element: subtract, clamp (2), scale, Horner (10), e^a, 5 squarings,
-    # the sum, the division, and the maximum
-    return 2 * elem * n / HBM_BYTES_PER_S, 23 * n / FP32_FLOP_PER_S
-
-
-def softmax_bwd_bound(shape, elem: int = 4):
-    """x and g read once, dx written once; per element the forward's 23
-    operations, the derivative's Horner (8), p^31 (4), the clip factor and
-    scale (3), the dot's multiply and add, and (g - dot) * e' / S (3)."""
-    n = int(np.prod(shape))
-    return 3 * elem * n / HBM_BYTES_PER_S, 43 * n / FP32_FLOP_PER_S
-
-
-BOUNDS = {"fused_routing":
-          lambda c: routing_bound(c["shape"], elem_bytes(c)),
-          "taylor_softmax":
-          lambda c: softmax_bound(c["shape"], elem_bytes(c)),
-          "taylor_softmax_bwd":
-          lambda c: softmax_bwd_bound(c["shape"], elem_bytes(c)),
-          "flash_attention": flash_bound,
-          "flash_attention_dequant": lambda c: flash_bound(c, int8=True),
-          "decode_attention": decode_bound,
-          "fused_sampling": sampling_bound}
+# each kernel's bound at a case: (seconds for its bytes, seconds for its
+# operations), from the port's roofline module
+BOUNDS = roofline.KERNEL_BOUNDS
 
 # the name of each kernel's CUDA function, for its profiler events
 KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
@@ -3755,6 +3666,213 @@ def phase_timings(launches: dict, worst: dict) -> list:
     return table
 
 
+# The dryrun phase.  (a) The production-mesh dry run on the host: the
+# launcher once per cell, on meta, each cell counted once and recorded on
+# each of its meshes (variant "opt", the launcher's default);
+# mistral-large-123b's decode exists only across many cards.  (b) Five
+# cells sized for one card: counted on meta through the variant named, then
+# placed on the card with seeded weights and run there: (label, arch, shape,
+# variant, kernel rows the step must launch).
+DRYRUN_PRODUCTION = (
+    ("llama3.2-1b", "train_4k", (False,)),
+    ("llama3.2-1b", "prefill_32k", (False,)),
+    ("llama3.2-1b", "decode_32k", (False, True)),
+    ("capsnet-mnist", "train_1k", (False,)),
+    ("capsnet-mnist", "infer_1k", (False,)),
+    ("mistral-large-123b", "decode_32k", (False, True)),
+)
+DRYRUN_CARD = (
+    ("llama3.2-1b decode", LM_ARCH,
+     {"seq": LM_MAX_LEN, "batch": LM_SLOTS, "kind": "decode"}, "kernels",
+     ("decode_attention",)),
+    ("llama3.2-1b prefill", LM_ARCH,
+     {"seq": LM_MAX_LEN, "batch": LM_SLOTS, "kind": "prefill"}, "kernels",
+     ("flash_attention",)),
+    ("llama3.2-1b train", LM_ARCH,
+     {"seq": TRAIN_LM_SEQ, "batch": TRAIN_LM_BATCH, "kind": "train"}, "opt",
+     ()),
+    ("capsnet-mnist infer", "capsnet-mnist", "infer_1k", "kernels",
+     ("fused_routing",)),
+    ("capsnet-mnist train", "capsnet-mnist", "train_1k", "kernels",
+     ("taylor_softmax", "taylor_softmax_bwd")),
+)
+DRYRUN_STEPS = 5
+# The caching allocator rounds a block up to 512 bytes; a block over 1 MiB
+# (its large pool) keeps its segment's tail when the tail is at most 1 MiB
+# (the segment is rounded up to 2 MiB and not split), so a 501 MiB table
+# holds 502 MiB.  The bytes the tensors asked for are its "requested_bytes".
+ALLOC_ROUND = 512
+LARGE_BLOCK = 1 << 20
+
+
+def requested_bytes() -> int:
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_production() -> list:
+    """Part (a): ``python -m repro_torch.launch.dryrun`` once per cell of
+    DRYRUN_PRODUCTION, all at once (each is one host process on meta
+    tensors), then one line per record."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for arch, shape, meshes in DRYRUN_PRODUCTION:
+            mesh = "both" if len(meshes) == 2 else (
+                "multi" if meshes[0] else "single")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", tmp], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            if p.returncode:
+                fail(f"dryrun: {p.args[4]} {p.args[6]}: exit "
+                     f"{p.returncode}: {log[-2000:]}")
+        for rec in roofline.load_records(tmp):
+            a = roofline.analyze(rec)
+            line = {"arch": rec["arch"], "shape": rec["shape"],
+                    "mesh": rec["mesh"], "n_chips": rec["n_chips"],
+                    "arg_gib_per_dev": rec["arg_bytes_per_dev"] / 2 ** 30,
+                    "temp_gib_per_dev": rec["temp_bytes_per_dev"] / 2 ** 30,
+                    "flops_per_dev": rec["flops_per_dev"],
+                    "bytes_per_dev": rec["bytes_per_dev"],
+                    "dominant": a["dominant"], "bound_s": a["bound_s"],
+                    "model_over_counted": a["useful_ratio"],
+                    "n_ops": rec["n_ops"], "trace_s": rec["trace_s"]}
+            emit("dryrun", part="production", **line)
+            out.append(line)
+    if len(out) != sum(len(m) for _, _, m in DRYRUN_PRODUCTION):
+        fail(f"dryrun: {len(out)} production records")
+    return out
+
+
+def finite_leaves(tree) -> bool:
+    return all(bool(torch.isfinite(t).all())
+               for t, _ in dryrun.leaf_pairs(tree)
+               if t.dtype.is_floating_point)
+
+
+def dryrun_card_cell(label, arch, shape, variant, rows) -> dict:
+    """Part (b), one cell: counted on meta, placed on the card, run."""
+    kind = dryrun.cell_kind(arch, shape)
+    rules = shard_lib.rules_for_arch(
+        arch, kind="train" if arch.startswith("capsnet") else kind)
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    cfg = dryrun.cell_config(arch, shape, variant)
+    fn, args, in_sh, out_sh = dryrun.build_cell(arch, shape, rules, mesh,
+                                                variant)
+    out, cost, trace_s = dryrun.count_cell(fn, args)
+    rec = dryrun.record(arch, label, mesh, "1x1", variant, cost, trace_s,
+                        args, in_sh, out, out_sh)
+    del out
+    sizes = [t.numel() * t.element_size() for t, _ in dryrun.leaf_pairs(args)]
+    n_tensors = len(sizes)
+    rounding = sum(ALLOC_ROUND + (LARGE_BLOCK if n > LARGE_BLOCK else 0)
+                   for n in sizes)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before, asked_before = torch.cuda.memory_allocated(), requested_bytes()
+    card = dryrun.place_args(arch, cfg, args, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - before
+    asked = requested_bytes() - asked_before
+    if asked != rec["arg_bytes_per_dev"]:
+        fail(f"dryrun: {label}: the placed tensors asked the allocator for "
+             f"{asked} bytes against {rec['arg_bytes_per_dev']} counted")
+    slack = growth - rec["arg_bytes_per_dev"]
+    if not 0 <= slack < rounding:
+        fail(f"dryrun: {label}: {growth} bytes allocated on the card "
+             f"against {rec['arg_bytes_per_dev']} counted (more than the "
+             f"allocator's rounding of {n_tensors} tensors, {rounding} "
+             f"bytes, apart)")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    res = fn(*card)
+    torch.cuda.synchronize()
+    temp_measured = torch.cuda.max_memory_allocated() - base
+    launches = launch_counts()
+    if not finite_leaves(res):
+        fail(f"dryrun: {label}: the step's output is not finite")
+    missing = [r for r in rows if launches.get(r, 0) < 1]
+    if missing:
+        fail(f"dryrun: {label}: {missing} never launched")
+    del res
+    times = []
+    for _ in range(DRYRUN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn(*card)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del res
+    times.sort()
+    median = times[len(times) // 2]
+    t_ops = rec["flops_per_dev"] / roofline.PEAK_FLOPS
+    t_bytes = rec["bytes_per_dev"] / roofline.HBM_BW
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    model = roofline.model_flops(arch, shape)
+    line = {"cell": label, "variant": variant,
+            "arg_bytes_counted": rec["arg_bytes_per_dev"],
+            "arg_bytes_requested": asked, "arg_bytes_allocated": growth,
+            "allocator_rounding_bytes": slack, "tensors": n_tensors,
+            "temp_bytes_counted": rec["temp_bytes_per_dev"],
+            "temp_bytes_measured": temp_measured,
+            "flops_counted": rec["flops_per_dev"],
+            "dot_flops_counted": rec["dot_flops_per_dev"],
+            "bytes_counted": rec["bytes_per_dev"],
+            "kernel_calls_counted": {
+                k: v for k, v in cost.op_counts.items()
+                if k.startswith("kernel.")},
+            "n_ops": rec["n_ops"], "trace_s": trace_s,
+            "step_ms_median": median, "step_ms_min": times[0],
+            "step_ms_max": times[-1], "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_over_measured": bound_ms / median,
+            "model_flops": model,
+            "model_over_counted": model / rec["flops_per_dev"],
+            "launches": {r: launches[r] for r in rows}}
+    emit("dryrun", part="card", **line)
+    del card
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_dryrun() -> dict:
+    """The dry run checked against the card: (a) the production-mesh
+    records on the host, (b) five one-card cells counted on meta and run on
+    the card (argument bytes held to the allocator's rounding, the kernel
+    rows of each path launched).  Returns the launches of (b) by kernel
+    row."""
+    t_phase = time.perf_counter()
+    production = dryrun_production()
+    t_production = time.perf_counter() - t_phase
+    launches = {}
+    cells = []
+    for label, arch, shape, variant, rows in DRYRUN_CARD:
+        line = dryrun_card_cell(label, arch, shape, variant, rows)
+        cells.append(line)
+        for r, n in line["launches"].items():
+            launches[r] = launches.get(r, 0) + n
+    emit("dryrun", part="summary", production_s=t_production,
+         production_cells=len(production), card_cells=len(cells),
+         launches=launches, card=nvidia_smi_line(),
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> None:
     if len(sys.argv) > 1:
         sys.exit("chip_smoke takes no arguments")
@@ -3775,6 +3893,7 @@ def main() -> None:
     launches_hybrid = phase_serve_hybrid()
     launches_audio = phase_encode_audio()
     launches_sharded = phase_serve_sharded()
+    launches_dryrun = phase_dryrun()
     # the rows each new phase must launch: ssm samples, the hybrid also runs
     # flash and decode attention in its shared block, audio runs flash
     for phase, got, rows in (
@@ -3791,7 +3910,7 @@ def main() -> None:
              "disagg": launches_disagg, "moe": launches_moe,
              "vlm": launches_vlm, "ssm": launches_ssm,
              "hybrid": launches_hybrid, "audio": launches_audio,
-             "sharded": launches_sharded}
+             "sharded": launches_sharded, "dryrun": launches_dryrun}
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
                     **launches_lm,

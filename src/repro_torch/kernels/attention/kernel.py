@@ -34,6 +34,13 @@
 A wrapper runs its plain version (:func:`flash_attention_plain`,
 :func:`flash_attention_dequant_plain`, :func:`decode_attention_plain`) only
 for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+Given meta tensors (a dry run, :mod:`repro_torch.launch.dryrun`) it checks
+what the kernel would check, returns an empty output of the kernel's shape
+and type on the meta device, and charges its kernel-table row's cost
+(:mod:`repro_torch.launch.roofline`) to the active cost counter; it never
+runs the plain version there (whose score matrix is not the kernel's
+traffic).  A meta cache's valid lengths cannot be read, so decode on meta
+counts every row of every slot as valid.
 The plain versions compute the kernels' function in one pass instead of
 tiles, in float32 as the FMA bodies do: q scaled in float32, the masked exp
 of the chosen mode, ``acc / max(l, 1e-30)``.  In exact mode they agree with
@@ -95,7 +102,7 @@ def _check_mode(softmax_mode: str) -> None:
 
 def _check_device(what: str, *tensors: torch.Tensor) -> str:
     kind = tensors[0].device.type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {tensors[0].device}")
     for t in tensors[1:]:
         if t.device != tensors[0].device:
@@ -116,6 +123,19 @@ def flash_body(q_dtype: torch.dtype) -> str:
     """The flash kernels' body for a query of this type: ``tensor_core``
     for bfloat16, ``fma`` for float32 (``csrc/flash_attention.cu``)."""
     return "tensor_core" if q_dtype == torch.bfloat16 else "fma"
+
+
+def _dtype_name(x: torch.Tensor) -> str:
+    return "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+
+
+def _on_meta(name: str, out: torch.Tensor, case: dict) -> torch.Tensor:
+    """A kernel call on the meta device: its row's cost to the active
+    counter, ``out`` (empty) as its result; nothing is launched."""
+    from repro_torch.launch import roofline
+
+    roofline.add_kernel_cost(name, case)
+    return out
 
 
 def _check_aligned(what: str, *tensors: torch.Tensor) -> None:
@@ -181,7 +201,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
-    if _check_device("flash_attention", q, k, v) == "cpu":
+    device = _check_device("flash_attention", q, k, v)
+    if device == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset,
                                      softmax_mode=softmax_mode)
@@ -196,6 +217,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: empty dimension in "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
     q_block = _check_q_block(q_block, h // nkv, "flash_attention")
+    if device == "meta":
+        return _on_meta("flash_attention", torch.empty_like(q), {
+            "dims": (b, s, k.shape[1], h, nkv, d), "dtype": _dtype_name(q),
+            "causal": bool(causal), "q_offset": q_offset,
+            "softmax_mode": softmax_mode})
     body = flash_body(q.dtype)
     if body == "tensor_core":
         _check_aligned("flash_attention", q, k, v)
@@ -265,7 +291,8 @@ def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
     if q_offset < 0:
         raise ValueError(f"flash_attention_dequant: q_offset must be >= 0, "
                          f"got {q_offset}")
-    if _check_device("flash_attention_dequant", q, kq, ks, vq, vs) == "cpu":
+    device = _check_device("flash_attention_dequant", q, kq, ks, vq, vs)
+    if device == "cpu":
         return flash_attention_dequant_plain(
             q, kq, ks, vq, vs, causal=causal, q_offset=q_offset,
             softmax_mode=softmax_mode)
@@ -284,6 +311,11 @@ def flash_attention_dequant_cuda(q: torch.Tensor, kq: torch.Tensor,
         raise ValueError(f"flash_attention_dequant: empty dimension in "
                          f"{tuple(q.shape)}, {tuple(kq.shape)}")
     q_block = _check_q_block(q_block, h // nkv, "flash_attention_dequant")
+    if device == "meta":
+        return _on_meta("flash_attention_dequant", torch.empty_like(q), {
+            "dims": (b, s, t, h, nkv, d), "dtype": _dtype_name(q),
+            "causal": bool(causal), "q_offset": q_offset,
+            "softmax_mode": softmax_mode})
     body = flash_body(q.dtype)
     if body == "tensor_core":
         _check_aligned("flash_attention_dequant", q, kq, vq)
@@ -419,8 +451,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     body, t, p_per, page, n_pages = _check_decode_cache(
         q, k, v, kv_valid_len, tables, ks, vs)
     extra = [x for x in (tables, ks, vs) if x is not None]
-    if _check_device("decode_attention", q, k, v, kv_valid_len,
-                     *extra) == "cpu":
+    device = _check_device("decode_attention", q, k, v, kv_valid_len,
+                           *extra)
+    if device == "cpu":
         return decode_attention_plain(q, k, v, kv_valid_len, tables=tables,
                                       ks=ks, vs=vs,
                                       softmax_mode=softmax_mode)
@@ -468,6 +501,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{kv_splits} splits needs {smem} bytes of shared "
                          f"memory per block, more than the "
                          f"{MAX_DYNAMIC_SMEM} a block can have")
+    if device == "meta":
+        case = {"dims": (b, t, h, nkv, d), "valid": (t,) * b,
+                "dtype": _dtype_name(q), "quant": int8,
+                "softmax_mode": softmax_mode}
+        if tables is not None:
+            case["paged"] = (n_pages, page, p_per)
+        return _on_meta("decode_attention", torch.empty_like(q), case)
     valid = kv_valid_len
     if valid.dtype != torch.int32 or not valid.is_contiguous():
         valid = valid.to(torch.int32).contiguous()

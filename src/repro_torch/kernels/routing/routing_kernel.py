@@ -15,7 +15,11 @@ are ``i_splits`` (1, 2, 4 or 8, the portable cluster sizes; 0 asks
 (:func:`repro_torch.kernels.routing.ref.fused_routing_ref`) only for a tensor
 on the CPU.  For a CUDA tensor it builds the library if need be, launches
 the kernel on the current stream and raises on anything the kernel does not
-take; nothing falls back.  ``fused_routing_cuda.launches`` counts the kernel
+take; nothing falls back.  Given a meta ``u_hat`` (a dry run) it checks
+what the kernel would check, returns empty ``v`` and ``c`` on the meta
+device and charges its kernel-table row's cost
+(:mod:`repro_torch.launch.roofline`) to the active cost counter; nothing
+is launched.  ``fused_routing_cuda.launches`` counts the kernel
 launches of this process, and ``launches_by_splits`` the same by cluster
 size.  The kernel has no backward: a ``u_hat`` that needs a gradient, with
 autograd on, is refused on every device (``build.refuse_grad``).
@@ -178,13 +182,25 @@ def fused_routing_cuda(u_hat: torch.Tensor, n_iters: int = 3,
     if u_hat.device.type == "cpu":
         return fused_routing_ref(u_hat, n_iters=n_iters,
                                  softmax_mode=softmax_mode)
-    if u_hat.device.type != "cuda":
+    if u_hat.device.type not in ("cuda", "meta"):
         raise ValueError(f"fused_routing: unsupported device {u_hat.device}")
     bsz, n_in, n_out, dim = u_hat.shape
     i_splits, threads = int(i_splits), int(threads)
     if i_splits == 0 and u_hat.dtype in _DTYPES:
         i_splits = plan_i_splits(bsz, n_in, n_out, dim, u_hat.element_size())
     _check_cuda(u_hat, i_splits, threads)
+    if u_hat.device.type == "meta":
+        from repro_torch.launch import roofline
+
+        roofline.add_kernel_cost("fused_routing", {
+            "shape": tuple(u_hat.shape), "n_iters": int(n_iters),
+            "softmax_mode": softmax_mode,
+            "dtype": ("bfloat16" if u_hat.dtype == torch.bfloat16
+                      else "float32")})
+        return (torch.empty((bsz, n_out, dim), dtype=u_hat.dtype,
+                            device="meta"),
+                torch.empty((bsz, n_in, n_out), dtype=torch.float32,
+                            device="meta"))
     index = u_hat.get_device()
     v = torch.empty((bsz, n_out, dim), dtype=u_hat.dtype, device=u_hat.device)
     c = torch.empty((bsz, n_in, n_out), dtype=torch.float32,

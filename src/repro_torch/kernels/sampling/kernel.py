@@ -12,7 +12,11 @@ them).
 
 :func:`fused_sampling_cuda` runs the plain version
 (:func:`repro_torch.kernels.sampling.ref.sample_tokens`) only for tensors on
-the CPU.  For CUDA tensors it launches the kernel or raises.
+the CPU.  For CUDA tensors it launches the kernel or raises.  Given meta
+tensors (a dry run) it checks what the kernel would check, returns empty
+tokens on the meta device and charges its kernel-table row's cost
+(:mod:`repro_torch.launch.roofline`) to the active cost counter, each row
+counted as a draw at temperature 1 (a meta row's values cannot be read).
 ``fused_sampling_cuda.launches`` counts the kernel launches of this process.
 """
 
@@ -150,10 +154,20 @@ def fused_sampling_cuda(logits: torch.Tensor, temperature: torch.Tensor,
     if not logits.is_cuda:
         if logits.device.type == "cpu":
             return sample_tokens(logits, *rows)
-        raise ValueError(f"fused_sampling: unsupported device "
-                         f"{logits.device}")
+        if logits.device.type != "meta":
+            raise ValueError(f"fused_sampling: unsupported device "
+                             f"{logits.device}")
     cluster, threads = int(cluster), int(threads)
     _check_cuda(logits, rows, cluster, threads)
+    if logits.device.type == "meta":
+        # the rows' values cannot be read on meta: each row is counted as
+        # a draw at temperature 1 without top-k or top-p
+        from repro_torch.launch import roofline
+
+        roofline.add_kernel_cost("fused_sampling",
+                                 {"dims": tuple(logits.shape)})
+        return torch.empty((logits.shape[0],), dtype=torch.int32,
+                           device="meta")
     index = logits.get_device()
     b, v = logits.shape
     ptr = logits.data_ptr()

@@ -13,6 +13,10 @@ Bound by bytes: ``x`` read once, the result written once.
 :func:`taylor_softmax_cuda` runs the plain version
 (:func:`repro_torch.kernels.softmax.ref.taylor_softmax_ref`) only for a
 tensor on the CPU.  For a CUDA tensor it launches the kernel or raises.
+Given a meta tensor (a dry run) each wrapper checks what the kernel would
+check, returns an empty result on the meta device and charges its
+kernel-table row's cost (:mod:`repro_torch.launch.roofline`) to the active
+cost counter; nothing is launched.
 ``taylor_softmax_cuda.launches`` counts the kernel launches of this process.
 
 The backward (:func:`taylor_softmax_bwd_cuda`, ``taylor_softmax_bwd_launch``
@@ -65,7 +69,7 @@ def softmax_tile_rows(rows: int, n: int, elem_bytes: int, threads: int,
 def _check(what: str, x: torch.Tensor, threads: int) -> tuple:
     """Validate a CUDA tensor the kernels take; returns (rows, n, threads,
     body)."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
@@ -82,10 +86,24 @@ def _check(what: str, x: torch.Tensor, threads: int) -> tuple:
     return rows, n, threads, softmax_body(n)
 
 
+def _on_meta(name: str, x: torch.Tensor) -> torch.Tensor:
+    """A kernel call on the meta device: its row's cost to the active
+    counter, an empty tensor like ``x`` as its result; nothing is
+    launched."""
+    from repro_torch.launch import roofline
+
+    roofline.add_kernel_cost(name, {
+        "shape": tuple(x.shape),
+        "dtype": "bfloat16" if x.dtype == torch.bfloat16 else "float32"})
+    return torch.empty_like(x)
+
+
 def _forward(x: torch.Tensor, threads: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return taylor_softmax_ref(x)
     rows, n, threads, body = _check("taylor_softmax", x, threads)
+    if x.device.type == "meta":
+        return _on_meta("taylor_softmax", x)
     if body == "tile":
         threads = softmax_tile_rows(rows, n, x.element_size(), threads)
     index = x.get_device()
@@ -147,6 +165,8 @@ def taylor_softmax_bwd_cuda(x: torch.Tensor, g: torch.Tensor,
     rows, n, threads, body = _check("taylor_softmax_bwd", x, threads)
     if not g.is_contiguous():
         raise ValueError("taylor_softmax_bwd: g must be contiguous")
+    if x.device.type == "meta":
+        return _on_meta("taylor_softmax_bwd", x)
     if body == "tile":
         # the tile holds x and g side by side
         threads = softmax_tile_rows(rows, n, 2 * x.element_size(), threads)

@@ -10,8 +10,11 @@ sharded code path on a one-card host, as the reference's
 ``disjoint_submeshes`` reuses devices round-robin on a small host.
 
 Functions, not module constants: importing this module touches no device.
-``make_production_mesh`` and ``require_virtual_devices`` serve only the
-reference's ``dryrun``, which the port has not yet.
+``make_production_mesh`` gives the reference's production meshes (16x16
+and 2x16x16) with every entry the meta device, and
+``require_virtual_devices`` checks that a mesh has the entries a dry run
+needs; they serve :mod:`repro_torch.launch.dryrun`, which places nothing
+(the reference needs 512 virtual host devices for the same meshes).
 """
 
 from __future__ import annotations
@@ -100,6 +103,31 @@ def make_host_mesh(device: Any = None) -> Mesh:
     smoke tests and examples."""
     return make_mesh((1, 1), ("data", "model"),
                      devices=[resolve_device(device)])
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Any = "meta") -> Mesh:
+    """16x16 (data, model) single pod; 2x16x16 (pod, data, model) for two
+    pods, every entry ``device`` (the meta device by default: a dry run
+    reads the mesh's shape and places nothing).  ``pod`` is the slow
+    cross-pod axis and by default only ever carries batch (pure DP), as in
+    the reference."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes,
+                     devices=[torch.device(device)] * int(np.prod(shape)))
+
+
+def require_virtual_devices(n: int = 512, mesh: Optional[Mesh] = None
+                            ) -> None:
+    """The reference checks that 512 virtual host devices exist before it
+    lowers onto the production meshes.  The port's meshes may repeat a
+    device, so the check is that ``mesh`` (default: the two-pod production
+    mesh) has at least ``n`` entries."""
+    mesh = mesh if mesh is not None else make_production_mesh(multi_pod=True)
+    if mesh.size < n:
+        raise RuntimeError(f"dry-run needs a mesh of {n} entries, got "
+                           f"{mesh.size} ({dict(mesh.shape)})")
 
 
 @contextlib.contextmanager

@@ -307,6 +307,32 @@ def shardings_for(structs: Any, axes_tree: Any, rules: AxisRules,
     return _walk_pair(one, structs, axes_tree)
 
 
+def shard_shape(shape: Sequence[int], spec: Sequence[MeshAxes],
+                mesh_shape: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of one device's block of a leaf of global ``shape`` under
+    partition spec ``spec`` on a mesh of axis sizes ``mesh_shape`` (the
+    twin of ``NamedSharding.shard_shape``): each dimension divided by the
+    product of the mesh axes its entry names.  Raises ``ValueError`` when
+    a dimension does not divide (the shape-aware policy never asks for
+    that)."""
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} is longer than shape {tuple(shape)}")
+    out = []
+    for d, dim in enumerate(shape):
+        axes = spec[d] if d < len(spec) else None
+        axes = () if axes is None else (
+            (axes,) if isinstance(axes, str) else tuple(axes))
+        n = 1
+        for a in axes:
+            n *= mesh_shape[a]
+        if dim % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                             f"split over {axes} ({n} blocks)")
+        out.append(dim // n)
+    return tuple(out)
+
+
 def replicated_shardings(tree: Any, mesh: Mesh) -> Any:
     """A replicated :class:`Sharding` for every leaf of ``tree``: the
     placement of state that crosses engines (a handoff's rows) before the

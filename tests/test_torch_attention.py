@@ -255,16 +255,21 @@ class TestWrapperChecks:
             got = port_registry.call("decode_attention", *args, **kwargs)
             want = spec.ref_call(*args, **kwargs)
             np.testing.assert_allclose(f32(got), f32(want), atol=case["atol"])
+        # on the meta device (a dry run) a float32 cache with scales is
+        # refused as on the card; a paged call returns q's shape and
+        # launches nothing
         q = torch.zeros(1, 1, 2, 16, device="meta")
         k = torch.zeros(1, 4, 1, 16, device="meta")
         s = torch.zeros(1, 4, device="meta")
         valid = torch.zeros(1, dtype=torch.int32, device="meta")
-        with pytest.raises(ValueError, match="unsupported device"):
+        with pytest.raises(TypeError, match="int8 cache"):
             port_attn.decode_attention_cuda(q, k, k, valid, ks=s, vs=s)
-        with pytest.raises(ValueError, match="unsupported device"):
-            port_attn.decode_attention_cuda(
-                q, k, k, valid, tables=torch.zeros(1, 2, dtype=torch.int32,
-                                                   device="meta"))
+        launches = port_attn.decode_attention_cuda.launches
+        out = port_attn.decode_attention_cuda(
+            q, k, k, valid, tables=torch.zeros(1, 2, dtype=torch.int32,
+                                               device="meta"))
+        assert out.device.type == "meta" and out.shape == q.shape
+        assert port_attn.decode_attention_cuda.launches == launches
         q, k = torch.zeros(1, 1, 2, 16), torch.zeros(1, 4, 1, 16)
         valid = torch.ones(1, dtype=torch.int32)
         with pytest.raises(ValueError, match="come together"):
@@ -287,9 +292,11 @@ class TestWrapperChecks:
         with pytest.raises(ValueError, match="page_size"):
             port_attn.flash_attention_dequant_cuda(q, kq, s, kq, s,
                                                    page_size=0)
-        with pytest.raises(ValueError, match="unsupported device"):
-            port_attn.flash_attention_dequant_cuda(
-                *(x.to("meta") for x in (q, kq, s, kq, s)))
+        metas = [x.to("meta") for x in (q, kq, s, kq, s)]
+        with pytest.raises(ValueError, match="q_block 64"):   # as the card
+            port_attn.flash_attention_dequant_cuda(*metas)
+        out = port_attn.flash_attention_dequant_cuda(*metas, q_block=32)
+        assert out.device.type == "meta" and out.shape == q.shape
         out = port_attn.flash_attention_dequant_cuda(q, kq, s, kq, s)
         assert out.shape == q.shape and not out.any()
 
@@ -307,13 +314,30 @@ class TestWrapperChecks:
             port_attn.flash_attention_cuda(q[0], q, q)
 
     def test_meta_device_is_refused(self):
+        """A meta call (a dry run) is refused where the card refuses it and
+        for mixed devices; otherwise it returns a meta output and launches
+        nothing (``tests/test_torch_roofline.py`` holds its cost)."""
         q = torch.zeros(1, 4, 4, 16, device="meta")
-        with pytest.raises(ValueError, match="unsupported device"):
-            port_attn.flash_attention_cuda(q, q, q)
-        with pytest.raises(ValueError, match="unsupported device"):
+        k = torch.zeros(1, 4, 4, 16)
+        with pytest.raises(ValueError, match="tensors on"):
+            port_attn.flash_attention_cuda(q, k, k)
+        with pytest.raises(ValueError, match="head dim"):
+            port_attn.flash_attention_cuda(*(torch.zeros(
+                1, 4, 4, 24, device="meta"),) * 3)
+        with pytest.raises(ValueError, match="query heads per KV head"):
             port_attn.decode_attention_cuda(
-                q[:, :1], q, q, torch.zeros(1, dtype=torch.int32,
-                                            device="meta"))
+                torch.zeros(1, 1, 16, 16, device="meta"), q[:, :, :1],
+                q[:, :, :1], torch.zeros(1, dtype=torch.int32,
+                                         device="meta"))
+        launches = (port_attn.flash_attention_cuda.launches,
+                    port_attn.decode_attention_cuda.launches)
+        out = port_attn.flash_attention_cuda(q, q, q, q_block=16)
+        assert out.device.type == "meta" and out.shape == q.shape
+        out = port_attn.decode_attention_cuda(
+            q[:, :1], q, q, torch.zeros(1, dtype=torch.int32, device="meta"))
+        assert out.device.type == "meta" and out.shape == (1, 1, 4, 16)
+        assert launches == (port_attn.flash_attention_cuda.launches,
+                            port_attn.decode_attention_cuda.launches)
 
     def test_decode_rejects_float_lengths_and_mixed_devices(self):
         q, k = torch.zeros(2, 1, 4, 16), torch.zeros(2, 8, 2, 16)

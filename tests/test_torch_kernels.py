@@ -157,13 +157,32 @@ class TestWrapperChecks:
                                               n_iters=0)
 
     def test_routing_rejects_meta_device(self):
-        with pytest.raises(ValueError, match="unsupported device"):
+        """On the meta device (a dry run) what the card refuses is refused;
+        a u_hat it takes gives meta (v, c) and no launch."""
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
             routing_kernel.fused_routing_cuda(
-                torch.zeros(1, 2, 3, 4, device="meta"))
+                torch.zeros(1, 2, 3, 4, device="meta", dtype=torch.float64))
+        with pytest.raises(ValueError, match="shared memory"):
+            routing_kernel.fused_routing_cuda(
+                torch.zeros(1, 4000, 10, 16, device="meta"))
+        launches = routing_kernel.fused_routing_cuda.launches
+        v, c = routing_kernel.fused_routing_cuda(
+            torch.zeros(1, 2, 3, 4, device="meta"))
+        assert (v.shape, c.shape) == ((1, 3, 4), (1, 2, 3))
+        assert v.device.type == c.device.type == "meta"
+        assert routing_kernel.fused_routing_cuda.launches == launches
 
     def test_softmax_rejects_meta_device(self):
-        with pytest.raises(ValueError, match="unsupported device"):
-            softmax_kernel.taylor_softmax_cuda(torch.zeros(2, 3, device="meta"))
+        """The same for the softmax: float64 refused, float32 a meta
+        result and no launch."""
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            softmax_kernel.taylor_softmax_cuda(
+                torch.zeros(2, 3, device="meta", dtype=torch.float64))
+        launches = softmax_kernel.taylor_softmax_cuda.launches
+        y = softmax_kernel.taylor_softmax_cuda(torch.zeros(2, 3,
+                                                           device="meta"))
+        assert y.device.type == "meta" and y.shape == (2, 3)
+        assert softmax_kernel.taylor_softmax_cuda.launches == launches
 
     def test_softmax_rejects_scalar(self):
         with pytest.raises(ValueError, match="at least one axis"):

@@ -154,9 +154,18 @@ class TestWrapperChecks:
             port_kernel.fused_sampling_cuda(torch.zeros(3, 8), *self._rows(4))
 
     def test_rejects_meta_and_mixed_devices(self):
-        with pytest.raises(ValueError, match="unsupported device"):
+        # on the meta device (a dry run) the card's checks hold; a call it
+        # takes gives meta tokens and no launch
+        with pytest.raises(TypeError, match="float32 logits"):
             port_kernel.fused_sampling_cuda(
-                torch.zeros(2, 8, device="meta"), *self._rows(2, "meta"))
+                torch.zeros(2, 8, device="meta", dtype=torch.float64),
+                *self._rows(2, "meta"))
+        launches = port_kernel.fused_sampling_cuda.launches
+        tok = port_kernel.fused_sampling_cuda(
+            torch.zeros(2, 8, device="meta"), *self._rows(2, "meta"))
+        assert tok.device.type == "meta" and tok.dtype == torch.int32
+        assert tok.shape == (2,)
+        assert port_kernel.fused_sampling_cuda.launches == launches
         with pytest.raises(ValueError, match="on meta"):
             port_kernel.fused_sampling_cuda(torch.zeros(2, 8),
                                             *self._rows(2, "meta"))
