@@ -46,7 +46,13 @@ card, ``llama3.2-1b`` decode, prefill and train and ``capsnet-mnist``
 inference and training, counted on the meta device and run on the card:
 argument bytes against what the allocator holds, the counted peak against
 the measured one, the roofline bound against the measured step, the
-kernels of each path launched), and times the ten kernels
+kernels of each path launched), holds the tuner's command line and
+capslint's kernel-legality proof against the card (``tuning``:
+``--selfcheck``; every tuner candidate the rule passes, at the example
+cases and each kernel-table row's main-path shape, launched and held
+against its plain version; configs built just past each shared-memory,
+cluster or block limit refused before launch; ``--pretune all`` and each
+row's default against its tuned config), and times the ten kernels
 (the nine TPU entry points and the softmax backward; routing also at the
 dense shape; routing, softmax, decode and sampling at every point of their
 tunables' spaces:
@@ -3580,24 +3586,36 @@ SLICE_TIMINGS = (
 )
 
 
+def main_path_cases() -> list:
+    """``(row, registry kernel, case)`` of every kernel-table row at its
+    main path's shape.  The decode rows take the decode tick's valid
+    lengths: serve_lm's first 8 requests for the dense body, serve_paged's
+    for the int8 and paged ones, 16 tokens into decode."""
+    vocab = cfg_lib.get_config(LM_ARCH).vocab
+    valid = tuple(len(r.prompt) + 16 for r in lm_requests(vocab)[:LM_SLOTS])
+    out = []
+    for row, info in KERNELS.items():
+        case = dict(info["main_case"])
+        if row == "decode_attention":
+            case["valid"] = valid
+        elif row in DECODE_ROWS.values():
+            case["valid"] = paged_valid(vocab)
+        out.append((row, info["kernel"], case))
+    return out
+
+
 def phase_timings(launches: dict, worst: dict) -> list:
-    """One row per TPU entry point at its main path's shape.  The decode
-    rows take the decode tick's valid lengths: serve_lm's first 8 requests
-    for the dense body, serve_paged's for the int8 and paged ones, 16
-    tokens into decode."""
+    """One row per TPU entry point at its main path's shape
+    (:func:`main_path_cases`)."""
     table = []
     vocab = cfg_lib.get_config(LM_ARCH).vocab
     valid = tuple(len(r.prompt) + 16 for r in lm_requests(vocab)[:LM_SLOTS])
-    for name, info in KERNELS.items():
-        case = dict(info["main_case"])
-        if name == "decode_attention":
-            case["valid"] = valid
-        elif name in DECODE_ROWS.values():
-            case["valid"] = paged_valid(vocab)
+    for name, kernel, case in main_path_cases():
+        info = KERNELS[name]
         row = {"name": name, "route": info["route"], "source": info["source"],
                "replaces": info["replaces"], "launches": launches[name],
                "max_abs_err": worst[name],
-               **timing_row(info["kernel"], case)}
+               **timing_row(kernel, case)}
         table.append(row)
         emit("timings", **row)
     # the moe and vlm phases' shapes, beside the main rows (the decode
@@ -3873,6 +3891,216 @@ def phase_dryrun() -> dict:
     return launches
 
 
+# The tuning phase: the tuner's command line and capslint's kernel-legality
+# proof held against the card.  The tolerance of each kernel-table row at its
+# main path's shape (the registry's example cases carry their own): float32
+# routing with the polynomial 1e-4, the float32 softmax and its backward
+# 1e-6, bf16 attention 1e-2 against its plain version (the float32 oracle
+# rounded to bf16), sampled tokens equal.
+TUNING_ATOL = {"fused_routing": 1e-4, "taylor_softmax": 1e-6,
+               "taylor_softmax_bwd": 1e-6, "flash_attention": 1e-2,
+               "flash_attention_dequant": 1e-2, "decode_attention": 1e-2,
+               "decode_attention_dequant": 1e-2,
+               "decode_attention_paged": 1e-2,
+               "decode_attention_paged_dequant": 1e-2, "fused_sampling": 0}
+TUNING_BUDGET_S = 90
+
+
+def launch_proven(checker, name: str, case, counts: dict) -> None:
+    """Every tuner candidate of ``name`` at ``case`` that kernel-legality
+    passes, launched on the card and held against the plain version at the
+    case's tolerance.  A candidate the rule passes and the card refuses is
+    a fault of the rule."""
+    spec = registry.get(name)
+    wrapper = spec.build()
+    args, kwargs = spec.make_example(case, device=DEVICE)
+    plain = PLAIN.get(name)
+    want = as_tuple(plain(*args, **kwargs) if plain
+                    else spec.ref_call(*args, **kwargs))
+    for config, found in checker.prove(spec, args, kwargs):
+        counts["candidates"] += 1
+        if found:
+            counts["flagged"] += 1
+            emit("tuning", kernel=name, shape=case_shape(case),
+                 config=config, flagged=[f.render() for f in found])
+            continue
+        counts["proven"] += 1
+        try:
+            got = as_tuple(wrapper(*args, **kwargs, **config))
+            torch.cuda.synchronize()
+        except (ValueError, TypeError, build.KernelLaunchError) as err:
+            fail(f"tuning: {name} {config} at {case_shape(case)} passed "
+                 f"kernel-legality but the card refused it: {err}")
+        counts["launched"] += 1
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        if err > case.get("atol", 0):
+            fail(f"tuning: {name} {config} at {case_shape(case)}: max abs "
+                 f"err {err} > {case.get('atol', 0)}")
+        counts["agreed"] += 1
+
+
+def past_the_limits() -> list:
+    """``(label, wrapper, call)`` of configs built just past a shared-memory,
+    cluster or block limit; each wrapper must refuse its own with
+    ``ValueError`` before it launches."""
+    from repro_torch.kernels.attention.kernel import (DECODE_MAX_THREADS,
+                                                      decode_smem_bytes)
+    from repro_torch.kernels.limits import MAX_CLUSTER, MAX_DYNAMIC_SMEM
+    from repro_torch.kernels.routing.routing_kernel import max_input_capsules
+    from repro_torch.kernels.sampling.kernel import sampling_smem_bytes
+
+    out = []
+    # routing: the one capsule past what 8 blocks' shared memory holds
+    i_max = max_input_capsules(10, 16, 4)
+    u_big = torch.zeros((1, i_max + 1, 10, 16), device=DEVICE)
+    u = torch.zeros((BATCH, 252, 10, 16), device=DEVICE)
+    out += [
+        ("routing shared memory", fused_routing_cuda,
+         lambda: fused_routing_cuda(u_big, i_splits=MAX_CLUSTER)),
+        ("routing cluster", fused_routing_cuda,
+         lambda: fused_routing_cuda(u, i_splits=2 * MAX_CLUSTER)),
+        ("routing threads", fused_routing_cuda,
+         lambda: fused_routing_cuda(u, threads=1056))]
+    # decode: the fewest warps past the limit at D 128, float32 cache
+    threads = next(t for t in range(32, DECODE_MAX_THREADS + 1, 32)
+                   if decode_smem_bytes(128, t, 4, MAX_CLUSTER)
+                   > MAX_DYNAMIC_SMEM)
+    (q, k, v, valid), _ = registry.get("decode_attention").make_example(
+        {"dims": (4, 512, 16, 8, 128), "valid": (512, 100, 1, 333)},
+        device=DEVICE)
+    out += [
+        (f"decode shared memory ({threads} threads)", decode_attention_cuda,
+         lambda: decode_attention_cuda(q, k, v, valid, threads=threads,
+                                       kv_splits=MAX_CLUSTER)),
+        ("decode cluster", decode_attention_cuda,
+         lambda: decode_attention_cuda(q, k, v, valid,
+                                       kv_splits=2 * MAX_CLUSTER))]
+    # sampling: the one logit past what a cluster of 8 blocks holds
+    v_max = next(n for n in range(230000, 240000)
+                 if sampling_smem_bytes(n + 1, MAX_CLUSTER)
+                 > MAX_DYNAMIC_SMEM)
+    rows, _ = registry.get("fused_sampling").make_example(
+        {"dims": (2, v_max + 1)}, device=DEVICE)
+    small, _ = registry.get("fused_sampling").make_example(
+        {"dims": (2, 64)}, device=DEVICE)
+    out += [
+        ("sampling shared memory", fused_sampling_cuda,
+         lambda: fused_sampling_cuda(*rows, cluster=MAX_CLUSTER)),
+        ("sampling cluster", fused_sampling_cuda,
+         lambda: fused_sampling_cuda(*small, cluster=2 * MAX_CLUSTER)),
+        ("sampling threads", fused_sampling_cuda,
+         lambda: fused_sampling_cuda(*small, threads=1056))]
+    # softmax threads; flash rows (G * q_block past 64)
+    (x,), _ = registry.get("taylor_softmax").make_example(
+        {"shape": (BATCH, 252, 10)}, device=DEVICE)
+    (fq, fk, fv), _ = registry.get("flash_attention").make_example(
+        {"dims": (1, 128, 128, 4, 4, 64), "dtype": "bfloat16"},
+        device=DEVICE)
+    out += [
+        ("softmax threads", taylor_softmax_cuda,
+         lambda: taylor_softmax_cuda(x, threads=1056)),
+        ("flash rows", flash_attention_cuda,
+         lambda: flash_attention_cuda(fq, fk, fv, q_block=128))]
+    return out
+
+
+def spec_cases(name: str, main_cases: list) -> list:
+    """The registry's example cases of ``name`` and the main-path cases of
+    the kernel-table rows it serves."""
+    spec = registry.get(name)
+    return (list(spec.example_cases)
+            + [case for _, kernel, case in main_cases if kernel == name])
+
+
+def phase_tuning() -> dict:
+    """The tuner's command line and capslint's static proof on the card,
+    with the tuning cache in a temporary directory (no other phase sees a
+    tuned config): (1) ``--selfcheck``: every spec's example cases through
+    ``tune=False`` dispatch agree with their plain versions; (2) every
+    candidate kernel-legality proves legal, at the example cases and each
+    row's main-path shape, launches and agrees with its plain version;
+    configs built just past each limit are refused before launch; (3)
+    ``--pretune all``, then each row at its main-path shape autotuned, its
+    default and winning configs timed as phase_timings times (CUDA
+    events)."""
+    from repro_torch.kernels import tuning
+
+    t_phase = time.perf_counter()
+    before = os.environ.get(tuning.CACHE_ENV)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as cache_dir:
+        os.environ[tuning.CACHE_ENV] = cache_dir
+        try:
+            counts, refused, rows, t_selfcheck = _tune_on_the_card(t_phase)
+        finally:
+            if before is None:
+                os.environ.pop(tuning.CACHE_ENV, None)
+            else:
+                os.environ[tuning.CACHE_ENV] = before
+    seconds = time.perf_counter() - t_phase
+    emit("tuning", selfcheck_seconds=t_selfcheck, card=nvidia_smi_line(),
+         clocks=clocks_line(), seconds=seconds)
+    if seconds > TUNING_BUDGET_S:
+        fail(f"tuning: {seconds:.1f} s, over its {TUNING_BUDGET_S} s budget")
+    return {"counts": counts, "refused": len(refused), "rows": rows}
+
+
+def _tune_on_the_card(t_phase: float):
+    """The three steps of :func:`phase_tuning`, in its cache directory;
+    returns the legality counts, the refusals, the autotune rows and the
+    selfcheck's seconds."""
+    from repro_torch.analysis.checkers.legality import KernelLegalityChecker
+    from repro_torch.kernels import tuning
+
+    # (1) the selfcheck, in-process through the command line
+    if tuning.main(["--selfcheck", "--device", DEVICE]) != 0:
+        fail("tuning: --selfcheck failed on the card")
+    t_selfcheck = time.perf_counter() - t_phase
+    # (2) the static proof held against the card
+    checker = KernelLegalityChecker()
+    counts = dict.fromkeys(("candidates", "proven", "flagged", "launched",
+                            "agreed"), 0)
+    main_cases = [(row, kernel, dict(case, atol=TUNING_ATOL[row]))
+                  for row, kernel, case in main_path_cases()]
+    for name in registry.names():
+        for case in spec_cases(name, main_cases):
+            launch_proven(checker, name, case, counts)
+    refused = {}
+    for label, wrapper, call in past_the_limits():
+        n = wrapper.launches
+        try:
+            call()
+        except ValueError as err:
+            refused[label] = str(err)
+        else:
+            fail(f"tuning: {label}: a config past the limit launched")
+        if wrapper.launches != n:
+            fail(f"tuning: {label}: launched before it was refused")
+    emit("tuning", part="legality", **counts, refused=len(refused),
+         refusals=refused)
+    if counts["flagged"] or counts["agreed"] != counts["candidates"]:
+        fail(f"tuning: kernel-legality flagged a registry candidate on "
+             f"the card: {counts}")
+    # (3) the first measured autotune
+    if tuning.main(["--pretune", "all", "--device", DEVICE]) != 0:
+        fail("tuning: --pretune all failed on the card")
+    rows = []
+    for row, name, case in main_cases:
+        spec = registry.get(name)
+        wrapper = spec.build()
+        args, kwargs = spec.make_example(case, device=DEVICE)
+        default = registry.default_config(name, *args, **kwargs)
+        best, timings = tuning.autotune(spec, args, kwargs)
+        default_ms = median_ms(lambda: wrapper(*args, **kwargs, **default))
+        tuned_ms = median_ms(lambda: wrapper(*args, **kwargs, **best))
+        rows.append({"row": row, "shape": case_shape(case),
+                     "default": default, "default_ms": default_ms,
+                     "tuned": best, "tuned_ms": tuned_ms,
+                     "tuner_ms": {k: t * 1e3 for k, t in timings.items()}})
+        emit("tuning", part="autotune", **rows[-1])
+    return counts, refused, rows, t_selfcheck
+
+
 def main() -> None:
     if len(sys.argv) > 1:
         sys.exit("chip_smoke takes no arguments")
@@ -3894,6 +4122,7 @@ def main() -> None:
     launches_audio = phase_encode_audio()
     launches_sharded = phase_serve_sharded()
     launches_dryrun = phase_dryrun()
+    phase_tuning()
     # the rows each new phase must launch: ssm samples, the hybrid also runs
     # flash and decode attention in its shared block, audio runs flash
     for phase, got, rows in (

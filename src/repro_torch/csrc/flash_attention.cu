@@ -109,6 +109,9 @@ constexpr int kFlashWarps = kFlashThreads / 32;
 constexpr int kFlashRows = 64;                  // query rows per block
 constexpr int kRowsPerWarp = kFlashRows / kFlashWarps;
 constexpr int kFlashKv = 64;                    // KV rows per tile
+// Bytes a block may ask for.  A block's shared memory is fixed by its head
+// dim, so each launch template proves it fits when it is instantiated.
+constexpr int kFlashMaxSmem = 232448;
 
 __device__ __forceinline__ float flash_warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
@@ -582,7 +585,9 @@ int launch_flash_fma(const void* q, const void* k, const void* v,
                      int T_len, int H, int K, int q_block, int causal,
                      int q_offset, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<float, TKV, D, kTaylor>;
-  const int smem = (int)(flash_smem_floats<D>() * sizeof(float));
+  constexpr int smem = (int)(flash_smem_floats<D>() * sizeof(float));
+  static_assert(smem <= kFlashMaxSmem,
+                "the FMA body's block outgrows Hopper's shared memory");
   // the dynamic shared memory limit, set once per template instance (a
   // failure is returned on every launch)
   static const cudaError_t err = cudaFuncSetAttribute(
@@ -605,6 +610,8 @@ int launch_flash_tc(const void* q, const void* k, const void* v,
   auto kernel = flash_attention_kernel_tc<TKV, D, kTaylor>;
   constexpr int smem =
       tc_smem_bytes<tc_tile_dim<D>(), std::is_same<TKV, int8_t>::value>();
+  static_assert(smem <= kFlashMaxSmem,
+                "the tensor-core body's block outgrows Hopper's shared memory");
   static const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

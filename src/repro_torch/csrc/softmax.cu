@@ -54,6 +54,11 @@ namespace fastcaps {
 
 constexpr int kSoftmaxShortMax = 32;        // longest row one thread takes
 constexpr int kSoftmaxTileBytes = 32768;    // most shared memory a tile uses
+constexpr int kSoftmaxMaxSmem = 232448;     // bytes a block may ask for
+// Both tile launches refuse a tile (forward) or pair of tiles (backward)
+// past kSoftmaxTileBytes, so no block asks for more than this.
+static_assert(kSoftmaxTileBytes <= kSoftmaxMaxSmem,
+              "a softmax tile outgrows Hopper's shared memory");
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)

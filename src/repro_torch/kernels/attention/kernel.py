@@ -63,8 +63,8 @@ import torch
 from repro_torch.core import approx_math
 from repro_torch.kernels import build
 from repro_torch.kernels.attention.ref import NEG_INF
+from repro_torch.kernels.limits import MAX_CLUSTER, MAX_DYNAMIC_SMEM
 
-MAX_DYNAMIC_SMEM = 232448           # bytes a Hopper block may ask for
 # flash_attention's head dims: 80 (hubert-xlarge, 1280 / 16) is padded to
 # 128 columns in shared memory (csrc/flash_attention.cu says what it costs)
 HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -72,16 +72,18 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 # decode_attention): no model path gives them another
 CACHE_HEAD_DIMS = (16, 32, 64, 128)
 # The kernels' block geometry, which the registry needs to plan block sizes
-# on hosts without the library: kFlashRows, kFlashKv and the kDecode*
-# constants of the sources (tests/test_torch_attention.py holds them
-# equal).
+# on hosts without the library: kFlashRows, kFlashKv, kFlashThreads,
+# kTcThreads and the kDecode* constants of the sources (CPU tests hold them
+# equal; the shared-memory and cluster limits are Hopper's, from
+# repro_torch.kernels.limits).
 FLASH_ROWS = 64                     # query rows (positions x heads) a block holds
 FLASH_KV_TILE = 64                  # KV rows a flash block takes per step
+FLASH_THREADS = {"fma": 256, "tensor_core": 128}   # a flash block, by body
 DECODE_MAX_GROUP = 8                # query heads per KV head of the decode kernel
 DECODE_TILE = 32                    # cache rows per warp tile of the decode kernel
 DECODE_STAGES = 2                   # tiles a decode warp keeps staged
 DECODE_ROW_PAD = 16                 # bytes after each staged cache row
-DECODE_MAX_SPLITS = 8               # blocks of a decode cluster (portable)
+DECODE_MAX_SPLITS = MAX_CLUSTER     # blocks of a decode cluster
 DECODE_MAX_THREADS = 512
 H100_SMS = 132                      # the SM count planned for off the card
 _SOFTMAX_MODES = ("exact", "taylor")

@@ -10,6 +10,11 @@ One :class:`KernelSpec` per hand-written CUDA kernel declares:
     numerics-changing knobs (``softmax_mode``) that the parity harness
     sweeps but the timing tuner never flips;
   * ``legalize`` — shape-aware config legalization;
+  * ``launch_plan`` — what a legalized config asks of the card (threads,
+    cluster size, and the dynamic shared memory where the shapes size it),
+    from the planners the wrapper itself calls; capslint's
+    ``kernel-legality`` rule proves every tuner candidate within Hopper's
+    limits with it;
   * ``example_cases`` / ``make_example`` — canonical inputs shared by
     the parity tests and the on-card check.
 
@@ -29,6 +34,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 from repro_torch.kernels import tuning
+from repro_torch.kernels.limits import MAX_THREADS, WARP
 from repro_torch.kernels.tuning import largest_divisor
 
 
@@ -43,6 +49,12 @@ class KernelSpec:
     candidate to what the kernel and the concrete shapes allow.  The
     ``example_cases`` dicts drive the registry-wide parity harness:
     ``make_example(case, device) -> (args, kwargs)``.
+    ``launch_plan(config, *args, **kw) -> {"threads", "cluster"[,
+    "smem_bytes"]}`` is what the kernel's launch with a legalized
+    ``config`` asks for (``smem_bytes`` where the shapes size the shared
+    memory; where a constant of the source bounds it, the source asserts
+    that it fits).  It is read by
+    :mod:`repro_torch.analysis.checkers.legality`, never by dispatch.
     """
 
     name: str
@@ -55,6 +67,7 @@ class KernelSpec:
     make_example: Callable[..., Tuple[tuple, dict]]
     example_cases: Tuple[Mapping[str, Any], ...] = ()
     ref_accepts: Tuple[str, ...] = ()     # semantic kwargs the oracle takes
+    launch_plan: Optional[Callable[..., Dict[str, int]]] = None
 
     def ref_call(self, *args, **kwargs):
         """Invoke the plain version, filtering kwargs it does not accept."""
@@ -131,47 +144,6 @@ class KernelRegistry:
         return spec.build()(*args, **kwargs, **resolved)
 
 
-def _legalize_blocks(dims_fn: Callable[..., Dict[str, int]],
-                     divisors: Tuple[Tuple[str, str], ...] = ()
-                     ) -> Callable[..., Dict[str, Any]]:
-    """Build a spec ``legalize`` from a mapping of block-size knobs to the
-    dimensions they tile (``dims_fn(*args) -> {knob: dim}``): every such
-    knob becomes ``largest_divisor(dim, requested)``.  For kernels that tile
-    an axis (the attention kernels to come); a CUDA kernel's thread count
-    divides nothing and is legalized by :func:`_legalize_threads` instead.
-
-    ``divisors`` pairs are enforced
-    after the divisor pass: for each ``(a, b)``, ``config[a]`` is first
-    clamped to divide ``b``'s dimension, then ``config[b]`` is walked
-    down in ``config[a]``-sized steps until it both divides the
-    dimension and is a multiple of ``config[a]``.  The procedure is
-    idempotent."""
-
-    def legalize(config: Dict[str, Any], *args, **kwargs) -> Dict[str, Any]:
-        dims = dims_fn(*args, **kwargs)
-        for key, dim in dims.items():
-            config[key] = largest_divisor(dim, config[key])
-        for a, b in divisors:
-            dim = dims.get(b)
-            va = int(config[a])
-            if dim is not None:
-                va = largest_divisor(dim, va)
-                config[a] = va
-            vb = max(int(config[b]), va)
-            vb = vb // va * va
-            if dim is not None:
-                while vb > va and dim % vb:
-                    vb -= va
-            config[b] = vb
-        return config
-
-    return legalize
-
-
-WARP = 32
-MAX_THREADS = 1024
-
-
 def _legalize_threads(config: Dict[str, Any], *args, **kwargs
                       ) -> Dict[str, Any]:
     """A CUDA block is whole warps, at most 1024 threads: round the
@@ -227,9 +199,10 @@ def _legalize_routing(config: Dict[str, Any], u_hat, *args, **kwargs
                       ) -> Dict[str, Any]:
     """Whole warps, at most 1024 threads; then the cluster size that
     :func:`plan_i_splits` gives this ``u_hat`` on this card (0 asks for its
-    plan, a tuned size is kept where its slice fits).  Off the card, where
+    plan, a tuned size is kept where its slice fits).  On the CPU, where
     the plain version takes any I, an I that fits no cluster keeps the
-    largest size.  Idempotent."""
+    largest size; on the card and on meta it raises ``ValueError``.
+    Idempotent."""
     from repro_torch.kernels.routing.routing_kernel import (
         ROUTING_MAX_CLUSTER, plan_i_splits)
 
@@ -240,10 +213,20 @@ def _legalize_routing(config: Dict[str, Any], u_hat, *args, **kwargs
             b, i, j, d, u_hat.element_size(), config["i_splits"],
             _sm_count(u_hat.device))
     except ValueError:
-        if u_hat.device.type == "cuda":
+        if u_hat.device.type != "cpu":
             raise
         config["i_splits"] = ROUTING_MAX_CLUSTER
     return config
+
+
+def _routing_plan(config: Dict[str, Any], u_hat, *args, **kwargs
+                  ) -> Dict[str, int]:
+    from repro_torch.kernels.routing.routing_kernel import routing_smem_bytes
+
+    _, i, j, d = u_hat.shape
+    return {"smem_bytes": routing_smem_bytes(i, j, d, u_hat.element_size(),
+                                             config["i_splits"]),
+            "threads": config["threads"], "cluster": config["i_splits"]}
 
 
 # The tunables are the cluster size (blocks that split an image's input
@@ -257,6 +240,7 @@ registry.register(KernelSpec(
     tuned=("i_splits", "threads"),
     base_config={"i_splits": 0, "threads": 256},
     legalize=_legalize_routing,
+    launch_plan=_routing_plan,
     make_example=_routing_example,
     example_cases=(
         {"shape": (4, 24, 10, 16), "softmax_mode": "exact", "atol": 1e-5},
@@ -290,6 +274,25 @@ def _softmax_example(case, device="cpu"):
     return (x,), {}
 
 
+def _softmax_plan(operands: int) -> Callable[..., Dict[str, int]]:
+    """The plan of the softmax kernels (one operand forward, x and the
+    cotangent backward): the threads the wrapper launches, which for the
+    tile kernel are the rows of its tile.  No shared memory: the source
+    bounds a tile by ``kSoftmaxTileBytes`` and asserts that it fits."""
+
+    def plan(config: Dict[str, Any], x, *args, **kwargs) -> Dict[str, int]:
+        from repro_torch.kernels.softmax.kernel import (softmax_body,
+                                                        softmax_tile_rows)
+
+        n, threads = x.shape[-1], config["threads"]
+        if softmax_body(n) == "tile":
+            threads = softmax_tile_rows(x.numel() // max(n, 1), n,
+                                        operands * x.element_size(), threads)
+        return {"threads": threads, "cluster": 1}
+
+    return plan
+
+
 registry.register(KernelSpec(
     name="taylor_softmax",
     build=_build_taylor_softmax,
@@ -298,6 +301,7 @@ registry.register(KernelSpec(
     tuned=("threads",),
     base_config={"threads": 256},
     legalize=_legalize_threads,
+    launch_plan=_softmax_plan(1),
     make_example=_softmax_example,
     example_cases=(
         {"shape": (8, 16), "atol": 1e-6},
@@ -359,6 +363,7 @@ registry.register(KernelSpec(
     tuned=("threads",),
     base_config={"threads": 256},
     legalize=_legalize_threads,
+    launch_plan=_softmax_plan(2),
     make_example=_softmax_bwd_example,
     example_cases=(
         {"shape": (8, 16), "atol": 1e-6},
@@ -410,6 +415,16 @@ def _legalize_flash(config: Dict[str, Any], q, k=None, v=None, **kwargs
     return config
 
 
+def _flash_plan(config: Dict[str, Any], q, *args, **kwargs
+                ) -> Dict[str, int]:
+    """A flash block: the fixed threads of the body q's type takes; one
+    block a cluster.  No shared memory: the head dim fixes it, and each
+    launch template of the source asserts that it fits."""
+    from repro_torch.kernels.attention.kernel import FLASH_THREADS, flash_body
+
+    return {"threads": FLASH_THREADS[flash_body(q.dtype)], "cluster": 1}
+
+
 def _attention_example(case, device="cpu"):
     b, s, t, h, k, d = case.get("dims", (2, 128, 128, 4, 2, 32))
     dtype, seed = case.get("dtype", "float32"), case.get("seed", 0)
@@ -430,6 +445,7 @@ registry.register(KernelSpec(
     tuned=("q_block",),
     base_config={"q_block": 64},
     legalize=_legalize_flash,
+    launch_plan=_flash_plan,
     make_example=_attention_example,
     example_cases=(
         {"dims": (2, 128, 128, 8, 4, 32), "causal": True, "atol": 2e-5},
@@ -503,6 +519,7 @@ registry.register(KernelSpec(
     tuned=("q_block",),
     base_config={"q_block": 64, "page_size": 64},
     legalize=_legalize_flash_dequant,
+    launch_plan=_flash_plan,
     make_example=_attention_dequant_example,
     example_cases=(
         # parity vs the dequantizing oracle is tight: both read the same
@@ -569,8 +586,8 @@ def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
     most 512 threads, and no more warps than the block's shared memory
     holds at this head dim, cache type and split count.  Idempotent."""
     from repro_torch.kernels.attention.kernel import (
-        DECODE_MAX_THREADS, MAX_DYNAMIC_SMEM, decode_kv_splits,
-        decode_smem_bytes)
+        DECODE_MAX_THREADS, decode_kv_splits, decode_smem_bytes)
+    from repro_torch.kernels.limits import MAX_DYNAMIC_SMEM
 
     b, d = q.shape[0], q.shape[-1]
     nkv, kv_bytes = k.shape[2], k.element_size()
@@ -584,6 +601,16 @@ def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
         threads -= WARP
     config["kv_splits"], config["threads"] = splits, threads
     return config
+
+
+def _decode_plan(config: Dict[str, Any], q, k=None, *args, **kwargs
+                 ) -> Dict[str, int]:
+    from repro_torch.kernels.attention.kernel import decode_smem_bytes
+
+    return {"smem_bytes": decode_smem_bytes(
+                q.shape[-1], config["threads"], k.element_size(),
+                config["kv_splits"]),
+            "threads": config["threads"], "cluster": config["kv_splits"]}
 
 
 def _decode_attention_example(case, device="cpu"):
@@ -633,6 +660,7 @@ registry.register(KernelSpec(
     tuned=("threads", "kv_splits"),
     base_config={"threads": 256, "kv_splits": 8},
     legalize=_legalize_decode,
+    launch_plan=_decode_plan,
     make_example=_decode_attention_example,
     example_cases=(
         {"dims": (4, 128, 8, 2, 32), "valid": (128, 64, 1, 97),
@@ -684,6 +712,15 @@ def _legalize_sampling(config: Dict[str, Any], logits, *args, **kwargs
     return config
 
 
+def _sampling_plan(config: Dict[str, Any], logits, *args, **kwargs
+                   ) -> Dict[str, int]:
+    from repro_torch.kernels.sampling.kernel import sampling_smem_bytes
+
+    return {"smem_bytes": sampling_smem_bytes(logits.shape[-1],
+                                              config["cluster"]),
+            "threads": config["threads"], "cluster": config["cluster"]}
+
+
 def _sampling_example(case, device="cpu"):
     import torch
 
@@ -712,6 +749,7 @@ registry.register(KernelSpec(
     tuned=("cluster", "threads"),
     base_config={"cluster": 8, "threads": 512},
     legalize=_legalize_sampling,
+    launch_plan=_sampling_plan,
     make_example=_sampling_example,
     example_cases=(
         # tokens are int32 — the parity harness's allclose means *equal*

@@ -33,14 +33,15 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.attention.kernel import H100_SMS
+from repro_torch.kernels.limits import MAX_CLUSTER, MAX_DYNAMIC_SMEM
 from repro_torch.kernels.routing.ref import fused_routing_ref
 
 # The kernel's geometry (kRoutingMaxCluster, kRoutingMaxThreads,
 # kRoutingMaxSmem and kRoutingBarBytes of the source; a CPU test holds them
-# equal), which plans cluster sizes on hosts without the library.
-ROUTING_MAX_CLUSTER = 8          # the portable cluster size limit
+# equal), which plans cluster sizes on hosts without the library.  The
+# cluster and shared-memory limits are Hopper's (repro_torch.kernels.limits).
+ROUTING_MAX_CLUSTER = MAX_CLUSTER
 ROUTING_MAX_THREADS = 1024
-MAX_DYNAMIC_SMEM = 232448        # bytes a Hopper block may ask for
 SM_SMEM = 233472                 # shared memory of an SM (228 KB)
 BLOCK_RESERVED_SMEM = 1024       # what the SM keeps of it for each block
 ROUTING_BAR_BYTES = 16

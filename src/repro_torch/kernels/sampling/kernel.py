@@ -25,17 +25,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.limits import MAX_CLUSTER, MAX_DYNAMIC_SMEM
 from repro_torch.kernels.sampling.ref import sample_tokens
 
 # The kernel's geometry (kSampleLevels, kSampleVals, kSampleMaxWarps,
 # kSampleMaxCluster and kSampleMaxSmem of the source; a CPU test holds them
 # equal), which the registry needs to plan cluster sizes on hosts without
-# the library.
+# the library.  The cluster and shared-memory limits are Hopper's
+# (repro_torch.kernels.limits).
 SAMPLE_LEVELS = 3            # bisection steps a pass
 SAMPLE_VALS = 16             # values a block publishes to its cluster
 SAMPLE_MAX_WARPS = 32
-SAMPLE_MAX_CLUSTER = 8       # the portable cluster size limit
-MAX_DYNAMIC_SMEM = 232448    # bytes a Hopper block may ask for
+SAMPLE_MAX_CLUSTER = MAX_CLUSTER
 CLUSTER_SIZES = (1, 2, 4, 8)
 
 # per-row operands: name, dtype

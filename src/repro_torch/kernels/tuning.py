@@ -26,6 +26,12 @@ Three pieces:
   bucket, keeping the cache small and lookups O(1).  The backend of a
   key is the device type of the arguments (``"cuda"`` or ``"cpu"``).
 
+The command line, ``python -m repro_torch.kernels.tuning``, runs the
+registry-wide ``--selfcheck`` (``tune=False`` dispatch of every example
+case against its plain version) and ``--pretune NAME|all`` (measure the
+example cases into the cache) on the card, or with ``--device cpu`` on
+the wrappers' plain versions.
+
 Whether dispatch *consults* the tuner is a scoped policy, not a global:
 ``with tuning(True): ...`` (thread-local) or the
 ``REPRO_TORCH_KERNEL_TUNE=1`` environment variable.  Only tensors on the
@@ -381,3 +387,115 @@ def cache_key_for(spec, args: tuple) -> str:
              else "none")
     return TuneCache.key(spec.name, backend_of(args), shape_bucket(shapes),
                          dtype)
+
+
+# ---------------------------------------------------------------------------
+# CLI: selfcheck (tune=False parity of every kernel) and pretune
+# ---------------------------------------------------------------------------
+
+
+def _leaves(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _selfcheck(registry, device) -> int:
+    """``tune=False`` dispatch of every registered kernel on its example
+    cases on ``device``, held against its plain version (``spec.ref_call``)
+    at each case's ``atol``: the kernels on the card; on the CPU the
+    wrappers' plain versions, which pins the dispatch path."""
+    import numpy as np
+
+    failures = []
+    for name in registry.names():
+        spec = registry.get(name)
+        for i, case in enumerate(spec.example_cases):
+            args, kwargs = spec.make_example(case, device=device)
+            # tune=False is passed explicitly: under ``python -m`` this
+            # module also exists as __main__, so a tuning() scope set here
+            # would toggle the wrong module's thread-local
+            got = registry.call(name, *args, tune=False, **kwargs)
+            want = spec.ref_call(*args, **kwargs)
+            ok = all(np.allclose(g.float().cpu().numpy(),
+                                 w.float().cpu().numpy(),
+                                 atol=case.get("atol", 1e-5))
+                     for g, w in zip(_leaves(got), _leaves(want)))
+            cfg = registry.default_config(name, *args, **kwargs)
+            print(f"[selfcheck] {name} case#{i} {cfg}: "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append((name, i))
+    if failures:
+        print(f"[selfcheck] FAILED: {failures}")
+        return 1
+    print(f"[selfcheck] all kernels dispatch with tune=False on {device}: OK")
+    return 0
+
+
+def _pretune(registry, names: List[str], device, warmup: int, iters: int,
+             force: bool = False,
+             timer: Optional[Callable[..., float]] = None) -> int:
+    """Measure every example case of the kernels ``names`` on ``device``
+    into the default cache (``REPRO_TORCH_KERNEL_CACHE_DIR``); a key
+    already cached is kept unless ``force``.  ``timer`` is
+    :func:`autotune`'s."""
+    cache = default_cache()
+    for name in names:
+        spec = registry.get(name)
+        for case in spec.example_cases:
+            args, kwargs = spec.make_example(case, device=device)
+            key = cache_key_for(spec, args)
+            if not force and cache.get(key) is not None:
+                print(f"[pretune] {name} {key}: cached")
+                continue
+            best, _ = autotune(spec, args, kwargs, cache=cache,
+                               warmup=warmup, iters=iters, timer=timer)
+            print(f"[pretune] {name} {key} -> {best}")
+    print(f"[pretune] cache: {cache.path}")
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    # imported here, as the reference does: ``python -m`` runs this file as
+    # __main__ beside the package's own copy, which the registry imports
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.registry import registry
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.kernels.tuning",
+        description="Kernel autotuner: selfcheck / pretune the cache")
+    ap.add_argument("--selfcheck", action="store_true",
+                    help="tune=False parity of every kernel vs its plain "
+                         "version")
+    ap.add_argument("--pretune", default=None, metavar="NAME|all",
+                    help="autotune one kernel by name, or 'all'")
+    ap.add_argument("--force", action="store_true",
+                    help="re-measure even when the cache has an entry")
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="where the kernels run (default: the card; 'cpu' "
+                         "runs the wrappers' plain versions, for "
+                         "--selfcheck only)")
+    args = ap.parse_args(argv)
+    if not args.selfcheck and not args.pretune:
+        ap.print_help()
+        return 0
+    names = (registry.names() if args.pretune == "all"
+             else [registry.get(args.pretune).name] if args.pretune else [])
+    device = resolve_device(args.device)
+    if names and device.type != "cuda":
+        ap.error(f"--pretune times the kernels on the card, not on "
+                 f"{device.type}")
+    rc = 0
+    if args.selfcheck:
+        rc |= _selfcheck(registry, device)
+    if names:
+        rc |= _pretune(registry, names, device, args.warmup, args.iters,
+                       force=args.force)
+    return rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -899,6 +899,7 @@ class DisaggregatedEngine:
             # fail over to the next candidate.  Nothing is swallowed: the
             # handoff is requeued by the caller (never-dropped invariant)
             # and a fully-dead pool raises RuntimeError there.
+            # capslint: disable=exception-hygiene
             except Exception:
                 self._undedup_pages(h, eng, pinned, full_rows)
                 self._dead.add(eng)

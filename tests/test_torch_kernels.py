@@ -277,23 +277,6 @@ class TestLegalize:
         assert got == {"threads": want}
         assert port_registry_mod._legalize_threads(dict(got)) == got
 
-    @pytest.mark.parametrize("dim,asked", [(9, 8), (32, 8), (7, 16), (12, 5)])
-    def test_legalize_blocks_matches_reference(self, dim, asked):
-        dims = lambda x, **kw: {"blk": x}          # noqa: E731
-        ours = port_registry_mod._legalize_blocks(dims)({"blk": asked}, dim)
-        theirs = ref_registry_mod._legalize_blocks(dims)({"blk": asked}, dim)
-        assert ours == theirs
-
-    @pytest.mark.parametrize("dim,page,kv", [(128, 16, 64), (96, 16, 64),
-                                             (48, 32, 128)])
-    def test_legalize_block_divisors_match_reference(self, dim, page, kv):
-        dims = lambda x, **kw: {"kv": x}           # noqa: E731
-        pairs = (("page", "kv"),)
-        cfg = {"page": page, "kv": kv}
-        ours = port_registry_mod._legalize_blocks(dims, pairs)(dict(cfg), dim)
-        theirs = ref_registry_mod._legalize_blocks(dims, pairs)(dict(cfg), dim)
-        assert ours == theirs
-
     @pytest.mark.parametrize("name", PORTED)
     def test_default_config_deterministic(self, name):
         spec = port_registry.get(name)
