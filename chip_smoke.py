@@ -19,21 +19,28 @@ gradient checked), LAKP-prunes every layer's FFN blocks and KV-head groups
 and serves the pruned model through the kernels against the plain path,
 serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
 ``ServeEngine`` with prefill attention, decode attention and
-sampling in the hand-written kernels, serves it again from the paged KV
-cache (bf16 pages, then int8 pages, with a shared prompt prefix) with
+sampling in the hand-written kernels (and ``generate()`` and the
+interleave and SLO-batching schedulers on the same engine), serves it
+again from the paged KV cache (bf16 pages, then int8 pages, with a shared
+prompt prefix; then under memory pressure: preemption, host spill and
+prefix eviction in one serve) with
 decode reading the pages in place through the paged decode kernels, holds
 the int8 dense-cache decode kernel against the paged one on the same pool,
 serves it disaggregated (a prefill engine and two decode engines joined by
 cache handoffs under each transport, dense and paged, held against the
 unified engine), serves the pruned CapsNet through a pool of two engines,
 replays a seeded bursty trace against an autoscaled disaggregated pool,
-serves a full-size ``deepseek-moe-16b`` (bf16 parameters) from dense slots
-and bf16 and int8 pages and a full-width ``llama-3.2-vision-90b`` (10
-layers: 8 self-attention, 2 cross-attention; bf16 parameters) from dense
-slots and bf16 pages, each against its plain path, serves a full-size
-``xlstm-1.3b`` and ``zamba2-1.2b`` (float32 parameters; admitted in one
-prefill group per prompt length) against their plain paths and
-disaggregated, runs a full-size ``hubert-xlarge`` encoder (flash attention
+serves a full-width ``deepseek-moe-16b`` (12 of 28 layers, bf16
+parameters; one-hot and scatter dispatch) from dense slots and bf16 and
+int8 pages and a full-width ``llama-3.2-vision-90b`` (10 layers: 8
+self-attention, 2 cross-attention; bf16 parameters) from dense slots and
+bf16 pages, each against its plain path and disaggregated, and the vision
+model's cross path with image features, serves an ``xlstm-1.3b`` (16 of
+48 layers) and a full-size ``zamba2-1.2b`` (float32 parameters; admitted
+in one prefill group per prompt length) against their plain paths and
+disaggregated, each at the published size over every transport (zamba2
+also with bf16 parameters), runs the launcher at ``--no-reduced``, runs a
+full-size ``hubert-xlarge`` encoder (flash attention
 at head dim 80, non-causal) against its plain and float32 forwards, serves
 data-parallel (``serve_sharded``: ``llama3.2-1b`` under a ``ShardedScheduler``
 whose 2-way mesh names the one card twice, dense and paged, against the
@@ -57,8 +64,11 @@ row's default against its tuned config), and times the ten kernels
 dense shape; routing, softmax, decode and sampling at every point of their
 tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
-size and threads; and sampling on a served decode tick's logits).  One JSON
-object per phase goes to standard output; the last three lines are the
+size and threads; and sampling on a served decode tick's logits).  Every
+profiler reading comes from a trace that holds every launch its calls made
+(``trace_rule``), or is null.  One JSON
+object per phase goes to standard output, and a line of seconds after
+each phase; the last three lines are the
 kernel table, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.  Any failed phase ends
 the script with a non-zero exit code and no result line.  With no CUDA
@@ -116,7 +126,8 @@ from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
 from repro_torch.parallel import sharding as shard_lib  # noqa: E402
 from repro_torch.serving import (DecodeEngine,  # noqa: E402
                                  DisaggregatedEngine, DisaggScheduler,
-                                 ImageRequest, PriorityScheduler, Request,
+                                 ImageRequest, InterleavingScheduler,
+                                 PriorityScheduler, Request,
                                  ServeEngine, ShardedScheduler,
                                  SLOBatchScheduler, disaggregated_lm_engine,
                                  make_transport,
@@ -168,6 +179,14 @@ def margin_threshold(max_abs: float) -> float:
     """MARGIN_STEPS bf16 steps at a row's largest |logit| ``max_abs``."""
     return MARGIN_STEPS * 2.0 ** (
         math.floor(math.log2(max(max_abs, 1e-30))) - 7)
+
+
+# serve_lm's SLOBatchScheduler run: the controller starts at
+# SLO_INITIAL_BATCH and doubles after each full window of ticks under half
+# of SLO_TARGET_MS (a target the decode ticks, 30-50 ms, never miss), so it
+# admits 2, then 4, then 8 requests at a time.
+SLO_TARGET_MS = 1000.0
+SLO_INITIAL_BATCH = 2
 
 
 # The training path (phase train_capsnet): full-width capsnet-mnist from
@@ -244,6 +263,13 @@ BF16_PEAK_NAME = "H100 SXM dense bf16, NVIDIA data sheet"
 PAGE = 16
 N_PAGES = LM_SLOTS * LM_MAX_LEN // PAGE
 SHARED_PREFIX = 256
+# serve_paged under pressure: half the pool.  The first 8 requests hold
+# 192 pages at admission.  The page counts follow from the requests alone
+# (lengths and shared prefix), not from the model: at 256 and 224 pages
+# this schedule preempts 8 requests, spills 195 / 161 pages and evicts
+# 179 / 181 cached ones; 192 pages cannot hold it.
+PRESSURE_PAGES = N_PAGES // 2
+PRESSURE_LEAD = 2
 # The disaggregated serving path (phase serve_disagg): the same model and
 # cache length, one prefill engine of 8 slots and two decode engines of 4,
 # serve_lm's requests under each transport and serve_paged's from bf16 and
@@ -257,46 +283,73 @@ TRACE_RATE, TRACE_HORIZON, TRACE_SEED = 60.0, 2.0, 0
 TRACE_MAX_ENGINES = 3
 
 # The moe and vlm serving paths (phases serve_moe, serve_vlm):
-# deepseek-moe-16b at full width and depth (28 layers, d_model 2048, 16 x
-# 128 heads over 16 KV heads, 64 routed + 2 shared experts of 1408, top-6,
-# vocab 102400) and llama-3.2-vision-90b at full width with its depth cut to
-# 10 layers (two units of 4 self-attention blocks and one cross-attention
-# block; d_model 8192, 64 x 128 query heads over 8 KV heads, d_ff 28672,
-# vocab 128256, 1024 image tokens), both with bf16 parameters, random
-# weights from seed 0, the engine width and cache length of serve_lm and
-# the first FAMILY_REQUESTS of its (or serve_paged's) requests: one wave of
-# 8, which keeps the two phases near 3 minutes.  bf16 parameters are the
-# one cut of deepseek-moe-16b: float32 ones and the engine's bf16 copy
-# would need 101 GB.
+# deepseek-moe-16b at full width with its depth cut to MOE_LAYERS (of 28;
+# d_model 2048, 16 x 128 heads over 16 KV heads, 64 routed + 2 shared
+# experts of 1408, top-6, vocab 102400) and llama-3.2-vision-90b at full
+# width with its depth cut to 10 layers (two units of 4 self-attention
+# blocks and one cross-attention block; d_model 8192, 64 x 128 query heads
+# over 8 KV heads, d_ff 28672, vocab 128256, 1024 image tokens), both with
+# bf16 parameters, random weights from seed 0, the engine width and cache
+# length of serve_lm and the first FAMILY_REQUESTS of its (or
+# serve_paged's) requests: one wave of 8.  bf16 parameters: float32
+# deepseek-moe-16b and the engine's bf16 copy would need 101 GB.  The moe
+# depth pays for the checks of ROADMAP §C 3-4 (the scatter dispatch, both
+# models disaggregated over FAMILY_TRANSPORTS, the vlm cross path with
+# image features: every cross gate at VLM_GATE, VLM_PROMPT prompt tokens,
+# VLM_DECODE_STEPS decode steps), which run at the same widths.
 MOE_ARCH = "deepseek-moe-16b"
+MOE_LAYERS = 12
 VLM_ARCH = "llama-3.2-vision-90b"
 VLM_LAYERS = 10
 FAMILY_REQUESTS = 8
-FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16"],
+FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16",
+                          f"n_layers 28 -> {MOE_LAYERS}"],
                VLM_ARCH: ["param_dtype float32 -> bfloat16",
                           "n_layers 100 -> 10 (2 units: 8 self-attention "
                           "+ 2 cross-attention blocks)"]}
+FAMILY_TRANSPORTS = ("in_process", "device_to_device")
+VLM_GATE = 0.5
+VLM_PROMPT = 256
+VLM_DECODE_STEPS = 8
 
 # The recurrent and audio paths (phases serve_ssm, serve_hybrid,
-# encode_audio), each at the published size with float32 parameters and no
-# cut: xlstm-1.3b (48 layers: 6 units of 7 mLSTM blocks and 1 sLSTM block,
-# d_model 2048, 4 heads, vocab 50304) and zamba2-1.2b (38 Mamba-2 layers
-# and one shared attention + MLP block at 6 sites, 32 heads of 64, vocab
-# 32000) on serve_lm's engine width and cache length and the first
-# FAMILY_REQUESTS of its requests, unified, then disaggregated (one
-# prefill engine of LM_SLOTS slots, DISAGG_DECODES decode engines of
-# DISAGG_SLOTS, in_process); hubert-xlarge (48 bidirectional layers,
-# d_model 1280, 16 heads of 80) through lm.forward on AUDIO_CLIPS clips of
-# AUDIO_FRAMES frames of features drawn from seed 0.  The audio bar: the
-# kernel forward (flash_attention) and the plain forward (chunked
+# encode_audio), with float32 parameters: xlstm-1.3b (48 layers: 6 units of
+# 7 mLSTM blocks and 1 sLSTM block, d_model 2048, 4 heads, vocab 50304)
+# with its depth cut to SSM_LAYERS for the serve against the plain path and
+# the in_process handoff, and zamba2-1.2b (38 Mamba-2 layers and one shared
+# attention + MLP block at 6 sites, 32 heads of 64, vocab 32000) at the
+# published size, on serve_lm's engine width and cache length and the first
+# FAMILY_REQUESTS of its requests, unified, then disaggregated (one prefill
+# engine of LM_SLOTS slots, DISAGG_DECODES decode engines of DISAGG_SLOTS,
+# in_process).  Then each model at the published size over the other two
+# transports (RECURRENT_TRANSPORTS): zamba2 on the same requests, xlstm on
+# those whose prompts are at least RECURRENT_HANDOFF_PROMPT tokens long,
+# cut to that length (one admission group of one 256-token chunk: an odd
+# length costs seconds a prompt to admit, ROADMAP A6c); zamba2 with bf16
+# parameters against its plain engine; and the launcher at --no-reduced
+# (LAUNCHER_RUNS: each recurrent model serves, hubert is refused as the
+# reference refuses audio).  hubert-xlarge (48 bidirectional layers,
+# d_model 1280, 16 heads of 80) runs through lm.forward on AUDIO_CLIPS
+# clips of AUDIO_FRAMES frames of features drawn from seed 0.  The audio
+# bar: the kernel forward (flash_attention) and the plain forward (chunked
 # attention), both bf16, differ by at most AUDIO_RATIO times what the plain
 # bf16 forward differs from the float32 forward, as largest absolute
 # difference of the final hidden states over their RMS.
 SSM_ARCH = "xlstm-1.3b"
+SSM_LAYERS = 16
 HYBRID_ARCH = "zamba2-1.2b"
 AUDIO_ARCH = "hubert-xlarge"
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000
 AUDIO_RATIO = 2.0
+RECURRENT_TRANSPORTS = ("host_staged", "device_to_device")
+RECURRENT_HANDOFF_PROMPT = 256
+LAUNCHER_ARGS = ("--no-reduced", "--requests", "2", "--max-new", "4",
+                 "--decode-kernel", "--attn-impl", "cuda")
+# (arch, exit code, what its output must hold)
+LAUNCHER_RUNS = (
+    (HYBRID_ARCH, 0, "rid=1: "),
+    (SSM_ARCH, 0, "rid=1: "),
+    (AUDIO_ARCH, 1, "encoder-only arch has no decode path"))
 
 # Valid lengths of the kernel phase's paged and int8 decode cases: 0, 1, a
 # page boundary, the full 1024 rows and lengths in between.  (The timing
@@ -859,9 +912,10 @@ def forward_breakdown(deployed, n_forwards: int = 20) -> dict:
     in, forward, copy out; median of 20).  ``forward_wall_ms``: host
     wall-clock per forward of ``n_forwards`` back-to-back forwards ending in
     a synchronise.  ``device_busy_ms``: the sum of the kernels' device times
-    per forward from ``torch.profiler`` (None when the profiler reports no
-    device time), with the busiest kernels by name; the device's idle share
-    of a forward is what is left of the wall-clock."""
+    per forward from a ``torch.profiler`` trace that holds every launch
+    (None when every trace dropped events: profile_ms), with the busiest
+    kernels by name; the device's idle share of a forward is what is left
+    of the wall-clock."""
     cfg = deployed.cfg
     rng = np.random.RandomState(1)
     batch = rng.rand(BATCH, cfg.image_hw, cfg.image_hw,
@@ -885,61 +939,167 @@ def forward_breakdown(deployed, n_forwards: int = 20) -> dict:
     torch.cuda.synchronize()
     out["forward_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n_forwards
 
-    kernels = kernel_device_ms(lambda: deployed.forward(x), n_forwards)
-    busy = sum(kernels.values())
-    out["device_busy_ms"] = busy if busy > 0 else None
-    out["device_idle_share_of_forward"] = (
-        max(0.0, 1.0 - busy / out["forward_wall_ms"]) if busy > 0 else None)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    out["device_ms_by_kernel"] = dict(top)
+    kernels, _, info = profile_ms(lambda: deployed.forward(x), n_forwards)
+    out.update(busy_numbers(kernels, info, 6, out["forward_wall_ms"],
+                            "device_idle_share_of_forward"))
     return out
 
 
-def kernel_device_ms(fn, n_calls: int) -> dict:
-    """Device time per call of every kernel ``fn`` launches, by name, from
-    ``torch.profiler`` kernel events over ``n_calls`` calls (empty when the
-    profiler reports no device time)."""
-    return profile_ms(fn, n_calls)[0]
+# M1, the counting rule: the profiler drops kernel events from a trace,
+# all of them or some, while the host's launch calls stay in the trace (on
+# an H100, minutes into this script: the first trace of a timing row drops
+# events and a second one holds them all; a trace of engine ticks lacks 6
+# to 36 of its thousands of launches, on a second try too).  A trace counts
+# only when it holds every launch the traced calls made: each wrapper's own
+# count (its ``launches`` counter) and every kernel at all (the host's
+# launch calls in the same trace); otherwise it is taken again, and after
+# PROFILE_ATTEMPTS reported as None with ``trace_dropped``.  TRACES tallies
+# the traces of a run (the ``done`` line): taken, dropped with no kernel
+# event, dropped with some.  A trace of engine ticks is long and costly to
+# take again: TRACED_TICKS ticks, TICK_TRACE_ATTEMPTS times at most.
+PROFILE_ATTEMPTS = 3
+TRACED_TICKS = 4
+TICK_TRACE_ATTEMPTS = 2
+TRACES = {"taken": 0, "dropped_empty": 0, "dropped_partial": 0}
+# the host events of a kernel launch (cudaLaunchKernel*, cuLaunchKernel*)
+LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
+# device rows that are copies or fills, not kernels
+NOT_KERNELS = ("Memcpy", "Memset")
 
 
-def kernel_ms_of(fn, name: str, n_calls: int = 20):
-    """Device ms per call of the kernel-table row ``name``'s kernel, or
-    None; a trace that holds none of its events (the profiler now and then
-    drops a trace's kernel events) is taken once more."""
-    for _ in range(2):
-        ms = sum(v for k, v in kernel_device_ms(fn, n_calls).items()
-                 if KERNEL_EVENT[name] in k)
-        if ms > 0:
-            return ms
-    return None
+def trace_rule(rows, expected: dict, n_calls: int) -> tuple:
+    """The counting rule over one profiler trace.
+
+    ``rows``: ``(name, count, device_us)`` for each device row of the
+    trace (``key_averages()``: the events seen and their summed time).
+    ``expected``: ``{fragment: launches}``, the launches the ``n_calls``
+    traced calls made of the rows whose names hold ``fragment``; ``""``
+    stands for every kernel, which leaves out copies and fills
+    (NOT_KERNELS: no kernel launch makes them).  Returns ``(ms, info)``:
+    ``ms`` is the device ms per call by row name, or None when the trace
+    holds no row or any fragment's events differ from its launches
+    (``info["trace_dropped"]``); ``info["ms_per_launch"]`` gives each
+    fragment's device time over the events seen."""
+    kernels = [r for r in rows if not r[0].startswith(NOT_KERNELS)]
+
+    def matching(f):
+        return [r for r in (kernels if f == "" else rows) if f in r[0]]
+
+    seen = {f: sum(c for _, c, _ in matching(f)) for f in expected}
+    info = {"events": seen, "launches": dict(expected)}
+    if not rows or any(seen[f] != n for f, n in expected.items()):
+        return None, dict(info, trace_dropped=True)
+    ms = {}
+    for n, _, us in rows:
+        ms[n] = ms.get(n, 0.0) + us / 1e3 / n_calls
+    info["ms_per_launch"] = {
+        f: sum(us for _, _, us in matching(f)) / 1e3 / seen[f]
+        for f in expected if seen[f]}
+    return ms, dict(info, trace_dropped=False)
 
 
-def profile_ms(fn, n_calls: int):
-    """``(device ms per call by kernel, host ms per call by operation)``
-    from one ``torch.profiler`` trace of ``n_calls`` calls.  Device: kernel
-    events only (an operator's entry repeats the device time of the
-    kernels it launched).  Host: self CPU time of each operator and CUDA
-    runtime call, with the profiler's own overhead in it."""
+def wrapper_launches() -> dict:
+    return {k: w.launches for k, w in WRAPPERS.items()}
+
+
+def expected_launches(before: dict, after: dict, host_calls: int) -> dict:
+    """trace_rule's ``expected`` for one trace: the host's launch calls
+    for every kernel, and each wrapper's launches (its counter's growth)
+    under its kernel's name fragment (KERNEL_EVENT); a fragment inside
+    another wrapper's (``taylor_softmax`` in ``taylor_softmax_bwd``)
+    expects that wrapper's launches too."""
+    out = {"": host_calls}
+    for frag in set(KERNEL_EVENT.values()):
+        n = sum(after[k] - before[k] for k, f in KERNEL_EVENT.items()
+                if frag in f)
+        if n:
+            out[frag] = n
+    return out
+
+
+def profile_ms(fn, n_calls: int, attempts: int = PROFILE_ATTEMPTS,
+               expect=None) -> tuple:
+    """``(device ms per call by kernel or None, host ms per call by
+    operation, trace info)`` from a ``torch.profiler`` trace of ``n_calls``
+    calls that holds every launch they made (trace_rule), taken up to
+    ``attempts`` times.  Device: kernel, copy and fill events only (an
+    operator's entry repeats the device time of the kernels it launched).
+    Host: self CPU time of each operator and CUDA runtime call, with the
+    profiler's own overhead in it.  ``expect`` adds launches the counters
+    cannot see (``{"Memcpy": n}``: a copy a call).  The info says whether
+    the last trace was dropped, its events and launches, and the attempts
+    taken."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_calls):
-            fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    kernels, host = {}, {}
-    for ev in prof.key_averages():
-        name = ev.key[:60]
-        if ev.device_type != DeviceType.CUDA:
-            host[name] = ev.self_cpu_time_total / 1e3 / n_calls
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / n_calls
-    return kernels, host
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            before = wrapper_launches()
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+            after = wrapper_launches()
+        rows, host, calls = [], {}, 0
+        for ev in prof.key_averages():
+            name = ev.key[:60]
+            if ev.device_type != DeviceType.CUDA:
+                host[name] = ev.self_cpu_time_total / 1e3 / n_calls
+                if any(c in ev.key for c in LAUNCH_CALLS):
+                    calls += ev.count
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            rows.append((name, ev.count, us))
+        kernels, info = trace_rule(
+            rows, {**expected_launches(before, after, calls),
+                   **(expect or {})}, n_calls)
+        info["attempts"] = attempt
+        TRACES["taken"] += 1
+        if kernels is not None:
+            break
+        TRACES["dropped_partial" if info["events"].get("") else
+               "dropped_empty"] += 1
+    return kernels, host, info
+
+
+def kernel_ms_of(fn, name: str, n_calls: int = 20) -> tuple:
+    """``(device ms per launch of kernel-table row name's kernel, trace
+    info)`` from profile_ms; the ms is None when every trace dropped
+    events."""
+    kernels, _, info = profile_ms(fn, n_calls)
+    if kernels is None:
+        return None, info
+    return info["ms_per_launch"].get(KERNEL_EVENT[name]), info
+
+
+def device_ms_of(kernels, name: str):
+    """Device ms per call of kernel-table row ``name``'s kernel in a
+    profile_ms breakdown (None for a dropped trace)."""
+    if kernels is None:
+        return None
+    return sum(v for k, v in kernels.items() if KERNEL_EVENT[name] in k)
+
+
+def busy_numbers(kernels, info, top: int, wall_ms=None,
+                 key: str = "device_idle_share") -> dict:
+    """A breakdown's device numbers from one profile_ms trace: the busy
+    ms (None for a dropped trace), the idle share of ``wall_ms``, the
+    ``top`` busiest kernels, and the trace's kernel events against its
+    launches (``trace``: whether it was dropped, and after how many
+    attempts)."""
+    busy = sum(kernels.values()) if kernels else None
+    out = {"device_busy_ms": busy, "trace_dropped": info["trace_dropped"],
+           "trace": {"kernel_events": info["events"].get(""),
+                     "launches": info["launches"].get(""),
+                     "attempts": info["attempts"]},
+           "device_ms_by_kernel": dict(sorted(
+               (kernels or {}).items(), key=lambda kv: -kv[1])[:top])}
+    if wall_ms is not None:
+        out[key] = max(0.0, 1.0 - busy / wall_ms) if busy else None
+    return out
 
 
 def phase_serve(phase: str, prune: bool, n_requests: int) -> dict:
@@ -1219,8 +1379,8 @@ def phase_train_capsnet() -> dict:
         state[0], state[1], _ = step(state[0], state[1], batch)
 
     one_step()
-    kernels, host = profile_ms(one_step, TRAIN_PROFILE_STEPS)
-    busy = sum(kernels.values())
+    kernels, host, trace = profile_ms(one_step, TRAIN_PROFILE_STEPS)
+    busy = sum(kernels.values()) if kernels else None
     walls_sorted = sorted(walls)
     step_ms = walls_sorted[len(walls_sorted) // 2]
 
@@ -1332,11 +1492,12 @@ def phase_train_capsnet() -> dict:
          loss_first=losses[0], loss_last=losses[-1],
          step_wall_ms_median=step_ms, step_wall_ms_min=walls_sorted[0],
          step_wall_ms_max=walls_sorted[-1],
-         step_device_busy_ms=busy if busy > 0 else None,
+         step_device_busy_ms=busy,
          step_device_idle_share=(max(0.0, 1.0 - busy / step_ms)
-                                 if busy > 0 else None),
+                                 if busy else None),
          step_device_ms_by_kernel=dict(sorted(
-             kernels.items(), key=lambda kv: -kv[1])[:6]),
+             (kernels or {}).items(), key=lambda kv: -kv[1])[:6]),
+         step_trace_dropped=trace["trace_dropped"],
          step_host_self_ms=sum(host.values()),
          step_host_ms_by_op=dict(sorted(
              host.items(), key=lambda kv: -kv[1])[:6]),
@@ -1428,9 +1589,11 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     admitted in one tick traced by ``torch.profiler`` (``prefill_tick``:
     the device time of the prefill group and the first step), then
     ``n_ticks`` decode-only ticks are timed by the host clock (a tick ends
-    in the copy of the tokens to the host) and ``n_ticks`` more are traced;
-    ``decode_ms`` and ``sampling_ms`` are the decode attention and sampling
-    kernels' device time per traced tick."""
+    in the copy of the tokens to the host) and TRACED_TICKS more are traced
+    (profile_ms: up to TICK_TRACE_ATTEMPTS times, each of TRACED_TICKS more
+    ticks, until a trace holds every launch; the admission tick is traced
+    once); ``decode_ms`` and ``sampling_ms`` are the decode attention and
+    sampling kernels' device time per traced tick."""
     rng = np.random.RandomState(2)
     for i in range(LM_SLOTS):
         kw = {}
@@ -1439,13 +1602,10 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
         engine.submit(Request(
             prompt=[int(t) for t in rng.randint(1, vocab // 2, size=512)],
             max_new_tokens=4 * n_ticks + 4, rid=1000 + i, **kw))
-    kernels, _ = profile_ms(engine.tick, 1)       # admission + first step
-    busy = sum(kernels.values())
-    prefill = {"device_busy_ms": busy if busy > 0 else None,
-               "flash_ms": sum(v for k, v in kernels.items()
-                               if KERNEL_EVENT["flash_attention"] in k),
-               "device_ms_by_kernel": dict(
-                   sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
+    # admission and the first step: one tick, traced once
+    kernels, _, trace = profile_ms(engine.tick, 1, attempts=1)
+    prefill = dict(busy_numbers(kernels, trace, 6),
+                   flash_ms=device_ms_of(kernels, "flash_attention"))
     walls = []
     for _ in range(n_ticks):
         t0 = time.perf_counter()
@@ -1453,17 +1613,13 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
     out = {"prefill_tick": prefill, "tick_wall_ms": walls[len(walls) // 2]}
-    kernels, host = profile_ms(engine.tick, n_ticks)
-    busy = sum(kernels.values())
-    out["device_busy_ms"] = busy if busy > 0 else None
+    kernels, host, trace = profile_ms(engine.tick, TRACED_TICKS,
+                                      TICK_TRACE_ATTEMPTS)
+    out.update(busy_numbers(kernels, trace, 8, out["tick_wall_ms"],
+                            "device_idle_share_of_tick"))
     for key, name in (("decode_ms", "decode_attention"),
                       ("sampling_ms", "fused_sampling")):
-        out[key] = sum(v for k, v in kernels.items()
-                       if KERNEL_EVENT[name] in k)
-    out["device_idle_share_of_tick"] = (
-        max(0.0, 1.0 - busy / out["tick_wall_ms"]) if busy > 0 else None)
-    out["device_ms_by_kernel"] = dict(
-        sorted(kernels.items(), key=lambda kv: -kv[1])[:8])
+        out[key] = device_ms_of(kernels, name)
     out["host_self_ms"] = sum(host.values())
     out["host_ms_by_op"] = dict(
         sorted(host.items(), key=lambda kv: -kv[1])[:12])
@@ -1540,7 +1696,8 @@ def served_sampling(engine) -> dict:
         top_p_lanes = (mass.cumsum(-1) < 0.9).sum(-1) + 1
         out[label] = {
             "ms": median_ms(run), "config": cfg,
-            "kernel_ms": kernel_ms_of(run, "fused_sampling"),
+            **dict(zip(("kernel_ms", "trace"),
+                       kernel_ms_of(run, "fused_sampling"))),
             "logit_std_mean": float(x.float().std(-1).mean()),
             "logit_range_mean": float((x.max(-1).values
                                        - x.min(-1).values).mean()),
@@ -1625,13 +1782,17 @@ def compare_with_plain(phase: str, reqs, tok, tok_plain, tok_again, margins,
     return compared, ambiguous, first_diff
 
 
-def serve_against_plain(phase: str, cfg, params, breakdown: bool) -> tuple:
+def serve_against_plain(phase: str, cfg, params, breakdown: bool,
+                        further=None) -> tuple:
     """``params`` of full-width llama3.2-1b through ServeEngine: the kernel
     path (flash_attention in prefill, decode_attention and fused_sampling
     in every decode tick) against the plain path (chunked attention, host
-    sampling) on lm_requests, held by the margin rule; with
-    ``breakdown``, decode_tick_breakdown after.  Returns (the phase's
-    numbers, the launches of the first kernel run by kernel-table row)."""
+    sampling) on lm_requests, held by the margin rule; the kernel engine's
+    second run (the seeded requests' bit-identity) records its own margins
+    (kernel_margins_of); ``further(kern, reqs, tok, tok_again, margins)``
+    then adds checks on the kernel engine; with ``breakdown``,
+    decode_tick_breakdown after.  Returns (the phase's numbers, the
+    launches of the first kernel run by kernel-table row)."""
     kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                        decode_kernel=True, device=DEVICE)
     plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
@@ -1666,12 +1827,11 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool) -> tuple:
     margins = record_margins(plain)
     done_plain = plain.serve(fresh(reqs))
     del plain
-    again = kern.serve(fresh(reqs))
+    tok_again, kmargins = kernel_margins_of(kern, reqs)
     tok = {c.rid: c.tokens for c in done}
     tok_plain = {c.rid: c.tokens for c in done_plain}
     compared, ambiguous, first_diff = compare_with_plain(
-        phase, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
-        margins, cfg.vocab)
+        phase, reqs, tok, tok_plain, tok_again, margins, cfg.vocab)
     lat = stats.latency_summary()
     greedy = [margins[(r.rid, j)] for r in reqs if r.temperature == 0
               for j in range(len(r.prompt), len(r.prompt) + LM_MAX_NEW)
@@ -1697,6 +1857,8 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool) -> tuple:
             1 for r in reqs if r.temperature == 0
             and tok[r.rid] == tok_plain[r.rid]),
         seeded_bit_identical=True)
+    if further is not None:
+        numbers.update(further(kern, reqs, tok, tok_again, kmargins))
     if breakdown:
         numbers.update(decode_tick_breakdown(kern, cfg.vocab))
     return numbers, {"flash_attention": counts["flash_attention"],
@@ -1704,14 +1866,98 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool) -> tuple:
                      "fused_sampling": counts["fused_sampling"]}
 
 
+def first_difference(a: list, b: list) -> int:
+    """The first position where two token lists part."""
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def generate_and_schedulers(kern, reqs, tok, tok_fifo, margins) -> tuple:
+    """serve_lm's checks of ``generate()`` and the other schedulers on its
+    kernel engine (ROADMAP §C 2).  (a) ``generate()`` on each admission
+    wave of the FIFO serve: it admits LM_SLOTS requests at a time and all
+    take LM_MAX_NEW tokens, so the waves are ``reqs`` in slices of
+    LM_SLOTS; called on a whole wave, greedily, generate() prefills the
+    same bucket and decodes the same batch as serve(), so each greedy
+    request's row must equal serve()'s tokens exactly.  (b) The same
+    requests served under InterleavingScheduler and SLOBatchScheduler, each
+    on an engine over the kernel engine's parameters: greedy tokens against
+    the FIFO engine's (``tok_fifo``, whose margins are ``margins``) by the
+    margin rule.  Returns (numbers, launches by counter)."""
+    reset_counts()
+    exact = 0
+    for lo in range(0, len(reqs), LM_SLOTS):
+        wave = reqs[lo:lo + LM_SLOTS]
+        out = kern.generate([list(r.prompt) for r in wave],
+                            max_new_tokens=LM_MAX_NEW)
+        for r, got in zip(wave, out):
+            if r.temperature > 0:
+                continue
+            if got != tok[r.rid]:
+                fail(f"serve_lm (generate): rid {r.rid} parts from serve()'s "
+                     f"tokens at position {first_difference(got, tok[r.rid])}")
+            exact += 1
+    numbers = {"generate": {"waves": -(-len(reqs) // LM_SLOTS),
+                            "greedy_sequences_equal_serve": exact}}
+    for label, sched in (
+            ("interleave", InterleavingScheduler(decode_ratio=1)),
+            ("slo", SLOBatchScheduler(SLO_TARGET_MS,
+                                      initial_batch=SLO_INITIAL_BATCH))):
+        eng = ServeEngine(kern.cfg, kern.params, n_slots=LM_SLOTS,
+                          max_len=LM_MAX_LEN, scheduler=sched,
+                          decode_kernel=True, device=DEVICE)
+        groups = count_calls(eng, "_prefill_group")
+        t0 = time.perf_counter()
+        done = eng.serve(fresh(reqs))
+        wall = time.perf_counter() - t0
+        if len(done) != len(reqs):
+            fail(f"serve_lm ({label}): {len(done)} of {len(reqs)} requests "
+                 f"completed")
+        got = {c.rid: c.tokens for c in done}
+        compared, ambiguous, first_diff = compare_with_plain(
+            f"serve_lm ({label})", reqs, got, tok_fifo, got, margins,
+            kern.cfg.vocab)
+        st = eng.stats()
+        numbers[label] = {
+            "ticks": st.ticks, "prefill_groups": groups[0], "wall_s": wall,
+            "tok_per_s": st.items / wall, "depth": {
+                k: {"ticks": n, "p50": p50, "peak": peak}
+                for k, (n, p50, _, peak) in st.depth_summary().items()},
+            "greedy_tokens_compared": compared,
+            "ambiguous_positions": ambiguous,
+            "first_divergence": first_diff,
+            "greedy_sequences_equal_fifo": sum(
+                1 for r in reqs if r.temperature == 0
+                and got[r.rid] == tok_fifo[r.rid])}
+        if label == "slo":
+            numbers[label]["effective_batch"] = sched.effective_batch
+        del eng
+    counts = launch_counts()
+    launches = {"flash_attention": counts["flash_attention"],
+                "decode_attention": counts["dense"],
+                "fused_sampling": counts["fused_sampling"]}
+    if min(launches.values()) < 1:
+        fail(f"serve_lm: generate() and the schedulers launched {launches}")
+    return numbers, launches
+
+
 def phase_serve_lm() -> dict:
     """Full-width llama3.2-1b, random weights from seed 0, through
-    serve_against_plain with the decode tick's breakdown."""
+    serve_against_plain with generate_and_schedulers and the decode tick's
+    breakdown."""
     cfg, params, init_s, n_params = init_lm()
+    further = {}
+
+    def checks(*args):
+        numbers, further["launches"] = generate_and_schedulers(*args)
+        return numbers
+
     numbers, launches = serve_against_plain("serve_lm", cfg, params,
-                                            breakdown=True)
+                                            breakdown=True, further=checks)
     emit("serve_lm", arch=LM_ARCH, params=n_params, init_s=init_s,
          **numbers)
+    for row, n in further["launches"].items():
+        launches[row] += n
     return launches
 
 
@@ -1808,8 +2054,8 @@ def train_lm_components(cfg, params, x_shape) -> dict:
                      ("ce_fwd_bwd_ms", ce_fwd_bwd),
                      ("adamw_update_ms", update)):
         fn()
-        kernels, _ = profile_ms(fn, 3)
-        out[name] = sum(kernels.values()) or None
+        kernels, _, _ = profile_ms(fn, 3)
+        out[name] = sum(kernels.values()) if kernels else None
     del grads, state
     a, ab = (out["attention_fwd_ms_per_layer"],
              out["attention_fwd_bwd_ms_per_layer"])
@@ -1973,11 +2219,11 @@ def phase_train_lm() -> dict:
         state[0], state[1], _ = step(state[0], state[1], held)
 
     one_step()
-    kernels, host = profile_ms(one_step, TRAIN_LM_PROFILE_STEPS)
+    kernels, host, trace = profile_ms(one_step, TRAIN_LM_PROFILE_STEPS)
     del state, one_step, step
-    busy = sum(kernels.values())
+    busy = sum(kernels.values()) if kernels else None
     by_class = {}
-    for name, ms in kernels.items():
+    for name, ms in (kernels or {}).items():
         c = kernel_class(name)
         by_class[c] = by_class.get(c, 0.0) + ms
     components = train_lm_components(cfg, res.params,
@@ -1995,12 +2241,13 @@ def phase_train_lm() -> dict:
                    "card": card},
          losses=losses, loss_first5_mean=first5, loss_last5_mean=last5,
          max_memory_allocated_bytes=peak_bytes,
-         step_device_busy_ms=busy if busy > 0 else None,
+         step_device_busy_ms=busy,
          step_device_idle_share=(max(0.0, 1.0 - busy / median)
-                                 if busy > 0 else None),
+                                 if busy else None),
          step_device_ms_by_class=by_class,
          step_device_ms_by_kernel=dict(sorted(
-             kernels.items(), key=lambda kv: -kv[1])[:10]),
+             (kernels or {}).items(), key=lambda kv: -kv[1])[:10]),
+         step_trace_dropped=trace["trace_dropped"],
          step_host_self_ms=sum(host.values()),
          components=components)
 
@@ -2152,6 +2399,72 @@ def b6_cross_check(kern, reqs, cfg) -> dict:
             "launches_paged_int8": counts_b["paged_int8"]}
 
 
+def paged_pressure(cfg, params, quantize: bool, reqs, tok_ref,
+                   margins) -> dict:
+    """serve_paged under memory pressure (ROADMAP §C 1): the kernel engine
+    with a PriorityScheduler and a pool of PRESSURE_PAGES pages.  The
+    first LM_SLOTS requests arrive at priority 1 and are resident after
+    PRESSURE_LEAD ticks; the other LM_SLOTS then arrive at priority 0 and
+    preempt them one a tick.  The preempted keep their pages until the
+    pool runs dry, when _spill_preempted copies them to the host (resume
+    re-imports them into fresh pages), and cached prefix pages are evicted
+    LRU.  Fails unless preemption, spill and eviction each happened, the
+    greedy tokens hold against ``tok_ref`` (the unpressured kernel run of
+    the same mode, whose margins are ``margins``) by the margin rule, and
+    a second pressured run gives the seeded tokens bit for bit.  The
+    numbers carry both runs' launches."""
+    mode = "paged_int8" if quantize else "paged"
+    name = f"serve_paged ({mode}, pressure)"
+    runs = []
+    reset_counts()
+    for _ in range(2):
+        eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          page_size=PAGE, n_pages=PRESSURE_PAGES,
+                          quantize_pages=quantize,
+                          scheduler=PriorityScheduler(), decode_kernel=True,
+                          device=DEVICE)
+        body = launch_counts()[mode]
+        t0 = time.perf_counter()
+        for r in reqs[:LM_SLOTS]:
+            eng.submit(dataclasses.replace(r, prompt=list(r.prompt),
+                                           priority=1))
+        for _ in range(PRESSURE_LEAD):
+            eng.tick()
+        for r in reqs[LM_SLOTS:]:
+            eng.submit(dataclasses.replace(r, prompt=list(r.prompt),
+                                           priority=0))
+        done = eng.run_until_idle()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        pg = dict(st.pages)
+        if len(done) != len(reqs):
+            fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+        if not (st.preempted > 0 and pg.get("spilled_pages", 0) > 0
+                and pg.get("cache_evicted", 0) > 0):
+            fail(f"{name}: preempted {st.preempted}, pages {pg}: expected "
+                 f"preemption, spill and eviction")
+        if launch_counts()[mode] == body:
+            fail(f"{name}: the {mode} decode body never ran")
+        runs.append(({c.rid: c.tokens for c in done}, st, pg, wall))
+    tok, st, pg, wall = runs[0]
+    counts = launch_counts()
+    compared, ambiguous, first_diff = compare_with_plain(
+        name, reqs, tok, tok_ref, runs[1][0], margins, cfg.vocab)
+    return {"n_pages": PRESSURE_PAGES, "lead_ticks": PRESSURE_LEAD,
+            "preempted": st.preempted, "pages": pg, "ticks": st.ticks,
+            "wall_s": wall, "tok_per_s": st.items / wall,
+            "second_run_pages": runs[1][2],
+            "greedy_tokens_compared": compared,
+            "ambiguous_positions": ambiguous,
+            "first_divergence": first_diff,
+            "greedy_sequences_equal_unpressured": sum(
+                1 for r in reqs if r.temperature == 0
+                and tok[r.rid] == tok_ref[r.rid]),
+            "seeded_bit_identical_across_pressured_runs": True,
+            "launches": {k: counts[k] for k in ("flash_attention", mode,
+                                                "fused_sampling")}}
+
+
 def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
     """One page mode of phase serve_paged: the kernel engine against the
     plain paged engine of the same mode; returns the phase's numbers and
@@ -2195,14 +2508,16 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
     done_plain = plain.serve(fresh(reqs))
     del plain
     # a second kernel engine: the same requests meet the same (empty)
-    # prefix cache, so every prefill group has the same composition
-    again = ServeEngine(cfg, params, decode_kernel=True, **kw).serve(
-        fresh(reqs))
+    # prefix cache, so every prefill group has the same composition; it
+    # records its margins, the pressured runs' rule
+    tok_again, kmargins = kernel_margins_of(
+        ServeEngine(cfg, params, decode_kernel=True, **kw), reqs)
     compared, ambiguous, first_diff = compare_with_plain(
         f"serve_paged ({mode})", reqs, {c.rid: c.tokens for c in done},
-        {c.rid: c.tokens for c in done_plain},
-        {c.rid: c.tokens for c in again}, margins, cfg.vocab)
-    out = {}
+        {c.rid: c.tokens for c in done_plain}, tok_again, margins,
+        cfg.vocab)
+    out = {"pressure": paged_pressure(cfg, params, quantize, reqs,
+                                      tok_again, kmargins)}
     if quantize:
         out["b6_cross_check"] = b6_cross_check(kern, reqs, cfg)
     breakdown = decode_tick_breakdown(kern, cfg.vocab)
@@ -2244,9 +2559,10 @@ def phase_serve_paged() -> dict:
         emit("serve_paged", arch=LM_ARCH, init_s=init_s, slots=LM_SLOTS,
              max_len=LM_MAX_LEN, page_size=PAGE, n_pages=N_PAGES, **out)
         mode = out["mode"]
-        launches[DECODE_ROWS[mode]] = counts[mode]
+        pressure = out["pressure"]["launches"]
+        launches[DECODE_ROWS[mode]] = counts[mode] + pressure[mode]
         for k in ("flash_attention", "fused_sampling"):
-            launches[k] = launches.get(k, 0) + counts[k]
+            launches[k] = launches.get(k, 0) + counts[k] + pressure[k]
         if quantize:
             launches["decode_attention_dequant"] = \
                 out["b6_cross_check"]["launches_int8"]
@@ -2273,6 +2589,19 @@ def record_kernel_margins(engine) -> dict:
 
     engine._sample_batch_device = wrapped
     return margins
+
+
+def kernel_margins_of(engine, reqs) -> tuple:
+    """``reqs`` served on the kernel engine with record_kernel_margins, the
+    engine's own sampling hooks back in place after: (tokens by rid,
+    margins), the margin rule's input for a comparison with this run."""
+    margins = record_kernel_margins(engine)
+    try:
+        done = engine.serve(fresh(reqs))
+    finally:
+        for hook in ("_sample_task_row", "_sample_batch_device"):
+            engine.__dict__.pop(hook, None)
+    return {c.rid: c.tokens for c in done}, margins
 
 
 def unified_reference(cfg, params, reqs, **kw) -> tuple:
@@ -2670,7 +2999,8 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
     the kernel engine (flash prefill, decode attention, fused sampling)
     against the plain engine of the same mode (chunked attention, host
     sampling) on ``reqs``, by serve_lm's margin rule.  Returns (numbers,
-    launch counts of the kernel run, the kernel engine)."""
+    launch counts of the kernel run, the kernel engine, the tokens and
+    margins of its second run: kernel_margins_of)."""
     paged = mode != "dense"
     name = f"{phase} ({mode})"
     kw = dict(n_slots=LM_SLOTS, max_len=LM_MAX_LEN, device=DEVICE)
@@ -2720,16 +3050,16 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
     done_plain = plain.serve(fresh(reqs))
     del plain
     # a paged engine's second run would meet a warm prefix cache: a fresh
-    # engine gives every prefill group the first run's composition
+    # engine gives every prefill group the first run's composition; the
+    # second run records its margins (the rule of later comparisons)
     again_eng = (ServeEngine(cfg, params, decode_kernel=True, **kw) if paged
                  else kern)
-    again = again_eng.serve(fresh(reqs))
+    tok_again, kmargins = kernel_margins_of(again_eng, reqs)
     del again_eng
     tok = {c.rid: c.tokens for c in done}
     tok_plain = {c.rid: c.tokens for c in done_plain}
     compared, ambiguous, first_diff = compare_with_plain(
-        name, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
-        margins, cfg.vocab)
+        name, reqs, tok, tok_plain, tok_again, margins, cfg.vocab)
     lat = stats.latency_summary()
     numbers = dict(
         mode=mode, requests=stats.completed, new_tokens=stats.items,
@@ -2749,7 +3079,7 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
         seeded_bit_identical=True)
     if paged:
         numbers.update(pages=dict(stats.pages), pool_bytes=pool_nbytes(kern))
-    return numbers, counts, kern
+    return numbers, counts, kern, tok_again, kmargins
 
 
 def routing_counts(params, cfg, x, token_mask) -> dict:
@@ -2819,22 +3149,249 @@ def moe_admission(kern, reqs, cfg) -> dict:
                                        for lay in layers)}
 
 
+def moe_scatter(cfg, params, reqs, tok_ref, margins) -> tuple:
+    """The moe scatter dispatch on the card (ROADMAP §C 4): serve_moe's
+    dense-slot requests once more on a kernel engine whose config takes
+    dispatch ``scatter`` (per-row sort and ``index_add_``), over the
+    phase's parameters.  Each moe layer's dispatch is counted: the scatter
+    path a layer each prefill group and decode tick, the one-hot path
+    never.  The greedy tokens hold against the one-hot kernel engine's
+    (``tok_ref``, whose margins are ``margins``) by the margin rule;
+    ``index_add_`` is not deterministic on CUDA, so the seeded requests
+    must complete but are not compared.  Returns (numbers, launch
+    counts)."""
+    from repro_torch.models import moe as moe_lib
+
+    name = "serve_moe (scatter)"
+    scfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, dispatch="scatter"))
+    eng = ServeEngine(scfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      decode_kernel=True, device=DEVICE)
+    groups = count_calls(eng, "_prefill_group")
+    ticks = count_calls(eng, "_step")
+    calls = {"scatter": 0, "onehot": 0}
+    inner = {k: getattr(moe_lib, f"_moe_{k}") for k in calls}
+
+    def watched(kind):
+        def call(*a, **kw):
+            calls[kind] += 1
+            return inner[kind](*a, **kw)
+        return call
+
+    for kind in calls:
+        setattr(moe_lib, f"_moe_{kind}", watched(kind))
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        done = eng.serve(fresh(reqs))
+    finally:
+        for kind, fn in inner.items():
+            setattr(moe_lib, f"_moe_{kind}", fn)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if len(done) != len(reqs):
+        fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+    want = cfg.n_layers * (groups[0] + ticks[0])
+    if calls["scatter"] != want or calls["onehot"]:
+        fail(f"{name}: dispatch calls {calls}, expected {want} scatter "
+             f"({groups[0]} prefill groups, {ticks[0]} decode ticks)")
+    tok = {c.rid: c.tokens for c in done}
+    compared, ambiguous, first_diff = compare_with_plain(
+        name, reqs, tok, tok_ref, tok, margins, cfg.vocab)
+    return {"dispatch": "scatter", "requests": len(done), "wall_s": wall,
+            "prefill_groups": groups[0], "decode_ticks": ticks[0],
+            "dispatch_calls": calls, "greedy_tokens_compared": compared,
+            "ambiguous_positions": ambiguous,
+            "first_divergence": first_diff,
+            "greedy_sequences_equal_onehot": sum(
+                1 for r in reqs if r.temperature == 0
+                and tok[r.rid] == tok_ref[r.rid]),
+            "launches": {k: counts[k] for k in ("flash_attention", "dense",
+                                                "fused_sampling")}}, counts
+
+
+def disagg_check(name: str, cfg, params, reqs, tok_ref, margins,
+                 transport: str, tok_seeded=None) -> tuple:
+    """``reqs`` through a disaggregated engine over ``transport``: a
+    PrefillEngine of LM_SLOTS slots handing each request's cache rows (or
+    recurrent state) to DISAGG_DECODES DecodeEngines of DISAGG_SLOTS
+    (``DisaggScheduler(overlap=True)`` for device_to_device, as
+    serve_disagg), over ``params`` (shared: bf16 tensors are not copied).
+    Every delivery carries ``lm.cache_nbytes(cfg, 1, LM_MAX_LEN)`` bytes;
+    the greedy tokens hold against ``tok_ref`` (whose margins are
+    ``margins``) by the margin rule, the seeded ones bit for bit against
+    ``tok_seeded`` (another transport's run) when it is given, else within
+    the run.  Returns (numbers, launch counts, tokens)."""
+    eng = disaggregated_lm_engine(
+        cfg, params, n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN,
+        n_decode=DISAGG_DECODES, prefill_slots=LM_SLOTS,
+        transport=make_transport(transport, keep_records=len(reqs)),
+        scheduler=DisaggScheduler(overlap=transport == "device_to_device"),
+        decode_kernel=True, device=DEVICE)
+    warm_disagg(eng)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = eng.serve(fresh(reqs))
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = eng.stats()
+    if len(done) != len(reqs):
+        fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+    recs = eng.transport.records
+    row_bytes = lm.cache_nbytes(cfg, 1, LM_MAX_LEN)
+    if len(recs) != len(reqs) or any(r.nbytes != row_bytes for r in recs):
+        fail(f"{name}: {len(recs)} deliveries, bytes "
+             f"{sorted({r.nbytes for r in recs})}, expected {row_bytes}")
+    check_prefill_bodies(name, counts)
+    tok = {c.rid: c.tokens for c in done}
+    compared, ambiguous, first_diff = compare_with_plain(
+        name, reqs, tok, tok_ref, tok if tok_seeded is None else tok_seeded,
+        margins, cfg.vocab)
+    del eng
+    torch.cuda.empty_cache()
+    return {"transport": transport, "n_layers": cfg.n_layers,
+            "prefill_slots": LM_SLOTS, "decode_engines": DISAGG_DECODES,
+            "decode_slots": DISAGG_SLOTS, "requests": stats.completed,
+            "new_tokens": stats.items, "wall_s": wall,
+            "tok_per_s": stats.items / wall,
+            "handoff_bytes_per_request": row_bytes, "legs": leg_numbers(recs),
+            "greedy_tokens_compared": compared,
+            "ambiguous_positions": ambiguous,
+            "first_divergence": first_diff,
+            "launches": {k: counts[k] for k in ("flash_attention", "dense",
+                                                "fused_sampling")}
+            }, counts, tok
+
+
+def over_transports(phase: str, transports, cfg, params, reqs, tok_ref,
+                    margins) -> tuple:
+    """disagg_check under each of ``transports``, the seeded tokens of
+    each held bit for bit against the first's.  Returns (numbers by
+    transport, launch counts summed)."""
+    runs, total, first = [], {}, None
+    for transport in transports:
+        numbers, counts, tok = disagg_check(
+            f"{phase} (disagg, {transport})", cfg, params, reqs, tok_ref,
+            margins, transport, first)
+        first = first if first is not None else tok
+        runs.append(numbers)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return runs, total
+
+
+def vlm_cross(cfg, params) -> tuple:
+    """The vlm cross path with image features (ROADMAP §C 3), which a serve
+    run cannot reach (its prompts carry no image and the gates start at
+    0): every cross gate at VLM_GATE over the phase's parameters (as
+    tests/test_torch_vlm.py sets them), image features (LM_SLOTS,
+    n_image_tokens, d_model) and prompts of VLM_PROMPT tokens from
+    RandomState(5); then ``lm.prefill_step`` and VLM_DECODE_STEPS
+    ``lm.decode_step`` calls on the kernel path (flash prefill, causal in
+    the self blocks and non-causal over the image tokens in the cross
+    blocks; the decode kernel in the self blocks) and on the plain path
+    (chunked attention), each on caches of its own, both fed the plain
+    path's greedy tokens.  At the prefill and each decode step the greedy
+    tokens agree wherever the plain path's top-2 margin is at least its
+    threshold (MARGIN_RULE); ``rel_max`` is the largest logit difference
+    over the plain logits' RMS.  Returns (numbers, launch counts)."""
+    name = "serve_vlm (cross)"
+    cross = params["units"]["cross"]
+    gated = {**cross, "attn": {**cross["attn"], "gate": torch.full_like(
+        cross["attn"]["gate"], VLM_GATE)}}
+    p = {**params, "units": {**params["units"], "cross": gated}}
+    rng = np.random.RandomState(5)
+    img = torch.from_numpy(rng.standard_normal(
+        (LM_SLOTS, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    ).to(DEVICE)
+    tokens = torch.from_numpy(rng.randint(
+        1, cfg.vocab // 2, size=(LM_SLOTS, VLM_PROMPT)).astype(np.int32)
+    ).to(DEVICE)
+    kcfg = dataclasses.replace(cfg, attn_impl="cuda", decode_impl="cuda")
+    pcfg = dataclasses.replace(cfg, attn_impl="chunked",
+                               decode_impl="chunked")
+    batch = {"tokens": tokens, "image_features": img}
+    n_self, n_cross = cfg.n_self_layers(), cfg.n_cross_layers()
+    steps, ambiguous = [], 0
+    flash, unwatch = watch_flash()
+    reset_counts()
+    with torch.inference_mode():
+        try:
+            kl, kc = lm.prefill_step(p, kcfg, batch, lm.make_caches(
+                kcfg, LM_SLOTS, LM_MAX_LEN, DEVICE))
+        finally:
+            unwatch()
+        pl, pc = lm.prefill_step(p, pcfg, batch, lm.make_caches(
+            pcfg, LM_SLOTS, LM_MAX_LEN, DEVICE))
+        for t in range(VLM_DECODE_STEPS + 1):
+            a, b = kl.float(), pl.float()
+            if not (bool(torch.isfinite(a).all())
+                    and bool(torch.isfinite(b).all())):
+                fail(f"{name}: non-finite logits at step {t}")
+            rows = b.cpu().numpy()
+            differ = (a.argmax(-1) != b.argmax(-1)).cpu().numpy()
+            for i in np.nonzero(differ)[0]:
+                m = margin_of(rows[i])
+                if m["margin"] >= m["threshold"]:
+                    fail(f"{name}: step {t} row {i}: the kernel path's greedy "
+                         f"token differs at a top-2 margin of {m['margin']} "
+                         f">= {m['threshold']} ({MARGIN_RULE})")
+                ambiguous += 1
+            steps.append(rel_max(a, b))
+            if t == VLM_DECODE_STEPS:
+                break
+            nxt = b.argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((LM_SLOTS,), VLM_PROMPT + t, dtype=torch.int32,
+                             device=DEVICE)
+            kl, kc = lm.decode_step(p, kcfg, {"tokens": nxt, "pos": pos}, kc)
+            pl, pc = lm.decode_step(p, pcfg, {"tokens": nxt, "pos": pos}, pc)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if (flash["causal"] != n_self or flash["non_causal"] != n_cross
+            or counts["flash_attention"] != n_self + n_cross
+            or counts["dense"] != n_self * VLM_DECODE_STEPS):
+        fail(f"{name}: flash calls {flash}, launches {counts['flash_attention']}"
+             f", decode launches {counts['dense']}: expected {n_self} causal "
+             f"and {n_cross} non-causal, {n_self * VLM_DECODE_STEPS} decode")
+    check_prefill_bodies(name, counts)
+    return {"gate": VLM_GATE, "image_tokens": cfg.n_image_tokens,
+            "prompt": VLM_PROMPT, "decode_steps": VLM_DECODE_STEPS,
+            "rel_max": max(steps), "rel_max_by_step": steps,
+            "tokens_compared": LM_SLOTS * (VLM_DECODE_STEPS + 1),
+            "ambiguous_positions": ambiguous, "margin_rule": MARGIN_RULE,
+            "flash_calls": flash,
+            "launches": {k: counts[k] for k in ("flash_attention", "dense")}
+            }, counts
+
+
 def phase_serve_family(phase: str, cfg, modes) -> dict:
     """A full-width moe or vlm model through ServeEngine in each cache mode
     of ``modes`` (dense slots on serve_lm's requests, pages on
-    serve_paged's), the kernel path against the plain path; returns the
-    launches by kernel-table row."""
-    t_phase = time.perf_counter()
+    serve_paged's), the kernel path against the plain path; then on the
+    dense-slot requests the moe scatter dispatch (moe_scatter) and the
+    model disaggregated (over_transports), and for vlm the cross path with
+    image features (vlm_cross).  Returns the launches by kernel-table
+    row."""
     params, init_s, n_params, n_bytes = init_family(cfg)
     params = lm.compute_params(cfg, params)       # bf16: the same tensors
     launches = {}
+
+    def add(counts, body="dense"):
+        for row, key in (("flash_attention", "flash_attention"),
+                         (DECODE_ROWS[body], body),
+                         ("fused_sampling", "fused_sampling")):
+            launches[row] = launches.get(row, 0) + counts[key]
+
     for mode in modes:
+        t0 = time.perf_counter()
         reqs = (lm_requests(cfg.vocab, FAMILY_REQUESTS) if mode == "dense"
                 else paged_requests(cfg.vocab, FAMILY_REQUESTS))
-        numbers, counts, kern = serve_family_mode(phase, cfg, params, reqs,
-                                                  mode)
-        if cfg.moe is not None and mode == "dense":
-            numbers["admission"] = moe_admission(kern, reqs, cfg)
+        numbers, counts, kern, tok_k, kmargins = serve_family_mode(
+            phase, cfg, params, reqs, mode)
+        if mode == "dense":
+            dense = (reqs, tok_k, kmargins)
+            if cfg.moe is not None:
+                numbers["admission"] = moe_admission(kern, reqs, cfg)
         numbers.update(decode_tick_breakdown(kern, cfg.vocab))
         del kern
         emit(phase, arch=cfg.arch_id, params=n_params, param_bytes=n_bytes,
@@ -2842,24 +3399,41 @@ def phase_serve_family(phase: str, cfg, modes) -> dict:
              n_layers=cfg.n_layers, self_layers=cfg.n_self_layers(),
              cross_layers=cfg.n_cross_layers(), slots=LM_SLOTS,
              max_len=LM_MAX_LEN, page_size=PAGE if mode != "dense" else None,
+             seconds=time.perf_counter() - t0, **numbers)
+        add(counts, mode if mode != "dense" and cfg.family != "vlm"
+            else "dense")
+    reqs, tok_k, kmargins = dense
+    if cfg.moe is not None:
+        t0 = time.perf_counter()
+        numbers, counts = moe_scatter(cfg, params, reqs, tok_k, kmargins)
+        emit(phase, part="scatter", seconds=time.perf_counter() - t0,
+             margin_rule=MARGIN_RULE, **numbers)
+        add(counts)
+    t0 = time.perf_counter()
+    runs, counts = over_transports(phase, FAMILY_TRANSPORTS, cfg, params,
+                                   reqs, tok_k, kmargins)
+    emit(phase, part="disagg", seconds=time.perf_counter() - t0,
+         margin_rule=MARGIN_RULE, seeded_bit_identical_across_transports=True,
+         transports=runs)
+    add(counts)
+    if cfg.family == "vlm":
+        t0 = time.perf_counter()
+        numbers, counts = vlm_cross(cfg, params)
+        emit(phase, part="cross", seconds=time.perf_counter() - t0,
              **numbers)
-        body = mode if mode != "dense" and cfg.family != "vlm" else "dense"
-        for row, key in (("flash_attention", "flash_attention"),
-                         (DECODE_ROWS[body], body),
-                         ("fused_sampling", "fused_sampling")):
-            launches[row] = launches.get(row, 0) + counts[key]
+        add(counts)
     del params
     torch.cuda.empty_cache()
-    emit(phase, part="launches", launches=launches,
-         seconds=time.perf_counter() - t_phase)
+    emit(phase, part="launches", launches=launches)
     return launches
 
 
 def phase_serve_moe() -> dict:
-    """deepseek-moe-16b at full width and depth (bf16 parameters): dense
-    slots, bf16 pages (read in place by the paged decode body), int8
-    pages; the admission tick's aux loss and expert drops."""
-    return phase_serve_family("serve_moe", family_cfg(MOE_ARCH),
+    """deepseek-moe-16b at full width, its depth cut to MOE_LAYERS (bf16
+    parameters): dense slots, bf16 pages (read in place by the paged
+    decode body), int8 pages; the admission tick's aux loss and expert
+    drops; the scatter dispatch; disaggregated."""
+    return phase_serve_family("serve_moe", family_cfg(MOE_ARCH, MOE_LAYERS),
                               ("dense", "paged", "paged_int8"))
 
 
@@ -2868,7 +3442,8 @@ def phase_serve_vlm() -> dict:
     dense slots and bf16 pages (a gathered view through the dense decode
     body, as the reference); prefill runs the flash kernel causal in the
     self-attention blocks and non-causal over the (zero, imageless) cross
-    cache's 1024 rows in the cross-attention blocks."""
+    cache's 1024 rows in the cross-attention blocks; disaggregated; the
+    cross path with image features and open gates."""
     return phase_serve_family("serve_vlm", family_cfg(VLM_ARCH, VLM_LAYERS),
                               ("dense", "paged"))
 
@@ -2906,61 +3481,149 @@ def time_groups(engine) -> list:
     return groups
 
 
-def recurrent_disagg(cfg, params, reqs, tok_plain, margins) -> tuple:
-    """The recurrent model disaggregated: a PrefillEngine of LM_SLOTS slots
-    handing each request's state rows to DISAGG_DECODES DecodeEngines
-    (in_process), held against the plain engine's tokens by the margin
-    rule, as the unified kernel engine is; returns (numbers, launch
+def first_units(cfg, params, n_layers: int) -> tuple:
+    """``cfg`` with its depth cut to ``n_layers`` and ``params`` cut to the
+    first units it keeps (a family whose layers are all stacked under
+    ``units``, as ssm's are): views of the same tensors, no copy."""
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    k = lm.n_units(cut)
+
+    def take(tree):
+        if isinstance(tree, dict):
+            return {key: take(v) for key, v in tree.items()}
+        if isinstance(tree, list):
+            return [take(v) for v in tree]
+        return tree[:k]
+
+    return cut, {**params, "units": take(params["units"])}
+
+
+def recurrent_handoffs(phase: str, cfg, params, reqs, tok_plain, margins,
+                       own_plain: bool) -> tuple:
+    """ROADMAP §C 5's handoffs: the model at its published size
+    disaggregated over each of RECURRENT_TRANSPORTS (over_transports), the
+    seeded tokens of the second held bit for bit against the first's,
+    beside what the card's links give for one handoff's bytes
+    (copy_bounds).  With ``own_plain`` (the phase served a cut model) the
+    requests are those of ``reqs`` with prompts of at least
+    RECURRENT_HANDOFF_PROMPT tokens, cut to that length, held against a
+    plain engine of this model on them; otherwise ``reqs`` against
+    ``tok_plain``.  Returns (numbers, launch counts summed)."""
+    if own_plain:
+        reqs = [dataclasses.replace(
+                    r, prompt=list(r.prompt[:RECURRENT_HANDOFF_PROMPT]))
+                for r in reqs if len(r.prompt) >= RECURRENT_HANDOFF_PROMPT]
+        plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"),
+                            params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                            device=DEVICE)
+        margins = record_margins(plain)
+        tok_plain = {c.rid: c.tokens for c in plain.serve(fresh(reqs))}
+        del plain
+        torch.cuda.empty_cache()
+    runs, total = over_transports(phase, RECURRENT_TRANSPORTS, cfg, params,
+                                  reqs, tok_plain, margins)
+    row_bytes = lm.cache_nbytes(cfg, 1, LM_MAX_LEN)
+    return {"n_layers": cfg.n_layers, "requests": len(reqs),
+            "prompt_lengths": sorted({len(r.prompt) for r in reqs}),
+            "handoff_bytes_per_request": row_bytes,
+            "copy_bounds": copy_bounds(row_bytes), "transports": runs}, total
+
+
+def recurrent_bf16(cfg, reqs) -> tuple:
+    """The recurrent model with bf16 parameters (ROADMAP §C 5; random
+    weights from seed 0 drawn in that type): the kernel engine against the
+    plain engine on ``reqs`` by the margin rule, the seeded requests within
+    the run; its recurrent state stays float32.  Returns (numbers, launch
     counts)."""
-    eng = disaggregated_lm_engine(
-        cfg, params, n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN,
-        n_decode=DISAGG_DECODES, prefill_slots=LM_SLOTS,
-        transport=make_transport("in_process", keep_records=len(reqs)),
-        decode_kernel=True, device=DEVICE)
-    warm_disagg(eng)
+    bcfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    name = f"serve_{cfg.family} (bf16 parameters)"
+    params, init_s, n_params, n_bytes = init_family(bcfg)
+    kern = ServeEngine(bcfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                       decode_kernel=True, device=DEVICE)
+    plain = ServeEngine(dataclasses.replace(bcfg, attn_impl="chunked"),
+                        params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        device=DEVICE)
+    del params
+    state = {str(x.dtype) for key, tree in kern._caches.items()
+             if key != "shared_kv" for x in tree_leaves(tree)}
+    if state != {"torch.float32"}:
+        fail(f"{name}: recurrent state in {state}")
     reset_counts()
     t0 = time.perf_counter()
-    done = eng.serve(fresh(reqs))
+    done = kern.serve(fresh(reqs))
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    stats = eng.stats()
-    name = f"serve_{cfg.family} (disagg)"
-    if len(done) != len(reqs):
-        fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
-    recs = eng.transport.records
-    row_bytes = lm.cache_nbytes(cfg, 1, LM_MAX_LEN)
-    if len(recs) != len(reqs) or any(r.nbytes != row_bytes for r in recs):
-        fail(f"{name}: {len(recs)} deliveries, bytes "
-             f"{sorted({r.nbytes for r in recs})}, expected {row_bytes}")
+    if len(done) != len(reqs) or counts["fused_sampling"] < 1:
+        fail(f"{name}: {len(done)} of {len(reqs)} requests, launches "
+             f"{counts}")
+    margins = record_margins(plain)
+    tok_plain = {c.rid: c.tokens for c in plain.serve(fresh(reqs))}
+    del plain, kern
+    torch.cuda.empty_cache()
     tok = {c.rid: c.tokens for c in done}
-    # greedy tokens against the plain engine's by the margin rule; seeded
-    # ones are held within the run, as serve_disagg holds them (the decode
-    # engines' batch is DISAGG_SLOTS wide, the unified engine's LM_SLOTS)
     compared, ambiguous, first_diff = compare_with_plain(
         name, reqs, tok, tok_plain, tok, margins, cfg.vocab)
-    del eng
-    torch.cuda.empty_cache()
-    return {"transport": "in_process", "prefill_slots": LM_SLOTS,
-            "decode_engines": DISAGG_DECODES, "decode_slots": DISAGG_SLOTS,
-            "requests": stats.completed, "new_tokens": stats.items,
-            "wall_s": wall, "tok_per_s": stats.items / wall,
-            "handoff_bytes_per_request": row_bytes,
+    return {"param_dtype": bcfg.param_dtype, "param_bytes": n_bytes,
+            "init_s": init_s, "state_dtypes": sorted(state),
+            "requests": len(done), "wall_s": wall,
             "greedy_tokens_compared": compared,
-            "ambiguous_positions": ambiguous,
-            "first_divergence": first_diff,
+            "ambiguous_positions": ambiguous, "first_divergence": first_diff,
+            "greedy_sequences_equal_plain": sum(
+                1 for r in reqs if r.temperature == 0
+                and tok[r.rid] == tok_plain[r.rid]),
             "launches": {k: counts[k] for k in ("flash_attention", "dense",
                                                 "fused_sampling")}}, counts
 
 
-def phase_serve_recurrent(phase: str, arch: str) -> dict:
-    """A recurrent model at its published size (float32 parameters)
-    through ServeEngine: the kernel engine (fused sampling in every decode
-    tick; for the hybrid, flash prefill and decode attention in the shared
-    block at each site) against the plain engine on FAMILY_REQUESTS of
-    serve_lm's requests, admitted in exact-length groups; then
-    disaggregated.  Returns the launches by kernel-table row."""
-    t_phase = time.perf_counter()
-    cfg, params, init_s, n_params, n_bytes = init_full(arch)
+def launcher_runs() -> list:
+    """``python -m repro_torch.launch.serve --arch A`` with LAUNCHER_ARGS
+    (the published size, two requests of four new tokens through the
+    kernels) for each of LAUNCHER_RUNS, all at once (they load the library
+    the build phase made): each recurrent model exits 0 and prints its
+    requests' tokens; hubert exits 1 with the message of the reference's
+    refusal of audio."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         *LAUNCHER_ARGS], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, _, _ in LAUNCHER_RUNS]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for (arch, code, needle), p, log in zip(LAUNCHER_RUNS, procs, logs):
+        if p.returncode != code or needle not in log:
+            fail(f"launcher --arch {arch}: exit {p.returncode} "
+                 f"(expected {code}), output without {needle!r}: "
+                 f"{log[-2000:]}")
+        out.append({"arch": arch, "exit": p.returncode,
+                    "last_line": log.strip().splitlines()[-1][:300]})
+    return out
+
+
+def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
+    """A recurrent model (float32 parameters) through ServeEngine, with its
+    depth cut to ``n_layers`` when one is given: the kernel engine (fused
+    sampling in every decode tick; for the hybrid, flash prefill and decode
+    attention in the shared block at each site) against the plain engine
+    on FAMILY_REQUESTS of serve_lm's requests, admitted in exact-length
+    groups; then disaggregated (in_process); then at its published size
+    over RECURRENT_TRANSPORTS (recurrent_handoffs).  Returns the launches
+    by kernel-table row."""
+    cfg_full, params_full, init_s, n_params, n_bytes = init_full(arch)
+    cfg, params = ((cfg_full, params_full) if not n_layers
+                   else first_units(cfg_full, params_full, n_layers))
+    reduced = ([f"n_layers {cfg_full.n_layers} -> {n_layers} (the serve "
+                f"against the plain path and the in_process handoff)"]
+               if n_layers else [])
     reqs = lm_requests(cfg.vocab, FAMILY_REQUESTS)
     kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                        decode_kernel=True, device=DEVICE)
@@ -3016,12 +3679,15 @@ def phase_serve_recurrent(phase: str, arch: str) -> dict:
     state_bytes = lm.cache_nbytes(cfg, LM_SLOTS, LM_MAX_LEN)
     del kern
     torch.cuda.empty_cache()
-    disagg, dcounts = recurrent_disagg(cfg, params, reqs, tok_plain, margins)
+    disagg, dcounts, _ = disagg_check(f"{phase} (disagg, in_process)", cfg,
+                                      params, reqs, tok_plain, margins,
+                                      "in_process")
+    leaves = tree_leaves(params)
     del params
-    torch.cuda.empty_cache()
     lat = stats.latency_summary()
-    emit(phase, arch=arch, params=n_params, param_bytes=n_bytes,
-         param_dtype=cfg.param_dtype, init_s=init_s, reduced=[],
+    emit(phase, arch=arch, params=sum(int(x.numel()) for x in leaves),
+         param_bytes=sum(int(x.numel()) * x.element_size() for x in leaves),
+         param_dtype=cfg.param_dtype, init_s=init_s, reduced=reduced,
          n_layers=cfg.n_layers, shared_attention_sites=n_sites,
          slots=LM_SLOTS, max_len=LM_MAX_LEN, cache_bytes=state_bytes,
          requests=stats.completed, new_tokens=stats.items,
@@ -3038,28 +3704,46 @@ def phase_serve_recurrent(phase: str, arch: str) -> dict:
              1 for r in reqs if r.temperature == 0
              and tok[r.rid] == tok_plain[r.rid]),
          seeded_bit_identical=True, disagg=disagg, **breakdown)
-    launches = {"fused_sampling": counts["fused_sampling"]
-                + dcounts["fused_sampling"]}
+    del leaves
+    t0 = time.perf_counter()
+    handoffs, hcounts = recurrent_handoffs(phase, cfg_full, params_full,
+                                           reqs, tok_plain, margins,
+                                           own_plain=bool(n_layers))
+    emit(phase, part="handoffs", arch=arch, params=n_params,
+         param_bytes=n_bytes, margin_rule=MARGIN_RULE,
+         seconds=time.perf_counter() - t0, **handoffs)
+    del params_full
+    torch.cuda.empty_cache()
+    runs = [counts, dcounts, hcounts]
+    if cfg.family == "hybrid":
+        t0 = time.perf_counter()
+        numbers, bcounts = recurrent_bf16(cfg_full, reqs)
+        emit(phase, part="bf16", arch=arch, margin_rule=MARGIN_RULE,
+             seconds=time.perf_counter() - t0, **numbers)
+        runs.append(bcounts)
+    launches = {"fused_sampling": sum(c["fused_sampling"] for c in runs)}
     if n_sites:
-        launches["flash_attention"] = (counts["flash_attention"]
-                                       + dcounts["flash_attention"])
-        launches["decode_attention"] = counts["dense"] + dcounts["dense"]
-    emit(phase, part="launches", launches=launches,
-         seconds=time.perf_counter() - t_phase)
+        launches["flash_attention"] = sum(c["flash_attention"] for c in runs)
+        launches["decode_attention"] = sum(c["dense"] for c in runs)
+    emit(phase, part="launches", launches=launches)
     return launches
 
 
 def phase_serve_ssm() -> dict:
-    """xlstm-1.3b at its published size: fused sampling in every tick
-    (the mLSTM and sLSTM blocks are plain PyTorch, as the reference's are
-    plain jnp)."""
-    return phase_serve_recurrent("serve_ssm", SSM_ARCH)
+    """xlstm-1.3b, its depth cut to SSM_LAYERS against the plain path and
+    in_process, at its published size over RECURRENT_TRANSPORTS: fused
+    sampling in every tick (the mLSTM and sLSTM blocks are plain PyTorch,
+    as the reference's are plain jnp)."""
+    return phase_serve_recurrent("serve_ssm", SSM_ARCH, SSM_LAYERS)
 
 
 def phase_serve_hybrid() -> dict:
     """zamba2-1.2b at its published size: the shared block's flash prefill
-    and decode attention at each of its 6 sites, fused sampling."""
-    return phase_serve_recurrent("serve_hybrid", HYBRID_ARCH)
+    and decode attention at each of its 6 sites, fused sampling; with bf16
+    parameters; then the launcher at --no-reduced (launcher_runs)."""
+    launches = phase_serve_recurrent("serve_hybrid", HYBRID_ARCH)
+    emit("serve_hybrid", part="launcher", runs=launcher_runs())
+    return launches
 
 
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3105,8 +3789,7 @@ def phase_encode_audio() -> dict:
         fail(f"encode_audio: flash launched {counts['flash_attention']} "
              f"times (tensor core {counts['flash_attention/tensor_core']}), "
              f"calls {flash}, expected {cfg.n_layers} non-causal")
-    kernels, _ = profile_ms(lambda: run(cfg, cp), 1)
-    busy = sum(kernels.values())
+    kernels, _, trace = profile_ms(lambda: run(cfg, cp), 1)
     x_plain = run(plain_cfg, cp)
     x_f32 = run(f32_cfg, params)
     shape = (AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model)
@@ -3122,18 +3805,12 @@ def phase_encode_audio() -> dict:
         fail(f"encode_audio: the kernel forward differs from the plain one "
              f"by {kern_vs_plain} of the RMS, more than {AUDIO_RATIO} x the "
              f"plain bf16 forward's {plain_vs_f32} from float32")
-    flash_ms = sum(v for k, v in kernels.items()
-                   if KERNEL_EVENT["flash_attention"] in k)
     emit("encode_audio", arch=AUDIO_ARCH, params=n_params,
          param_bytes=n_bytes, param_dtype=cfg.param_dtype, init_s=init_s,
          reduced=[], clips=AUDIO_CLIPS, frames=AUDIO_FRAMES,
          head_dim=cfg.head_dim, forward_wall_ms=wall,
-         device_busy_ms=busy if busy > 0 else None,
-         device_idle_share=(max(0.0, 1.0 - busy / wall) if busy > 0
-                            else None),
-         flash_ms=flash_ms,
-         device_ms_by_kernel=dict(sorted(kernels.items(),
-                                         key=lambda kv: -kv[1])[:8]),
+         **busy_numbers(kernels, trace, 8, wall),
+         flash_ms=device_ms_of(kernels, "flash_attention"),
          flash_launches=counts["flash_attention"], flash_calls=flash,
          max_diff_over_rms={"kernel_vs_plain": kern_vs_plain,
                             "plain_vs_float32": plain_vs_f32,
@@ -3202,7 +3879,7 @@ def tick_numbers(engine, vocab: int, n_ticks: int = 8) -> dict:
     """ms per decode tick with every slot busy (LM_SLOTS prompts of
     LM_MAX_LEN / 2 tokens; the host clock over ticks that end in the copy
     of the tokens) and the device's busy time and idle share over
-    ``n_ticks`` traced ticks."""
+    TRACED_TICKS traced ticks."""
     rng = np.random.RandomState(2)
     for i in range(LM_SLOTS):
         engine.submit(Request(
@@ -3216,13 +3893,12 @@ def tick_numbers(engine, vocab: int, n_ticks: int = 8) -> dict:
         engine.tick()
         walls.append((time.perf_counter() - t0) * 1e3)
     walls.sort()
-    kernels, _ = profile_ms(engine.tick, n_ticks)
-    busy = sum(kernels.values())
+    kernels, _, trace = profile_ms(engine.tick, TRACED_TICKS,
+                                   TICK_TRACE_ATTEMPTS)
     engine.run_until_idle()
     wall = walls[len(walls) // 2]
-    return {"tick_wall_ms": wall, "device_busy_ms": busy if busy else None,
-            "device_idle_share_of_tick": (max(0.0, 1.0 - busy / wall)
-                                          if busy else None)}
+    return {"tick_wall_ms": wall, **busy_numbers(
+        kernels, trace, 0, wall, "device_idle_share_of_tick")}
 
 
 def sharded_lm_cell(cfg, params, reqs, label: str, **kw) -> tuple:
@@ -3395,8 +4071,8 @@ def sharded_capsnet() -> tuple:
         fail(f"serve_sharded (capsnet): {len(done)} of {len(requests)} "
              f"served, routing launches by block {per_block}")
     batch = np.zeros((BATCH,) + (28, 28, 1), np.float32)
-    kernels, _ = profile_ms(lambda: engine.forward_host(batch), 10)
-    busy = sum(kernels.values())
+    kernels, _, trace = profile_ms(lambda: engine.forward_host(batch), 10)
+    busy = sum(kernels.values()) if kernels else None
     t0 = time.perf_counter()
     for _ in range(10):
         engine.forward_host(batch)
@@ -3409,6 +4085,7 @@ def sharded_capsnet() -> tuple:
              "full_tick_device_busy_ms": busy if busy else None,
              "device_idle_share": (max(0.0, 1.0 - busy / tick_ms)
                                    if busy else None),
+             "trace_dropped": trace["trace_dropped"],
              "classes_differing_under_margin": differ,
              "routing_launches_per_block": per_block,
              "replicas": replicas}, counts)
@@ -3502,10 +4179,12 @@ KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
 def timing_row(name, case, n_profile: int = 20, config=None,
                plain: bool = True) -> dict:
     """Kernel time by CUDA events (``ms``, wrapper included), the kernel
-    alone by profiler events (``kernel_ms``), the plain version's and the
-    library call's time, and the bound, at one case, with the default
-    config or ``config`` over it (the plain version's and the library
-    call's times only when ``plain``)."""
+    alone by profiler events (``kernel_ms``: device time over the events of
+    a trace that holds every launch, else None with ``trace_dropped``), the
+    plain version's and the library call's time, and the bound, at one
+    case, with the default config or ``config`` over it (the plain
+    version's and the library call's times only when ``plain``).  A
+    ``kernel_ms`` below the bound fails: no complete trace can read so."""
     spec = registry.get(name)
     args, kwargs = spec.make_example(case, device=DEVICE)
     cfg = {**registry.default_config(name, *args, **kwargs),
@@ -3516,12 +4195,17 @@ def timing_row(name, case, n_profile: int = 20, config=None,
         return wrapper(*args, **kwargs, **cfg)
 
     ms = median_ms(call)
-    kernel_ms = kernel_ms_of(call, name, n_profile)
+    kernel_ms, trace = kernel_ms_of(call, name, n_profile)
     t_bytes, t_ops = BOUNDS[name](case)
     row = {"ms": ms, "kernel_ms": kernel_ms,
+           "trace_dropped": trace["trace_dropped"],
+           "trace_attempts": trace["attempts"],
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "shape": case_shape(case), "config": cfg}
+    if kernel_ms is not None and kernel_ms < row["bound_ms"]:
+        fail(f"timings: {name} {case_shape(case)} {cfg}: kernel ms "
+             f"{kernel_ms} below its bound {row['bound_ms']}")
     if plain:
         fn = PLAIN.get(name)
         plain_call = ((lambda: fn(*args, **kwargs)) if fn
@@ -3675,12 +4359,15 @@ def phase_timings(launches: dict, worst: dict) -> list:
     one = torch.empty(1, device=DEVICE)
     (x,), _ = registry.get("taylor_softmax").make_example(
         KERNELS["taylor_softmax"]["main_case"], device=DEVICE)
-    fill = kernel_device_ms(lambda: one.fill_(0.0), 20)
-    copy = kernel_device_ms(lambda: x.clone(), 20)
+    fill, _, fill_trace = profile_ms(lambda: one.fill_(0.0), 20)
+    copy, _, copy_trace = profile_ms(lambda: x.clone(), 20,
+                                     expect={"Memcpy": 20})
     emit("timings", name="launch_floor",
-         fill_kernel_ms=sum(fill.values()) or None,
-         copy_kernel_ms=sum(copy.values()) or None,
-         kernels=sorted(fill) + sorted(copy))
+         fill_kernel_ms=sum(fill.values()) if fill else None,
+         copy_kernel_ms=sum(copy.values()) if copy else None,
+         trace_dropped=[fill_trace["trace_dropped"],
+                        copy_trace["trace_dropped"]],
+         kernels=sorted(fill or {}) + sorted(copy or {}))
     return table
 
 
@@ -4101,28 +4788,37 @@ def _tune_on_the_card(t_phase: float):
     return counts, refused, rows, t_selfcheck
 
 
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, then the phase's own line of seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(phase, part="seconds", seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> None:
     if len(sys.argv) > 1:
         sys.exit("chip_smoke takes no arguments")
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    worst, dequant_launches = phase_kernels()
-    launches = phase_serve("serve_pruned", prune=True, n_requests=8)
-    launches_dense = phase_serve("serve_dense", prune=False, n_requests=4)
-    launches_train = phase_train_capsnet()
-    launches_train_lm = phase_train_lm()
-    launches_lm = phase_serve_lm()
-    launches_paged = phase_serve_paged()
-    launches_disagg = phase_serve_disagg()
-    launches_moe = phase_serve_moe()
-    launches_vlm = phase_serve_vlm()
-    launches_ssm = phase_serve_ssm()
-    launches_hybrid = phase_serve_hybrid()
-    launches_audio = phase_encode_audio()
-    launches_sharded = phase_serve_sharded()
-    launches_dryrun = phase_dryrun()
-    phase_tuning()
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    worst, dequant_launches = timed("kernels", phase_kernels)
+    launches = timed("serve_pruned", phase_serve, "serve_pruned", True, 8)
+    launches_dense = timed("serve_dense", phase_serve, "serve_dense", False,
+                           4)
+    launches_train = timed("train_capsnet", phase_train_capsnet)
+    launches_train_lm = timed("train_lm", phase_train_lm)
+    launches_lm = timed("serve_lm", phase_serve_lm)
+    launches_paged = timed("serve_paged", phase_serve_paged)
+    launches_disagg = timed("serve_disagg", phase_serve_disagg)
+    launches_moe = timed("serve_moe", phase_serve_moe)
+    launches_vlm = timed("serve_vlm", phase_serve_vlm)
+    launches_ssm = timed("serve_ssm", phase_serve_ssm)
+    launches_hybrid = timed("serve_hybrid", phase_serve_hybrid)
+    launches_audio = timed("encode_audio", phase_encode_audio)
+    launches_sharded = timed("serve_sharded", phase_serve_sharded)
+    launches_dryrun = timed("dryrun", phase_dryrun)
+    timed("tuning", phase_tuning)
     # the rows each new phase must launch: ssm samples, the hybrid also runs
     # flash and decode attention in its shared block, audio runs flash
     for phase, got, rows in (
@@ -4156,8 +4852,8 @@ def main() -> None:
     missing = [k for k in KERNELS if launches.get(k, 0) < 1]
     if missing:
         fail(f"no launches counted for {missing}")
-    table = phase_timings(launches, worst)
-    emit("done", seconds=time.perf_counter() - t0,
+    table = timed("timings", phase_timings, launches, worst)
+    emit("done", seconds=time.perf_counter() - t0, traces=TRACES,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     print(json.dumps({"kernels": table}), flush=True)

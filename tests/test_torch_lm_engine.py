@@ -6,8 +6,8 @@ The port's engine with ``decode_kernel=True`` (the decode and sampling
 kernels' plain versions on the CPU) must give the reference's
 ``ServeEngine(decode_kernel=True)`` greedy tokens and its seeded
 temperature > 0 draws exactly, under fifo, priority (with a lossless
-preemption) and interleaved schedulers, and its own ``generate()`` must
-agree.  Each reference engine runs once per module.
+preemption), interleaved and SLO-batching schedulers, and its own
+``generate()`` must agree.  Each reference engine runs once per module.
 """
 
 import dataclasses
@@ -28,7 +28,7 @@ from repro_torch.models import lm as port_lm
 from repro_torch.models.common import LMConfig
 from repro_torch.serving import (FIFOScheduler, InterleavingScheduler,
                                  PagePool, PriorityScheduler, Request,
-                                 ServeEngine)
+                                 ServeEngine, SLOBatchScheduler)
 
 torch.set_num_threads(1)
 
@@ -79,8 +79,12 @@ def engine(**kw):
                        **kw)
 
 
+# "slo" admits one request at a time (its target is never missed, and the
+# window never fills to double the batch), as chip_smoke.py's serve_lm
+# starts its SLOBatchScheduler small
 SCHEDULERS = {"fifo": FIFOScheduler, "priority": PriorityScheduler,
-              "interleave": lambda: InterleavingScheduler(decode_ratio=1)}
+              "interleave": lambda: InterleavingScheduler(decode_ratio=1),
+              "slo": lambda: SLOBatchScheduler(1000.0, initial_batch=1)}
 
 
 @pytest.mark.parametrize("sched", sorted(SCHEDULERS))

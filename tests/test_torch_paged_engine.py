@@ -9,7 +9,9 @@ engine must give the reference kernel engine's greedy tokens and seeded
 draws exactly, under fifo, priority and interleaved schedulers; so must its
 own ``generate()`` and its gathered-view (chunked) paged engine.  The spill
 and prefix-reuse fixtures of the reference's page tests give the
-reference's tokens and counters.  Each reference engine runs once per
+reference's tokens and counters, and so does a pressure fixture (preemption,
+host spill and prefix eviction in one serve), whose tokens ``generate()``
+gives too.  Each reference engine runs once per
 module.
 """
 
@@ -218,6 +220,58 @@ def test_prefix_reuse_matches_reference(mode):
         assert st["prefix_hits"] == 1 and st["prefix_pages_hit"] == 2
         assert st["prefill_tokens"] == full - len(SHARED)
     assert off["prefix_hits"] == 0 and off["prefill_tokens"] == full
+
+
+# The pressure fixture, chip_smoke.py's serve_paged schedule at this size:
+# two low-priority requests sharing SHARED fill both slots, two urgent ones
+# (one sharing it) arrive after two ticks and preempt them, and a pool of
+# PRESSURE_PAGES cannot hold the preempted pages beside the urgent ones,
+# so they spill to the host and cached prefix pages are evicted.
+PRESSURE_PAGES = 9
+PRESSURE_LOW = [SHARED + [20, 21, 22, 23, 24],
+                SHARED + [30, 31, 32, 33, 34, 35, 36, 37, 38]]
+PRESSURE_HIGH = [SHARED + [40, 41, 42], [(7 * i) % 60 + 2 for i in range(23)]]
+
+
+def _pressure_run(make_engine, request_cls):
+    eng = make_engine()
+    rids = [eng.submit(request_cls(prompt=list(p), max_new_tokens=8,
+                                   priority=1)) for p in PRESSURE_LOW]
+    eng.tick()
+    eng.tick()
+    rids += [eng.submit(request_cls(prompt=list(p), max_new_tokens=8,
+                                    priority=0)) for p in PRESSURE_HIGH]
+    done = {}
+    while eng.n_pending:
+        eng.tick()
+        done.update({c.rid: c for c in eng.poll()})
+    st = eng.stats()
+    return ([done[r].tokens for r in rids], st.preempted,
+            st.pages.get("spilled_pages", 0), st.pages.get("cache_evicted", 0))
+
+
+@pytest.mark.parametrize("decode_kernel", [True, False])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_pressure_matches_reference_and_generate(mode, decode_kernel):
+    """Preemption, host spill and prefix eviction in one serve: the tokens
+    and counters are the reference engine's, and each request's tokens are
+    what generate() gives for its prompt alone."""
+    kw = dict(n_slots=2, max_len=64, n_pages=PRESSURE_PAGES)
+    key = ("pressure", mode)
+    if key not in _REF:
+        _REF[key] = _pressure_run(
+            lambda: RefServeEngine(REF_CFG, ref_params(), **kw, **MODES[mode],
+                                   decode_kernel=True,
+                                   scheduler=RefPriorityScheduler()),
+            RefRequest)
+    got = _pressure_run(
+        lambda: engine(mode, decode_kernel=decode_kernel,
+                       scheduler=PriorityScheduler(), **kw), Request)
+    assert got == _REF[key]
+    assert got[1] > 0 and got[2] > 0 and got[3] > 0   # all three happened
+    gen = engine(mode, max_len=64)
+    for p, tokens in zip(PRESSURE_LOW + PRESSURE_HIGH, got[0]):
+        assert gen.generate([p], max_new_tokens=8)[0] == tokens
 
 
 def test_paged_engine_surface():

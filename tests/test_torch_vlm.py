@@ -169,6 +169,26 @@ class TestForward:
             pp, dataclasses.replace(pcfg, attn_impl=impl), batch)
         np.testing.assert_allclose(f32(got), f32(want), atol=1e-5)
 
+    def test_kernel_path_prefill_and_decode_match_reference(self):
+        """chip_smoke.py's vlm cross check at this size: the prefill
+        through the flash kernel's plain version (non-causal over the image
+        tokens) and the decode through the decode kernel's
+        (``attn_impl`` and ``decode_impl`` "cuda"), with the gates open and
+        image features, give the reference's logits."""
+        r = run()
+        _, pcfg, _, pp = model()
+        kcfg = dataclasses.replace(pcfg, attn_impl="cuda", decode_impl="cuda")
+        tokens, nxt, img = inputs()
+        t = torch.from_numpy
+        pl, pc = port_lm.ragged_prefill_step(
+            pp, kcfg, {"tokens": t(tokens), "lengths": t(LENGTHS),
+                       "image_features": t(img)},
+            port_lm.make_caches(kcfg, B, T, device="cpu"))
+        np.testing.assert_allclose(f32(pl), r["j_prefill"], atol=1e-4)
+        dl, _ = port_lm.decode_step(pp, kcfg, {"tokens": t(nxt),
+                                               "pos": t(LENGTHS)}, pc)
+        np.testing.assert_allclose(f32(dl), r["j_decode"], atol=1e-4)
+
     def test_cross_prefill_takes_the_flash_kernel_non_causal(self,
                                                              monkeypatch):
         from repro_torch import kernels
