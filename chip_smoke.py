@@ -17,7 +17,19 @@ token stream (chunked attention, remat; its attention backward held
 against the reference attention's, the attention kernels' refusal of a
 gradient checked), LAKP-prunes every layer's FFN blocks and KV-head groups
 and serves the pruned model through the kernels against the plain path,
-serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
+trains the other LM families at full width (``train_family``:
+``deepseek-moe-16b`` cut to 2 of 28 layers, its aux loss, its one-hot
+dispatch's backward held against the scatter dispatch's, LAKP over each
+layer's experts and the pruned model served through the kernels against
+the plain path with no token routed to a pruned expert; ``xlstm-1.3b`` cut
+to 16 of 48 layers and a full-size ``zamba2-1.2b``, each recurrent
+block's backward on the card held against the CPU, the launcher training
+``zamba2-1.2b`` on the card; a full-size ``hubert-xlarge``, its chunked
+attention's backward held against the reference attention's; and, since
+no AdamW step of it fits one card, the loss and gradients of one unit of
+``llama-3.2-vision-90b`` with its cross gates open, chunked against
+reference; each step timed and its peak memory set beside the dry run's
+count), serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
 ``ServeEngine`` with prefill attention, decode attention and
 sampling in the hand-written kernels (and ``generate()`` and the
 interleave and SLO-batching schedulers on the same engine), serves it
@@ -78,6 +90,7 @@ device it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -120,8 +133,10 @@ from repro_torch.kernels.softmax.kernel import (  # noqa: E402
 from repro_torch.launch.train import accuracy  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.common import (tree_leaves,  # noqa: E402
-                                       tree_unflatten)
+from repro_torch.models import mamba2 as mamba_lib  # noqa: E402
+from repro_torch.models import xlstm as xlstm_lib  # noqa: E402
+from repro_torch.models.common import (init_params,  # noqa: E402
+                                       tree_leaves, tree_unflatten)
 from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
 from repro_torch.parallel import sharding as shard_lib  # noqa: E402
 from repro_torch.serving import (DecodeEngine,  # noqa: E402
@@ -350,6 +365,79 @@ LAUNCHER_RUNS = (
     (HYBRID_ARCH, 0, "rid=1: "),
     (SSM_ARCH, 0, "rid=1: "),
     (AUDIO_ARCH, 1, "encoder-only arch has no decode path"))
+
+# The families' training path (phase train_family, ROADMAP §C 6): each LM
+# family the reference trains, at full width with float32 parameters, bf16
+# compute, attn_impl "chunked" (the attention kernels refuse a gradient)
+# and its config's remat; TRAIN_FAMILY_STEPS Trainer steps from seed 0,
+# AdamW at TRAIN_LM_LR after TRAIN_FAMILY_WARMUP warmup steps (cosine over
+# the run), each step bracketed by CUDA events, batch TRAIN_FAMILY_BATCH x
+# TRAIN_FAMILY_SEQ (hubert: AUDIO_FRAMES frames of features and 504-way
+# labels drawn from RandomState(step)).  Bars: every loss finite, the mean
+# of the last three below the mean of the first three.  The dry run counts
+# each step on the meta device (arguments, peak temporaries, bound) beside
+# the measured peak and step.  Depth is cut only where that count does not
+# fit the card: deepseek-moe-16b to MOE_TRAIN_LAYERS of 28, xlstm-1.3b to
+# SSM_LAYERS of 48 (as serve_ssm; its count traces the sLSTM time loop
+# step by step, so it is not taken here); zamba2-1.2b (remat_group 2) and
+# hubert-xlarge train at the published size.
+#
+# Two paths of one function are held against each other (the moe's one-hot
+# and scatter dispatch, chunked and reference attention): loss and
+# gradients on a held-out batch within TRAIN_LM_*_TOL, as train_lm's
+# attention check, with PAIR_CHECK_DTYPE compute.  The moe's and hubert's
+# bf16 readings are recorded beside and not held (pair_checks; the vlm's
+# would cost the script 17 s on an H100).  In bf16 the two paths round
+# at other places, which is no scale for these checks: the moe's combine
+# rounds differently, which flips the next layer's top-k for near-tied
+# tokens, and a flipped token moves its whole contribution from one
+# expert's gradient to another's; under the near-uniform attention of
+# hubert's 1,000 random frames the wq / wk gradients are two orders of
+# magnitude below wv's and mostly rounding; the vlm's untied unembedding
+# has its gradient on the batch's label columns, so its RMS is no scale for
+# its largest difference (embed/tok's case in train_lm).  In float32 the
+# paths agree to their summation order.
+#
+# The moe: aux > 0 at every step; one-hot against scatter, the router's
+# gradient finite and non-zero; LAKP over each layer's routed experts
+# (MOE_PRUNE_SPARSITY), held-out loss before and after; the pruned model
+# served through the kernels against the plain path (serve_against_plain),
+# no (token, expert) pair routed to a pruned expert.  xlstm and zamba2: one
+# block of each kind (mLSTM, sLSTM; Mamba-2) at full width and float32
+# compute, loss <output, a fixed random projection> on a (1, BLOCK_SEQ,
+# d_model) input, on the card against the same call on the CPU: the loss
+# within BLOCK_TOL of the sum of its terms' magnitudes, each gradient's
+# largest difference within BLOCK_TOL of its largest magnitude (float32
+# sums in other orders; a lost or wrong gradient moves a leaf by its own
+# size).  zamba2 also through the launcher (TRAIN_LAUNCHER_ARGS: the
+# published config, on the card).  hubert: chunked against reference
+# attention (non-causal) on GRAD_CHECK_CLIPS clips.  llama-3.2-vision-90b
+# takes no step: an AdamW step of one unit at full width does not fit one
+# card (the count is in its line), so one unit (VLM_GRAD_LAYERS layers: 4
+# self + 1 cross) takes loss and gradients only, every cross gate at
+# VLM_GATE, chunked against reference, every cross leaf and embed/img_proj
+# with a finite, non-zero gradient.
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_WARMUP = 6, 3
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 4, 512
+MOE_TRAIN_LAYERS = 2
+MOE_PRUNE_SPARSITY = 0.25
+PAIR_CHECK_DTYPE = "float32"
+GRAD_CHECK_CLIPS = 2
+BLOCK_SEQ = 512
+BLOCK_TOL = 1e-3
+VLM_GRAD_LAYERS = 5
+VLM_GRAD_BATCH, VLM_GRAD_SEQ = 2, 256
+FAMILY_TRAIN_CUTS = {
+    MOE_ARCH: [f"n_layers 28 -> {MOE_TRAIN_LAYERS}"],
+    SSM_ARCH: [f"n_layers 48 -> {SSM_LAYERS} (2 units: 14 mLSTM + 2 sLSTM "
+               f"blocks)"],
+    VLM_ARCH: [f"n_layers 100 -> {VLM_GRAD_LAYERS} (1 unit: 4 "
+               f"self-attention + 1 cross-attention block)",
+               "no AdamW step: loss and gradients only"]}
+TRAIN_LAUNCHER_STEPS = 2
+TRAIN_LAUNCHER_ARGS = ("--arch", HYBRID_ARCH, "--steps",
+                       str(TRAIN_LAUNCHER_STEPS), "--batch", "2", "--seq",
+                       "256", "--log-every", "1")
 
 # Valid lengths of the kernel phase's paged and int8 decode cases: 0, 1, a
 # page boundary, the full 1024 rows and lengths in between.  (The timing
@@ -695,6 +783,14 @@ EXTRA_CASES = {
           for rows in ({"temperature": (0.0,) * 8}, MIXED, MIXED_ROWS)),
     ),
 }
+
+
+def port_env() -> dict:
+    """This process's environment with the checkout's ``src`` first on
+    PYTHONPATH, for the port's launchers in processes of their own."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
 
 
 def emit(phase: str, **fields) -> None:
@@ -2064,35 +2160,84 @@ def train_lm_components(cfg, params, x_shape) -> dict:
     return out
 
 
-def attention_grad_check(cfg, params, batch) -> dict:
-    """Loss and gradients of attn_impl "chunked" against "reference" on one
-    batch at full width: each one's largest difference over the reference
-    path's RMS (the loss's over |loss|)."""
+def grad_pair_check(params, batch, cfgs: dict, host_first: bool = False
+                    ) -> dict:
+    """Loss and gradients of ``params`` on one batch under each of the two
+    configs of ``cfgs`` (name -> config; the first is held against the
+    second): each gradient leaf's largest difference over the second's RMS
+    and its L2 difference over the second's L2 norm, the loss's difference
+    over |loss|, and each leaf's largest |gradient| under the second, also
+    over its RMS.  With
+    ``host_first`` the first path's gradients wait in host memory while the
+    second's are taken (a model whose parameters and two sets of gradients
+    would not fit the card)."""
     out = {}
-    for impl in ("chunked", "reference"):
+    for name, c in cfgs.items():
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss, _ = lm.loss_fn(tree_unflatten(params, live),
-                             dataclasses.replace(cfg, attn_impl=impl), batch)
-        out[impl] = (loss.detach(), torch.autograd.grad(loss, live))
-        del live, loss
-    (lc, gc), (lr, gr) = out["chunked"], out["reference"]
-    max_rms, l2 = {}, {}
+        loss, _ = lm.loss_fn(tree_unflatten(params, live), c, batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        if host_first and not out:
+            grads = [g.cpu() for g in grads]
+        out[name] = (loss.detach(), grads)
+        del live, loss, grads
+    (na, (la, ga)), (nb, (lb, gb)) = out.items()
+    max_rms, l2, max_abs, peak, finite = {}, {}, {}, {}, True
     paths = [p for p, _ in flat_paths(params)]
-    for path, a, b in zip(paths, gc, gr):
+    for path, a, b in zip(paths, ga, gb):
         key = "/".join(map(str, path))
-        d, b = a.float() - b.float(), b.float()
-        max_rms[key] = float(d.abs().max() / b.square().mean().sqrt()
-                             .clamp(min=1e-30))
+        a, b = a.to(b.device).float(), b.float()
+        finite = (finite and bool(torch.isfinite(a).all())
+                  and bool(torch.isfinite(b).all()))
+        d = a - b
+        rms = b.square().mean().sqrt().clamp(min=1e-30)
+        max_rms[key] = float(d.abs().max() / rms)
         l2[key] = float(d.norm() / b.norm().clamp(min=1e-30))
+        max_abs[key] = float(b.abs().max())
+        peak[key] = max_abs[key] / float(rms)
+        del a, b, d
+    del out, ga, gb
     dense = {k: v for k, v in max_rms.items() if k not in SPARSE_GRAD_LEAVES}
-    return {"loss_chunked": float(lc), "loss_reference": float(lr),
-            "loss_rel_diff": abs(float(lc - lr)) / abs(float(lr)),
+    return {f"loss_{na}": float(la), f"loss_{nb}": float(lb),
+            "loss_rel_diff": abs(float(la - lb)) / abs(float(lb)),
             "grad_max_diff_over_rms": max_rms, "grad_l2_rel_diff": l2,
+            "grad_max_abs": max_abs, "grad_peak_over_rms": peak,
             "grad_worst_dense_leaf": max(dense, key=dense.get),
             "grad_worst_dense": max(dense.values()),
             "grad_worst_l2_leaf": max(l2, key=l2.get),
             "grad_worst_l2": max(l2.values()),
-            "grads_finite": all(bool(torch.isfinite(g).all()) for g in gc)}
+            "grads_finite": finite}
+
+
+def hold_grad_pair(phase: str, pair: str, check: dict) -> None:
+    """Fail unless ``check`` (grad_pair_check) is finite and within
+    TRAIN_LM_LOSS_TOL / TRAIN_LM_GRAD_TOL."""
+    if not check["grads_finite"]:
+        fail(f"{phase}: {pair}: the gradients are not finite")
+    if check["loss_rel_diff"] > TRAIN_LM_LOSS_TOL:
+        fail(f"{phase}: {pair}: the losses differ by "
+             f"{check['loss_rel_diff']} relative > {TRAIN_LM_LOSS_TOL}")
+    if check["grad_worst_dense"] > TRAIN_LM_GRAD_TOL:
+        fail(f"{phase}: {pair}: the gradients of "
+             f"{check['grad_worst_dense_leaf']} differ by "
+             f"{check['grad_worst_dense']} of its RMS > {TRAIN_LM_GRAD_TOL}")
+    if check["grad_worst_l2"] > TRAIN_LM_GRAD_TOL:
+        fail(f"{phase}: {pair}: the gradients of "
+             f"{check['grad_worst_l2_leaf']} differ by "
+             f"{check['grad_worst_l2']} of its L2 norm > {TRAIN_LM_GRAD_TOL}")
+
+
+def pair_checks(params, batch, cfgs: dict) -> tuple:
+    """grad_pair_check of ``cfgs`` with PAIR_CHECK_DTYPE compute, the one
+    train_family holds, and with the configs' own bf16 compute, recorded
+    beside it: (held, the bf16 reading's summary)."""
+    held = grad_pair_check(params, batch, {
+        k: dataclasses.replace(c, compute_dtype=PAIR_CHECK_DTYPE)
+        for k, c in cfgs.items()})
+    bf16 = grad_pair_check(params, batch, cfgs)
+    return held, {k: v for k, v in bf16.items()
+                  if not isinstance(v, dict) or k == "grad_l2_rel_diff"}
 
 
 def refusal_cases() -> list:
@@ -2252,22 +2397,12 @@ def phase_train_lm() -> dict:
          components=components)
 
     # 2. the chunked attention's backward against the reference attention's
-    check = attention_grad_check(cfg, res.params, held)
+    check = grad_pair_check(res.params, held, {
+        impl: dataclasses.replace(cfg, attn_impl=impl)
+        for impl in ("chunked", "reference")})
     emit("train_lm", part="attention_backward", loss_tol=TRAIN_LM_LOSS_TOL,
          grad_tol=TRAIN_LM_GRAD_TOL, **check)
-    if not check["grads_finite"]:
-        fail("train_lm: the chunked path's gradients are not finite")
-    if check["loss_rel_diff"] > TRAIN_LM_LOSS_TOL:
-        fail(f"train_lm: chunked and reference losses differ by "
-             f"{check['loss_rel_diff']} relative > {TRAIN_LM_LOSS_TOL}")
-    if check["grad_worst_dense"] > TRAIN_LM_GRAD_TOL:
-        fail(f"train_lm: chunked and reference gradients of "
-             f"{check['grad_worst_dense_leaf']} differ by "
-             f"{check['grad_worst_dense']} of its RMS > {TRAIN_LM_GRAD_TOL}")
-    if check["grad_worst_l2"] > TRAIN_LM_GRAD_TOL:
-        fail(f"train_lm: chunked and reference gradients of "
-             f"{check['grad_worst_l2_leaf']} differ by "
-             f"{check['grad_worst_l2']} of its L2 norm > {TRAIN_LM_GRAD_TOL}")
+    hold_grad_pair("train_lm", "chunked against reference", check)
 
     # 3. the attention wrappers refuse a gradient on the card
     refused = refusal_cases()
@@ -2301,6 +2436,478 @@ def phase_train_lm() -> dict:
                  f"model")
     emit("train_lm", part="serve", refusals=len(refused), **numbers,
          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def family_train_cfg(arch: str, n_layers: int = 0):
+    """``arch`` at full width with float32 parameters and attn_impl
+    "chunked"; its depth cut to ``n_layers`` when one is given."""
+    cut = {"attn_impl": "chunked"}
+    if n_layers:
+        cut["n_layers"] = n_layers
+    return dataclasses.replace(cfg_lib.get_config(arch), **cut)
+
+
+def counted_train_step(cfg, batch: int, seq: int) -> dict:
+    """The dry run's count of one AdamW step of ``cfg`` (the cut config)
+    on the meta device, not donating: argument bytes (parameters and
+    AdamW moments), the peak of the step's temporaries, flops, bytes and
+    the bound (the larger of bytes over HBM_BW and flops over
+    PEAK_FLOPS)."""
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["meta"])
+    rules = shard_lib.rules_for_arch(cfg.arch_id, kind="train")
+    shape = {"seq": seq, "batch": batch, "kind": "train"}
+    fn, args, in_sh, out_sh = dryrun.build_cell(cfg.arch_id, shape, rules,
+                                                mesh, "opt", cfg=cfg)
+    out, cost, trace_s = dryrun.count_cell(fn, args)
+    rec = dryrun.record(cfg.arch_id, "train_family", mesh, "1x1", "opt",
+                        cost, trace_s, args, in_sh, out, out_sh)
+    t_ops = rec["flops_per_dev"] / roofline.PEAK_FLOPS
+    t_bytes = rec["bytes_per_dev"] / roofline.HBM_BW
+    return {"arg_bytes_counted": rec["arg_bytes_per_dev"],
+            "temp_bytes_counted": rec["temp_bytes_per_dev"],
+            "args_plus_temp_counted": (rec["arg_bytes_per_dev"]
+                                       + rec["temp_bytes_per_dev"]),
+            "flops_counted": rec["flops_per_dev"],
+            "bytes_counted": rec["bytes_per_dev"],
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "count_s": trace_s}
+
+
+def train_family_steps(cfg, batches, items: str, n_items: int) -> tuple:
+    """TRAIN_FAMILY_STEPS Trainer steps of ``cfg`` from seed 0 on
+    ``batches`` (each of ``n_items`` tokens or frames), every step
+    bracketed by CUDA events, the peak of allocated memory from the init
+    on.  Fails unless every loss is finite and the mean of the last three
+    is below the mean of the first three.  Returns (the TrainResult, the
+    numbers)."""
+    tcfg = TrainerConfig(optim=AdamWConfig(
+        lr=TRAIN_LM_LR, warmup_steps=TRAIN_FAMILY_WARMUP,
+        total_steps=TRAIN_FAMILY_STEPS), log_every=1)
+    trainer = Trainer(tcfg, lambda p, b: lm.loss_fn(p, cfg, b),
+                      lambda g: lm.init(cfg, g, DEVICE), device=DEVICE)
+    events = []
+    event_timed_steps(trainer, events)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    before = settled_allocation()
+    t0 = time.perf_counter()
+    res = trainer.run(batches, TRAIN_FAMILY_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    losses = [h["loss"] for h in res.history]
+    if len(losses) != TRAIN_FAMILY_STEPS or not all(np.isfinite(losses)):
+        fail(f"train_family: {cfg.arch_id}: losses {losses}")
+    first3, last3 = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not last3 < first3:
+        fail(f"train_family: {cfg.arch_id}: the loss did not fall: mean of "
+             f"the first three {first3}, of the last three {last3}")
+    median = step_ms[len(step_ms) // 2]
+    return res, dict(
+        params=sum(int(x.numel()) for x in tree_leaves(res.params)),
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        attn_impl=cfg.attn_impl, remat=cfg.remat, remat_group=cfg.remat_group,
+        n_layers=cfg.n_layers, steps=res.step, lr=TRAIN_LM_LR,
+        warmup_steps=TRAIN_FAMILY_WARMUP, train_s=train_s,
+        step_ms_median=median, step_ms_min=step_ms[0],
+        step_ms_max=step_ms[-1],
+        **{f"{items}_per_step": n_items,
+           f"{items}_per_s": n_items / (median / 1e3)},
+        losses=losses, aux_losses=[h["aux"] for h in res.history],
+        loss_first3_mean=first3, loss_last3_mean=last3,
+        max_memory_allocated_bytes=peak, allocated_before_bytes=before)
+
+
+def settled_allocation() -> int:
+    """Collect what earlier phases left to the garbage collector, reset the
+    peak, and return the bytes still allocated: the base a step's measured
+    peak is taken above."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def beside_count(numbers: dict, counted: dict) -> dict:
+    """The measured step, and the peak above what was allocated before the
+    init, beside the dry run's count."""
+    return dict(counted=counted,
+                bound_over_measured=counted["bound_ms"]
+                / numbers["step_ms_median"],
+                peak_over_counted=(numbers["max_memory_allocated_bytes"]
+                                   - numbers["allocated_before_bytes"])
+                / counted["args_plus_temp_counted"])
+
+
+def token_batches(vocab: int):
+    return TokenStream(TokenStreamConfig(vocab=vocab)).batches(
+        TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS)
+
+
+def audio_batch(cfg, seed: int, clips: int) -> dict:
+    """AUDIO_FRAMES frames of features and labels from RandomState(seed),
+    as tests/test_torch_lm_train.py draws them."""
+    rng = np.random.RandomState(seed)
+    return {"labels": rng.randint(0, cfg.vocab, (clips, AUDIO_FRAMES)
+                                  ).astype(np.int32),
+            "features": rng.standard_normal(
+                (clips, AUDIO_FRAMES, cfg.d_model)).astype(np.float32)}
+
+
+def to_device(batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+
+
+def block_grad_check(label: str, apply_fn, defs, cfg) -> dict:
+    """One block (``defs`` of ``cfg`` at full width) with float32 compute:
+    loss <output, a fixed random projection> on a (1, BLOCK_SEQ, d_model)
+    input from RandomState(2), parameters from a CPU generator seeded 1;
+    the loss and the gradients of the input and every parameter on the
+    card against the same call on the CPU.  Fails past BLOCK_TOL."""
+    bcfg = dataclasses.replace(cfg, compute_dtype="float32")
+    host = init_params(defs(bcfg), torch.Generator().manual_seed(1),
+                       torch.float32)
+    rng = np.random.RandomState(2)
+    x = rng.standard_normal((1, BLOCK_SEQ, cfg.d_model)).astype(np.float32)
+    proj = rng.standard_normal(x.shape).astype(np.float32)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        p = {k: v.detach().clone().to(dev).requires_grad_(True)
+             for k, v in host.items()}
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        t0 = time.perf_counter()
+        y, _ = apply_fn(p, bcfg, xt, None)
+        terms = y.float() * torch.from_numpy(proj).to(dev)
+        loss = terms.sum()
+        grads = torch.autograd.grad(loss, [xt, *p.values()])
+        runs[dev] = (float(loss.detach()), float(terms.detach().abs().sum()),
+                     dict(zip(["x", *p], [g.cpu() for g in grads])),
+                     time.perf_counter() - t0)
+        del p, xt, y, terms, loss, grads
+    (lc, mag, gc, sc), (lh, _, gh, sh) = runs[DEVICE], runs["cpu"]
+    loss_diff = abs(lc - lh) / mag
+    worst = {k: float((gc[k] - gh[k]).abs().max()
+                      / gh[k].abs().max().clamp(min=1e-30)) for k in gh}
+    if not all(bool(torch.isfinite(g).all()) for g in gc.values()):
+        fail(f"train_family: {label} block: the card's gradients are not "
+             f"finite")
+    if any(float(g.abs().max()) == 0.0 for g in gh.values()):
+        fail(f"train_family: {label} block: a gradient is 0 on the CPU")
+    if loss_diff > BLOCK_TOL:
+        fail(f"train_family: {label} block: the card's loss {lc} and the "
+             f"CPU's {lh} differ by {loss_diff} of the terms' magnitude "
+             f"> {BLOCK_TOL}")
+    leaf = max(worst, key=worst.get)
+    if worst[leaf] > BLOCK_TOL:
+        fail(f"train_family: {label} block: the gradient of {leaf} differs "
+             f"between the card and the CPU by {worst[leaf]} of its largest "
+             f"magnitude > {BLOCK_TOL}")
+    return {"block": label, "input": [1, BLOCK_SEQ, cfg.d_model],
+            "loss_card": lc, "loss_cpu": lh, "loss_diff_over_terms": loss_diff,
+            "grad_max_diff_over_max": worst, "grad_worst_leaf": leaf,
+            "grad_worst": worst[leaf], "tol": BLOCK_TOL,
+            "card_s": sc, "cpu_s": sh}
+
+
+def start_train_launcher():
+    """``python -m repro_torch.launch.train`` with TRAIN_LAUNCHER_ARGS (no
+    --device: the card) in its own process."""
+    env = port_env()
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *TRAIN_LAUNCHER_ARGS], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish_train_launcher(proc) -> dict:
+    """Wait for start_train_launcher's process: it must exit 0 on the card
+    and print one finite loss a step."""
+    log = proc.communicate(timeout=600)[0]
+    lines = log.strip().splitlines()
+    losses = [float(line.split("'loss': ")[1].split(",")[0])
+              for line in lines if "'loss': " in line]
+    if (proc.returncode != 0 or len(losses) != TRAIN_LAUNCHER_STEPS
+            or not all(np.isfinite(losses)) or " on cuda" not in log):
+        fail(f"train_family: launcher {' '.join(TRAIN_LAUNCHER_ARGS)}: exit "
+             f"{proc.returncode}, losses {losses}: {log[-2000:]}")
+    return {"args": list(TRAIN_LAUNCHER_ARGS), "exit": proc.returncode,
+            "losses": losses, "first_line": lines[0][:300]}
+
+
+def watch_routing(masks: list) -> tuple:
+    """Wrap moe_apply so that every call's routed (token, expert) pairs are
+    counted by expert (routing_counts) against the experts LAKP pruned in
+    its layer (``masks``, one (E,) keep-mask a layer; calls come in layer
+    order).  Returns (the tallies, a function that removes the watch)."""
+    from repro_torch.models import moe as moe_lib
+
+    seen = {"calls": 0, "pairs": 0, "pairs_to_pruned": 0,
+            "bias_marks_pruned": True}
+    inner = moe_lib.moe_apply
+
+    def watched(p, c, x, token_mask=None):
+        pruned = ~masks[seen["calls"] % len(masks)].to(torch.bool)
+        seen["calls"] += 1
+        load = torch.tensor(routing_counts(p, c, x, token_mask)
+                            ["load_by_expert"])
+        seen["pairs"] += int(load.sum())
+        seen["pairs_to_pruned"] += int(load[pruned.cpu()].sum())
+        if not torch.equal((p["router_b"] < -1e8).cpu(), pruned.cpu()):
+            seen["bias_marks_pruned"] = False
+        return inner(p, c, x, token_mask=token_mask)
+
+    moe_lib.moe_apply = watched
+    return seen, lambda: setattr(moe_lib, "moe_apply", inner)
+
+
+def prune_moe(cfg, params) -> list:
+    """LAKP over each layer's routed experts, in place
+    (``pruning.prune_moe_experts`` at MOE_PRUNE_SPARSITY); returns the
+    keep-masks."""
+    ffn = params["units"]["block"]["ffn"]
+    keys = ("router", "router_b", "wi", "wg", "wo")
+    masks = []
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            new, mask = pruning.prune_moe_experts(
+                {k: ffn[k][i] for k in keys}, MOE_PRUNE_SPARSITY,
+                method="lakp")
+            for k in keys:
+                ffn[k][i].copy_(new[k])
+            masks.append(mask)
+    return masks
+
+
+def train_moe(counted: dict) -> dict:
+    """deepseek-moe-16b cut to MOE_TRAIN_LAYERS: train (aux > 0 at every
+    step), one-hot against scatter on a held-out batch, LAKP, then the
+    pruned model served through the kernels against the plain path with
+    no pair routed to a pruned expert.  Returns the serve's launches by
+    kernel-table row."""
+    t0 = time.perf_counter()
+    cfg = family_train_cfg(MOE_ARCH, MOE_TRAIN_LAYERS)
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab))
+    res, numbers = train_family_steps(
+        cfg, token_batches(cfg.vocab), "tokens",
+        TRAIN_FAMILY_BATCH * TRAIN_FAMILY_SEQ)
+    if not all(a > 0 for a in numbers["aux_losses"]):
+        fail(f"train_family: moe aux {numbers['aux_losses']}")
+    params = res.params
+    del res
+    held = to_device(stream.sample(TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ,
+                                   TRAIN_LM_HELD_OUT_SEED))
+    check, bf16 = pair_checks(params, held, {
+        d: dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            dispatch=d))
+        for d in ("onehot", "scatter")})
+    router = {k: v for k, v in check["grad_max_abs"].items()
+              if k.endswith("/router")}
+    emit("train_family", part="train", arch=MOE_ARCH,
+         reduced=FAMILY_TRAIN_CUTS[MOE_ARCH],
+         batch=TRAIN_FAMILY_BATCH, seq=TRAIN_FAMILY_SEQ,
+         dispatch=cfg.moe.dispatch, **numbers,
+         **beside_count(numbers, counted),
+         router_grad_max_abs=router, check_compute_dtype=PAIR_CHECK_DTYPE,
+         loss_tol=TRAIN_LM_LOSS_TOL, grad_tol=TRAIN_LM_GRAD_TOL,
+         onehot_against_scatter={k: v for k, v in check.items()
+                                 if k != "grad_max_abs"},
+         onehot_against_scatter_bf16_not_held=bf16,
+         seconds=time.perf_counter() - t0)
+    hold_grad_pair("train_family", "moe onehot against scatter", check)
+    if not router or not all(0 < v < math.inf for v in router.values()):
+        fail(f"train_family: the router's gradient {router}")
+
+    # LAKP over the routed experts of each layer, then serve
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        held_before = float(lm.loss_fn(params, cfg, held)[0])
+        masks = prune_moe(cfg, params)
+        held_after = float(lm.loss_fn(params, cfg, held)[0])
+    if not (np.isfinite(held_before) and np.isfinite(held_after)):
+        fail(f"train_family: moe held-out loss {held_before} -> "
+             f"{held_after}")
+    torch.cuda.empty_cache()
+    seen, unwatch = watch_routing(masks)
+    try:
+        numbers, launches = serve_against_plain(
+            "train_family (moe serve)",
+            dataclasses.replace(cfg, attn_impl="cuda"), params,
+            breakdown=False)
+    finally:
+        unwatch()
+    del params
+    torch.cuda.empty_cache()
+    if (seen["calls"] < cfg.n_layers or seen["pairs_to_pruned"]
+            or not seen["bias_marks_pruned"]):
+        fail(f"train_family: the pruned moe's routing: {seen}")
+    for row in ("flash_attention", "decode_attention", "fused_sampling"):
+        if launches.get(row, 0) < 1:
+            fail(f"train_family: {row} was never launched serving the "
+                 f"pruned moe")
+    emit("train_family", part="moe_prune_serve", arch=MOE_ARCH,
+         sparsity=MOE_PRUNE_SPARSITY, method="lakp",
+         held_out_seed=TRAIN_LM_HELD_OUT_SEED,
+         held_out_loss_trained=held_before, held_out_loss_pruned=held_after,
+         experts_kept=[torch.nonzero(m).flatten().tolist() for m in masks],
+         routing=seen, routing_watched=True, **numbers,
+         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def train_recurrent(arch: str, n_layers: int, reduced: list, blocks,
+                    counted) -> None:
+    """xlstm-1.3b or zamba2-1.2b: train, then each of ``blocks`` ((label,
+    apply, defs)) card against host."""
+    t0 = time.perf_counter()
+    cfg = family_train_cfg(arch, n_layers)
+    res, numbers = train_family_steps(
+        cfg, token_batches(cfg.vocab), "tokens",
+        TRAIN_FAMILY_BATCH * TRAIN_FAMILY_SEQ)
+    del res
+    torch.cuda.empty_cache()
+    checks = [block_grad_check(label, apply_fn, defs, cfg)
+              for label, apply_fn, defs in blocks]
+    emit("train_family", part="train", arch=arch, reduced=reduced,
+         batch=TRAIN_FAMILY_BATCH, seq=TRAIN_FAMILY_SEQ, **numbers,
+         **(beside_count(numbers, counted) if counted else
+            {"counted": "not taken: the sLSTM time loop is counted step "
+                        "by step (PERF.md §6 has the count)"}),
+         block_backward=checks, seconds=time.perf_counter() - t0)
+
+
+def train_audio(counted: dict) -> None:
+    """hubert-xlarge at the published size: train, then chunked against
+    reference attention on GRAD_CHECK_CLIPS held-out clips."""
+    t0 = time.perf_counter()
+    cfg = family_train_cfg(AUDIO_ARCH)
+    batches = (audio_batch(cfg, i, TRAIN_FAMILY_BATCH)
+               for i in range(TRAIN_FAMILY_STEPS))
+    res, numbers = train_family_steps(cfg, batches, "frames",
+                                      TRAIN_FAMILY_BATCH * AUDIO_FRAMES)
+    params = res.params
+    del res
+    torch.cuda.empty_cache()
+    check, bf16 = pair_checks(params, to_device(audio_batch(
+        cfg, TRAIN_LM_HELD_OUT_SEED, GRAD_CHECK_CLIPS)), {
+            impl: dataclasses.replace(cfg, attn_impl=impl)
+            for impl in ("chunked", "reference")})
+    del params
+    emit("train_family", part="train", arch=AUDIO_ARCH, reduced=[],
+         batch=TRAIN_FAMILY_BATCH, frames=AUDIO_FRAMES, causal=cfg.causal,
+         **numbers, **beside_count(numbers, counted),
+         loss_tol=TRAIN_LM_LOSS_TOL, grad_tol=TRAIN_LM_GRAD_TOL,
+         grad_check_clips=GRAD_CHECK_CLIPS,
+         check_compute_dtype=PAIR_CHECK_DTYPE,
+         chunked_against_reference={k: v for k, v in check.items()
+                                    if k != "grad_max_abs"},
+         chunked_against_reference_bf16_not_held=bf16,
+         seconds=time.perf_counter() - t0)
+    hold_grad_pair("train_family", "hubert chunked against reference", check)
+
+
+def vlm_backward(counted: dict) -> None:
+    """One unit of llama-3.2-vision-90b at full width, float32 parameters,
+    every cross gate at VLM_GATE: loss and gradients of VLM_GRAD_BATCH x
+    VLM_GRAD_SEQ tokens with image features, chunked against reference
+    (the chunked path's gradients wait in host memory); every cross leaf
+    and embed/img_proj has a finite, non-zero gradient.  No AdamW step:
+    ``counted`` (one unit's step) does not fit the card."""
+    t0 = time.perf_counter()
+    cfg = family_train_cfg(VLM_ARCH, VLM_GRAD_LAYERS)
+    before = settled_allocation()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, DEVICE)
+    cross = params["units"]["cross"]["attn"]
+    with torch.no_grad():
+        cross["gate"].fill_(VLM_GATE)
+    rng = np.random.RandomState(5)
+    batch = to_device({
+        "tokens": rng.randint(0, cfg.vocab, (VLM_GRAD_BATCH, VLM_GRAD_SEQ)
+                              ).astype(np.int32),
+        "labels": rng.randint(0, cfg.vocab, (VLM_GRAD_BATCH, VLM_GRAD_SEQ)
+                              ).astype(np.int32),
+        "image_features": rng.standard_normal(
+            (VLM_GRAD_BATCH, cfg.n_image_tokens, cfg.d_model)
+        ).astype(np.float32)})
+    n_params = sum(int(x.numel()) for x in tree_leaves(params))
+    check = grad_pair_check(params, batch, {
+        impl: dataclasses.replace(cfg, attn_impl=impl,
+                                  compute_dtype=PAIR_CHECK_DTYPE)
+        for impl in ("chunked", "reference")}, host_first=True)
+    del params, batch
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    live = {k: v for k, v in check["grad_max_abs"].items()
+            if k.startswith("units/cross/") or k == "embed/img_proj"}
+    emit("train_family", part="backward", arch=VLM_ARCH,
+         reduced=FAMILY_TRAIN_CUTS[VLM_ARCH],
+         no_step_because=dict(counted, capacity_bytes=
+                              roofline.HBM_CAPACITY_BYTES),
+         params=n_params, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, batch=VLM_GRAD_BATCH,
+         seq=VLM_GRAD_SEQ, image_tokens=cfg.n_image_tokens, gate=VLM_GATE,
+         max_memory_allocated_bytes=peak, allocated_before_bytes=before,
+         loss_tol=TRAIN_LM_LOSS_TOL,
+         grad_tol=TRAIN_LM_GRAD_TOL, cross_grad_max_abs=live,
+         check_compute_dtype=PAIR_CHECK_DTYPE,
+         chunked_against_reference={k: v for k, v in check.items()
+                                    if k != "grad_max_abs"},
+         seconds=time.perf_counter() - t0)
+    hold_grad_pair("train_family", "vlm chunked against reference", check)
+    if (len(live) < 2 or "embed/img_proj" not in live
+            or not all(0 < v < math.inf for v in live.values())):
+        fail(f"train_family: vlm cross gradients {live}")
+    fits = counted["args_plus_temp_counted"] <= roofline.HBM_CAPACITY_BYTES
+    if fits:
+        fail(f"train_family: the vlm step counts "
+             f"{counted['args_plus_temp_counted']} bytes, which fit the "
+             f"card: train it")
+
+
+def phase_train_family() -> dict:
+    """ROADMAP §C 6 on the card: the moe (train, one-hot against scatter,
+    LAKP over experts, the pruned model served through the kernels), the
+    ssm and the hybrid (train, each recurrent block's backward card against
+    host, the hybrid through the launcher), the audio encoder (train,
+    chunked against reference attention) and the vlm's cross path (loss
+    and gradients of one unit).  Returns the moe serve's launches by
+    kernel-table row."""
+    # the launcher trains on the card in its own process while this one
+    # counts the steps on the meta device
+    torch.cuda.empty_cache()
+    proc = start_train_launcher()
+    try:
+        counted = {cfg.arch_id: counted_train_step(cfg, batch, seq)
+                   for cfg, batch, seq in (
+                       (family_train_cfg(MOE_ARCH, MOE_TRAIN_LAYERS),
+                        TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ),
+                       (family_train_cfg(HYBRID_ARCH), TRAIN_FAMILY_BATCH,
+                        TRAIN_FAMILY_SEQ),
+                       (family_train_cfg(AUDIO_ARCH), TRAIN_FAMILY_BATCH,
+                        AUDIO_FRAMES),
+                       (family_train_cfg(VLM_ARCH, VLM_GRAD_LAYERS),
+                        VLM_GRAD_BATCH, VLM_GRAD_SEQ))}
+        launcher = finish_train_launcher(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emit("train_family", part="launcher", **launcher)
+    launches = train_moe(counted[MOE_ARCH])
+    torch.cuda.empty_cache()
+    train_recurrent(SSM_ARCH, SSM_LAYERS, FAMILY_TRAIN_CUTS[SSM_ARCH], (
+        ("mlstm", xlstm_lib.mlstm_apply, xlstm_lib.mlstm_defs),
+        ("slstm", xlstm_lib.slstm_apply, xlstm_lib.slstm_defs)), None)
+    train_recurrent(HYBRID_ARCH, 0, [], (
+        ("mamba2", mamba_lib.mamba2_apply, mamba_lib.mamba2_defs),),
+        counted[HYBRID_ARCH])
+    train_audio(counted[AUDIO_ARCH])
+    vlm_backward(counted[VLM_ARCH])
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3085,9 +3692,9 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
 def routing_counts(params, cfg, x, token_mask) -> dict:
     """What one moe layer's dispatch does with the tokens of a prefill:
     the capacity of its buffers and of each row (from the row's real
-    tokens), the (token, expert) pairs routed, and those dropped because
-    their expert's buffer was full (serve_lm's rank rule, recomputed with
-    the module's own helpers)."""
+    tokens), the (token, expert) pairs routed, by expert too, and those
+    dropped because their expert's buffer was full (serve_lm's rank rule,
+    recomputed with the module's own helpers)."""
     from repro_torch.models import moe as moe_lib
 
     m = cfg.moe
@@ -3108,7 +3715,8 @@ def routing_counts(params, cfg, x, token_mask) -> dict:
                         for r in ids.reshape(b, -1)])
     return {"capacity": cap, "row_capacity": cap_rows.tolist(),
             "routed": routed, "dropped": routed - kept,
-            "busiest_expert_load": int(load.max())}
+            "busiest_expert_load": int(load.max()),
+            "load_by_expert": load.sum(0).tolist()}
 
 
 def moe_admission(kern, reqs, cfg) -> dict:
@@ -3582,9 +4190,7 @@ def launcher_runs() -> list:
     the build phase made): each recurrent model exits 0 and prints its
     requests' tokens; hubert exits 1 with the message of the reference's
     refusal of audio."""
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    env = port_env()
     torch.cuda.empty_cache()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
@@ -4418,9 +5024,7 @@ def dryrun_production() -> list:
     """Part (a): ``python -m repro_torch.launch.dryrun`` once per cell of
     DRYRUN_PRODUCTION, all at once (each is one host process on meta
     tensors), then one line per record."""
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    env = port_env()
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
@@ -4808,6 +5412,7 @@ def main() -> None:
                            4)
     launches_train = timed("train_capsnet", phase_train_capsnet)
     launches_train_lm = timed("train_lm", phase_train_lm)
+    launches_train_family = timed("train_family", phase_train_family)
     launches_lm = timed("serve_lm", phase_serve_lm)
     launches_paged = timed("serve_paged", phase_serve_paged)
     launches_disagg = timed("serve_disagg", phase_serve_disagg)
@@ -4831,6 +5436,7 @@ def main() -> None:
         if missing:
             fail(f"serve_{phase}: {missing} never launched on its path")
     later = {"train": launches_train, "train_lm": launches_train_lm,
+             "train_family": launches_train_family,
              "paged": launches_paged,
              "disagg": launches_disagg, "moe": launches_moe,
              "vlm": launches_vlm, "ssm": launches_ssm,

@@ -90,6 +90,16 @@ def _route_row(logits: torch.Tensor, k: int
     return torch.softmax(vals, dim=-1), ids
 
 
+def expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """int64 (n_experts + 1,) count of each id in ``flat_e``, the sentinel
+    id ``n_experts`` in the last slot: ``torch.bincount`` with ``minlength``
+    n_experts + 1, as a ``scatter_add_`` of ones, which has a meta kernel
+    (the dry run) and is exact in int64 on the card."""
+    ones = torch.ones_like(flat_e, dtype=torch.int64)
+    return torch.zeros(n_experts + 1, dtype=torch.int64,
+                       device=flat_e.device).scatter_add_(0, flat_e, ones)
+
+
 def _dispatch_row(x: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
                   n_experts: int, capacity: int,
                   mask: Optional[torch.Tensor] = None,
@@ -113,7 +123,7 @@ def _dispatch_row(x: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
 
     order = torch.sort(flat_e, stable=True).indices
     e_sorted, t_sorted, w_sorted = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(flat_e, minlength=n_experts + 1)[:n_experts]
+    counts = expert_counts(flat_e, n_experts)[:n_experts]
     starts = torch.cumsum(counts, 0) - counts                  # exclusive
     rank = (torch.arange(s * k, device=dev)
             - starts[torch.clamp(e_sorted, max=n_experts - 1)])

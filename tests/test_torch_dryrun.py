@@ -237,6 +237,9 @@ REDUCED_CELLS = [
     ("llama3.2-1b", {"seq": 64, "batch": 2, "kind": "prefill"}, "kernels"),
     ("llama3.2-1b", {"seq": 64, "batch": 2, "kind": "decode"}, "kernels"),
     ("zamba2-1.2b", {"seq": 32, "batch": 2, "kind": "decode"}, "opt"),
+    # base: the scatter dispatch counts tokens per expert on meta tensors
+    *[("deepseek-moe-16b", {"seq": 32, "batch": 2, "kind": k}, "base")
+      for k in ("train", "prefill", "decode")],
     ("capsnet-mnist", "infer_1k", "kernels"),
     ("capsnet-mnist", "train_1k", "kernels"),
 ]

@@ -10,7 +10,10 @@ parameters are the reference's, converted leaf by leaf.  Tolerances:
 * loss: within 1e-5 relative (float32 compute, ``reduced()`` configs);
 * gradients: every leaf within 1e-4 * max(1, max |reference leaf|) in max
   |difference| (``value_and_grad`` of the reference against autograd of
-  the port), compared by path;
+  the port), compared by path; also where ``init`` hides a path (the vlm's
+  cross attention behind gates at 0, here opened to 0.5, with its
+  gradients asserted non-zero) or the default bypasses one (the moe's
+  ``scatter`` dispatch);
 * chunked against unchunked cross-entropy, remat on against off: the same
   arithmetic in the same order on the CPU, so equal (the chunked sum adds
   chunk totals, so it is held to 1e-6 relative of the one-pass mean);
@@ -197,6 +200,67 @@ class TestLossAndGrads:
             assert np.isfinite(got).all(), path
             err = np.abs(got - want).max()
             assert err <= GRAD_TOL * max(1.0, np.abs(want).max()), (path, err)
+
+
+VLM_GATE = 0.5
+
+
+def _open_gates(jp):
+    """Every cross gate at VLM_GATE: ``lm.init`` starts them at 0, where
+    the cross output is multiplied by tanh(0) and the cross attention's and
+    ``img_proj``'s gradients are exactly 0 in both packages."""
+    cross = jp["units"]["cross"]["attn"]
+    cross["gate"] = jnp.full_like(cross["gate"], VLM_GATE)
+    return jp
+
+
+def _scatter(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="scatter"))
+
+
+# name -> (arch, the change of both configs, the change of the reference's
+# parameters, path prefixes whose reference gradient must be non-zero)
+OPEN_PATHS = {
+    "vlm-gates-open": ("llama-3.2-vision-90b", None, _open_gates,
+                       (("units", "cross"), ("embed", "img_proj"))),
+    "moe-scatter": ("deepseek-moe-16b", _scatter, None,
+                    (("units", "block", "ffn", "router"),
+                     ("units", "block", "ffn", "wi"))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPEN_PATHS))
+def test_open_path_gradients_match_reference(name):
+    """The backward paths the init hides or the default dispatch bypasses:
+    the vlm's cross attention with every gate open (its leaves and
+    ``img_proj`` get non-zero gradients, asserted on the reference so the
+    comparison is not of zeros) and the moe under the ``scatter`` dispatch
+    (the per-row sort and ``index_add_`` in the backward)."""
+    arch, change_cfg, change_params, live = OPEN_PATHS[name]
+    jcfg, pcfg = _cfgs(arch)
+    if change_cfg is not None:
+        jcfg, pcfg = change_cfg(jcfg), change_cfg(pcfg)
+    jp = ref_lm.init(jcfg, jax.random.key(0))
+    if change_params is not None:
+        jp = change_params(jp)
+    batch = _batch(jcfg)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: ref_lm.loss_fn(p, jcfg, _j(batch)), has_aux=True)(jp)
+    pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+    pl, _, pg = _port_grads(pp, pcfg, batch)
+    assert abs(float(pl.detach()) - float(jl)) <= LOSS_RTOL * abs(float(jl))
+    want, got = _paths(jg), _paths(pg)
+    assert sorted(got) == sorted(want)
+    checked = 0
+    for path, w in want.items():
+        assert np.isfinite(got[path]).all(), path
+        err = np.abs(got[path] - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), (path, err)
+        if any(path[:len(pre)] == pre for pre in live):
+            assert np.abs(w).max() > 0, path
+            checked += 1
+    assert checked >= len(live)
 
 
 def test_recurrent_gradients_have_no_nan_across_chunks():
@@ -433,7 +497,8 @@ def test_model_flops_per_token_matches_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-moe-16b",
+                                  "xlstm-1.3b", "zamba2-1.2b"])
 def test_launcher_trains_an_lm_on_the_cpu(arch):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -14,7 +14,9 @@ Tolerances, float32 throughout: block outputs and states within 1e-5 of
 the reference (they agree to a few float32 ulp: both packages run the
 same einsums in the same order of chunks); the port's chunked scan against
 its own one-token steps within 1e-4 (a different order of the same sums
-over up to 32 steps; the reference's own test allows 1e-3).
+over up to 32 steps; the reference's own test allows 1e-3); gradients at
+another chunk size against the reference's at 8 within GRAD_TOL * max(1,
+max |reference gradient|), as ``test_torch_lm_train.py``.
 """
 
 import jax
@@ -41,6 +43,7 @@ torch.set_num_threads(1)
 LENGTHS = (13, 16, 32)
 ATOL = 1e-5
 STEP_ATOL = 1e-4
+GRAD_TOL = 1e-4
 
 
 def mamba_cfgs(chunk=8):
@@ -142,6 +145,39 @@ def test_chunk_size_does_not_change_the_output(name, chunk):
     _, (got, _) = _both(name, x, chunk=chunk)
     np.testing.assert_allclose(f32(got), f32(want), atol=STEP_ATOL,
                                rtol=STEP_ATOL)
+
+
+@pytest.mark.parametrize("name", ["mamba2", "mlstm"])
+@pytest.mark.parametrize("chunk", [1, 4, 32])
+def test_chunk_size_does_not_change_the_gradient(name, chunk):
+    """The gradient twin of the test above: loss = <output, a fixed random
+    projection>; the port's gradients of every parameter and of the input
+    at ``chunk`` against ``jax.grad`` of the reference's at chunk 8, within
+    GRAD_TOL * max(1, max |reference gradient|) (as
+    ``test_torch_lm_train.py``)."""
+    x = _x(3, 32)
+    proj = _x(4, 32)
+    rcfg, _, rp, _, rapply, _, _ = _block(name, 8)
+    _, pcfg, _, pp, _, papply, _ = _block(name, chunk)
+
+    def ref_loss(p, xj):
+        y, _ = rapply(p, rcfg, xj, None)
+        return jnp.sum(y * jnp.asarray(proj))
+
+    want_p, want_x = jax.grad(ref_loss, argnums=(0, 1))(rp, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    leaves = {k: v.requires_grad_(True) for k, v in pp.items()}
+    y, _ = papply(leaves, pcfg, xt, None)
+    loss = (y * torch.from_numpy(proj)).sum()
+    grads = torch.autograd.grad(loss, [xt, *leaves.values()])
+    got = {"x": grads[0], **dict(zip(leaves, grads[1:]))}
+    want = {"x": want_x, **want_p}
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0, k
+        err = np.abs(f32(got[k]) - w).max()
+        assert err <= GRAD_TOL * max(1.0, np.abs(w).max()), (k, err)
 
 
 @pytest.mark.parametrize("name", sorted(BLOCKS))

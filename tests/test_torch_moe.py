@@ -212,6 +212,23 @@ class TestProperties:
         y_a, _ = port_moe.moe_apply(pp, cfg, x[:, :9])
         np.testing.assert_allclose(f32(y_m[:, :9]), f32(y_a), atol=1e-6)
 
+    @pytest.mark.parametrize("n_experts,seed", [(8, 0), (64, 1), (3, 2)])
+    def test_expert_counts_equal_bincount(self, n_experts, seed):
+        """The scatter dispatch's per-expert count equals ``torch.bincount``
+        with the sentinel id ``n_experts`` in its own last slot, in int64;
+        on meta tensors it has a shape where bincount has no kernel."""
+        rng = np.random.RandomState(seed)
+        ids = torch.from_numpy(rng.randint(0, n_experts + 1, 97))
+        got = port_moe.expert_counts(ids, n_experts)
+        want = torch.bincount(ids, minlength=n_experts + 1)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want)
+        assert int(got[-1]) == int((ids == n_experts).sum())
+        meta = port_moe.expert_counts(ids.to("meta"), n_experts)
+        assert meta.shape == (n_experts + 1,) and meta.dtype == torch.int64
+        with pytest.raises(NotImplementedError):
+            torch.bincount(ids.to("meta"), minlength=n_experts + 1)
+
     def test_unknown_dispatch_raises(self):
         ref_cfg, cfg = cfgs(dispatch="dense")
         _, pp = params(cfgs()[0])

@@ -16,8 +16,9 @@ mesh) with the reference's: its compiled step's HLO, costed by
 block's ``lax.cond`` at every layer (its convention: a conditional costs
 its most expensive branch) and the port only at the layers that run it
 (two of twelve): the port's count is 0.35-0.45 of the reference's
-(ROADMAP section C).  ``tests/test_torch_op_cost_train.py`` holds the train
-steps.
+(ROADMAP section C).  The moe also runs under the ``base`` variant (the
+``scatter`` dispatch and the per-row decode dispatch) on both sides.
+``tests/test_torch_op_cost_train.py`` holds the train steps.
 """
 
 import dataclasses
@@ -265,14 +266,14 @@ def ref_inputs(cfg, kind, b, s):
     return batch
 
 
-def ref_dot_flops(arch, kind, b=BATCH, s=SEQ):
+def ref_dot_flops(arch, kind, b=BATCH, s=SEQ, variant="opt"):
     """The reference's step, as its dry run builds it, compiled on the
     CPU; its dot flops."""
+    from repro.launch import dryrun as ref_dryrun
     from repro.optim import adamw as ref_adamw
 
-    cfg = ref_configs.reduced(ref_configs.get_config(arch))
-    if kind != "train":                              # the "opt" variant
-        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    cfg = ref_dryrun.apply_variant(
+        ref_configs.reduced(ref_configs.get_config(arch)), variant, kind)
     params = ref_lm.param_structs(cfg)
     if kind == "train":
         batch = ref_inputs(cfg, kind, b, s)
@@ -308,26 +309,32 @@ def ref_dot_flops(arch, kind, b=BATCH, s=SEQ):
     return _DotCost(text).cost().flops
 
 
-def port_dot_flops(arch, kind, b=BATCH, s=SEQ):
+def port_dot_flops(arch, kind, b=BATCH, s=SEQ, variant="opt"):
     """The port's dry-run cell of the reduced config on a 1x1 meta mesh."""
     mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), devices=["meta"])
     base = port_configs.reduced(port_configs.get_config(arch))
     rules = sh.rules_for_arch(arch, kind=kind)
     fn, args, _, _ = dryrun.build_cell(
-        arch, {"batch": b, "seq": s, "kind": kind}, rules, mesh, "opt",
+        arch, {"batch": b, "seq": s, "kind": kind}, rules, mesh, variant,
         cfg=base)
     return dryrun.count_cell(fn, args)[1].dot_flops
 
 
-# hubert-xlarge is an encoder: no decode step in either package
-INFERENCE_CELLS = [(a, k) for a in FAMILY_ARCHS for k in ("prefill", "decode")
-                   if (a, k) != ("hubert-xlarge", "decode")]
+# hubert-xlarge is an encoder: no decode step in either package.  The moe
+# also under "base": the scatter dispatch and the per-row decode dispatch
+INFERENCE_CELLS = [(a, k, "opt") for a in FAMILY_ARCHS
+                   for k in ("prefill", "decode")
+                   if (a, k) != ("hubert-xlarge", "decode")] + [
+    ("deepseek-moe-16b", k, "base") for k in ("prefill", "decode")]
 
 
-@pytest.mark.parametrize("arch,kind", INFERENCE_CELLS)
-def test_inference_dot_flops_match_reference(arch, kind):
-    ref = ref_dot_flops(arch, kind)
-    port = port_dot_flops(arch, kind)
+@pytest.mark.parametrize(
+    "arch,kind,variant", INFERENCE_CELLS,
+    ids=[f"{a}-{k}" + ("" if v == "opt" else f"-{v}")
+         for a, k, v in INFERENCE_CELLS])
+def test_inference_dot_flops_match_reference(arch, kind, variant):
+    ref = ref_dot_flops(arch, kind, variant=variant)
+    port = port_dot_flops(arch, kind, variant=variant)
     if arch == "zamba2-1.2b":
         # the reference charges lax.cond's shared block at every layer
         assert 0.35 < port / ref < 0.45, port / ref
