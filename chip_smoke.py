@@ -22,7 +22,7 @@ trains the other LM families at full width (``train_family``:
 dispatch's backward held against the scatter dispatch's, LAKP over each
 layer's experts and the pruned model served through the kernels against
 the plain path with no token routed to a pruned expert; ``xlstm-1.3b`` cut
-to 16 of 48 layers and a full-size ``zamba2-1.2b``, each recurrent
+to 8 of 48 layers and a full-size ``zamba2-1.2b``, each recurrent
 block's backward on the card held against the CPU, the launcher training
 ``zamba2-1.2b`` on the card; a full-size ``hubert-xlarge``, its chunked
 attention's backward held against the reference attention's; and, since
@@ -44,14 +44,22 @@ unified engine), serves the pruned CapsNet through a pool of two engines,
 replays a seeded bursty trace against an autoscaled disaggregated pool,
 serves a full-width ``deepseek-moe-16b`` (12 of 28 layers, bf16
 parameters; one-hot and scatter dispatch) from dense slots and bf16 and
-int8 pages and a full-width ``llama-3.2-vision-90b`` (10 layers: 8
-self-attention, 2 cross-attention; bf16 parameters) from dense slots and
+int8 pages and a full-width ``llama-3.2-vision-90b`` (5 layers: 4
+self-attention, 1 cross-attention; bf16 parameters) from dense slots and
 bf16 pages, each against its plain path and disaggregated, and the vision
-model's cross path with image features, serves an ``xlstm-1.3b`` (16 of
+model's cross path with image features, serves a full-size ``qwen3-1.7b``
+(float32 parameters; 8 requests from dense slots, bf16 and int8 pages)
+and, at full width
+cut to 4 layers with bf16 parameters, ``qwen1.5-110b`` (dense slots),
+``mistral-large-123b`` (12 query heads per KV head: two chunks of the
+decode kernel's heads; dense slots and int8 pages) and ``dbrx-132b`` (dense slots,
+its moe admission numbers), each against its plain path, serves an
+``xlstm-1.3b`` (8 of
 48 layers) and a full-size ``zamba2-1.2b`` (float32 parameters; admitted
 in one prefill group per prompt length) against their plain paths and
 disaggregated, each at the published size over every transport (zamba2
-also with bf16 parameters), runs the launcher at ``--no-reduced``, runs a
+also with bf16 parameters), runs the launcher at ``--no-reduced`` (and
+its fit check's refusal of ``mistral-large-123b``), runs a
 full-size ``hubert-xlarge`` encoder (flash attention
 at head dim 80, non-causal) against its plain and float32 forwards, serves
 data-parallel (``serve_sharded``: ``llama3.2-1b`` under a ``ShardedScheduler``
@@ -76,7 +84,9 @@ row's default against its tuned config), and times the ten kernels
 dense shape; routing, softmax, decode and sampling at every point of their
 tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
-size and threads; and sampling on a served decode tick's logits).  Every
+size and threads; sampling on a served decode tick's logits; and flash,
+decode and sampling at the geometries of qwen3-1.7b and the large models,
+which the kernel table lists under their rows).  Every
 profiler reading comes from a trace that holds every launch its calls made
 (``trace_rule``), or is null.  One JSON
 object per phase goes to standard output, and a line of seconds after
@@ -301,7 +311,7 @@ TRACE_MAX_ENGINES = 3
 # deepseek-moe-16b at full width with its depth cut to MOE_LAYERS (of 28;
 # d_model 2048, 16 x 128 heads over 16 KV heads, 64 routed + 2 shared
 # experts of 1408, top-6, vocab 102400) and llama-3.2-vision-90b at full
-# width with its depth cut to 10 layers (two units of 4 self-attention
+# width with its depth cut to VLM_LAYERS (one unit of 4 self-attention
 # blocks and one cross-attention block; d_model 8192, 64 x 128 query heads
 # over 8 KV heads, d_ff 28672, vocab 128256, 1024 image tokens), both with
 # bf16 parameters, random weights from seed 0, the engine width and cache
@@ -315,13 +325,46 @@ TRACE_MAX_ENGINES = 3
 MOE_ARCH = "deepseek-moe-16b"
 MOE_LAYERS = 12
 VLM_ARCH = "llama-3.2-vision-90b"
-VLM_LAYERS = 10
+VLM_LAYERS = 5
 FAMILY_REQUESTS = 8
 FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16",
                           f"n_layers 28 -> {MOE_LAYERS}"],
                VLM_ARCH: ["param_dtype float32 -> bfloat16",
-                          "n_layers 100 -> 10 (2 units: 8 self-attention "
-                          "+ 2 cross-attention blocks)"]}
+                          f"n_layers 100 -> {VLM_LAYERS} (1 unit: 4 "
+                          f"self-attention + 1 cross-attention block)"]}
+# The second dense model and the large configurations (phases serve_qwen3,
+# serve_large; ROADMAP §C 4), each cache mode through serve_family_mode on
+# serve_lm's engine width and cache length: the kernel path (rows 3, 5 or 7
+# / 8, and 9) against the plain path by the margin rule, the seeded tokens
+# bit-identical across two kernel runs; no tick breakdown, disaggregation
+# or scatter dispatch (serve_moe's and serve_vlm's checks, which these
+# models would repeat).  qwen3-1.7b (28 layers, d_model 2048, 16 x 128
+# query heads over 8 KV heads (G 2), qk-norm, vocab 151936) at its
+# published size with float32 parameters, as serve_lm, on the first
+# FAMILY_REQUESTS of serve_lm's requests from dense slots and of
+# serve_paged's from bf16 and int8 pages (16 each took the script 98 s on
+# an H100, of a budget it could not spare).
+# Then, at full width with bf16 parameters, random weights from seed 0 and
+# the depth cut to LARGE_LAYERS (the whole models need 220-492 GB), on the
+# first FAMILY_REQUESTS requests: qwen1.5-110b (d_model 8192, 64 x 128 over
+# 8 (G 8), QKV bias, d_ff 49152, vocab 152064) from dense slots;
+# mistral-large-123b (d_model 12288, 96 x 128 over 8: G 12, two chunks of
+# the decode kernel's 8 heads; d_ff 28672, vocab 32768) from dense slots and
+# int8 pages; dbrx-132b (d_model 6144, 48 x 128 over 8 (G 6), 16 experts of
+# 10752 top-4, vocab 100352) from dense slots with its admission tick's moe
+# numbers (aux loss, capacities, drops) as serve_moe prints them.
+QWEN3_ARCH = "qwen3-1.7b"
+QWEN3_MODES = ("dense", "paged", "paged_int8")
+LARGE_LAYERS = 4
+LARGE_MODES = (("qwen1.5-110b", ("dense",)),
+               ("mistral-large-123b", ("dense", "paged_int8")),
+               ("dbrx-132b", ("dense",)))
+FAMILY_CUTS.update({
+    QWEN3_ARCH: [f"requests {LM_REQUESTS} -> {FAMILY_REQUESTS}"],
+    **{arch: ["param_dtype float32 -> bfloat16",
+              f"n_layers {layers} -> {LARGE_LAYERS}"]
+       for arch, layers in (("qwen1.5-110b", 80), ("mistral-large-123b", 88),
+                            ("dbrx-132b", 40))}})
 FAMILY_TRANSPORTS = ("in_process", "device_to_device")
 VLM_GATE = 0.5
 VLM_PROMPT = 256
@@ -342,8 +385,9 @@ VLM_DECODE_STEPS = 8
 # cut to that length (one admission group of one 256-token chunk: an odd
 # length costs seconds a prompt to admit, ROADMAP A6c); zamba2 with bf16
 # parameters against its plain engine; and the launcher at --no-reduced
-# (LAUNCHER_RUNS: each recurrent model serves, hubert is refused as the
-# reference refuses audio).  hubert-xlarge (48 bidirectional layers,
+# (LAUNCHER_RUNS: each recurrent model and qwen3-1.7b serves, hubert is
+# refused as the reference refuses audio, mistral-large-123b by the fit
+# check before a weight is drawn).  hubert-xlarge (48 bidirectional layers,
 # d_model 1280, 16 heads of 80) runs through lm.forward on AUDIO_CLIPS
 # clips of AUDIO_FRAMES frames of features drawn from seed 0.  The audio
 # bar: the kernel forward (flash_attention) and the plain forward (chunked
@@ -351,7 +395,7 @@ VLM_DECODE_STEPS = 8
 # bf16 forward differs from the float32 forward, as largest absolute
 # difference of the final hidden states over their RMS.
 SSM_ARCH = "xlstm-1.3b"
-SSM_LAYERS = 16
+SSM_LAYERS = 8
 HYBRID_ARCH = "zamba2-1.2b"
 AUDIO_ARCH = "hubert-xlarge"
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000
@@ -364,7 +408,11 @@ LAUNCHER_ARGS = ("--no-reduced", "--requests", "2", "--max-new", "4",
 LAUNCHER_RUNS = (
     (HYBRID_ARCH, 0, "rid=1: "),
     (SSM_ARCH, 0, "rid=1: "),
-    (AUDIO_ARCH, 1, "encoder-only arch has no decode path"))
+    (AUDIO_ARCH, 1, "encoder-only arch has no decode path"),
+    (QWEN3_ARCH, 0, "rid=1: "),
+    # refused by check_fits before a weight is drawn
+    ("mistral-large-123b", 1,
+     "mistral-large-123b: the parameters and caches need"))
 
 # The families' training path (phase train_family, ROADMAP §C 6): each LM
 # family the reference trains, at full width with float32 parameters, bf16
@@ -429,8 +477,8 @@ VLM_GRAD_LAYERS = 5
 VLM_GRAD_BATCH, VLM_GRAD_SEQ = 2, 256
 FAMILY_TRAIN_CUTS = {
     MOE_ARCH: [f"n_layers 28 -> {MOE_TRAIN_LAYERS}"],
-    SSM_ARCH: [f"n_layers 48 -> {SSM_LAYERS} (2 units: 14 mLSTM + 2 sLSTM "
-               f"blocks)"],
+    SSM_ARCH: [f"n_layers 48 -> {SSM_LAYERS} (1 unit: 7 mLSTM + 1 sLSTM "
+               f"block)"],
     VLM_ARCH: [f"n_layers 100 -> {VLM_GRAD_LAYERS} (1 unit: 4 "
                f"self-attention + 1 cross-attention block)",
                "no AdamW step: loss and gradients only"]}
@@ -584,6 +632,27 @@ HYBRID_FLASH = {"dims": (1, 700, 700, 32, 32, 64), "dtype": "bfloat16",
                 "causal": True, "atol": 1e-2}
 HYBRID_DECODE = {"dims": (LM_SLOTS, LM_MAX_LEN, 32, 32, 64),
                  "dtype": "bfloat16"}
+# serve_large's geometries: mistral-large-123b's prefill and decode (96
+# query heads over 8, G 12: flash q_block 4, so 48 of a block's 64 rows
+# hold queries; two decode chunks of 6 heads) and dbrx-132b's (48 over 8, G
+# 6: q_block 8, 48 rows; one decode block a KV head), D 128 both; the
+# decode caches of 8 slots of 1024 rows, paged as serve_paged's pool
+LARGE_FLASH = {
+    "mistral-large-123b": {"dims": (LM_SLOTS, LM_MAX_LEN, LM_MAX_LEN, 96, 8,
+                                    128), "dtype": "bfloat16",
+                           "causal": True},
+    "dbrx-132b": {"dims": (LM_SLOTS, LM_MAX_LEN, LM_MAX_LEN, 48, 8, 128),
+                  "dtype": "bfloat16", "causal": True}}
+G12_DIMS = (LM_SLOTS, LM_MAX_LEN, 96, 8, 128)
+G12_PAGED = {"dims": G12_DIMS, "paged": (N_PAGES, PAGE, LM_MAX_LEN // PAGE),
+             "shuffled": True}
+G12_LAYOUTS = (
+    {"dims": G12_DIMS, "dtype": "bfloat16"},
+    {"dims": G12_DIMS, "dtype": "bfloat16", "quant": True},
+    {**G12_PAGED, "dtype": "bfloat16"},
+    {**G12_PAGED, "dtype": "bfloat16", "quant": True},
+)
+G6_DECODE = {"dims": (LM_SLOTS, LM_MAX_LEN, 48, 8, 128), "dtype": "bfloat16"}
 
 # Main-path shapes beyond the registry's example cases.  Tolerances: the
 # kernels sum in another order than the plain versions and use rsqrtf/expf,
@@ -695,6 +764,14 @@ EXTRA_CASES = {
         # non-causal) in both bodies, causal and ragged too; serve_hybrid's
         # shared-block prefill (G = 1, D = 64, one exact-length prompt)
         AUDIO_FLASH,
+        # serve_large's prefill at G 12 (q_block 4) and G 6 (q_block 8), and
+        # G 12 ragged, float32 and Eq. 2
+        *({**case, "atol": 1e-2} for case in LARGE_FLASH.values()),
+        {"dims": (2, 300, 300, 96, 8, 128), "dtype": "bfloat16",
+         "causal": True, "atol": 1e-2},
+        {"dims": (1, 300, 300, 96, 8, 128), "causal": True, "atol": 2e-5},
+        {"dims": (2, 256, 256, 96, 8, 128), "dtype": "bfloat16",
+         "causal": True, "softmax_mode": "taylor", "atol": 5e-2},
         {"dims": (2, 1000, 1000, 16, 16, 80), "causal": False, "atol": 2e-5},
         {"dims": (2, 300, 300, 16, 16, 80), "dtype": "bfloat16",
          "causal": True, "atol": 1e-2},
@@ -751,6 +828,25 @@ EXTRA_CASES = {
         # serve_hybrid's decode at each shared-attention site (G = 1, D 64)
         *({**HYBRID_DECODE, "valid": valid, "atol": 1e-2}
           for valid in (PAGED_VALID,) + SPLIT_VALID),
+        # serve_large's decode: G 12 (two chunks of 6) in all four
+        # layouts and G 6, the served layouts at the split edges too; G 12
+        # float32 and Eq. 2; G 20 and 40 (two and three chunks of a KV
+        # head's heads)
+        *({**lay, "valid": PAGED_VALID, "atol": 1e-2}
+          for lay in G12_LAYOUTS + (G6_DECODE,)),
+        *({**lay, "valid": valid, "atol": 1e-2}
+          for lay in (G12_LAYOUTS[0], G12_LAYOUTS[3], G6_DECODE)
+          for valid in SPLIT_VALID),
+        {"dims": G12_DIMS, "valid": PAGED_VALID, "atol": 2e-5},
+        {**G12_PAGED, "quant": True, "valid": PAGED_VALID, "atol": 2e-5},
+        {"dims": G12_DIMS, "dtype": "bfloat16", "valid": PAGED_VALID,
+         "softmax_mode": "taylor", "atol": 5e-2},
+        *({"dims": (LM_SLOTS, LM_MAX_LEN, 8 * g, 8, d), "dtype": "bfloat16",
+           "valid": PAGED_VALID, "atol": 1e-2}
+          for g, d in ((20, 128), (40, 64))),
+        {"dims": (LM_SLOTS, LM_MAX_LEN, 160, 8, 64), "dtype": "bfloat16",
+         "quant": True, "paged": (N_PAGES, PAGE, LM_MAX_LEN // PAGE),
+         "shuffled": True, "valid": PAGED_VALID, "atol": 1e-2},
     ),
     "flash_attention_dequant": (
         # a continuation prefill of 256 rows after 768 cached int8 rows
@@ -777,9 +873,11 @@ EXTRA_CASES = {
         {"dims": (8, 128257), **MIXED_ROWS, "atol": 0},
         {"dims": (4, 100003), "temperature": (0.0, 1.0, 0.7, 0.0),
          "top_k": (0, 0, 20, 0), "top_p": (1.0, 0.5, 1.0, 1.0), "atol": 0},
-        # serve_moe's vocabulary, serve_ssm's and serve_hybrid's
+        # serve_moe's vocabulary, serve_ssm's and serve_hybrid's, and
+        # serve_large's: qwen1.5-110b's 152064 (the repo's largest),
+        # dbrx-132b's and mistral-large-123b's
         *({"dims": (8, v), **rows, "atol": 0}
-          for v in (102400, 50304, 32000)
+          for v in (102400, 50304, 32000, 152064, 100352, 32768)
           for rows in ({"temperature": (0.0,) * 8}, MIXED, MIXED_ROWS)),
     ),
 }
@@ -883,18 +981,29 @@ def case_shape(case) -> list:
     return list(case.get("shape") or case.get("dims"))
 
 
+def case_key(name: str, case) -> tuple:
+    """A case's kernel-table row, shape and type: the geometry its errors
+    and launches are summed under (valid lengths and sampling rows
+    apart)."""
+    return (table_row(name, case), tuple(case_shape(case)),
+            case.get("dtype", "float32"))
+
+
 def phase_kernels() -> tuple:
     """Every kernel against its reference on the card (the plain version,
     or for attention the exact float32 oracle, which the exact-mode plain
     version equals), paged and int8 decode cases included; returns the
-    largest error per kernel-table row and the launches of
-    flash_attention_dequant here (no model path calls it)."""
+    largest error per kernel-table row, the launches of
+    flash_attention_dequant here (no model path calls it), and the largest
+    error and the launches per geometry (case_key)."""
     worst = dict.fromkeys(KERNELS, 0.0)
+    by_case = {}
     reset_counts()
     for name in registry.names():
         spec = registry.get(name)
         wrapper = spec.build()
         for case in tuple(spec.example_cases) + EXTRA_CASES[name]:
+            launched = wrapper.launches
             atol = case.get("atol", 0)
             args, kwargs = spec.make_example(case, device=DEVICE)
             cfg = {**registry.default_config(name, *args, **kwargs),
@@ -925,6 +1034,10 @@ def phase_kernels() -> tuple:
             if not identical:
                 fail(f"{name} {case}: two runs differ")
             worst[row] = max(worst[row], err)
+            seen = by_case.setdefault(case_key(name, case),
+                                      {"launches": 0, "max_abs_err": 0.0})
+            seen["launches"] += wrapper.launches - launched
+            seen["max_abs_err"] = max(seen["max_abs_err"], err)
     counts = launch_counts()
     for name in BODY_COUNTERS:
         by_body = dict(WRAPPERS[name].launches_by_body)
@@ -932,7 +1045,7 @@ def phase_kernels() -> tuple:
             fail(f"kernels: a {name} body never ran: {by_body}")
     emit("kernels", bodies={k: v for k, v in counts.items()
                             if k in DECODE_ROWS or "/" in k})
-    return worst, flash_attention_dequant_cuda.launches
+    return worst, flash_attention_dequant_cuda.launches, by_case
 
 
 def make_requests(n_requests: int, cfg) -> list:
@@ -3719,7 +3832,7 @@ def routing_counts(params, cfg, x, token_mask) -> dict:
             "load_by_expert": load.sum(0).tolist()}
 
 
-def moe_admission(kern, reqs, cfg) -> dict:
+def moe_admission(phase: str, kern, reqs, cfg) -> dict:
     """The admission tick of the first LM_SLOTS requests of ``reqs`` on
     ``kern`` with every moe layer's prefill watched: the aux loss the
     forward sums over the layers (the reference's training term), the
@@ -3745,7 +3858,7 @@ def moe_admission(kern, reqs, cfg) -> dict:
         moe_lib.moe_apply = inner
     kern.run_until_idle()
     if len(layers) != cfg.n_layers or not all(np.isfinite(aux)):
-        fail(f"serve_moe: admission watched {len(layers)} moe layers, aux "
+        fail(f"{phase}: admission watched {len(layers)} moe layers, aux "
              f"{aux}")
     return {"aux_loss": sum(aux), "aux_by_layer": aux,
             "capacity": layers[0]["capacity"],
@@ -3972,14 +4085,15 @@ def vlm_cross(cfg, params) -> tuple:
             }, counts
 
 
-def phase_serve_family(phase: str, cfg, modes) -> dict:
-    """A full-width moe or vlm model through ServeEngine in each cache mode
-    of ``modes`` (dense slots on serve_lm's requests, pages on
-    serve_paged's), the kernel path against the plain path; then on the
-    dense-slot requests the moe scatter dispatch (moe_scatter) and the
-    model disaggregated (over_transports), and for vlm the cross path with
-    image features (vlm_cross).  Returns the launches by kernel-table
-    row."""
+def phase_serve_family(phase: str, cfg, modes, further: bool = True) -> dict:
+    """A full-width model through ServeEngine in each cache mode of
+    ``modes`` (dense slots on the first FAMILY_REQUESTS of serve_lm's
+    requests, pages on serve_paged's), the kernel path against the plain
+    path, a moe's admission numbers from its dense slots; with ``further``
+    also each mode's decode tick breakdown, then on the dense-slot requests
+    the moe scatter dispatch (moe_scatter) and the model disaggregated
+    (over_transports), and for vlm the cross path with image features
+    (vlm_cross).  Returns the launches by kernel-table row."""
     params, init_s, n_params, n_bytes = init_family(cfg)
     params = lm.compute_params(cfg, params)       # bf16: the same tensors
     launches = {}
@@ -3999,8 +4113,9 @@ def phase_serve_family(phase: str, cfg, modes) -> dict:
         if mode == "dense":
             dense = (reqs, tok_k, kmargins)
             if cfg.moe is not None:
-                numbers["admission"] = moe_admission(kern, reqs, cfg)
-        numbers.update(decode_tick_breakdown(kern, cfg.vocab))
+                numbers["admission"] = moe_admission(phase, kern, reqs, cfg)
+        if further:
+            numbers.update(decode_tick_breakdown(kern, cfg.vocab))
         del kern
         emit(phase, arch=cfg.arch_id, params=n_params, param_bytes=n_bytes,
              init_s=init_s, reduced=FAMILY_CUTS[cfg.arch_id],
@@ -4010,6 +4125,11 @@ def phase_serve_family(phase: str, cfg, modes) -> dict:
              seconds=time.perf_counter() - t0, **numbers)
         add(counts, mode if mode != "dense" and cfg.family != "vlm"
             else "dense")
+    if not further:
+        del params
+        torch.cuda.empty_cache()
+        emit(phase, arch=cfg.arch_id, part="launches", launches=launches)
+        return launches
     reqs, tok_k, kmargins = dense
     if cfg.moe is not None:
         t0 = time.perf_counter()
@@ -4046,14 +4166,41 @@ def phase_serve_moe() -> dict:
 
 
 def phase_serve_vlm() -> dict:
-    """llama-3.2-vision-90b at full width, 10 layers (bf16 parameters):
-    dense slots and bf16 pages (a gathered view through the dense decode
-    body, as the reference); prefill runs the flash kernel causal in the
-    self-attention blocks and non-causal over the (zero, imageless) cross
-    cache's 1024 rows in the cross-attention blocks; disaggregated; the
-    cross path with image features and open gates."""
+    """llama-3.2-vision-90b at full width, VLM_LAYERS layers (bf16
+    parameters): dense slots and bf16 pages (a gathered view through the
+    dense decode body, as the reference); prefill runs the flash kernel
+    causal in the self-attention blocks and non-causal over the (zero,
+    imageless) cross cache's 1024 rows in the cross-attention block;
+    disaggregated; the cross path with image features and open gates."""
     return phase_serve_family("serve_vlm", family_cfg(VLM_ARCH, VLM_LAYERS),
                               ("dense", "paged"))
+
+
+def phase_serve_qwen3() -> dict:
+    """qwen3-1.7b at its published size (28 layers, float32 parameters, as
+    serve_lm): the first FAMILY_REQUESTS of serve_lm's requests from dense
+    slots and of serve_paged's from bf16 and int8 pages, each through the
+    kernels (qk-norm, D 128 at G 2, sampling over 151936 logits) against
+    the plain path."""
+    cfg = dataclasses.replace(cfg_lib.get_config(QWEN3_ARCH),
+                              attn_impl="cuda")
+    return phase_serve_family("serve_qwen3", cfg, QWEN3_MODES, further=False)
+
+
+def phase_serve_large() -> dict:
+    """qwen1.5-110b (QKV bias, sampling over 152064 logits) from dense
+    slots, mistral-large-123b (G 12: two chunks of the decode kernel's)
+    from dense slots and int8 pages, dbrx-132b (16 experts, top-4, G 6)
+    from dense slots with its moe admission numbers: each at full width,
+    LARGE_LAYERS layers, bf16 parameters, through the kernels against the
+    plain path.  Returns the launches by model and kernel-table row."""
+    out = {}
+    for arch, modes in LARGE_MODES:
+        gc.collect()
+        out[arch] = phase_serve_family(
+            "serve_large", family_cfg(arch, LARGE_LAYERS), modes,
+            further=False)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4187,9 +4334,10 @@ def launcher_runs() -> list:
     """``python -m repro_torch.launch.serve --arch A`` with LAUNCHER_ARGS
     (the published size, two requests of four new tokens through the
     kernels) for each of LAUNCHER_RUNS, all at once (they load the library
-    the build phase made): each recurrent model exits 0 and prints its
-    requests' tokens; hubert exits 1 with the message of the reference's
-    refusal of audio."""
+    the build phase made): each recurrent model and qwen3-1.7b exits 0 and
+    prints its requests' tokens; hubert exits 1 with the message of the
+    reference's refusal of audio, mistral-large-123b with the fit check's
+    (its float32 parameters and the engine's bf16 copy: 735.7 GB)."""
     env = port_env()
     torch.cuda.empty_cache()
     procs = [subprocess.Popen(
@@ -4876,6 +5024,33 @@ SLICE_TIMINGS = (
 )
 
 
+# The kernel-table rows at serve_qwen3's and serve_large's geometries,
+# listed in the kernels line under their rows: (row, label, case, the model
+# whose phase launches the row at this geometry, or None where only the
+# kernels phase does).  The decode cases take their phase's tick lengths,
+# the served sampling ticks mix greedy and sampled rows.
+GEOMETRY_ROWS = (
+    ("flash_attention", "mistral-large-123b prefill, G 12 (q_block 4)",
+     LARGE_FLASH["mistral-large-123b"], "mistral-large-123b"),
+    ("flash_attention", "dbrx-132b prefill, G 6 (q_block 8)",
+     LARGE_FLASH["dbrx-132b"], "dbrx-132b"),
+    ("decode_attention", "mistral-large-123b, G 12", G12_LAYOUTS[0],
+     "mistral-large-123b"),
+    ("decode_attention_dequant", "mistral-large-123b, G 12, int8",
+     G12_LAYOUTS[1], None),
+    ("decode_attention_paged", "mistral-large-123b, G 12, bf16 pages",
+     G12_LAYOUTS[2], None),
+    ("decode_attention_paged_dequant", "mistral-large-123b, G 12, int8 pages",
+     G12_LAYOUTS[3], "mistral-large-123b"),
+    ("decode_attention", "dbrx-132b, G 6", G6_DECODE, "dbrx-132b"),
+    *(("fused_sampling", f"{arch}, V {v}, {label}", {"dims": (LM_SLOTS, v),
+                                                     **rows}, arch)
+      for arch, v in (("qwen1.5-110b", 152064), (QWEN3_ARCH, 151936))
+      for label, rows in (("greedy", {"temperature": (0.0,) * LM_SLOTS}),
+                          ("mixed", MIXED))),
+)
+
+
 def main_path_cases() -> list:
     """``(row, registry kernel, case)`` of every kernel-table row at its
     main path's shape.  The decode rows take the decode tick's valid
@@ -4894,9 +5069,13 @@ def main_path_cases() -> list:
     return out
 
 
-def phase_timings(launches: dict, worst: dict) -> list:
+def phase_timings(launches: dict, worst: dict, by_case: dict,
+                  by_model: dict) -> list:
     """One row per TPU entry point at its main path's shape
-    (:func:`main_path_cases`)."""
+    (:func:`main_path_cases`), then one per GEOMETRY_ROWS entry, with the
+    launches of its model's phase (``by_model``: model -> row -> count) or
+    of the kernels phase, and the largest error of the kernels phase's
+    cases at its geometry (``by_case``)."""
     table = []
     vocab = cfg_lib.get_config(LM_ARCH).vocab
     valid = tuple(len(r.prompt) + 16 for r in lm_requests(vocab)[:LM_SLOTS])
@@ -4923,6 +5102,27 @@ def phase_timings(launches: dict, worst: dict) -> list:
         if "mixed" in label:
             row.pop("library_ms")
         emit("timings", name=name, case=label, **row)
+    # serve_qwen3's and serve_large's geometries, listed in the kernels
+    # line under their rows
+    for row, label, case, model in GEOMETRY_ROWS:
+        kernel = KERNELS[row]["kernel"]
+        if kernel == "decode_attention":
+            case = dict(case, valid=paged_valid(vocab) if case.get("paged")
+                        else valid)
+        seen = by_case[case_key(kernel, case)]
+        info = KERNELS[row]
+        entry = {"name": f"{row}: {label}", "route": info["route"],
+                 "source": info["source"], "replaces": info["replaces"],
+                 "launches": (by_model[model][row] if model
+                              else seen["launches"]),
+                 "launch_source": f"phase of {model}" if model
+                 else "kernels phase",
+                 "max_abs_err": seen["max_abs_err"],
+                 **timing_row(kernel, case)}
+        if "mixed" in label:
+            entry["library_ms"] = None      # argmax is not this function
+        table.append(entry)
+        emit("timings", case=label, **entry)
     # the serve mix's sampling rows (temperature 0.8, top-k 50, top-p 0.9)
     case = {"dims": (LM_SLOTS, 128256), **MIXED}
     emit("timings", name="fused_sampling", case="mixed",
@@ -5406,7 +5606,7 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = timed("device", phase_device)
     timed("build", phase_build)
-    worst, dequant_launches = timed("kernels", phase_kernels)
+    worst, dequant_launches, by_case = timed("kernels", phase_kernels)
     launches = timed("serve_pruned", phase_serve, "serve_pruned", True, 8)
     launches_dense = timed("serve_dense", phase_serve, "serve_dense", False,
                            4)
@@ -5418,6 +5618,8 @@ def main() -> None:
     launches_disagg = timed("serve_disagg", phase_serve_disagg)
     launches_moe = timed("serve_moe", phase_serve_moe)
     launches_vlm = timed("serve_vlm", phase_serve_vlm)
+    launches_qwen3 = timed("serve_qwen3", phase_serve_qwen3)
+    launches_large = timed("serve_large", phase_serve_large)
     launches_ssm = timed("serve_ssm", phase_serve_ssm)
     launches_hybrid = timed("serve_hybrid", phase_serve_hybrid)
     launches_audio = timed("encode_audio", phase_encode_audio)
@@ -5425,13 +5627,19 @@ def main() -> None:
     launches_dryrun = timed("dryrun", phase_dryrun)
     timed("tuning", phase_tuning)
     # the rows each new phase must launch: ssm samples, the hybrid also runs
-    # flash and decode attention in its shared block, audio runs flash
+    # flash and decode attention in its shared block, audio runs flash;
+    # qwen3 and each large model prefill, decode in each of their cache
+    # modes' bodies and sample
+    served = ("flash_attention", "decode_attention", "fused_sampling")
     for phase, got, rows in (
             ("ssm", launches_ssm, ("fused_sampling",)),
-            ("hybrid", launches_hybrid, ("flash_attention",
-                                         "decode_attention",
-                                         "fused_sampling")),
-            ("audio", launches_audio, ("flash_attention",))):
+            ("hybrid", launches_hybrid, served),
+            ("audio", launches_audio, ("flash_attention",)),
+            ("qwen3", launches_qwen3, served + (
+                "decode_attention_paged", "decode_attention_paged_dequant")),
+            *((f"large ({arch})", launches_large[arch], served + tuple(
+                DECODE_ROWS[m] for m in modes if m != "dense"))
+              for arch, modes in LARGE_MODES)):
         missing = [r for r in rows if got.get(r, 0) < 1]
         if missing:
             fail(f"serve_{phase}: {missing} never launched on its path")
@@ -5439,7 +5647,9 @@ def main() -> None:
              "train_family": launches_train_family,
              "paged": launches_paged,
              "disagg": launches_disagg, "moe": launches_moe,
-             "vlm": launches_vlm, "ssm": launches_ssm,
+             "vlm": launches_vlm, "qwen3": launches_qwen3,
+             **{f"large {arch}": got for arch, got in launches_large.items()},
+             "ssm": launches_ssm,
              "hybrid": launches_hybrid, "audio": launches_audio,
              "sharded": launches_sharded, "dryrun": launches_dryrun}
     for name, n in {**launches, **{f"{k} (dense)": v
@@ -5458,7 +5668,8 @@ def main() -> None:
     missing = [k for k in KERNELS if launches.get(k, 0) < 1]
     if missing:
         fail(f"no launches counted for {missing}")
-    table = timed("timings", phase_timings, launches, worst)
+    table = timed("timings", phase_timings, launches, worst, by_case,
+                  {QWEN3_ARCH: launches_qwen3, **launches_large})
     emit("done", seconds=time.perf_counter() - t0, traces=TRACES,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)

@@ -33,14 +33,15 @@
 // SMs and walk up to 700 rows in a chain of load latencies.
 //
 // Design.  Split-KV over a thread-block cluster: the grid is (slot, KV head,
-// split), and the `splits` blocks of one (slot, KV head) form one cluster
+// chunk, split), one chunk unless G > 8 (below), and the `splits` blocks
+// of one (slot, KV head, chunk) form one cluster
 // (cudaLaunchKernelEx; at most the portable 8).  Split s owns the logical
 // rows [s * per, s * per + per) of the slot, per = ceil(n / splits) rounded
 // up to the 32-row tile, so the dense and paged bodies of one cache type run
 // the same sums in the same order; a split past n has no rows and ends with
 // m = -1e30, l = 0.  Inside a block the warps take the split's 32-row tiles
-// in turn, each warp with its own online softmax state (m, l, acc for the G
-// heads):
+// in turn, each warp with its own online softmax state (m, l, acc for the
+// block's heads):
 //
 //   loads   a warp copies a tile of K and of V with 16-byte cp.async copies
 //           along D (at D = 64 bf16, 8 lanes a row and 4 rows a copy; int8,
@@ -58,6 +59,20 @@
 //           0-15 one each) and sums p * v over the tile's rows in order; p
 //           comes from a per-warp shared buffer, int8 with the row's V scale
 //           folded in.
+//
+// Groups.  A lane keeps the state of each of its block's query heads in
+// registers (m, l and acc for each), at most kDecodeChunkG = 8 heads: a KV
+// head of G <= 8 query heads (llama, qwen, the vlm, dbrx) is one block's,
+// and the heads of a larger group (mistral-large's G 12) are dealt to
+// ceil(G / 8) chunks of at most 8, as even as they come, one chunk per grid
+// index; each chunk reads its KV head's rows.  A block holding 16 heads, so
+// that G 12 reads its rows once, ran slower on an H100 than two chunks of
+// 6: the decode is bound by the latency of its loads and shuffles, not by
+// its bytes, so reading the rows twice costs less than a lane's doubled
+// state and work.  The chunked instances (kChunked) serve G > 8 only: for
+// G <= 8 the chunk arithmetic folds away at compile time and the code is
+// the unchunked kernel's (with it at run time, zamba2's G 1 decode ran
+// slower).
 //
 // The combine.  A block joins its warps' states in warp order by
 // log-sum-exp, and writes its (m, l, acc) into rank 0's shared memory over
@@ -83,7 +98,7 @@ namespace cg = cooperative_groups;
 namespace fastcaps {
 
 constexpr float kDecodeNegInf = -1e30f;
-constexpr int kDecodeMaxG = 8;          // query heads per KV head
+constexpr int kDecodeChunkG = 8;        // query heads a block holds
 constexpr int kDecodeTile = 32;         // cache rows per warp tile
 constexpr int kDecodeStages = 2;        // tiles staged per warp
 constexpr int kDecodeRowPad = 16;       // bytes after each staged row
@@ -103,6 +118,11 @@ __device__ __forceinline__ float decode_warp_sum(float x) {
   return x;
 }
 
+// The chunks the G query heads of one KV head are dealt to.
+__host__ __device__ inline int decode_group_chunks(int g) {
+  return (g + kDecodeChunkG - 1) / kDecodeChunkG;
+}
+
 // Shared memory of one block, in bytes: the scaled queries; per warp
 // kDecodeStages stages of a K tile, a V tile (rows padded by kDecodeRowPad)
 // and the tile's K and V scales, then a p buffer; and the cluster's states,
@@ -116,13 +136,13 @@ __host__ __device__ inline long long decode_stage_bytes(int d, int kv_bytes) {
 
 __host__ __device__ inline long long decode_warp_bytes(int d, int kv_bytes) {
   return kDecodeStages * decode_stage_bytes(d, kv_bytes) +
-         4LL * kDecodeMaxG * kDecodeTile;
+         4LL * kDecodeChunkG * kDecodeTile;
 }
 
 __host__ __device__ inline long long decode_smem_bytes(int d, int kv_bytes,
                                                        int warps, int splits) {
-  return 4LL * kDecodeMaxG * d + warps * decode_warp_bytes(d, kv_bytes) +
-         4LL * splits * kDecodeMaxG * (d + 2);
+  return 4LL * kDecodeChunkG * d + warps * decode_warp_bytes(d, kv_bytes) +
+         4LL * splits * kDecodeChunkG * (d + 2);
 }
 
 // One launch's operands.  tables is null for a dense cache, ks and vs are
@@ -174,9 +194,11 @@ __device__ __forceinline__ void load_staged(const char* p, float (&f)[N]) {
   for (int i = 0; i < N; ++i) f[i] = load_f32(reinterpret_cast<const T*>(p) + i);
 }
 
-template <typename TQ, typename TKV, int D, bool kTaylor, bool kPaged>
+template <typename TQ, typename TKV, int D, bool kChunked, bool kTaylor,
+          bool kPaged>
 __global__ void __launch_bounds__(kDecodeMaxThreads)
 decode_attention_kernel(const DecodeArgs a) {
+  constexpr int kG = kDecodeChunkG;
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   constexpr int kElem = (int)sizeof(TKV);
   constexpr int kPerChunk = 16 / kElem;               // values in 16 bytes
@@ -198,9 +220,16 @@ decode_attention_kernel(const DecodeArgs a) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int K = a.K, G = a.G;
-  const int bh = blockIdx.x / splits;
+  // the block's query heads: its chunk's Gc heads from g0 on (kChunked),
+  // else all G of its KV head
+  const int n_chunks = kChunked ? decode_group_chunks(G) : 1;
+  const int bhc = blockIdx.x / splits;
+  const int bh = bhc / n_chunks;
   const int b = bh / K;
   const int h = bh % K;
+  const int per_chunk = kChunked ? (G + n_chunks - 1) / n_chunks : G;
+  const int g0 = (bhc % n_chunks) * per_chunk;
+  const int Gc = kChunked ? min(per_chunk, G - g0) : G;
   const int H = K * G;
   const int n = max(0, min(a.valid[b], a.T_len));
   const int per = ((n + splits - 1) / splits + kDecodeTile - 1) /
@@ -212,15 +241,15 @@ decode_attention_kernel(const DecodeArgs a) {
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   float* Qs = reinterpret_cast<float*>(smem);
-  char* warp_space = smem + 4 * kDecodeMaxG * D;
+  char* warp_space = smem + 4 * kG * D;
   float* recv = reinterpret_cast<float*>(
       warp_space + warps * decode_warp_bytes(D, kElem));
   char* ws = warp_space + warp * decode_warp_bytes(D, kElem);
   float* P = reinterpret_cast<float*>(ws + kDecodeStages * kStageBytes);
 
   const TQ* q = static_cast<const TQ*>(a.q);
-  for (int e = tid; e < G * D; e += blockDim.x)
-    Qs[e] = load_f32(q + ((size_t)b * H + h * G) * D + e) * a.scale;
+  for (int e = tid; e < Gc * D; e += blockDim.x)
+    Qs[e] = load_f32(q + ((size_t)b * H + h * G + g0) * D + e) * a.scale;
 
   const long long row_stride = (long long)K * D;
   const TKV* kh = static_cast<const TKV*>(a.k) + (size_t)h * D;
@@ -259,9 +288,9 @@ decode_attention_kernel(const DecodeArgs a) {
     cp_async_commit();
   };
 
-  float m[kDecodeMaxG], l[kDecodeMaxG], acc[kDecodeMaxG][DPL];
+  float m[kG], l[kG], acc[kG][DPL];
 #pragma unroll
-  for (int g = 0; g < kDecodeMaxG; ++g) {
+  for (int g = 0; g < kG; ++g) {
     m[g] = kDecodeNegInf;
     l[g] = 0.0f;
 #pragma unroll
@@ -284,9 +313,9 @@ decode_attention_kernel(const DecodeArgs a) {
     const float* sc = reinterpret_cast<const float*>(kt + 2 * kTileBytes);
     const bool ok = lane < rows;
 
-    float s[kDecodeMaxG];
+    float s[kG];
 #pragma unroll
-    for (int g = 0; g < kDecodeMaxG; ++g) s[g] = 0.0f;
+    for (int g = 0; g < kG; ++g) s[g] = 0.0f;
     const char* kr = kt + lane * kRowBytes;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
@@ -296,8 +325,8 @@ decode_attention_kernel(const DecodeArgs a) {
       for (int e = 0; e < kPerChunk; e += 4) {
         const int d = c * kPerChunk + e;
 #pragma unroll
-        for (int g = 0; g < kDecodeMaxG; ++g) {
-          if (g < G) {
+        for (int g = 0; g < kG; ++g) {
+          if (g < Gc) {
             const float4 q4 = *reinterpret_cast<const float4*>(Qs + g * D + d);
             s[g] += q4.x * kf[e];
             s[g] += q4.y * kf[e + 1];
@@ -311,8 +340,8 @@ decode_attention_kernel(const DecodeArgs a) {
     const float k_scale = kInt8 ? sc[lane] : 1.0f;
     const float v_scale = kInt8 ? sc[kDecodeTile + lane] : 1.0f;
 #pragma unroll
-    for (int g = 0; g < kDecodeMaxG; ++g) {
-      if (g >= G) break;
+    for (int g = 0; g < kG; ++g) {
+      if (g >= Gc) break;
       const float sg = ok ? (kInt8 ? s[g] * k_scale : s[g]) : kDecodeNegInf;
       const float m_new = fmaxf(m[g], decode_warp_max(sg));
       const float alpha = softmax_exp<kTaylor>(m[g] - m_new);
@@ -332,8 +361,8 @@ decode_attention_kernel(const DecodeArgs a) {
 #pragma unroll
         for (int c = 0; c < DPL; ++c) {
 #pragma unroll
-          for (int g = 0; g < kDecodeMaxG; ++g)
-            if (g < G) acc[g][c] += P[g * kDecodeTile + j] * vv[c];
+          for (int g = 0; g < kG; ++g)
+            if (g < Gc) acc[g][c] += P[g * kDecodeTile + j] * vv[c];
         }
       }
     }
@@ -345,40 +374,40 @@ decode_attention_kernel(const DecodeArgs a) {
   // join the warps' states in warp order (in the tiles' space), then send
   // the block's state to rank 0
   __syncthreads();
-  float* Ms = reinterpret_cast<float*>(warp_space);   // warps x kDecodeMaxG
-  float* Ls = Ms + warps * kDecodeMaxG;               // warps x kDecodeMaxG
-  float* As = Ls + warps * kDecodeMaxG;               // warps x kDecodeMaxG x D
+  float* Ms = reinterpret_cast<float*>(warp_space);   // warps x kG
+  float* Ls = Ms + warps * kG;                        // warps x kG
+  float* As = Ls + warps * kG;                        // warps x kG x D
 #pragma unroll
-  for (int g = 0; g < kDecodeMaxG; ++g) {
-    if (g >= G) break;
+  for (int g = 0; g < kG; ++g) {
+    if (g >= Gc) break;
     if (lane == 0) {
-      Ms[warp * kDecodeMaxG + g] = m[g];
-      Ls[warp * kDecodeMaxG + g] = l[g];
+      Ms[warp * kG + g] = m[g];
+      Ls[warp * kG + g] = l[g];
     }
     if (owns) {
 #pragma unroll
       for (int c = 0; c < DPL; ++c)
-        As[(warp * kDecodeMaxG + g) * D + d0 + c] = acc[g][c];
+        As[(warp * kG + g) * D + d0 + c] = acc[g][c];
     }
   }
   __syncthreads();
-  constexpr int kState = kDecodeMaxG * (D + 2);       // floats a split sends
+  constexpr int kState = kG * (D + 2);                // floats a split sends
   cluster_wait();
   float* dst = cluster.map_shared_rank(recv, 0) + split * kState;
-  for (int e = tid; e < G * D; e += blockDim.x) {
+  for (int e = tid; e < Gc * D; e += blockDim.x) {
     const int g = e / D, d = e % D;
     float mt = kDecodeNegInf;
-    for (int w = 0; w < warps; ++w) mt = fmaxf(mt, Ms[w * kDecodeMaxG + g]);
+    for (int w = 0; w < warps; ++w) mt = fmaxf(mt, Ms[w * kG + g]);
     float lt = 0.0f, at = 0.0f;
     for (int w = 0; w < warps; ++w) {
-      const float f = softmax_exp<kTaylor>(Ms[w * kDecodeMaxG + g] - mt);
-      lt += Ls[w * kDecodeMaxG + g] * f;
-      at += As[(w * kDecodeMaxG + g) * D + d] * f;
+      const float f = softmax_exp<kTaylor>(Ms[w * kG + g] - mt);
+      lt += Ls[w * kG + g] * f;
+      at += As[(w * kG + g) * D + d] * f;
     }
-    dst[2 * kDecodeMaxG + g * D + d] = at;
+    dst[2 * kG + g * D + d] = at;
     if (d == 0) {
       dst[g] = mt;
-      dst[kDecodeMaxG + g] = lt;
+      dst[kG + g] = lt;
     }
   }
   cluster.sync();
@@ -386,7 +415,7 @@ decode_attention_kernel(const DecodeArgs a) {
 
   // rank 0: join the splits in rank order and write the output
   TQ* out = static_cast<TQ*>(a.out);
-  for (int e = tid; e < G * D; e += blockDim.x) {
+  for (int e = tid; e < Gc * D; e += blockDim.x) {
     const int g = e / D, d = e % D;
     float mt = kDecodeNegInf;
     for (int r = 0; r < splits; ++r) mt = fmaxf(mt, recv[r * kState + g]);
@@ -394,17 +423,19 @@ decode_attention_kernel(const DecodeArgs a) {
     for (int r = 0; r < splits; ++r) {
       const float* st = recv + r * kState;
       const float f = softmax_exp<kTaylor>(st[g] - mt);
-      lt += st[kDecodeMaxG + g] * f;
-      at += st[2 * kDecodeMaxG + g * D + d] * f;
+      lt += st[kG + g] * f;
+      at += st[2 * kG + g * D + d] * f;
     }
-    store_f32(out + ((size_t)b * H + h * G) * D + e, at / fmaxf(lt, 1e-30f));
+    store_f32(out + ((size_t)b * H + h * G + g0) * D + e,
+              at / fmaxf(lt, 1e-30f));
   }
 }
 
-template <typename TQ, typename TKV, int D, bool kTaylor, bool kPaged>
+template <typename TQ, typename TKV, int D, bool kChunked, bool kTaylor,
+          bool kPaged>
 int launch_decode(const DecodeArgs& a, int B, int threads, int splits,
                   int device, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<TQ, TKV, D, kTaylor, kPaged>;
+  auto kernel = decode_attention_kernel<TQ, TKV, D, kChunked, kTaylor, kPaged>;
   // the dynamic shared memory limit, set once per template instance and
   // device (a failure is returned on every launch)
   static cudaError_t err[kMaxDevices];
@@ -418,8 +449,9 @@ int launch_decode(const DecodeArgs& a, int B, int threads, int splits,
   const long long smem =
       decode_smem_bytes(D, (int)sizeof(TKV), threads / 32, splits);
   if (smem > kDecodeMaxSmem) return (int)cudaErrorInvalidValue;
+  const int chunks = kChunked ? decode_group_chunks(a.G) : 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * a.K * splits, 1, 1);
+  cfg.gridDim = dim3(B * a.K * chunks * splits, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
@@ -435,37 +467,74 @@ int launch_decode(const DecodeArgs& a, int B, int threads, int splits,
   return (int)(launch != cudaSuccess ? launch : last);
 }
 
-template <typename TQ, typename TKV, bool kTaylor, bool kPaged>
-int dispatch_decode_d(int D, const DecodeArgs& a, int B, int threads,
-                      int splits, int dev, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_decode<TQ, TKV, 16, kTaylor, kPaged>(a, B, threads, splits, dev, s);
-    case 32: return launch_decode<TQ, TKV, 32, kTaylor, kPaged>(a, B, threads, splits, dev, s);
-    case 64: return launch_decode<TQ, TKV, 64, kTaylor, kPaged>(a, B, threads, splits, dev, s);
-    case 128: return launch_decode<TQ, TKV, 128, kTaylor, kPaged>(a, B, threads, splits, dev, s);
+// One call's operands, types and launch geometry, as the entry point takes
+// them.
+struct DecodeLaunch {
+  DecodeArgs a;
+  int B, D, q_bf16, kv_type, taylor, threads, splits, device;
+  cudaStream_t stream;
+};
+
+template <bool kChunked, bool kPaged, typename TQ, typename TKV, bool kTaylor>
+int decode_by_dim(const DecodeLaunch& l) {
+  switch (l.D) {
+    case 16: return launch_decode<TQ, TKV, 16, kChunked, kTaylor, kPaged>(l.a, l.B, l.threads, l.splits, l.device, l.stream);
+    case 32: return launch_decode<TQ, TKV, 32, kChunked, kTaylor, kPaged>(l.a, l.B, l.threads, l.splits, l.device, l.stream);
+    case 64: return launch_decode<TQ, TKV, 64, kChunked, kTaylor, kPaged>(l.a, l.B, l.threads, l.splits, l.device, l.stream);
+    case 128: return launch_decode<TQ, TKV, 128, kChunked, kTaylor, kPaged>(l.a, l.B, l.threads, l.splits, l.device, l.stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename TQ, typename TKV>
-int dispatch_decode(int taylor, int paged, int D, const DecodeArgs& a, int B,
-                    int threads, int splits, int dev, cudaStream_t s) {
-  if (paged)
-    return taylor ? dispatch_decode_d<TQ, TKV, true, true>(D, a, B, threads, splits, dev, s)
-                  : dispatch_decode_d<TQ, TKV, false, true>(D, a, B, threads, splits, dev, s);
-  return taylor ? dispatch_decode_d<TQ, TKV, true, false>(D, a, B, threads, splits, dev, s)
-                : dispatch_decode_d<TQ, TKV, false, false>(D, a, B, threads, splits, dev, s);
+template <bool kChunked, bool kPaged, bool kTaylor>
+int decode_by_types(const DecodeLaunch& l) {
+  if (l.q_bf16)
+    return l.kv_type == 2
+               ? decode_by_dim<kChunked, kPaged, __nv_bfloat16, int8_t, kTaylor>(l)
+               : decode_by_dim<kChunked, kPaged, __nv_bfloat16, __nv_bfloat16, kTaylor>(l);
+  if (l.kv_type == 2) return decode_by_dim<kChunked, kPaged, float, int8_t, kTaylor>(l);
+  if (l.kv_type == 1)
+    return decode_by_dim<kChunked, kPaged, float, __nv_bfloat16, kTaylor>(l);
+  return decode_by_dim<kChunked, kPaged, float, float, kTaylor>(l);
+}
+
+// Parts.  The instances of one kind (chunked or not), cache layout and exp
+// make a part: part p holds the chunked instances if p & 4, the paged
+// layout if p & 2, the Eq. 2 exp if p & 1.  nvcc compiles this file once
+// per part with FASTCAPS_DECODE_PART set (kernels/build.py SOURCE_PARTS),
+// so the eight build in parallel.  Part 0 also holds the entry point.
+int decode_part0(const DecodeLaunch& l);
+int decode_part1(const DecodeLaunch& l);
+int decode_part2(const DecodeLaunch& l);
+int decode_part3(const DecodeLaunch& l);
+int decode_part4(const DecodeLaunch& l);
+int decode_part5(const DecodeLaunch& l);
+int decode_part6(const DecodeLaunch& l);
+int decode_part7(const DecodeLaunch& l);
+
+#ifndef FASTCAPS_DECODE_PART
+#define FASTCAPS_DECODE_PART 0
+#endif
+#if FASTCAPS_DECODE_PART < 0 || FASTCAPS_DECODE_PART > 7
+#error "FASTCAPS_DECODE_PART is one of 0 to 7"
+#endif
+#define FASTCAPS_PART_FN_(n) decode_part##n
+#define FASTCAPS_PART_FN(n) FASTCAPS_PART_FN_(n)
+int FASTCAPS_PART_FN(FASTCAPS_DECODE_PART)(const DecodeLaunch& l) {
+  constexpr int p = FASTCAPS_DECODE_PART;
+  return decode_by_types<(p & 4) != 0, (p & 2) != 0, (p & 1) != 0>(l);
 }
 
 }  // namespace fastcaps
 
+#if FASTCAPS_DECODE_PART == 0
 // q, out (B, 1, H, D) with H = K * G, contiguous.  Dense cache (tables null):
 // k, v (B, T, K, D).  Paged cache: k, v (n_pages, page, K, D) and tables
 // (B, P) int32 with T = P * page.  kv_type 0 = float32, 1 = bfloat16,
 // 2 = int8 with ks, vs float32 per-row scales ((B, T) dense, (n_pages, page)
 // paged; null otherwise).  k and v 16-byte aligned.  valid (B,) int32.  q and
 // out are float32 (q_bf16 = 0) or bfloat16 (1); bfloat16 q takes a bfloat16
-// or int8 cache.  D in {16, 32, 64, 128}, G <= kDecodeMaxG, threads a
+// or int8 cache.  D in {16, 32, 64, 128}, any G = H / K, threads a
 // multiple of 32 in [32, 512], splits in [1, kDecodeMaxSplits] (the blocks
 // of a cluster), their shared memory within a block's.  Every pointer on
 // CUDA device `device`; launches on `stream` (a stream of `device`, made
@@ -480,7 +549,7 @@ extern "C" int decode_attention_launch(
   using namespace fastcaps;
   const bool paged = tables != nullptr;
   const bool int8 = kv_type == 2;
-  if (B <= 0 || T_len <= 0 || K <= 0 || H % K != 0 || H / K > kDecodeMaxG ||
+  if (B <= 0 || T_len <= 0 || K <= 0 || H < K || H % K != 0 ||
       threads < 32 || threads > kDecodeMaxThreads || threads % 32 != 0 ||
       splits < 1 || splits > kDecodeMaxSplits || kv_type < 0 ||
       kv_type > 2 || (q_bf16 && kv_type == 0) ||
@@ -490,29 +559,35 @@ extern "C" int decode_attention_launch(
     return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  DecodeArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.valid = static_cast<const int*>(valid);
-  a.tables = static_cast<const int*>(tables);
-  a.ks = static_cast<const float*>(ks);
-  a.vs = static_cast<const float*>(vs);
-  a.out = out;
-  a.T_len = T_len;
-  a.K = K;
-  a.G = H / K;
-  a.P = P;
-  a.page = page;
-  a.n_pages = n_pages;
-  a.scale = (float)(1.0 / std::sqrt((double)D));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16)
-    return int8 ? dispatch_decode<__nv_bfloat16, int8_t>(taylor, paged, D, a, B, threads, splits, device, s)
-                : dispatch_decode<__nv_bfloat16, __nv_bfloat16>(taylor, paged, D, a, B, threads, splits, device, s);
-  if (int8)
-    return dispatch_decode<float, int8_t>(taylor, paged, D, a, B, threads, splits, device, s);
-  if (kv_type == 1)
-    return dispatch_decode<float, __nv_bfloat16>(taylor, paged, D, a, B, threads, splits, device, s);
-  return dispatch_decode<float, float>(taylor, paged, D, a, B, threads, splits, device, s);
+  DecodeLaunch l;
+  l.a.q = q;
+  l.a.k = k;
+  l.a.v = v;
+  l.a.valid = static_cast<const int*>(valid);
+  l.a.tables = static_cast<const int*>(tables);
+  l.a.ks = static_cast<const float*>(ks);
+  l.a.vs = static_cast<const float*>(vs);
+  l.a.out = out;
+  l.a.T_len = T_len;
+  l.a.K = K;
+  l.a.G = H / K;
+  l.a.P = P;
+  l.a.page = page;
+  l.a.n_pages = n_pages;
+  l.a.scale = (float)(1.0 / std::sqrt((double)D));
+  l.B = B;
+  l.D = D;
+  l.q_bf16 = q_bf16;
+  l.kv_type = kv_type;
+  l.taylor = taylor;
+  l.threads = threads;
+  l.splits = splits;
+  l.device = device;
+  l.stream = static_cast<cudaStream_t>(stream);
+  static int (*const parts[8])(const DecodeLaunch&) = {
+      decode_part0, decode_part1, decode_part2, decode_part3,
+      decode_part4, decode_part5, decode_part6, decode_part7};
+  return parts[(l.a.G > kDecodeChunkG ? 4 : 0) + (paged ? 2 : 0) +
+               (taylor ? 1 : 0)](l);
 }
+#endif

@@ -27,7 +27,10 @@
   per-row scales ``ks``, ``vs``.  The tunables are ``kv_splits``, the
   blocks of the cluster that serves one (slot, KV head), each owning a
   contiguous range of the slot's rows (:func:`decode_kv_splits` plans it),
-  and ``threads``, the block size.
+  and ``threads``, the block size.  It takes any number G of query heads
+  per KV head: a block holds at most 8 of them, and the heads of a larger
+  group are dealt to chunks of at most 8, a block each
+  (:func:`decode_group_chunks`).
   ``decode_attention_cuda.launches_by_body`` counts its launches per body:
   ``dense``, ``int8``, ``paged``, ``paged_int8``.
 
@@ -79,7 +82,7 @@ CACHE_HEAD_DIMS = (16, 32, 64, 128)
 FLASH_ROWS = 64                     # query rows (positions x heads) a block holds
 FLASH_KV_TILE = 64                  # KV rows a flash block takes per step
 FLASH_THREADS = {"fma": 256, "tensor_core": 128}   # a flash block, by body
-DECODE_MAX_GROUP = 8                # query heads per KV head of the decode kernel
+DECODE_CHUNK_GROUP = 8              # query heads a decode block holds
 DECODE_TILE = 32                    # cache rows per warp tile of the decode kernel
 DECODE_STAGES = 2                   # tiles a decode warp keeps staged
 DECODE_ROW_PAD = 16                 # bytes after each staged cache row
@@ -480,9 +483,6 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in CACHE_HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {d} not in "
                          f"{CACHE_HEAD_DIMS}")
-    if h // nkv > DECODE_MAX_GROUP:
-        raise ValueError(f"decode_attention: {h // nkv} query heads per KV "
-                         f"head, the kernel takes {DECODE_MAX_GROUP}")
     scales = (ks, vs) if int8 else ()
     if not all(x.is_contiguous() for x in (q, k, v, *scales)):
         raise ValueError("decode_attention: q, k, v and the scales must be "
@@ -546,6 +546,13 @@ def _decode_launch_fn():
     return _decode_launch
 
 
+def decode_group_chunks(group: int) -> int:
+    """The blocks the ``group`` query heads of one KV head are dealt to, as
+    ``decode_group_chunks`` in the source counts them: chunks of at most
+    ``DECODE_CHUNK_GROUP`` heads, as even as they come (one up to 8)."""
+    return -(-max(1, int(group)) // DECODE_CHUNK_GROUP)
+
+
 def decode_smem_bytes(d: int, threads: int, kv_bytes: int,
                       kv_splits: int) -> int:
     """Shared memory of one decode block, as ``decode_smem_bytes`` in the
@@ -555,20 +562,22 @@ def decode_smem_bytes(d: int, threads: int, kv_bytes: int,
     (m, l, acc) state per split for rank 0 to join."""
     stage = 2 * DECODE_TILE * (d * kv_bytes + DECODE_ROW_PAD) \
         + 2 * DECODE_TILE * 4
-    per_warp = DECODE_STAGES * stage + 4 * DECODE_MAX_GROUP * DECODE_TILE
-    return (4 * DECODE_MAX_GROUP * d + (threads // 32) * per_warp
-            + 4 * kv_splits * DECODE_MAX_GROUP * (d + 2))
+    per_warp = DECODE_STAGES * stage + 4 * DECODE_CHUNK_GROUP * DECODE_TILE
+    return (4 * DECODE_CHUNK_GROUP * d + (threads // 32) * per_warp
+            + 4 * kv_splits * DECODE_CHUNK_GROUP * (d + 2))
 
 
 def decode_kv_splits(b: int, nkv: int, t: int, asked: int,
-                     n_sm: int = H100_SMS) -> int:
-    """Blocks per (slot, KV head): the largest power of two that puts no
-    more than one block on each of ``n_sm`` SMs (B * K * splits <= n_sm,
-    at least 1), no more than ``asked``, than ``DECODE_MAX_SPLITS`` or than
-    the slot's ``t`` rows have tiles.  (A block of the default 8 warps
-    stages two tiles a warp, 166 KB at D = 64 bf16: one fits an SM.)"""
+                     n_sm: int = H100_SMS, group: int = 1) -> int:
+    """Blocks per (slot, KV head, chunk of its ``group`` query heads): the
+    largest power of two that puts no more than one block on each of
+    ``n_sm`` SMs (B * K * chunks * splits <= n_sm, at least 1), no more
+    than ``asked``, than ``DECODE_MAX_SPLITS`` or than the slot's ``t``
+    rows have tiles.  (A block of the default 8 warps stages two tiles a
+    warp, 166 KB at D = 64 bf16: one fits an SM.)"""
+    chunks = decode_group_chunks(group)
     want = 1
-    while want < DECODE_MAX_SPLITS and b * nkv * want * 2 <= n_sm:
+    while want < DECODE_MAX_SPLITS and b * nkv * chunks * want * 2 <= n_sm:
         want *= 2
     tiles = -(-t // DECODE_TILE)
     return max(1, min(int(asked), want, tiles, DECODE_MAX_SPLITS))

@@ -2,8 +2,9 @@
 
 The sources in ``repro_torch/csrc`` have a plain C interface and include no
 PyTorch header, so ``nvcc`` compiles them in seconds.  Each ``.cu`` file is
-compiled by its own ``nvcc`` process (all started together), the objects are
-linked into one shared library, and the library is loaded with ``ctypes``.
+compiled by its own ``nvcc`` process (all started together; a source of
+:data:`SOURCE_PARTS` by one process per part), the objects are linked into
+one shared library, and the library is loaded with ``ctypes``.
 The build happens at first use, never at import: a host without a CUDA
 toolkit can import every module of the package.
 
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -32,6 +33,10 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
            "decode_attention.cu", "sampling.cu")
 HEADERS = ("approx_math.cuh", "launch.cuh", "wgmma.cuh")
+# Sources compiled once per part, the part's number in a macro
+# (``-D<macro>=<part>``): each part holds some of the source's template
+# instances, so a long source builds in parallel.
+SOURCE_PARTS = {"decode_attention.cu": ("FASTCAPS_DECODE_PART", 8)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -75,20 +80,34 @@ def _source_hash() -> str:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_PARTS.items())).encode())
     return h.hexdigest()[:16]
 
 
+def compile_units() -> List[Tuple[str, List[str]]]:
+    """``(source, extra nvcc flags)`` of each ``nvcc -c``: one per source,
+    one per part of a source of :data:`SOURCE_PARTS`."""
+    units = []
+    for name in SOURCES:
+        macro, parts = SOURCE_PARTS.get(name, (None, 1))
+        for part in range(parts):
+            units.append((name, [f"-D{macro}={part}"] if macro else []))
+    return units
+
+
 def _compile(nvcc: str, out_dir: Path, tag: str) -> None:
-    """One ``nvcc -c`` per source, all started together, then one link;
-    the library is published atomically (add ``-Xptxas -v`` to
-    :data:`NVCC_FLAGS` to see each kernel's registers and spills)."""
+    """One ``nvcc -c`` per compile unit (:func:`compile_units`), all
+    started together, then one link; the library is published atomically
+    (add ``-Xptxas -v`` to :data:`NVCC_FLAGS` to see each kernel's
+    registers and spills)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     objects: List[str] = []
-    for name in SOURCES:
-        obj = out_dir / f"{Path(name).stem}_{tag}.{os.getpid()}.o"
+    for i, (name, defines) in enumerate(compile_units()):
+        obj = out_dir / f"{Path(name).stem}{i}_{tag}.{os.getpid()}.o"
         objects.append(str(obj))
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", str(CSRC_DIR / name),
+               "-o", str(obj)]
         procs.append((name, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

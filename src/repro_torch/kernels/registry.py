@@ -548,6 +548,20 @@ registry.register(KernelSpec(
 # (slot, KV head), each owning a contiguous range of the slot's rows, and
 # the block size, whose warps take the range's cache tiles in turn.
 
+# The port's own cases, after the reference's, at group sizes those do not
+# reach: the decode kernel takes every G the reference takes, G 12
+# (mistral-large's 96 query heads over 8 KV heads: two chunks of 6) over a
+# bf16 cache and over int8 pages, G 6 (dbrx's 48 over 8: one block) and G
+# 20 (three chunks of 7, 7 and 6).
+PORT_DECODE_CASES = (
+    {"dims": (2, 64, 24, 2, 32), "valid": (64, 29), "kv_dtype": "bfloat16",
+     "atol": 2e-5},
+    {"dims": (3, 64, 24, 2, 32), "valid": (49, 64, 8), "paged": (12, 16, 4),
+     "quant": True, "atol": 2e-5},
+    {"dims": (2, 96, 12, 2, 16), "valid": (96, 5), "atol": 2e-5},
+    {"dims": (2, 64, 40, 2, 32), "valid": (64, 13), "atol": 2e-5},
+)
+
 
 def _build_decode_attention():
     from repro_torch.kernels.attention.kernel import decode_attention_cuda
@@ -582,18 +596,19 @@ _SM_COUNTS: Dict[Any, int] = {}
 def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
                      tables=None, **kwargs) -> Dict[str, Any]:
     """``kv_splits`` no more than :func:`decode_kv_splits` plans for the
-    slots, KV heads and rows at hand on this card; then whole warps, at
-    most 512 threads, and no more warps than the block's shared memory
-    holds at this head dim, cache type and split count.  Idempotent."""
+    slots, KV heads, chunks of their query heads and rows at hand on this
+    card; then whole warps, at most 512 threads, and no more warps than the
+    block's shared memory holds at this head dim, cache type and split
+    count.  Idempotent."""
     from repro_torch.kernels.attention.kernel import (
         DECODE_MAX_THREADS, decode_kv_splits, decode_smem_bytes)
     from repro_torch.kernels.limits import MAX_DYNAMIC_SMEM
 
-    b, d = q.shape[0], q.shape[-1]
+    b, h, d = q.shape[0], q.shape[2], q.shape[-1]
     nkv, kv_bytes = k.shape[2], k.element_size()
     t = (tables.shape[1] * k.shape[1] if tables is not None else k.shape[1])
     splits = decode_kv_splits(b, nkv, t, int(config["kv_splits"]),
-                              _sm_count(q.device))
+                              _sm_count(q.device), h // nkv)
     threads = max(WARP, min(DECODE_MAX_THREADS,
                             int(config["threads"]) // WARP * WARP))
     while threads > WARP and decode_smem_bytes(
@@ -676,7 +691,7 @@ registry.register(KernelSpec(
          "paged": (12, 16, 4), "quant": True, "atol": 2e-5},
         {"dims": (5, 128, 4, 2, 32), "valid": (100, 128, 64, 1, 27),
          "softmax_mode": "taylor", "atol": 5e-2},
-    ),
+    ) + PORT_DECODE_CASES,
     ref_accepts=("tables", "ks", "vs"),
 ))
 

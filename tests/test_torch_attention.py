@@ -54,6 +54,8 @@ def _cases(name, dense_only=False):
 
 def _jax(x):
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:           # numpy has no bfloat16
+            return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
         return jnp.asarray(x.numpy())
     return x
 
@@ -68,8 +70,13 @@ def _example(name, idx):
 class TestRegistryEntries:
     @pytest.mark.parametrize("name", NAMES)
     def test_example_cases_copied_from_reference(self, name):
+        """The reference's cases, in its order; decode then has the port's
+        own cases at the group sizes the reference's do not reach."""
+        own = (port_registry_mod.PORT_DECODE_CASES
+               if name == "decode_attention" else ())
         assert (tuple(dict(c) for c in port_registry.get(name).example_cases)
-                == tuple(dict(c) for c in ref_registry.get(name).example_cases))
+                == tuple(dict(c) for c in ref_registry.get(name).example_cases)
+                + tuple(dict(c) for c in own))
 
     @pytest.mark.parametrize("name", NAMES)
     def test_ref_accepts_copied(self, name):
@@ -319,16 +326,19 @@ class TestWrapperChecks:
         nothing (``tests/test_torch_roofline.py`` holds its cost)."""
         q = torch.zeros(1, 4, 4, 16, device="meta")
         k = torch.zeros(1, 4, 4, 16)
+        kv1 = torch.zeros(1, 4, 1, 16, device="meta")
         with pytest.raises(ValueError, match="tensors on"):
             port_attn.flash_attention_cuda(q, k, k)
         with pytest.raises(ValueError, match="head dim"):
             port_attn.flash_attention_cuda(*(torch.zeros(
                 1, 4, 4, 24, device="meta"),) * 3)
-        with pytest.raises(ValueError, match="query heads per KV head"):
-            port_attn.decode_attention_cuda(
-                torch.zeros(1, 1, 16, 16, device="meta"), q[:, :, :1],
-                q[:, :, :1], torch.zeros(1, dtype=torch.int32,
-                                         device="meta"))
+        q16 = torch.zeros(1, 1, 16, 16, device="meta")
+        valid1 = torch.zeros(1, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="threads must be"):
+            port_attn.decode_attention_cuda(q16, kv1, kv1, valid1,
+                                            threads=544)
+        assert port_attn.decode_attention_cuda(      # G 16: two chunks
+            q16, kv1, kv1, valid1).shape == q16.shape
         launches = (port_attn.flash_attention_cuda.launches,
                     port_attn.decode_attention_cuda.launches)
         out = port_attn.flash_attention_cuda(q, q, q, q_block=16)
@@ -474,7 +484,7 @@ class TestLegalize:
     @pytest.mark.parametrize("source,constant,name", [
         ("flash_attention.cu", "kFlashRows", "FLASH_ROWS"),
         ("flash_attention.cu", "kFlashKv", "FLASH_KV_TILE"),
-        ("decode_attention.cu", "kDecodeMaxG", "DECODE_MAX_GROUP"),
+        ("decode_attention.cu", "kDecodeChunkG", "DECODE_CHUNK_GROUP"),
         ("decode_attention.cu", "kDecodeTile", "DECODE_TILE"),
     ])
     def test_geometry_matches_cuda_source(self, source, constant, name):
@@ -875,9 +885,10 @@ class TestDecodePlanner:
                 "return 2LL * kDecodeTile * (d * kv_bytes + kDecodeRowPad) "
                 "+ 2LL * kDecodeTile * 4;",
                 "return kDecodeStages * decode_stage_bytes(d, kv_bytes) + "
-                "4LL * kDecodeMaxG * kDecodeTile;",
-                "return 4LL * kDecodeMaxG * d + warps * decode_warp_bytes(d, "
-                "kv_bytes) + 4LL * splits * kDecodeMaxG * (d + 2);"):
+                "4LL * kDecodeChunkG * kDecodeTile;",
+                "return 4LL * kDecodeChunkG * d + warps * decode_warp_bytes(d, "
+                "kv_bytes) + 4LL * splits * kDecodeChunkG * (d + 2);",
+                "return (g + kDecodeChunkG - 1) / kDecodeChunkG;"):
             assert line in text
 
     @pytest.mark.parametrize("d", port_attn.HEAD_DIMS)

@@ -291,6 +291,28 @@ def test_counted_cell_runs_placed_on_cpu(arch, shape, variant):
             assert torch.isfinite(t).all()
 
 
+def test_mistral_decode_charges_the_decode_row():
+    """mistral-large-123b's ``decode_32k`` under ``kernels`` (96 query heads
+    over 8 KV heads, G 12) at full width on the production mesh, its depth
+    cut to 2 layers for time: every layer's decode attention goes through
+    the decode kernel's wrapper on meta, which charges row 5 once a layer
+    (before the decode kernel took G > 8, the wrapper refused the cell)."""
+    arch = "mistral-large-123b"
+    cut = dataclasses.replace(port_configs.get_config(arch), n_layers=2)
+    assert cut.n_heads // cut.n_kv_heads == 12
+    mesh = mesh_lib.make_production_mesh(multi_pod=False)
+    rules = sh.rules_for_arch(arch, kind="decode")
+    fn, args, in_sh, out_sh = dryrun.build_cell(arch, "decode_32k", rules,
+                                                mesh, "kernels", cfg=cut)
+    out, cost, _ = dryrun.count_cell(fn, args)
+    assert cost.op_counts["kernel.decode_attention"] == cut.n_layers
+    case = {"dims": (128, 32768, 96, 8, 128), "valid": (32768,) * 128,
+            "dtype": "bfloat16", "quant": False, "softmax_mode": "exact"}
+    assert cost.bytes >= cut.n_layers * roofline.decode_work(case).nbytes
+    logits = out[0]
+    assert logits.device.type == "meta" and logits.shape[0] == 128
+
+
 def test_check_fits_is_the_compile_time_oom(monkeypatch, tmp_path):
     rec = {"arch": "a", "shape": "s", "mesh": "16x16",
            "arg_bytes_per_dev": 60e9, "temp_bytes_per_dev": 30e9}

@@ -1,7 +1,10 @@
 """Port parity for the dense LM (``repro_torch.models``) on the CPU.
 
-``reduced(llama3.2-1b)`` and ``reduced(qwen3-1.7b)`` (qk-norm, head dim 16)
-run in both packages on the reference's parameters, converted leaf by leaf.
+``reduced(...)`` of llama3.2-1b, qwen3-1.7b (qk-norm, head dim 16),
+qwen1.5-110b (QKV bias), mistral-large-123b (also at its group size, 12
+query heads over one KV head) and dbrx-132b (moe) run in both packages on
+the reference's parameters, converted leaf by leaf; the three large
+configs are also served greedily through both packages' ``ServeEngine``.
 
 Tolerances.  float32 compute: logits within 1e-4, cache rows within 1e-5.
 The caches are bfloat16 in both packages (as the reference makes them), so
@@ -35,7 +38,8 @@ from torch_testlib import f32
 
 torch.set_num_threads(1)
 
-ARCHS = ("llama3.2-1b", "qwen3-1.7b")
+ARCHS = ("llama3.2-1b", "qwen3-1.7b", "qwen1.5-110b", "mistral-large-123b",
+         "dbrx-132b")
 B, S, T = 3, 8, 16
 LENGTHS = np.array([8, 5, 3], np.int32)
 DRAW = 3          # input draw: see the module docstring
@@ -56,15 +60,20 @@ def _inputs(seed=DRAW):
 
 
 _RUNS = {}
+# the reduced mistral-large-123b at its published group size: 12 query heads
+# over one KV head (96 over 8 at full size), so the grouped reshape of the
+# attention runs at G 12 on both sides
+G12 = {"n_heads": 12, "n_kv_heads": 1, "d_head": 16}
 
 
-def _run(arch, compute_dtype):
+def _run(arch, compute_dtype, **kw):
     """Both packages through forward, ragged prefill, a vector-pos decode,
-    a continuation prefill and a scalar-pos decode; cached per module."""
-    key = (arch, compute_dtype)
+    a continuation prefill and a scalar-pos decode; cached per module.
+    ``kw`` replaces fields of both reduced configs."""
+    key = (arch, compute_dtype, tuple(sorted(kw.items())))
     if key in _RUNS:
         return _RUNS[key]
-    jcfg, pcfg = _cfgs(arch, compute_dtype=compute_dtype)
+    jcfg, pcfg = _cfgs(arch, compute_dtype=compute_dtype, **kw)
     jp = ref_lm.init(jcfg, jax.random.key(0))
     pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
     tokens, nxt = _inputs()
@@ -304,6 +313,66 @@ class TestFloat32:
                 pp, cfg, {"tokens": nxt, "pos": torch.from_numpy(LENGTHS)}, c)
         np.testing.assert_allclose(f32(logits["cuda"]), f32(logits["chunked"]),
                                    atol=1e-4)
+
+
+class TestGroupOf12:
+    """mistral-large-123b reduced at its group size (G12) in float32, at
+    the tolerances of TestFloat32."""
+
+    def test_config_is_g12(self):
+        jcfg, pcfg = _cfgs("mistral-large-123b", **G12)
+        assert pcfg.n_heads // pcfg.n_kv_heads == 12 == \
+            jcfg.n_heads // jcfg.n_kv_heads
+        assert pcfg.head_dim == jcfg.head_dim == 16
+
+    def test_forward_prefill_and_decode_logits(self):
+        r = _run("mistral-large-123b", "float32", **G12)
+        for step in ("forward", "prefill", "decode", "cont", "scalar"):
+            np.testing.assert_allclose(r["p_" + step], r["j_" + step],
+                                       atol=1e-4, err_msg=step)
+        _assert_cache_close(r["p_prefill_k"], r["j_prefill_k"])
+        _assert_cache_close(r["p_decode_v"], r["j_decode_v"])
+
+
+# the large configs served through both packages' ServeEngine (float32
+# compute, so greedy tokens are held equal): the reduced qwen1.5-110b (QKV
+# bias), mistral-large-123b (also at G 12) and dbrx-132b (16 experts top-4
+# at full size; 8 top-2 reduced)
+SERVE_PROMPTS = [[1, 2, 3], [5, 6, 7, 8, 9, 10, 11], [2, 4], [9] * 12]
+SERVE_CASES = [("qwen1.5-110b", {}), ("mistral-large-123b", {}),
+               ("mistral-large-123b", G12), ("dbrx-132b", {})]
+
+
+@pytest.mark.parametrize("arch,kw", SERVE_CASES,
+                         ids=["qwen1.5-110b", "mistral-large-123b",
+                              "mistral-large-123b-g12", "dbrx-132b"])
+def test_greedy_serve_matches_reference(arch, kw):
+    """Greedy tokens of the port's kernel path (``decode_kernel=True``,
+    ``attn_impl="cuda"``: the kernels' plain versions on the CPU) and of
+    its chunked path equal the reference ``ServeEngine``'s on the same
+    converted parameters: 4 ragged prompts over 2 slots, 6 new tokens."""
+    from repro.serving import Request as RefRequest
+    from repro.serving import ServeEngine as RefServeEngine
+    from repro_torch.serving import Request, ServeEngine
+
+    jcfg, pcfg = _cfgs(arch, compute_dtype="float32", **kw)
+    jp = ref_lm.init(jcfg, jax.random.key(0))
+    pp = convert.params_from_numpy(jax.tree.map(np.asarray, jp))
+
+    def tokens(eng, cls):
+        done = eng.serve([cls(prompt=list(p), max_new_tokens=6, rid=i)
+                          for i, p in enumerate(SERVE_PROMPTS)])
+        return {c.rid: list(c.tokens) for c in done}
+
+    want = tokens(RefServeEngine(jcfg, jp, n_slots=2, max_len=32),
+                  RefRequest)
+    for kernels in (True, False):
+        cfg = dataclasses.replace(
+            pcfg, attn_impl="cuda" if kernels else "chunked")
+        got = tokens(ServeEngine(cfg, pp, n_slots=2, max_len=32,
+                                 decode_kernel=kernels, device="cpu"),
+                     Request)
+        assert got == want, f"decode_kernel={kernels}"
 
 
 class TestBFloat16:

@@ -240,3 +240,37 @@ def test_launcher_refuses_parameters_the_card_cannot_hold():
     bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
     assert port_serve.param_bytes_served(bf16) == need // 3
     port_serve.check_fits(bf16, free)           # 33.8 GB fits
+
+
+def test_lm_engine_warmup_is_a_no_op_in_both_packages():
+    """The reference's launcher calls ``engine.warmup()`` on an LM engine
+    under ``--kernel-tune`` (``repro/launch/serve.py``); the port's LM
+    launcher does not.  In both packages an LM engine's ``warmup`` runs only
+    the ``_pretune`` and ``_warmup`` hooks of ``EngineCore``, which
+    ``ServeEngine`` and its disaggregated members leave empty (the kernels
+    are tuned at their first call instead: ``_maybe_tune_prefill``, the
+    registry's ``resolve_config``), so the reference's call changes
+    nothing and its absence is no fault.  The CapsNet engine has hooks of
+    its own, and the port's launcher warms it."""
+    import inspect
+
+    from repro.serving import core as ref_core
+    from repro.serving import disagg as ref_disagg
+    from repro_torch.serving import core as port_core
+    from repro_torch.serving import disagg as port_disagg
+    from repro_torch.serving import engine as port_engine
+
+    for core, classes in (
+            (ref_core, (RefServeEngine, ref_disagg.PrefillEngine,
+                        ref_disagg.DecodeEngine)),
+            (port_core, (port_engine.ServeEngine, port_disagg.PrefillEngine,
+                         port_disagg.DecodeEngine))):
+        for cls in classes:
+            for hook in ("_pretune", "_warmup", "warmup"):
+                assert getattr(cls, hook) is getattr(core.EngineCore, hook), \
+                    (cls.__module__, cls.__name__, hook)
+        for hook in ("_pretune", "_warmup"):
+            body = inspect.getsource(getattr(core.EngineCore, hook))
+            assert body.rstrip().endswith("pass")
+    src = inspect.getsource(port_serve)
+    assert "engine.warmup()" in src          # the CapsNet branch

@@ -355,8 +355,9 @@ def test_meta_wrapper_refuses_what_the_card_refuses():
     q = torch.empty((2, 1, 24, 64), dtype=torch.bfloat16, device="meta")
     k = torch.empty((2, 128, 2, 64), dtype=torch.bfloat16, device="meta")
     valid = torch.empty((2,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        decode_attention_cuda(q, k, k, valid)
+    with pytest.raises(ValueError, match="threads must be"):
+        decode_attention_cuda(q, k, k, valid, threads=544)
+    assert decode_attention_cuda(q, k, k, valid).shape == q.shape   # G 12
 
 
 def test_meta_softmax_trains_through_its_backward():
