@@ -77,9 +77,17 @@ kernels of each path launched), holds the tuner's command line and
 capslint's kernel-legality proof against the card (``tuning``:
 ``--selfcheck``; every tuner candidate the rule passes, at the example
 cases and each kernel-table row's main-path shape, launched and held
-against its plain version; configs built just past each shared-memory,
-cluster or block limit refused before launch; ``--pretune all`` and each
-row's default against its tuned config), and times the ten kernels
+against its plain version; every proven case scaled to the serving shape
+buckets sorted into launched (each candidate run against the plain
+version), witnessed and unwitnessed; the flash grid's edges launched;
+configs built just past each shared-memory, cluster or block limit refused
+before launch; ``--pretune all`` and each row's default against its tuned
+config, timed back to back), serves through tuned kernel configs
+(``serve_tuned``: the pruned CapsNet and full-width ``llama3.2-1b``
+through ``kernel_tune=True`` engines against the untuned ones, then
+through a planted cache of non-default configs, every resolved config
+checked, then the launcher's ``--kernel-tune`` twice on one cache), and
+times the ten kernels
 (the nine TPU entry points and the softmax backward; routing also at the
 dense shape; routing, softmax, decode and sampling at every point of their
 tunables' spaces:
@@ -105,6 +113,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4934,11 +4943,12 @@ def timing_row(name, case, n_profile: int = 20, config=None,
                plain: bool = True) -> dict:
     """Kernel time by CUDA events (``ms``, wrapper included), the kernel
     alone by profiler events (``kernel_ms``: device time over the events of
-    a trace that holds every launch, else None with ``trace_dropped``), the
-    plain version's and the library call's time, and the bound, at one
-    case, with the default config or ``config`` over it (the plain
-    version's and the library call's times only when ``plain``).  A
-    ``kernel_ms`` below the bound fails: no complete trace can read so."""
+    a trace that holds every launch, else None with ``trace_dropped``; not
+    taken when ``n_profile`` is 0), the plain version's and the library
+    call's time, and the bound, at one case, with the default config or
+    ``config`` over it (the plain version's and the library call's times
+    only when ``plain``).  A ``kernel_ms`` below the bound fails: no
+    complete trace can read so."""
     spec = registry.get(name)
     args, kwargs = spec.make_example(case, device=DEVICE)
     cfg = {**registry.default_config(name, *args, **kwargs),
@@ -4949,7 +4959,8 @@ def timing_row(name, case, n_profile: int = 20, config=None,
         return wrapper(*args, **kwargs, **cfg)
 
     ms = median_ms(call)
-    kernel_ms, trace = kernel_ms_of(call, name, n_profile)
+    kernel_ms, trace = (kernel_ms_of(call, name, n_profile) if n_profile
+                        else (None, {"trace_dropped": None, "attempts": 0}))
     t_bytes, t_ops = BOUNDS[name](case)
     row = {"ms": ms, "kernel_ms": kernel_ms,
            "trace_dropped": trace["trace_dropped"],
@@ -4970,13 +4981,21 @@ def timing_row(name, case, n_profile: int = 20, config=None,
     return row
 
 
+# The sweeps take CUDA-event times only: their profiler traces (about 40 s
+# of the script's time limit for 108 points on an H100) were cut to pay
+# for serve_tuned and the scaled cases; each sweep line says so.
+SWEEP_REDUCED = ["sweep points timed by CUDA events only (ms); no profiler "
+                 "trace, so kernel_ms is null"]
+
+
 def sweep(name, case) -> dict:
-    """``timing_row`` (kernel only) at every point of the kernel's tuned
-    space over its default config, as the wrapper is called with it (not
-    re-planned: the planner would fold the decode splits above one block
-    an SM, and the clusters too small for a row, into its own choice); a
-    point the wrapper refuses (its shared memory does not fit) is recorded
-    with the refusal."""
+    """``timing_row`` (kernel only, CUDA events, no profiler trace:
+    SWEEP_REDUCED) at every point of the kernel's tuned space over its
+    default config, as the wrapper is called with it (not re-planned: the
+    planner would fold the decode splits above one block an SM, and the
+    clusters too small for a row, into its own choice); a point the
+    wrapper refuses (its shared memory does not fit) is recorded with the
+    refusal."""
     spec = registry.get(name)
     args, kwargs = spec.make_example(case, device=DEVICE)
     base = registry.default_config(name, *args, **kwargs)
@@ -4985,7 +5004,7 @@ def sweep(name, case) -> dict:
         point = dict(zip(spec.tuned, values))
         key = ",".join(f"{k}={v}" for k, v in point.items())
         try:
-            out[key] = timing_row(name, case, plain=False,
+            out[key] = timing_row(name, case, n_profile=0, plain=False,
                                   config={**base, **point})
         except ValueError as err:
             out[key] = {"refused": str(err)}
@@ -5135,12 +5154,13 @@ def phase_timings(launches: dict, worst: dict, by_case: dict,
             continue
         case = dict(info["main_case"], valid=(
             valid if name == "decode_attention" else paged_valid(vocab)))
-        emit("timings", name=name, case="by config",
+        emit("timings", name=name, case="by config", reduced=SWEEP_REDUCED,
              by_config=sweep("decode_attention", case))
     for label, rows in (("greedy", {"temperature": (0.0,) * LM_SLOTS}),
                         ("mixed", MIXED)):
         case = {"dims": (LM_SLOTS, 128256), **rows}
         emit("timings", name="fused_sampling", case=f"{label} by config",
+             reduced=SWEEP_REDUCED,
              by_config=sweep("fused_sampling", case))
     # the flash kernels' FMA body: float32 q at the main shapes
     for name in ("flash_attention", "flash_attention_dequant"):
@@ -5155,8 +5175,10 @@ def phase_timings(launches: dict, worst: dict, by_case: dict,
     for label, case in (("pruned", KERNELS["fused_routing"]["main_case"]),
                         ("dense", routing_dense)):
         emit("timings", name="fused_routing", case=f"{label} by config",
+             reduced=SWEEP_REDUCED,
              by_config=sweep("fused_routing", case))
     emit("timings", name="taylor_softmax", case="by config",
+         reduced=SWEEP_REDUCED,
          by_config=sweep("taylor_softmax",
                          KERNELS["taylor_softmax"]["main_case"]))
     # the floors under row 2's time: the shortest kernel the card runs (a
@@ -5496,6 +5518,381 @@ def past_the_limits() -> list:
     return out
 
 
+# capslint's scaled cases on the card (ROADMAP §C 10).  kernel-legality
+# proves every tuner candidate at each example case's variants scaled to the
+# configs.SHAPES buckets, on meta.  Each proven scaled case is sorted:
+# "launched" where its arguments take at most SCALED_MAX_BYTES and its bound
+# (launch/roofline.py KERNEL_WORK) at most SCALED_MAX_BOUND_MS, every
+# candidate launched and held against one plain-version output of the case
+# at the example case's tolerance; "witnessed" where a launched case ran
+# every one of its candidates' plans (kernel instance, threads, cluster,
+# shared memory) and each grid lies within the card's own limits
+# (cudaDeviceGetAttribute); "unwitnessed" otherwise.  A scaled case's inputs
+# are the registry's example made at the scaled shapes (scaled_case, which
+# also gives the rows the bound counts: valid lengths clipped to the rows a
+# slot holds, sampling rows cycled), drawn anew on the card.
+SCALED_MAX_BYTES = 1 << 30
+SCALED_MAX_BOUND_MS = 2.0
+SCALED_ROW_KEYS = ("valid", "temperature", "top_k", "top_p")
+# a plain flash attention's scores past this many bytes run over slices of
+# its query rows (rows the kernel does not mix), q_offset carried
+PLAIN_SLICE_BYTES = 2 << 30
+
+
+def scaled_case(case: dict, value: int, bucket: int) -> dict:
+    """The registry case whose tensors are ``case``'s with every axis equal
+    to ``value`` made ``bucket`` (as kernel-legality scales them): the
+    shape tuples substituted, the per-row tuples cycled to the new batch,
+    decode's valid lengths clipped to the rows a slot holds."""
+    out = dict(case)
+    for key in ("dims", "shape", "paged"):
+        if key in case:
+            out[key] = tuple(bucket if d == value else d for d in case[key])
+    b = (out.get("dims") or out.get("shape"))[0]
+    for key in SCALED_ROW_KEYS:
+        if key in case:
+            row = case[key]
+            out[key] = tuple(row[i % len(row)] for i in range(b))
+    if "valid" in out:
+        paged = out.get("paged")
+        rows = paged[1] * paged[2] if paged else out["dims"][1]
+        out["valid"] = tuple(min(v, rows) for v in out["valid"])
+    return out
+
+
+def arg_bytes(args: tuple, kwargs: dict) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in list(args) + list(kwargs.values())
+               if isinstance(x, torch.Tensor))
+
+
+def plan_instance(name: str, args: tuple, kwargs: dict, plan: dict) -> tuple:
+    """What a launch asks of the card apart from its grid: the kernel
+    instance (the kernel, each tensor's type, the first tensor's last axis,
+    which kernel-legality never scales (head dim, capsule dim, row or
+    vocabulary length), the tensor keywords given (decode's tables and
+    scales), the other arguments, decode's chunked instances (the plan's
+    ``chunked``), the routing's J) and the plan's threads, cluster and
+    shared memory."""
+    tensors = [x for x in list(args) + list(kwargs.values())
+               if isinstance(x, torch.Tensor)]
+    extra = ()
+    if name == "decode_attention":
+        extra = (plan["chunked"],)
+    elif name == "fused_routing":
+        extra = (args[0].shape[-2],)
+    return (name, tuple(str(x.dtype) for x in tensors), tensors[0].shape[-1],
+            tuple(sorted(k for k, v in kwargs.items()
+                         if isinstance(v, torch.Tensor))),
+            tuple(sorted((k, v) for k, v in kwargs.items()
+                         if not isinstance(v, torch.Tensor))), extra,
+            plan["threads"], plan["cluster"], plan.get("smem_bytes", 0))
+
+
+def sort_scaled_cases(grid_limits) -> dict:
+    """kernel name -> the proven scaled cases of its spec, in the checker's
+    order, each ``{"case", "value", "bucket", "args", "kwargs" (meta),
+    "candidates": [(config, plan)], "bytes", "bound_ms", "class"}`` with
+    class "launched", "witnessed" or "unwitnessed" (against ``grid_limits``,
+    the card's (x, y, z)); and under "refused" the count of scaled cases
+    kernel-legality skips (legalize refuses them)."""
+    from repro_torch.analysis.checkers.legality import KernelLegalityChecker
+    from repro_torch.kernels.registry import registry as kernel_registry
+    from repro_torch.launch.roofline import KERNEL_BOUNDS
+
+    checker = KernelLegalityChecker()
+    out = {}
+    for name in kernel_registry.names():
+        spec = kernel_registry.get(name)
+        entries, refused = [], 0
+        for case, value, bucket, args, kwargs in checker.case_variants(spec):
+            if value is None:
+                continue
+            proven = checker.prove(spec, args, kwargs, example=False)
+            if not proven:
+                refused += 1
+                continue
+            if any(found for _, found in proven):
+                fail(f"tuning: kernel-legality flags {name} at a scaled "
+                     f"case")
+            scaled = scaled_case(case, value, bucket)
+            t_bytes, t_ops = KERNEL_BOUNDS[name](scaled)
+            entries.append({
+                "case": case, "value": value, "bucket": bucket,
+                "args": args, "kwargs": kwargs,
+                "candidates": [(config, spec.launch_plan(dict(config), *args,
+                                                         **kwargs))
+                               for config, _ in proven],
+                "bytes": arg_bytes(args, kwargs),
+                "bound_ms": max(t_bytes, t_ops) * 1e3})
+        launched = set()
+        for e in entries:
+            if (e["bytes"] <= SCALED_MAX_BYTES
+                    and e["bound_ms"] <= SCALED_MAX_BOUND_MS):
+                e["class"] = "launched"
+                launched.update(plan_instance(name, e["args"], e["kwargs"],
+                                              plan)
+                                for _, plan in e["candidates"])
+        for e in entries:
+            if "class" in e:
+                continue
+            ok = all(plan_instance(name, e["args"], e["kwargs"], plan)
+                     in launched
+                     and all(1 <= n <= cap for n, cap in zip(plan["grid"],
+                                                             grid_limits))
+                     for _, plan in e["candidates"])
+            e["class"] = "witnessed" if ok else "unwitnessed"
+        out[name] = {"entries": entries, "refused": refused}
+    return out
+
+
+def scaled_inputs(name: str, entry: dict) -> tuple:
+    """A scaled case's arguments: the registry's example at the scaled
+    shapes (scaled_case), drawn from the case's seed by the generator of the
+    device they are made on, so that no axis repeats the example's data.
+    Made on meta they are the shapes kernel-legality proved, or the run
+    fails."""
+    spec = registry.get(name)
+    case = dict(scaled_case(entry["case"], entry["value"], entry["bucket"]),
+                rng="device")
+    args, kwargs = spec.make_example(case, device=DEVICE)
+    meta = list(entry["args"]) + [entry["kwargs"][k] for k in sorted(kwargs)]
+    made = list(args) + [kwargs[k] for k in sorted(kwargs)]
+    if [(tuple(x.shape), x.dtype) for x in made if isinstance(x, torch.Tensor)
+        ] != [(tuple(x.shape), x.dtype) for x in meta
+              if isinstance(x, torch.Tensor)]:
+        fail(f"tuning: {name} scaled case {case_shape(entry['case'])} "
+             f"{entry['value']}->{entry['bucket']}: its inputs differ from "
+             f"the shapes kernel-legality proved")
+    return args, kwargs
+
+
+def plain_decode(args: tuple, kwargs: dict) -> torch.Tensor:
+    """decode_attention_plain with the cache cut to the longest valid
+    length (the rows past it are masked in every slot, so the output is
+    the same), over slices of its slots where its scores (4 bytes a slot,
+    query head and row) would take PLAIN_SLICE_BYTES."""
+    q, k, v, valid = args
+    tables, ks, vs = (kwargs.get(n) for n in ("tables", "ks", "vs"))
+    n = max(1, int(valid.max()))
+    if tables is None:
+        k, v = k[:, :n], v[:, :n]
+        if ks is not None:
+            ks, vs = ks[:, :n].contiguous(), vs[:, :n].contiguous()
+        rows = k.shape[1]
+    else:
+        tables = tables[:, :-(-n // k.shape[1])].contiguous()
+        rows = tables.shape[1] * k.shape[1]
+    step = max(1, PLAIN_SLICE_BYTES // (4 * q.shape[2] * rows))
+    outs = []
+    for i in range(0, q.shape[0], step):
+        j = slice(i, i + step)
+        dense = tables is None
+        outs.append(decode_attention_plain(
+            q[j], k[j] if dense else k, v[j] if dense else v, valid[j],
+            tables=None if dense else tables[j],
+            ks=None if ks is None else (ks[j] if dense else ks),
+            vs=None if vs is None else (vs[j] if dense else vs),
+            softmax_mode=kwargs.get("softmax_mode", "exact")))
+    return torch.cat(outs, dim=0)
+
+
+def plain_output(name: str, args: tuple, kwargs: dict) -> tuple:
+    """The plain version of ``name`` on a case; flash attention over slices
+    of its query rows where its scores would take PLAIN_SLICE_BYTES, decode
+    attention through plain_decode."""
+    spec = registry.get(name)
+    plain = PLAIN.get(name)
+    call = ((lambda a: plain(*a, **kwargs)) if plain
+            else (lambda a: spec.ref_call(*a, **kwargs)))
+    if name == "decode_attention":
+        return (plain_decode(args, kwargs),)
+    if name not in ("flash_attention", "flash_attention_dequant"):
+        return as_tuple(call(args))
+    q, k = args[0], args[1]
+    b, s, h = q.shape[0], q.shape[1], q.shape[2]
+    step = max(1, PLAIN_SLICE_BYTES // (4 * b * h * k.shape[1]))
+    if step >= s:
+        return as_tuple(call(args))
+    off = kwargs.get("q_offset", 0)
+    outs = []
+    for i in range(0, s, step):
+        kw = dict(kwargs, q_offset=off + i)
+        a = (q[:, i:i + step].contiguous(),) + tuple(args[1:])
+        outs.append(plain(*a, **kw) if plain else spec.ref_call(*a, **kw))
+    return (torch.cat(outs, dim=1),)
+
+
+def oracle64(name: str, args: tuple):
+    """A float64 evaluation of the float32 Eq. 2 softmax or its backward on
+    a case (their plain versions' formula in float64, rounded once to
+    float32), else None.  The formula raises its polynomial to the 32nd
+    (31st) power, so float32's own rounding of it grows with the rows a
+    case draws, and past the example case's tolerance on fresh data at the
+    scaled shapes (the plain version's own error is reported)."""
+    from repro_torch.kernels.softmax.ref import (taylor_softmax_bwd_ref,
+                                                 taylor_softmax_ref)
+
+    if args[0].dtype != torch.float32:
+        return None
+    if name == "taylor_softmax":
+        return taylor_softmax_ref(*args, dtype=torch.float64)
+    if name == "taylor_softmax_bwd":
+        return taylor_softmax_bwd_ref(*args, dtype=torch.float64)
+    return None
+
+
+def launch_scaled(name: str, entry: dict, counts: dict) -> None:
+    """Every candidate of a "launched" scaled case on the card, each output
+    held against one plain-version output of the case at the example
+    case's tolerance.  Where a float32 softmax's output lies further off
+    its plain version, it must lie within that tolerance of the plain
+    version's own error against a float64 evaluation (oracle64): as
+    accurate as the plain version, plus the tolerance.  A candidate the
+    card refuses fails the run."""
+    from repro_torch.analysis.checkers.legality import KernelLegalityChecker
+
+    spec = registry.get(name)
+    wrapper = spec.build()
+    args, kwargs = scaled_inputs(name, entry)
+    proven = KernelLegalityChecker().prove(spec, args, kwargs, example=False)
+    if [c for c, _ in proven] != [c for c, _ in entry["candidates"]]:
+        fail(f"tuning: {name} scaled case {case_shape(entry['case'])} "
+             f"{entry['value']}->{entry['bucket']}: the card's candidates "
+             f"differ from those proven on meta")
+    want = plain_output(name, args, kwargs)
+    atol = entry["case"].get("atol", 0)
+    oracle = oracle64(name, args)
+    plain_err = (None if oracle is None else
+                 float((want[0].double() - oracle).abs().max()))
+    if plain_err is not None:
+        counts["plain_vs_oracle"] = max(counts["plain_vs_oracle"], plain_err)
+    for config, _ in entry["candidates"]:
+        try:
+            got = as_tuple(wrapper(*args, **kwargs, **config))
+            torch.cuda.synchronize()
+        except (ValueError, TypeError, build.KernelLaunchError) as err:
+            fail(f"tuning: {name} {config} scaled "
+                 f"{entry['value']}->{entry['bucket']} "
+                 f"({[tuple(a.shape) for a in entry['args']]}) passed "
+                 f"kernel-legality but the card refused it: {err}")
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        if not err <= atol:
+            got_err = (None if oracle is None else
+                       float((got[0].double() - oracle).abs().max()))
+            if got_err is None or not got_err <= plain_err + atol:
+                fail(f"tuning: {name} {config} scaled "
+                     f"{entry['value']}->{entry['bucket']} "
+                     f"({[tuple(a.shape) for a in entry['args']]}): max abs "
+                     f"err {err} > {atol}; against float64 {got_err}, the "
+                     f"plain version's {plain_err}")
+            counts["by_oracle"] += 1
+            counts["oracle_worst"] = max(counts["oracle_worst"],
+                                         got_err - plain_err)
+        counts["worst_err"] = max(counts["worst_err"], err)
+        counts["launches"] += 1
+    del args, kwargs, want, oracle
+
+
+# Cases at the grid edges that the flattened flash grid moved: the
+# tensor-core body at 524288 query positions and q_block 8 (65536 q tiles:
+# the old grid's y axis held 65535), non-causal over a short cache; the FMA
+# body with B * K = 131072 (the old grid's y axis).
+GRID_EDGE_CASES = (
+    ("flash_attention", {"dims": (1, 524288, 64, 8, 1, 64),
+                         "dtype": "bfloat16", "causal": False,
+                         "atol": 1e-2}, {"q_block": 8}),
+    ("flash_attention", {"dims": (512, 16, 16, 256, 256, 16),
+                         "causal": True, "atol": 2e-5}, {}),
+)
+# Flash groups of more than 64 query heads a KV head, dealt to chunks
+# (flash_head_chunks): 96 heads in two blocks of 48 (tensor cores), 67 (a
+# prime) in 67 blocks of one (FMA, with a q_offset), 128 over an int8 cache
+# in two blocks of 64.
+FLASH_GROUP_CASES = (
+    ("flash_attention", {"dims": (2, 100, 160, 96, 1, 64),
+                         "dtype": "bfloat16", "atol": 1e-2}, {}),
+    ("flash_attention", {"dims": (1, 70, 90, 134, 2, 32), "q_offset": 20,
+                         "atol": 2e-5}, {}),
+    ("flash_attention_dequant", {"dims": (1, 33, 64, 128, 1, 32),
+                                 "dtype": "bfloat16", "atol": 1e-2}, {}),
+)
+
+
+def grid_edges(grid_limits) -> list:
+    """GRID_EDGE_CASES and FLASH_GROUP_CASES launched (bf16 against its
+    plain version rounded to bf16) with each grid beside the card's
+    limits."""
+    out = []
+    for name, case, over in GRID_EDGE_CASES + FLASH_GROUP_CASES:
+        spec = registry.get(name)
+        args, kwargs = spec.make_example(case, device=DEVICE)
+        config = {**registry.default_config(name, *args, **kwargs), **over}
+        plan = spec.launch_plan(dict(config), *args, **kwargs)
+        n = spec.build().launches
+        try:
+            got = spec.build()(*args, **kwargs, **config)
+            torch.cuda.synchronize()
+        except (ValueError, build.KernelLaunchError) as err:
+            fail(f"tuning: grid edge {case_shape(case)} {config} refused: "
+                 f"{err}")
+        (want,) = plain_output(name, args, kwargs)
+        err = float((got.float() - want.float()).abs().max())
+        if spec.build().launches != n + 1:
+            fail(f"tuning: grid edge {case_shape(case)} {config}: "
+                 f"{spec.build().launches - n} launches, not 1")
+        if not err <= case["atol"]:
+            fail(f"tuning: grid edge {case_shape(case)} {config}: max abs "
+                 f"err {err} > {case['atol']}")
+        out.append({"kernel": name, "shape": case_shape(case),
+                    "dtype": case.get("dtype", "float32"), "config": config,
+                    "grid": plan["grid"],
+                    "card_grid_limits": list(grid_limits),
+                    "max_abs_err": err})
+        emit("tuning", part="grid_edge", **out[-1])
+        del args, got, want
+    return out
+
+
+def scaled_on_the_card() -> dict:
+    """Every proven scaled case sorted (sort_scaled_cases) and each
+    "launched" one run (launch_scaled); per spec the counts of launched,
+    witnessed, unwitnessed and refused cases; each unwitnessed case printed
+    with its plans."""
+    limits = build.device_grid_limits(torch.cuda.current_device())
+    t0 = time.perf_counter()
+    sorted_cases = sort_scaled_cases(limits)
+    t_sort = time.perf_counter() - t0
+    summary = {}
+    for name, got in sorted_cases.items():
+        counts = {"launches": 0, "worst_err": 0.0, "by_oracle": 0,
+                  "oracle_worst": 0.0, "plain_vs_oracle": 0.0}
+        classes = dict.fromkeys(("launched", "witnessed", "unwitnessed"), 0)
+        for e in got["entries"]:
+            classes[e["class"]] += 1
+            if e["class"] == "launched":
+                launch_scaled(name, e, counts)
+            elif e["class"] == "unwitnessed":
+                emit("tuning", part="unwitnessed", kernel=name,
+                     shapes=[list(a.shape) for a in e["args"]
+                             if isinstance(a, torch.Tensor)],
+                     scaled=[e["value"], e["bucket"]], gib=e["bytes"] / 2**30,
+                     bound_ms=e["bound_ms"],
+                     plans=[{"config": c, **p} for c, p in e["candidates"]])
+        torch.cuda.empty_cache()
+        summary[name] = {**classes, "refused": got["refused"],
+                         "candidate_launches": counts["launches"],
+                         "worst_err": counts["worst_err"],
+                         "held_by_oracle": counts["by_oracle"],
+                         "oracle_worst_over_plain": counts["oracle_worst"],
+                         "plain_worst_vs_oracle": counts["plain_vs_oracle"]}
+        emit("tuning", part="scaled", kernel=name, **summary[name])
+    return {"card_grid_limits": list(limits), "sort_seconds": t_sort,
+            "max_bytes": SCALED_MAX_BYTES,
+            "max_bound_ms": SCALED_MAX_BOUND_MS, "by_spec": summary}
+
+
 def spec_cases(name: str, main_cases: list) -> list:
     """The registry's example cases of ``name`` and the main-path cases of
     the kernel-table rows it serves."""
@@ -5506,15 +5903,16 @@ def spec_cases(name: str, main_cases: list) -> list:
 
 def phase_tuning() -> dict:
     """The tuner's command line and capslint's static proof on the card,
-    with the tuning cache in a temporary directory (no other phase sees a
-    tuned config): (1) ``--selfcheck``: every spec's example cases through
+    with the tuning cache in a temporary directory (serve_tuned keeps its
+    own): (1) ``--selfcheck``: every spec's example cases through
     ``tune=False`` dispatch agree with their plain versions; (2) every
     candidate kernel-legality proves legal, at the example cases and each
     row's main-path shape, launches and agrees with its plain version;
-    configs built just past each limit are refused before launch; (3)
-    ``--pretune all``, then each row at its main-path shape autotuned, its
-    default and winning configs timed as phase_timings times (CUDA
-    events)."""
+    configs built just past each limit are refused before launch; (2b) the
+    scaled cases (scaled_on_the_card) and the flash grid's edges
+    (grid_edges); (3) ``--pretune all``, then each row at its main-path
+    shape autotuned, its default and winning configs timed as
+    phase_timings times (CUDA events, back to back)."""
     from repro_torch.kernels import tuning
 
     t_phase = time.perf_counter()
@@ -5522,7 +5920,8 @@ def phase_tuning() -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as cache_dir:
         os.environ[tuning.CACHE_ENV] = cache_dir
         try:
-            counts, refused, rows, t_selfcheck = _tune_on_the_card(t_phase)
+            counts, refused, rows, t_selfcheck, scaled = _tune_on_the_card(
+                t_phase)
         finally:
             if before is None:
                 os.environ.pop(tuning.CACHE_ENV, None)
@@ -5533,7 +5932,15 @@ def phase_tuning() -> dict:
          clocks=clocks_line(), seconds=seconds)
     if seconds > TUNING_BUDGET_S:
         fail(f"tuning: {seconds:.1f} s, over its {TUNING_BUDGET_S} s budget")
-    return {"counts": counts, "refused": len(refused), "rows": rows}
+    moved = [r for r in rows if r["tuned"] != r["default"]]
+    m2 = {"rows": len(rows), "winner_not_default": len(moved),
+          "separated": sum(r["tuner_separated"] for r in moved),
+          "tuner_spread_max": max(r["tuner_spread_max"] for r in rows),
+          "retimed_over_default": [min(r["tuned_over_default"] for r in rows),
+                                   max(r["tuned_over_default"] for r in rows)]}
+    emit("tuning", part="m2", **m2)
+    return {"counts": counts, "refused": len(refused), "rows": rows,
+            "scaled": scaled, "m2": m2}
 
 
 def _tune_on_the_card(t_phase: float):
@@ -5572,6 +5979,9 @@ def _tune_on_the_card(t_phase: float):
     if counts["flagged"] or counts["agreed"] != counts["candidates"]:
         fail(f"tuning: kernel-legality flagged a registry candidate on "
              f"the card: {counts}")
+    # (2b) the scaled cases (ROADMAP §C 10) and the grid edges
+    scaled = scaled_on_the_card()
+    scaled["grid_edges"] = grid_edges(scaled["card_grid_limits"])
     # (3) the first measured autotune
     if tuning.main(["--pretune", "all", "--device", DEVICE]) != 0:
         fail("tuning: --pretune all failed on the card")
@@ -5581,15 +5991,375 @@ def _tune_on_the_card(t_phase: float):
         wrapper = spec.build()
         args, kwargs = spec.make_example(case, device=DEVICE)
         default = registry.default_config(name, *args, **kwargs)
-        best, timings = tuning.autotune(spec, args, kwargs)
+        repeats = []
+        best, timings = tuning.autotune(spec, args, kwargs,
+                                        timer=recording_timer(repeats))
         default_ms = median_ms(lambda: wrapper(*args, **kwargs, **default))
         tuned_ms = median_ms(lambda: wrapper(*args, **kwargs, **best))
         rows.append({"row": row, "shape": case_shape(case),
                      "default": default, "default_ms": default_ms,
                      "tuned": best, "tuned_ms": tuned_ms,
-                     "tuner_ms": {k: t * 1e3 for k, t in timings.items()}})
+                     "tuned_over_default": tuned_ms / default_ms,
+                     "tuner_ms": {k: t * 1e3 for k, t in timings.items()},
+                     **tuner_spread(timings, repeats, default, best)})
         emit("tuning", part="autotune", **rows[-1])
-    return counts, refused, rows, t_selfcheck
+    return counts, refused, rows, t_selfcheck, scaled
+
+
+def recording_timer(record: list):
+    """An autotune ``timer`` that times as the tuner does
+    (``tuning.repeat_times``) and appends each candidate's repeats, in the
+    tuner's order, to ``record``."""
+    from repro_torch.kernels import tuning
+
+    def timer(fn, warmup, iters):
+        times = tuning.repeat_times(fn, warmup=warmup, iters=iters)
+        record.append(times)
+        return times[len(times) // 2]
+
+    return timer
+
+
+def tuner_spread(timings: dict, repeats: list, default: dict,
+                 best: dict) -> dict:
+    """The tuner's own noise beside the gaps it picks by: each candidate's
+    repeat-to-repeat spread ((slowest - fastest) / median of its repeats),
+    the largest of them, the default's time over the winner's in the
+    tuner's medians, and whether the two are separated (the winner's
+    slowest repeat faster than the default's fastest)."""
+    from repro_torch.kernels import tuning
+
+    by_label = dict(zip(timings, repeats))
+    spread = {k: (t[-1] - t[0]) / t[len(t) // 2] for k, t in by_label.items()}
+    d, w = (by_label.get(tuning.config_label(c)) for c in (default, best))
+    if d is None or w is None:
+        fail(f"tuning: the default {default} or the winner {best} is not "
+             f"among the tuner's candidates {list(timings)}")
+    return {"tuner_spread": spread, "tuner_spread_max": max(spread.values()),
+            "tuner_default_over_winner": d[len(d) // 2] / w[len(w) // 2],
+            "tuner_separated": best != default and w[-1] < d[0]}
+
+
+# serve_tuned (ROADMAP §C 9): both engines served through tuned kernel
+# configs, each in a fresh REPRO_TORCH_KERNEL_CACHE_DIR of its own.  The
+# pruned CapsNet through CapsuleEngine(kernel_tune=True) (its warm-up tunes
+# fused_routing for every batch shape the scheduler emits) against the
+# untuned engine on the same images; full-width llama3.2-1b through
+# ServeEngine(kernel_tune=True, decode_kernel=True, attn_impl "cuda"):
+# prefill tunes flash attention per admission bucket
+# (_maybe_tune_prefill, outside the tick wall), decode tunes on the spot
+# inside the tick that first meets a shape (the registry's cache miss, as
+# in the reference); sampling dispatches with tune=False, as the
+# reference's engine does.  Then a planted cache: every key those serves
+# tuned maps to the first proven candidate that is not the default, both
+# models served through it (every resolved config must equal the planted
+# one, and nothing is tuned); then the launcher twice on one cache.
+SERVE_TUNED_IMAGE_REQUESTS = 8
+SERVE_TUNED_LM_REQUESTS = 8
+TUNED_LAUNCHER_ARGS = ("--arch", "capsnet-mnist", "--no-reduced",
+                       "--routing", "cuda", "--kernel-tune")
+
+
+class TuneWatch:
+    """Within its scope, every measured autotune (kernel, cache key,
+    arguments, winner, timings, seconds) and every config the registry
+    resolves with tuning on for arguments on the card (kernel, cache key,
+    config) are recorded."""
+
+    def __init__(self):
+        self.autotunes, self.resolved = [], []
+
+    def __enter__(self):
+        from repro_torch.kernels import tuning
+
+        inner_tune, inner_resolve = tuning.autotune, registry.resolve_config
+
+        def autotune(spec, args, kwargs=None, cache=None, **kw):
+            t0 = time.perf_counter()
+            best, timings = inner_tune(spec, args, kwargs, cache=cache, **kw)
+            self.autotunes.append({
+                "name": spec.name, "key": tuning.cache_key_for(spec, args),
+                "args": args, "kwargs": dict(kwargs or {}), "best": best,
+                "timings": timings, "seconds": time.perf_counter() - t0})
+            return best, timings
+
+        def resolve(name, *args, overrides=None, tune=None, **kwargs):
+            config = inner_resolve(name, *args, overrides=overrides,
+                                   tune=tune, **kwargs)
+            if ((tune if tune is not None else tuning.tune_enabled())
+                    and tuning.backend_of(args) == "cuda"):
+                self.resolved.append((name, tuning.cache_key_for(
+                    registry.get(name), args), dict(config)))
+            return config
+
+        self._inner = inner_tune
+        tuning.autotune, registry.resolve_config = autotune, resolve
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import tuning
+
+        tuning.autotune = self._inner
+        del registry.resolve_config           # the class's method again
+
+
+def use_cache_dir(path: str) -> None:
+    from repro_torch.kernels import tuning
+
+    os.environ[tuning.CACHE_ENV] = path
+    tuning.default_cache().clear_memory()
+
+
+def serve_images(deployed, requests, kernel_tune=None) -> tuple:
+    """``requests`` through a fresh CapsuleEngine (warm-up first: with
+    kernel_tune its _pretune); (completions by rid, routing launches)."""
+    engine = deployed.serve(batch_size=BATCH, kernel_tune=kernel_tune)
+    engine.warmup()
+    reset_counts()
+    done = engine.serve([ImageRequest(images=r.images, rid=r.rid)
+                         for r in requests])
+    if len(done) != len(requests):
+        fail(f"serve_tuned: {len(done)} of {len(requests)} image requests "
+             f"completed")
+    return {c.rid: c for c in done}, fused_routing_cuda.launches
+
+
+def hold_images(label: str, got: dict, want: dict) -> float:
+    """Classes identical, lengths (|v| of each class capsule) within
+    TUNING_ATOL["fused_routing"]; returns the largest difference."""
+    err = 0.0
+    for rid, c in want.items():
+        if not np.array_equal(got[rid].classes, c.classes):
+            fail(f"serve_tuned ({label}): rid {rid} classes differ from "
+                 f"the untuned engine's")
+        err = max(err, float(np.abs(got[rid].lengths - c.lengths).max()))
+    if not err <= TUNING_ATOL["fused_routing"]:
+        fail(f"serve_tuned ({label}): lengths differ by {err} > "
+             f"{TUNING_ATOL['fused_routing']} from the untuned engine's")
+    return err
+
+
+def serve_lm_tuned(label: str, cfg, params, reqs, tok_ref, margins) -> tuple:
+    """``reqs`` twice through a fresh ServeEngine(kernel_tune=True) with the
+    kernels: greedy tokens held against the untuned engine's (``tok_ref``,
+    whose margins are ``margins``) by MARGIN_RULE, seeded ones bit-identical
+    between the two serves.  Returns (numbers, launches of the first
+    serve)."""
+    eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      decode_kernel=True, kernel_tune=True, device=DEVICE)
+    reset_counts()
+    done = eng.serve(fresh(reqs))
+    counts = launch_counts()
+    first = eng.stats()
+    again = eng.serve(fresh(reqs))
+    both = eng.stats()
+    if len(done) != len(reqs) or len(again) != len(reqs):
+        fail(f"serve_tuned ({label}): {len(done)}, {len(again)} of "
+             f"{len(reqs)} requests completed")
+    check_prefill_bodies(f"serve_tuned ({label})", counts)
+    tok = {c.rid: c.tokens for c in done}
+    compared, ambiguous, first_diff = compare_with_plain(
+        f"serve_tuned ({label})", reqs, tok, tok_ref,
+        {c.rid: c.tokens for c in again}, margins, cfg.vocab)
+    second_wall = both.wall_s - first.wall_s
+    numbers = {
+        "greedy_tokens_compared": compared, "ambiguous_positions": ambiguous,
+        "first_divergence": first_diff, "seeded_bit_identical": True,
+        "seeded_equal_untuned": sum(
+            1 for r in reqs if r.temperature > 0
+            and tok[r.rid] == tok_ref[r.rid]),
+        "greedy_sequences_equal_untuned": sum(
+            1 for r in reqs if r.temperature == 0
+            and tok[r.rid] == tok_ref[r.rid]),
+        "ticks": first.ticks, "new_tokens": first.items,
+        "tick_wall_s": first.wall_s,
+        "second_serve_tok_per_s": (both.items - first.items) / second_wall}
+    launches = {"flash_attention": counts["flash_attention"],
+                "decode_attention": counts["dense"],
+                "fused_sampling": counts["fused_sampling"]}
+    if min(launches.values()) < 1:
+        fail(f"serve_tuned ({label}): launches {launches}")
+    return numbers, launches
+
+
+def planted_configs(autotunes: list) -> dict:
+    """Cache key -> the first candidate of its autotune's arguments, in the
+    tuner's order, that kernel-legality proves and that is not the default
+    (the default where no other candidate exists)."""
+    from repro_torch.analysis.checkers.legality import KernelLegalityChecker
+
+    checker = KernelLegalityChecker()
+    planted = {}
+    for a in autotunes:
+        spec = registry.get(a["name"])
+        default = registry.default_config(a["name"], *a["args"], **a["kwargs"])
+        proven = [c for c, found in checker.prove(spec, a["args"],
+                                                  a["kwargs"]) if not found]
+        planted[a["key"]] = next((c for c in proven if c != default),
+                                 default)
+    return planted
+
+
+def run_tuned_launcher(cache_dir: str) -> dict:
+    """The launcher with TUNED_LAUNCHER_ARGS on ``cache_dir``: its exit, the
+    cache file's bytes and modification time after it."""
+    env = dict(port_env(), **{"REPRO_TORCH_KERNEL_CACHE_DIR": cache_dir})
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve",
+         *TUNED_LAUNCHER_ARGS], env=env, capture_output=True, text=True,
+        timeout=600)
+    if res.returncode != 0 or "rid=0:" not in res.stdout:
+        fail(f"serve_tuned: launcher {' '.join(TUNED_LAUNCHER_ARGS)} exit "
+             f"{res.returncode}: {(res.stdout + res.stderr)[-2000:]}")
+    path = os.path.join(cache_dir, "autotune.json")
+    if not os.path.exists(path):
+        fail(f"serve_tuned: the tuned launcher wrote no cache at {path}")
+    with open(path, "rb") as f:
+        blob = f.read()
+    return {"seconds": time.perf_counter() - t0, "bytes": blob,
+            "mtime_ns": os.stat(path).st_mtime_ns,
+            "keys": sorted(json.loads(blob)["entries"]),
+            "last_line": res.stdout.strip().splitlines()[-1][:200]}
+
+
+def phase_serve_tuned() -> dict:
+    """ROADMAP §C 9 on the card (see the comment above
+    SERVE_TUNED_IMAGE_REQUESTS)."""
+    from repro_torch.kernels import tuning
+
+    t_phase = time.perf_counter()
+    before = os.environ.get(tuning.CACHE_ENV)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_tuned_")
+    try:
+        out = _serve_tuned(root)
+    finally:
+        if before is None:
+            os.environ.pop(tuning.CACHE_ENV, None)
+        else:
+            os.environ[tuning.CACHE_ENV] = before
+        tuning.default_cache().clear_memory()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("serve_tuned", card=nvidia_smi_line(), clocks=clocks_line(),
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def _serve_tuned(root: str) -> dict:
+    from repro_torch.kernels import tuning
+
+    launches = {}
+
+    def add(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    use_cache_dir(os.path.join(root, "tuned"))
+    # the CapsNet, untuned then tuned
+    cfg = cfg_lib.get_config("capsnet-mnist")
+    pipe = FastCapsPipeline(cfg, device=DEVICE).build(seed=0)
+    pipe.prune(0.6, 0.9, type_keep=7).compact()
+    deployed = pipe.compile(routing="cuda")
+    images = make_requests(SERVE_TUNED_IMAGE_REQUESTS, deployed.cfg)
+    want, _ = serve_images(deployed, images)
+    with TuneWatch() as caps:
+        got, n_routing = serve_images(deployed, images, kernel_tune=True)
+    caps_err = hold_images("tuned", got, want)
+    if not caps.autotunes or n_routing < 1:
+        fail(f"serve_tuned: the tuned CapsuleEngine tuned "
+             f"{len(caps.autotunes)} shapes and launched routing "
+             f"{n_routing} times")
+    add({"fused_routing": n_routing})
+    # llama3.2-1b: the untuned kernel engine's tokens and margins, then tuned
+    lm_cfg, params, _, n_params = init_lm()
+    reqs = lm_requests(lm_cfg.vocab, SERVE_TUNED_LM_REQUESTS)
+    untuned = ServeEngine(lm_cfg, params, n_slots=LM_SLOTS,
+                          max_len=LM_MAX_LEN, decode_kernel=True,
+                          device=DEVICE)
+    tok_ref, margins = kernel_margins_of(untuned, reqs)
+    del untuned
+    with TuneWatch() as lm_watch:
+        lm_numbers, got_launches = serve_lm_tuned(
+            "tuned", lm_cfg, params, reqs, tok_ref, margins)
+    add(got_launches)
+    tuned_kernels = {a["name"] for a in lm_watch.autotunes}
+    if not {"flash_attention", "decode_attention"} <= tuned_kernels:
+        fail(f"serve_tuned: the tuned LM serve tuned {tuned_kernels}")
+    decode_s = sum(a["seconds"] for a in lm_watch.autotunes
+                   if a["name"] == "decode_attention")
+    lm_numbers["decode_autotune_s_in_tick_wall"] = decode_s
+    lm_numbers["prefill_autotune_s_outside_tick_wall"] = sum(
+        a["seconds"] for a in lm_watch.autotunes
+        if a["name"] == "flash_attention")
+    lm_numbers["tok_per_s_without_autotune"] = lm_numbers["new_tokens"] / (
+        lm_numbers["tick_wall_s"] - decode_s)
+    # each tuned key's default and winner, back to back (M2)
+    record = []
+    for a in caps.autotunes + lm_watch.autotunes:
+        wrapper = registry.get(a["name"]).build()
+        default = registry.default_config(a["name"], *a["args"], **a["kwargs"])
+        default_ms = median_ms(lambda: wrapper(*a["args"], **a["kwargs"],
+                                               **default))
+        best_ms = median_ms(lambda: wrapper(*a["args"], **a["kwargs"],
+                                            **a["best"]))
+        record.append({"kernel": a["name"], "key": a["key"],
+                       "default": default, "default_ms": default_ms,
+                       "winner": a["best"], "winner_ms": best_ms,
+                       "winner_over_default": best_ms / default_ms,
+                       "autotune_s": a["seconds"]})
+    emit("serve_tuned", part="tuned", capsnet={
+        "requests": len(images), "frames": sum(len(r.images) for r in images),
+        "max_abs_err_lengths": caps_err, "classes_identical": True,
+        "tuned_keys": [a["key"] for a in caps.autotunes]},
+        lm={"arch": LM_ARCH, "params": n_params, "requests": len(reqs),
+            **lm_numbers}, record=record)
+    # the planted cache
+    planted = planted_configs(caps.autotunes + lm_watch.autotunes)
+    planted_dir = os.path.join(root, "planted")
+    cache = tuning.TuneCache(os.path.join(planted_dir, "autotune.json"))
+    for key, config in planted.items():
+        cache.put(key, config, {})
+    use_cache_dir(planted_dir)
+    with TuneWatch() as watch:
+        got, n_routing = serve_images(deployed, images, kernel_tune=True)
+        planted_lm, got_launches = serve_lm_tuned(
+            "planted", lm_cfg, params, reqs, tok_ref, margins)
+    planted_err = hold_images("planted", got, want)
+    add({"fused_routing": n_routing})
+    add(got_launches)
+    if watch.autotunes:
+        fail(f"serve_tuned: the planted cache's serves tuned "
+             f"{[a['key'] for a in watch.autotunes]}")
+    seen = {}
+    for name, key, config in watch.resolved:
+        if planted.get(key) != config:
+            fail(f"serve_tuned: {name} resolved {config} at {key}, planted "
+                 f"{planted.get(key)}")
+        seen[key] = seen.get(key, 0) + 1
+    if set(seen) != set(planted):
+        fail(f"serve_tuned: planted keys never resolved: "
+             f"{sorted(set(planted) - set(seen))}")
+    emit("serve_tuned", part="planted", planted={
+        k: {"config": c, "resolutions": seen[k]} for k, c in planted.items()},
+        non_default=sum(1 for a in caps.autotunes + lm_watch.autotunes
+                        if planted[a["key"]] != registry.default_config(
+                            a["name"], *a["args"], **a["kwargs"])),
+        capsnet_max_abs_err_lengths=planted_err, lm=planted_lm)
+    del params, caps, lm_watch, watch
+    torch.cuda.empty_cache()
+    # the launcher twice on one fresh cache directory
+    launcher_dir = os.path.join(root, "launcher")
+    first = run_tuned_launcher(launcher_dir)
+    second = run_tuned_launcher(launcher_dir)
+    if (second["bytes"] != first["bytes"]
+            or second["mtime_ns"] != first["mtime_ns"]):
+        fail("serve_tuned: the launcher's second --kernel-tune run changed "
+             "the cache its first wrote (it tuned again)")
+    emit("serve_tuned", part="launcher", args=list(TUNED_LAUNCHER_ARGS),
+         keys=first["keys"], first_s=first["seconds"],
+         second_s=second["seconds"], cache_unchanged=True,
+         last_line=second["last_line"])
+    return launches
 
 
 def timed(phase: str, fn, *args):
@@ -5626,6 +6396,7 @@ def main() -> None:
     launches_sharded = timed("serve_sharded", phase_serve_sharded)
     launches_dryrun = timed("dryrun", phase_dryrun)
     timed("tuning", phase_tuning)
+    launches_tuned = timed("serve_tuned", phase_serve_tuned)
     # the rows each new phase must launch: ssm samples, the hybrid also runs
     # flash and decode attention in its shared block, audio runs flash;
     # qwen3 and each large model prefill, decode in each of their cache
@@ -5651,7 +6422,8 @@ def main() -> None:
              **{f"large {arch}": got for arch, got in launches_large.items()},
              "ssm": launches_ssm,
              "hybrid": launches_hybrid, "audio": launches_audio,
-             "sharded": launches_sharded, "dryrun": launches_dryrun}
+             "sharded": launches_sharded, "dryrun": launches_dryrun,
+             "serve_tuned": launches_tuned}
     for name, n in {**launches, **{f"{k} (dense)": v
                                    for k, v in launches_dense.items()},
                     **launches_lm,

@@ -5,10 +5,11 @@ what the kernel and the shapes allow, and dispatch launches whatever comes
 out.  The reference proves its Pallas invariants (blocks divide their
 dimension, a block's working set fits a per-backend budget); a CUDA kernel
 has other limits: threads per block, the thread-block cluster, the dynamic
-shared memory a block may ask for.  This rule proves those, symbolically.
+shared memory a block may ask for, the blocks of a grid on each axis.  This
+rule proves those, symbolically.
 
 Each :class:`repro_torch.kernels.KernelSpec` declares
-``launch_plan(config, *args, **kw) -> {"threads", "cluster"[,
+``launch_plan(config, *args, **kw) -> {"threads", "cluster", "grid"[,
 "smem_bytes"]}``, which calls the planners the kernel's wrapper itself
 calls (``routing_smem_bytes``, ``softmax_tile_rows``,
 ``decode_smem_bytes``, ``sampling_smem_bytes``), so the checker and
@@ -32,6 +33,12 @@ proves:
 * **over-smem** — the block asks for at most
   :data:`~repro_torch.kernels.limits.MAX_DYNAMIC_SMEM` bytes of dynamic
   shared memory;
+* **over-grid** — the grid, as the source's launcher computes it, has at
+  least one block on each axis, at most
+  :data:`~repro_torch.kernels.limits.MAX_GRID_X` on x and
+  :data:`~repro_torch.kernels.limits.MAX_GRID_YZ` on y and z (the card
+  refuses a launch past them at run time, whatever the shapes; a plan
+  without ``grid`` is not checked for it);
 * **unstable-legalize** — legalization is idempotent (a drifting
   legalizer would make cached tuner winners resolve differently than they
   measured);
@@ -61,7 +68,8 @@ from typing import Any, Dict, Iterator, List, Set, Tuple
 from repro_torch.analysis.findings import Finding
 from repro_torch.analysis.loader import Project
 from repro_torch.kernels.limits import (MAX_CLUSTER, MAX_DYNAMIC_SMEM,
-                                        MAX_THREADS, WARP)
+                                        MAX_GRID_X, MAX_GRID_YZ, MAX_THREADS,
+                                        WARP)
 
 
 def _bucket_values() -> List[int]:
@@ -123,7 +131,8 @@ class KernelLegalityChecker:
                    f"launches within Hopper's limits: whole warps up to "
                    f"{MAX_THREADS} threads, a cluster of at most "
                    f"{MAX_CLUSTER}, at most {MAX_DYNAMIC_SMEM} bytes of "
-                   f"dynamic shared memory")
+                   f"dynamic shared memory, a grid of at most {MAX_GRID_X} "
+                   f"blocks on x and {MAX_GRID_YZ} on y and z")
     codes = {
         "illegal-config": "a legalized knob is not a positive int, or "
                           "legalize fails on an example case",
@@ -132,6 +141,8 @@ class KernelLegalityChecker:
         "over-cluster": "the cluster exceeds the portable 8 blocks",
         "over-smem": "the block asks for more dynamic shared memory than "
                      "Hopper gives one",
+        "over-grid": "the grid has more blocks on an axis than Hopper "
+                     "launches (2^31 - 1 on x, 65535 on y and z), or none",
         "unstable-legalize": "legalize is not idempotent on its own "
                              "output",
         "unverifiable": "spec declares no launch_plan; legality cannot "
@@ -188,7 +199,8 @@ class KernelLegalityChecker:
                 hint="declare launch_plan from the planners the wrapper "
                      "calls")
             return
-        for args, kwargs, example in self._cases(spec):
+        for _, value, _, args, kwargs in self.case_variants(spec):
+            example = value is None
             proven = self.prove(spec, args, kwargs, example,
                                 location=(path, line))
             counts["example" if example else
@@ -266,6 +278,16 @@ class KernelLegalityChecker:
                           f"memory, more than {MAX_DYNAMIC_SMEM}",
                           "legalize against the planner's shared memory, "
                           "not just the knob's range")
+        grid = plan.get("grid")
+        if grid is not None and not all(
+                1 <= n <= cap for n, cap in zip(
+                    grid, (MAX_GRID_X, MAX_GRID_YZ, MAX_GRID_YZ))):
+            yield finding("over-grid",
+                          f"a grid of {tuple(grid)} blocks is outside "
+                          f"[1, {MAX_GRID_X}] x [1, {MAX_GRID_YZ}] x "
+                          f"[1, {MAX_GRID_YZ}]",
+                          "put the blocks on axis x, or refuse the shape in "
+                          "legalize")
         again = spec.legalize(dict(config), *args, **kwargs)
         if again != config:
             yield finding("unstable-legalize",
@@ -277,12 +299,13 @@ class KernelLegalityChecker:
     # -- case generation -------------------------------------------------
 
     @staticmethod
-    def _cases(spec) -> Iterator[Tuple[tuple, dict, bool]]:
-        """``(args, kwargs, is_example)``: each example case on meta, then
-        its variants with each axis of the first tensor argument but the
-        last (batch, sequence, capsules, rows; the last is a feature axis
-        the kernels fix: head dim, capsule dim, row or vocabulary length)
-        scaled to every bucket."""
+    def case_variants(spec) -> Iterator[Tuple[dict, Any, Any, tuple, dict]]:
+        """``(case, value, bucket, args, kwargs)``: each example case on meta
+        (``value`` and ``bucket`` None), then its variants with each axis of
+        the first tensor argument but the last (batch, sequence, capsules,
+        rows; the last is a feature axis the kernels fix: head dim, capsule
+        dim, row or vocabulary length) scaled to every bucket: every axis
+        equal to ``value``, of every tensor argument, becomes ``bucket``."""
         import torch
 
         buckets = _bucket_values()
@@ -290,9 +313,10 @@ class KernelLegalityChecker:
             real_args, real_kwargs = spec.make_example(case)
             args = tuple(_meta(a) for a in real_args)
             kwargs = {k: _meta(v) for k, v in real_kwargs.items()}
-            yield args, kwargs, True
+            yield case, None, None, args, kwargs
             first = next(a for a in args if isinstance(a, torch.Tensor))
             for value in sorted({d for d in first.shape[:-1] if d > 1}):
                 for bucket in buckets:
                     if bucket != value:
-                        yield (*_scaled(args, kwargs, value, bucket), False)
+                        yield (case, value, bucket,
+                               *_scaled(args, kwargs, value, bucket))

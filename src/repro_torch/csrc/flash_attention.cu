@@ -35,12 +35,20 @@
 // Both bodies: one block per (batch, kv-head, tile of q_block query
 // positions) holding all G query heads of its tile, 64 rows at most
 // (G * q_block; row r is position r / G of head r % G), so K and V are read
-// once per G heads.  The block walks the KV axis in tiles of 64 rows inside
+// once per G heads.  A group of more than 64 query heads is dealt to C
+// chunks of G / C heads each (flash_head_chunks: the fewest that divide G
+// and fit a block), a block each; K and V are then read once per chunk.  The block walks the KV axis in tiles of 64 rows inside
 // a loop (the TPU grid's sequential axis) and keeps m, l and acc in
 // registers.  Under the causal mask it stops at the last tile that the
 // block's last query position can see.  A ragged last q tile or KV tile is
 // masked, so no block size has to divide S or T.  Every sum has a fixed
 // order and there is no atomic, so two runs give the same bits.
+//
+// The grid is one flattened axis x of n_qt * B * K * C blocks
+// (flash_grid_x): block x serves q tile x / (B * K * C) of (batch, group of
+// query heads) x % (B * K * C), the tile the slow index.  Axis x takes 2^31 - 1 blocks where y and z take
+// 65535, so no sequence length or batch of heads that fits in memory runs
+// out of grid (a 524288-token prompt at q_block 8 is 65536 tiles).
 //
 // Tensor-core body (flash_attention_kernel_tc, one warpgroup of 128 threads):
 //
@@ -69,7 +77,7 @@
 //           holds the bf16 outputs at the 1e-2 of the float32 oracle that a
 //           single bf16 p (2^-9) would not at magnitudes >= 2;
 //   order   under the causal mask the q tiles run heaviest first (the tile
-//           index is reversed and is the grid's slow axis).
+//           index is reversed and is the grid's slow index).
 //   D = 80  (hubert-xlarge's 1280 / 16 heads) is padded to 128 columns in
 //           shared memory: an 80-column bf16 row is 160 bytes, which no
 //           swizzle of wgmma.cuh lays out, so Q, K and V tiles are stored
@@ -113,6 +121,25 @@ constexpr int kFlashKv = 64;                    // KV rows per tile
 // dim, so each launch template proves it fits when it is instantiated.
 constexpr int kFlashMaxSmem = 232448;
 
+// The block's batch row, group of query heads (of `groups` = K * C a batch
+// row) and q tile on the flattened grid: block x serves tile x / bk_n of
+// pair x % bk_n, with bk_n = gridDim.x / n_qt = B * K * C.
+struct FlashBlock {
+  int b, grp, tile, n_qt;
+};
+
+__device__ __forceinline__ FlashBlock flash_block(int S, int groups,
+                                                  int q_block) {
+  FlashBlock f;
+  f.n_qt = (S + q_block - 1) / q_block;
+  const unsigned bk_n = gridDim.x / (unsigned)f.n_qt;
+  const unsigned bk = blockIdx.x % bk_n;
+  f.b = (int)(bk / (unsigned)groups);
+  f.grp = (int)(bk % (unsigned)groups);
+  f.tile = (int)(blockIdx.x / bk_n);
+  return f;
+}
+
 __device__ __forceinline__ float flash_warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -139,8 +166,8 @@ flash_attention_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
                        const TKV* __restrict__ v,
                        const float* __restrict__ ks,
                        const float* __restrict__ vs, T* __restrict__ out, int S,
-                       int T_len, int H, int K, int G, int q_block, int causal,
-                       int q_offset, float scale) {
+                       int T_len, int H, int K, int G, int C, int q_block,
+                       int causal, int q_offset, float scale) {
   constexpr bool kDequant = std::is_same<TKV, int8_t>::value;
   constexpr int DPL = (D + 31) / 32;            // output dims per lane
   constexpr int KS = D + 4;                     // Ks row stride
@@ -153,18 +180,20 @@ flash_attention_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.y / K;
-  const int kvh = blockIdx.y % K;
-  const int q0 = blockIdx.x * q_block;
+  const FlashBlock fb = flash_block(S, K * C, q_block);
+  const int b = fb.b;
+  const int grp = fb.grp;                       // query heads grp * G on
+  const int kvh = grp / C;
+  const int q0 = fb.tile * q_block;
   const int rows = G * q_block;                 // <= kFlashRows
 
-  // row r of the block is position q0 + r / G of query head kvh * G + r % G
+  // row r of the block is position q0 + r / G of query head grp * G + r % G
   for (int e = tid; e < kFlashRows * D; e += kFlashThreads) {
     const int r = e / D, d = e % D;
     const int i = q0 + r / G;
     float val = 0.0f;
     if (r < rows && i < S)
-      val = load_f32(q + (((size_t)b * S + i) * H + kvh * G + r % G) * D + d) *
+      val = load_f32(q + (((size_t)b * S + i) * H + grp * G + r % G) * D + d) *
             scale;
     Qs[e] = val;
   }
@@ -279,7 +308,7 @@ flash_attention_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
     const int r = warp * kRowsPerWarp + rr;
     const int i = q0 + r / G;
     const float den = fmaxf(l[rr], 1e-30f);
-    T* o = out + (((size_t)b * S + i) * H + kvh * G + r % G) * D;
+    T* o = out + (((size_t)b * S + i) * H + grp * G + r % G) * D;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
@@ -325,8 +354,8 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ ks,
                           const float* __restrict__ vs,
                           __nv_bfloat16* __restrict__ out, int S, int T_len,
-                          int H, int K, int G, int q_block, int causal,
-                          int q_offset, float scale) {
+                          int H, int K, int G, int C, int q_block,
+                          int causal, int q_offset, float scale) {
   constexpr bool kDequant = std::is_same<TKV, int8_t>::value;
   constexpr int DP = tc_tile_dim<D>();          // the tiles' width
   static_assert(DP == D || !kDequant, "int8 K/V take D in {16, 32, 64, 128}");
@@ -345,19 +374,21 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.x / K;
-  const int kvh = blockIdx.x % K;
-  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const FlashBlock fb = flash_block(S, K * C, q_block);
+  const int b = fb.b;
+  const int grp = fb.grp;                       // query heads grp * G on
+  const int kvh = grp / C;
+  const int qt = causal ? fb.n_qt - 1 - fb.tile : fb.tile;
   const int q0 = qt * q_block;
   const int rows = G * q_block;                 // <= kFlashRows
 
-  // Q: row r is position q0 + r / G of query head kvh * G + r % G
+  // Q: row r is position q0 + r / G of query head grp * G + r % G
   for (int e = tid; e < kFlashRows * CPR; e += kTcThreads) {
     const int r = e / CPR, c = e % CPR;
     const int i = q0 + r / G;
     const bool ok = r < rows && i < S;
     const __nv_bfloat16* src =
-        ok ? q + (((size_t)b * S + i) * H + kvh * G + r % G) * D + c * 8 : q;
+        ok ? q + (((size_t)b * S + i) * H + grp * G + r % G) * D + c * 8 : q;
     cp_async16(q_tile + tile_offset<DP>(r, c * 8), src, ok);
   }
 
@@ -567,7 +598,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
     const int i = q0 + r / G;
     if (r >= rows || i >= S) continue;
     const float den = fmaxf(l[h], 1e-30f);
-    __nv_bfloat16* o_row = out + (((size_t)b * S + i) * H + kvh * G + r % G) * D;
+    __nv_bfloat16* o_row = out + (((size_t)b * S + i) * H + grp * G + r % G) * D;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(o_row + 8 * c + cq) =
@@ -578,6 +609,25 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
+
+// Blocks of the flattened grid (axis x): q tiles times (batch, group of
+// query heads) pairs, KC = K * C groups a batch row, or -1 past axis x's
+// 2^31 - 1 (kFlashMaxGridX).
+constexpr long long kFlashMaxGridX = 2147483647LL;
+
+inline long long flash_grid_x(int B, int S, int KC, int q_block) {
+  const long long n_qt = ((long long)S + q_block - 1) / q_block;
+  const long long blocks = n_qt * B * KC;
+  return blocks <= kFlashMaxGridX ? blocks : -1;
+}
+
+// The chunks the g query heads of one KV head are dealt to: the fewest that
+// divide g into groups of at most kFlashRows heads (1 up to 64 heads).
+inline int flash_head_chunks(int g) {
+  int c = 1;
+  while (g % c != 0 || g / c > kFlashRows) ++c;
+  return c;
+}
 
 template <typename TKV, int D, bool kTaylor>
 int launch_flash_fma(const void* q, const void* k, const void* v,
@@ -593,12 +643,15 @@ int launch_flash_fma(const void* q, const void* k, const void* v,
   static const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + q_block - 1) / q_block, B * K);
+  const int C = flash_head_chunks(H / K);
+  const long long blocks = flash_grid_x(B, S, K * C, q_block);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, 1, 1);
   const float scale = (float)(1.0 / std::sqrt((double)D));
   kernel<<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), ks, vs, static_cast<float*>(out), S, T_len,
-      H, K, H / K, q_block, causal, q_offset, scale);
+      H, K, H / K / C, C, q_block, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -615,14 +668,15 @@ int launch_flash_tc(const void* q, const void* k, const void* v,
   static const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (S + q_block - 1) / q_block;
-  if (n_qt > 65535) return (int)cudaErrorInvalidValue;   // the grid's y axis
-  const dim3 grid(B * K, n_qt);
+  const int C = flash_head_chunks(H / K);
+  const long long blocks = flash_grid_x(B, S, K * C, q_block);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, 1, 1);
   const float scale = (float)(1.0 / std::sqrt((double)D));
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), ks, vs, static_cast<__nv_bfloat16*>(out), S,
-      T_len, H, K, H / K, q_block, causal, q_offset, scale);
+      T_len, H, K, H / K / C, C, q_block, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -670,7 +724,8 @@ int dispatch_flash_mode(int taylor, int D, const void* q, const void* k,
 inline bool flash_shape_ok(int B, int S, int T_len, int H, int K, int q_block,
                     int q_offset) {
   return B > 0 && S > 0 && T_len > 0 && K > 0 && H % K == 0 && q_block > 0 &&
-         (H / K) * q_block <= kFlashRows && q_offset >= 0;
+         (H / K / flash_head_chunks(H / K)) * q_block <= kFlashRows &&
+         q_offset >= 0;
 }
 
 }  // namespace fastcaps
@@ -678,7 +733,8 @@ inline bool flash_shape_ok(int B, int S, int T_len, int H, int K, int q_block,
 // q, out (B, S, H, D); k, v (B, T, K, D); all contiguous, one type: float32
 // (is_bf16 = 0, the FMA body) or bfloat16 (1, the tensor-core body).  H a
 // multiple of K, D in {16, 32, 64, 80, 128}, q_block a power of two with
-// (H / K) * q_block <= kFlashRows (FLASH_ROWS in
+// G * q_block <= kFlashRows for the G = H / K / flash_head_chunks(H / K)
+// query heads a block holds (FLASH_ROWS in
 // kernels/attention/kernel.py, which a CPU test holds equal to this file).
 // Launches on `stream`, does not synchronise, allocates nothing.  Returns the
 // CUDA error code of the launch (0 = success).

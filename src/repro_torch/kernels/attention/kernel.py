@@ -5,7 +5,9 @@
   GQA attention over q (B, S, H, D) and k, v (B, T, K, D), causal or not,
   with a static ``q_offset``, exact or Eq. 2 exp.  The tunable ``q_block``
   is the number of query positions a thread block holds (with all G heads
-  of each, at most 64 rows).
+  of each, at most 64 rows).  It takes any number G of query heads per KV
+  head: a group of more than 64 is dealt to the fewest equal chunks of at
+  most 64 heads, a block each (:func:`flash_head_chunks`).
 * :func:`flash_attention_dequant_cuda` (the same source, int8 K/V) replaces
   ``flash_attention_dequant_pallas``: the same attention over int8 K/V rows
   with one float32 scale per row.  No model path of either package calls
@@ -152,11 +154,29 @@ def _check_aligned(what: str, *tensors: torch.Tensor) -> None:
                          f"the K/V rows 16-byte aligned")
 
 
+def flash_head_chunks(group: int) -> int:
+    """The blocks the ``group`` query heads of one KV head are dealt to, as
+    ``flash_head_chunks`` in the source counts them: the fewest chunks that
+    divide the group into at most ``FLASH_ROWS`` heads each (one up to
+    64)."""
+    g, c = max(1, int(group)), 1
+    while g % c or g // c > FLASH_ROWS:
+        c += 1
+    return c
+
+
+def flash_block_heads(group: int) -> int:
+    """The query heads one flash block holds for a group of ``group``."""
+    return max(1, int(group)) // flash_head_chunks(group)
+
+
 def _check_q_block(q_block: int, g: int, what: str) -> int:
     q_block = int(q_block)
-    if q_block < 1 or q_block & (q_block - 1) or g * q_block > FLASH_ROWS:
+    gb = flash_block_heads(g)
+    if q_block < 1 or q_block & (q_block - 1) or gb * q_block > FLASH_ROWS:
         raise ValueError(f"{what}: q_block {q_block} must be a power of two "
-                         f"with G * q_block <= {FLASH_ROWS} (G = {g})")
+                         f"with G * q_block <= {FLASH_ROWS} (G = {gb} query "
+                         f"heads a block)")
     return q_block
 
 
@@ -544,6 +564,12 @@ def _decode_launch_fn():
     if _decode_launch is None:
         _decode_launch = build.load_library().decode_attention_launch
     return _decode_launch
+
+
+def decode_chunked(group: int) -> bool:
+    """Whether a group of ``group`` query heads takes the source's chunked
+    template instances (``kChunked``): above ``DECODE_CHUNK_GROUP``."""
+    return int(group) > DECODE_CHUNK_GROUP
 
 
 def decode_group_chunks(group: int) -> int:

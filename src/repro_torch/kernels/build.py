@@ -31,7 +31,7 @@ import torch
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
-           "decode_attention.cu", "sampling.cu")
+           "decode_attention.cu", "sampling.cu", "device.cu")
 HEADERS = ("approx_math.cuh", "launch.cuh", "wgmma.cuh")
 # Sources compiled once per part, the part's number in a macro
 # (``-D<macro>=<part>``): each part holds some of the source's template
@@ -159,6 +159,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_sampling_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                           i, p]
     lib.fused_sampling_launch.restype = i
+    lib.fastcaps_grid_limits.argtypes = [i, ctypes.POINTER(i)]
+    lib.fastcaps_grid_limits.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -199,6 +201,16 @@ def raw_stream(device_index: int) -> int:
     if _raw_stream is None:
         _raw_stream = stream_query()
     return _raw_stream(device_index)
+
+
+def device_grid_limits(device_index: int) -> Tuple[int, int, int]:
+    """The most blocks a grid may have on axes x, y and z of card
+    ``device_index``, as the device reports them
+    (``cudaDeviceGetAttribute``)."""
+    xyz = (ctypes.c_int * 3)()
+    check_launch(load_library().fastcaps_grid_limits(int(device_index), xyz),
+                 "cudaDeviceGetAttribute (grid limits)")
+    return int(xyz[0]), int(xyz[1]), int(xyz[2])
 
 
 def check_launch(code: int, what: str) -> None:

@@ -4,8 +4,8 @@ registry's legalizers and capslint's ``kernel-legality`` rule
 
 The CUDA sources keep their own ``constexpr`` copies (``kRoutingMaxSmem``,
 ``kDecodeMaxSmem``, ``kSampleMaxSmem``; ``kRoutingMaxCluster``,
-``kDecodeMaxSplits``, ``kSampleMaxCluster``), which a CPU test reads out of
-``csrc/`` and holds equal to these.
+``kDecodeMaxSplits``, ``kSampleMaxCluster``, ``kFlashMaxGridX``), which a
+CPU test reads out of ``csrc/`` and holds equal to these.
 """
 
 #: bytes of dynamic shared memory one block may ask for on an H100 (227 KB
@@ -17,3 +17,8 @@ MAX_CLUSTER = 8
 #: threads of a warp, and of a block at most
 WARP = 32
 MAX_THREADS = 1024
+#: blocks of a grid on axis x, and on axes y and z (``cudaDevAttrMaxGridDimX``
+#: / ``Y`` / ``Z`` of compute capability 3.0 and later; ``chip_smoke.py``
+#: reads the card's own)
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_YZ = 65535

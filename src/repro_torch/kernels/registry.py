@@ -11,8 +11,8 @@ One :class:`KernelSpec` per hand-written CUDA kernel declares:
     sweeps but the timing tuner never flips;
   * ``legalize`` — shape-aware config legalization;
   * ``launch_plan`` — what a legalized config asks of the card (threads,
-    cluster size, and the dynamic shared memory where the shapes size it),
-    from the planners the wrapper itself calls; capslint's
+    cluster size, the grid, and the dynamic shared memory where the shapes
+    size it), from the planners the wrapper itself calls; capslint's
     ``kernel-legality`` rule proves every tuner candidate within Hopper's
     limits with it;
   * ``example_cases`` / ``make_example`` — canonical inputs shared by
@@ -49,11 +49,12 @@ class KernelSpec:
     candidate to what the kernel and the concrete shapes allow.  The
     ``example_cases`` dicts drive the registry-wide parity harness:
     ``make_example(case, device) -> (args, kwargs)``.
-    ``launch_plan(config, *args, **kw) -> {"threads", "cluster"[,
+    ``launch_plan(config, *args, **kw) -> {"threads", "cluster", "grid"[,
     "smem_bytes"]}`` is what the kernel's launch with a legalized
-    ``config`` asks for (``smem_bytes`` where the shapes size the shared
-    memory; where a constant of the source bounds it, the source asserts
-    that it fits).  It is read by
+    ``config`` asks for: ``grid`` the blocks on axes (x, y, z), as the
+    source's launcher computes them; ``smem_bytes`` where the shapes size
+    the shared memory (where a constant of the source bounds it, the source
+    asserts that it fits).  It is read by
     :mod:`repro_torch.analysis.checkers.legality`, never by dispatch.
     """
 
@@ -161,12 +162,22 @@ registry = KernelRegistry()
 
 
 def _rand(seed: int, shape, dtype="float32", scale: float = 1.0,
-          device="cpu"):
+          device="cpu", rng=None):
     """Seeded example input, made with numpy so that it does not depend on
-    the device or on the PyTorch version."""
+    the device or on the PyTorch version; or, for a case that asks for
+    ``rng`` "device", by the generator of the device it is made on (fast at
+    the sizes of kernel-legality's scaled cases; an empty tensor on
+    meta)."""
     import numpy as np
     import torch
 
+    if rng == "device":
+        dev = torch.device(device)
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=getattr(torch, dtype), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(shape, generator=gen, device=dev) * scale
+        return x.to(getattr(torch, dtype))
     x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32)
     return (torch.from_numpy(x * np.float32(scale))
             .to(getattr(torch, dtype)).to(device))
@@ -190,7 +201,7 @@ def _routing_reference():
 def _routing_example(case, device="cpu"):
     shape = case.get("shape", (4, 24, 10, 16))
     u = _rand(case.get("seed", 0), shape, case.get("dtype", "float32"),
-              scale=0.2, device=device)
+              scale=0.2, device=device, rng=case.get("rng"))
     return (u,), {"n_iters": case.get("n_iters", 3),
                   "softmax_mode": case.get("softmax_mode", "exact")}
 
@@ -223,10 +234,11 @@ def _routing_plan(config: Dict[str, Any], u_hat, *args, **kwargs
                   ) -> Dict[str, int]:
     from repro_torch.kernels.routing.routing_kernel import routing_smem_bytes
 
-    _, i, j, d = u_hat.shape
+    b, i, j, d = u_hat.shape
     return {"smem_bytes": routing_smem_bytes(i, j, d, u_hat.element_size(),
                                              config["i_splits"]),
-            "threads": config["threads"], "cluster": config["i_splits"]}
+            "threads": config["threads"], "cluster": config["i_splits"],
+            "grid": (b * config["i_splits"], 1, 1)}
 
 
 # The tunables are the cluster size (blocks that split an image's input
@@ -270,7 +282,8 @@ def _softmax_reference():
 def _softmax_example(case, device="cpu"):
     shape = case.get("shape", (8, 16))
     x = _rand(case.get("seed", 0), shape, case.get("dtype", "float32"),
-              scale=case.get("scale", 5.0), device=device)
+              scale=case.get("scale", 5.0), device=device,
+              rng=case.get("rng"))
     return (x,), {}
 
 
@@ -285,10 +298,18 @@ def _softmax_plan(operands: int) -> Callable[..., Dict[str, int]]:
                                                         softmax_tile_rows)
 
         n, threads = x.shape[-1], config["threads"]
-        if softmax_body(n) == "tile":
-            threads = softmax_tile_rows(x.numel() // max(n, 1), n,
-                                        operands * x.element_size(), threads)
-        return {"threads": threads, "cluster": 1}
+        rows = x.numel() // max(n, 1)
+        body = softmax_body(n)
+        if body == "tile":
+            # a row a thread
+            threads = softmax_tile_rows(rows, n, operands * x.element_size(),
+                                        threads)
+            blocks = -(-rows // threads)
+        elif body == "warp":
+            blocks = -(-rows // (threads // WARP))    # a row a warp
+        else:
+            blocks = rows                             # a row a block
+        return {"threads": threads, "cluster": 1, "grid": (blocks, 1, 1)}
 
     return plan
 
@@ -340,7 +361,8 @@ def _softmax_bwd_example(case, device="cpu"):
     shape = case.get("shape", (8, 16))
     dtype = case.get("dtype", "float32")
     x = _rand(case.get("seed", 0), shape, "float32",
-              scale=case.get("scale", 5.0))
+              scale=case.get("scale", 5.0), device=device,
+              rng=case.get("rng"))
     if case.get("edge"):
         # row r holds a maximum of 0 and an entry at exactly -32 (and one
         # below it) wherever the row is long enough
@@ -350,9 +372,9 @@ def _softmax_bwd_example(case, device="cpu"):
         x[..., 1] = -32.0
         if shape[-1] > 2:
             x[..., 2] = -40.0
-    g = _rand(case.get("seed", 0) + 1, shape, "float32")
-    return (x.to(getattr(torch, dtype)).to(device),
-            g.to(getattr(torch, dtype)).to(device)), {}
+    g = _rand(case.get("seed", 0) + 1, shape, "float32", device=device,
+              rng=case.get("rng"))
+    return (x.to(getattr(torch, dtype)), g.to(getattr(torch, dtype))), {}
 
 
 registry.register(KernelSpec(
@@ -381,8 +403,9 @@ registry.register(KernelSpec(
 # -- flash_attention --------------------------------------------------------
 # The example cases are the reference's.  The tunable is the CUDA kernel's
 # own: ``q_block`` query positions per thread block, each with all G heads of
-# its KV head (G * q_block <= 64 rows); the KV tile is fixed at 64 rows and a
-# ragged last tile is masked, so no block size has to divide S or T.
+# its KV head, or a chunk of them past 64 (G * q_block <= 64 rows); the KV
+# tile is fixed at 64 rows and a ragged last tile is masked, so no block size
+# has to divide S or T.
 
 
 def _build_flash_attention():
@@ -401,36 +424,65 @@ def _pow2_floor(n: int) -> int:
     return 1 << (max(int(n), 1).bit_length() - 1)
 
 
+def _refuse_misfit(what: str, q, k=None) -> None:
+    """``ValueError`` for a (B, T, K, D) cache ``k`` that does not fit the
+    (B, S, H, D) query ``q``: the wrappers refuse such shapes outright, so
+    they lie outside the kernel's domain (kernel-legality skips them)."""
+    if k is None:
+        return
+    b, h, d = q.shape[0], q.shape[2], q.shape[-1]
+    if k.shape[0] != b or k.shape[-1] != d or h % k.shape[2]:
+        raise ValueError(f"{what}: cache {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+
+
 def _legalize_flash(config: Dict[str, Any], q, k=None, v=None, **kwargs
                     ) -> Dict[str, Any]:
     """``q_block`` becomes the largest power of two that keeps G * q_block
-    within a block's 64 rows and does not pass the sequence.  Idempotent."""
-    from repro_torch.kernels.attention.kernel import FLASH_ROWS
+    within a block's 64 rows and does not pass the sequence, G the query
+    heads a block holds (a group of more than 64 is dealt to chunks,
+    ``flash_block_heads``).  A cache that does not fit q (another batch or
+    head dim, H not a multiple of K) is refused with ``ValueError``, as the
+    wrapper refuses it on every device.  Idempotent."""
+    from repro_torch.kernels.attention.kernel import (FLASH_ROWS,
+                                                      flash_block_heads)
     from repro_torch.kernels.tuning import next_pow2
 
-    g = max(1, q.shape[2] // (k.shape[2] if k is not None else q.shape[2]))
+    _refuse_misfit("flash attention", q, k)
+    g = flash_block_heads(
+        q.shape[2] // (k.shape[2] if k is not None else q.shape[2]))
     cap = min(int(config["q_block"]), max(1, FLASH_ROWS // g),
               next_pow2(q.shape[1]))
     config["q_block"] = _pow2_floor(cap)
     return config
 
 
-def _flash_plan(config: Dict[str, Any], q, *args, **kwargs
+def _flash_plan(config: Dict[str, Any], q, k=None, *args, **kwargs
                 ) -> Dict[str, int]:
     """A flash block: the fixed threads of the body q's type takes; one
-    block a cluster.  No shared memory: the head dim fixes it, and each
-    launch template of the source asserts that it fits."""
-    from repro_torch.kernels.attention.kernel import FLASH_THREADS, flash_body
+    block a cluster; one flattened grid on axis x, a block per q tile of
+    ``q_block`` positions, batch row, KV head and chunk of its query heads
+    (``flash_head_chunks``).  No shared memory: the head dim fixes it, and
+    each launch template of the source asserts that it fits."""
+    from repro_torch.kernels.attention.kernel import (FLASH_THREADS,
+                                                      flash_body,
+                                                      flash_head_chunks)
 
-    return {"threads": FLASH_THREADS[flash_body(q.dtype)], "cluster": 1}
+    b, s = q.shape[0], q.shape[1]
+    nkv = k.shape[2] if k is not None else q.shape[2]
+    chunks = flash_head_chunks(q.shape[2] // nkv)
+    n_qt = -(-s // config["q_block"])
+    return {"threads": FLASH_THREADS[flash_body(q.dtype)], "cluster": 1,
+            "grid": (n_qt * b * nkv * chunks, 1, 1)}
 
 
 def _attention_example(case, device="cpu"):
     b, s, t, h, k, d = case.get("dims", (2, 128, 128, 4, 2, 32))
-    dtype, seed = case.get("dtype", "float32"), case.get("seed", 0)
-    q = _rand(seed, (b, s, h, d), dtype, device=device)
-    kk = _rand(seed + 1, (b, t, k, d), dtype, device=device)
-    v = _rand(seed + 2, (b, t, k, d), dtype, device=device)
+    dtype, seed, rng = (case.get("dtype", "float32"), case.get("seed", 0),
+                        case.get("rng"))
+    q = _rand(seed, (b, s, h, d), dtype, device=device, rng=rng)
+    kk = _rand(seed + 1, (b, t, k, d), dtype, device=device, rng=rng)
+    v = _rand(seed + 2, (b, t, k, d), dtype, device=device, rng=rng)
     return (q, kk, v), {"causal": case.get("causal", True),
                         "q_offset": case.get("q_offset", 0),
                         "softmax_mode": case.get("softmax_mode", "exact")}
@@ -498,11 +550,13 @@ def _attention_dequant_example(case, device="cpu"):
     from repro_torch.models.attention import quantize_kv_rows
 
     b, s, t, h, k, d = case.get("dims", (2, 128, 128, 4, 2, 32))
-    seed = case.get("seed", 0)
+    seed, rng = case.get("seed", 0), case.get("rng")
     q = _rand(seed, (b, s, h, d), case.get("dtype", "float32"),
-              device=device)
-    kq, ks = quantize_kv_rows(_rand(seed + 1, (b, t, k, d), device=device))
-    vq, vs = quantize_kv_rows(_rand(seed + 2, (b, t, k, d), device=device))
+              device=device, rng=rng)
+    kq, ks = quantize_kv_rows(_rand(seed + 1, (b, t, k, d), device=device,
+                                    rng=rng))
+    vq, vs = quantize_kv_rows(_rand(seed + 2, (b, t, k, d), device=device,
+                                    rng=rng))
     return ((q, kq, ks, vq, vs),
             {"causal": case.get("causal", True),
              "q_offset": case.get("q_offset", 0),
@@ -599,11 +653,16 @@ def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
     slots, KV heads, chunks of their query heads and rows at hand on this
     card; then whole warps, at most 512 threads, and no more warps than the
     block's shared memory holds at this head dim, cache type and split
-    count.  Idempotent."""
+    count.  Shapes the wrapper refuses on every device (a cache that does
+    not fit q) raise its ``ValueError``.  Idempotent."""
     from repro_torch.kernels.attention.kernel import (
-        DECODE_MAX_THREADS, decode_kv_splits, decode_smem_bytes)
+        DECODE_MAX_THREADS, _check_decode_cache, decode_kv_splits,
+        decode_smem_bytes)
     from repro_torch.kernels.limits import MAX_DYNAMIC_SMEM
 
+    if len(args) >= 2:
+        _check_decode_cache(q, k, args[0], args[1], tables,
+                            kwargs.get("ks"), kwargs.get("vs"))
     b, h, d = q.shape[0], q.shape[2], q.shape[-1]
     nkv, kv_bytes = k.shape[2], k.element_size()
     t = (tables.shape[1] * k.shape[1] if tables is not None else k.shape[1])
@@ -620,12 +679,22 @@ def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
 
 def _decode_plan(config: Dict[str, Any], q, k=None, *args, **kwargs
                  ) -> Dict[str, int]:
-    from repro_torch.kernels.attention.kernel import decode_smem_bytes
+    """A block per (slot, KV head, chunk of at most 8 query heads, split
+    of the slot's rows), on axis x; ``chunked`` says whether the launch
+    takes the source's chunked template instances (``kChunked``)."""
+    from repro_torch.kernels.attention.kernel import (decode_chunked,
+                                                      decode_group_chunks,
+                                                      decode_smem_bytes)
 
+    b, nkv = q.shape[0], k.shape[2]
+    chunked = decode_chunked(q.shape[2] // nkv)
+    chunks = decode_group_chunks(q.shape[2] // nkv) if chunked else 1
     return {"smem_bytes": decode_smem_bytes(
                 q.shape[-1], config["threads"], k.element_size(),
                 config["kv_splits"]),
-            "threads": config["threads"], "cluster": config["kv_splits"]}
+            "threads": config["threads"], "cluster": config["kv_splits"],
+            "grid": (b * nkv * chunks * config["kv_splits"], 1, 1),
+            "chunked": chunked}
 
 
 def _decode_attention_example(case, device="cpu"):
@@ -634,8 +703,9 @@ def _decode_attention_example(case, device="cpu"):
     from repro_torch.models.attention import quantize_kv_rows
 
     b, t, h, nkv, d = case.get("dims", (4, 128, 8, 4, 32))
-    dtype, seed = case.get("dtype", "float32"), case.get("seed", 0)
-    q = _rand(seed, (b, 1, h, d), dtype, device=device)
+    dtype, seed, rng = (case.get("dtype", "float32"), case.get("seed", 0),
+                        case.get("rng"))
+    q = _rand(seed, (b, 1, h, d), dtype, device=device, rng=rng)
     dtype = case.get("kv_dtype", dtype)          # a cache type of its own
     valid = torch.tensor(case["valid"], dtype=torch.int32, device=device)
     kwargs = {"softmax_mode": case.get("softmax_mode", "exact")}
@@ -644,8 +714,10 @@ def _decode_attention_example(case, device="cpu"):
         import numpy as np
 
         n_pages, page, p_per = paged
-        kk = _rand(seed + 1, (n_pages, page, nkv, d), dtype, device=device)
-        v = _rand(seed + 2, (n_pages, page, nkv, d), dtype, device=device)
+        kk = _rand(seed + 1, (n_pages, page, nkv, d), dtype, device=device,
+                   rng=rng)
+        v = _rand(seed + 2, (n_pages, page, nkv, d), dtype, device=device,
+                  rng=rng)
         if case.get("shuffled"):
             perm = np.random.RandomState(seed + 3).permutation(n_pages)
             tab = perm[:b * p_per].reshape(b, p_per).astype(np.int32)
@@ -657,8 +729,8 @@ def _decode_attention_example(case, device="cpu"):
                                               device=device)
                                  .reshape(b, p_per)) * 7 + 3) % n_pages
     else:
-        kk = _rand(seed + 1, (b, t, nkv, d), dtype, device=device)
-        v = _rand(seed + 2, (b, t, nkv, d), dtype, device=device)
+        kk = _rand(seed + 1, (b, t, nkv, d), dtype, device=device, rng=rng)
+        v = _rand(seed + 2, (b, t, nkv, d), dtype, device=device, rng=rng)
     if case.get("quant"):
         kk, kwargs["ks"] = quantize_kv_rows(kk)
         v, kwargs["vs"] = quantize_kv_rows(v)
@@ -733,7 +805,8 @@ def _sampling_plan(config: Dict[str, Any], logits, *args, **kwargs
 
     return {"smem_bytes": sampling_smem_bytes(logits.shape[-1],
                                               config["cluster"]),
-            "threads": config["threads"], "cluster": config["cluster"]}
+            "threads": config["threads"], "cluster": config["cluster"],
+            "grid": (logits.shape[0] * config["cluster"], 1, 1)}
 
 
 def _sampling_example(case, device="cpu"):
@@ -741,7 +814,7 @@ def _sampling_example(case, device="cpu"):
 
     b, v = case.get("dims", (8, 64))
     logits = _rand(case.get("seed", 0), (b, v), "float32", scale=3.0,
-                   device=device)
+                   device=device, rng=case.get("rng"))
 
     def row(key, default, dtype):
         return torch.tensor(case.get(key, (default,) * b), dtype=dtype,

@@ -8,16 +8,21 @@ import torch
 from repro_torch.core import approx_math
 
 
-def taylor_softmax_ref(x: torch.Tensor, range_reduce: bool = True
-                       ) -> torch.Tensor:
-    xf = x.to(torch.float32)
+def taylor_softmax_ref(x: torch.Tensor, range_reduce: bool = True,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The Eq. 2 softmax over the last axis, evaluated in ``dtype`` (float32
+    as the kernel; float64 gives an oracle of the same formula, which
+    measures float32's own rounding), in ``x``'s type."""
+    xf = x.to(dtype)
     m = torch.amax(xf, dim=-1, keepdim=True)
     e = approx_math.taylor_exp(xf - m, range_reduce=range_reduce)
     return (e / torch.clamp(torch.sum(e, dim=-1, keepdim=True), min=1e-30)
             ).to(x.dtype)
 
 
-def taylor_softmax_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def taylor_softmax_bwd_ref(x: torch.Tensor, g: torch.Tensor,
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """The gradient of ``taylor_softmax_ref(x)`` against the output
     cotangent ``g``, as ``jax.grad`` takes it through the reference's
     ``taylor_softmax`` (``repro/core/approx_math.py:65``), in ``x``'s type:
@@ -28,9 +33,10 @@ def taylor_softmax_bwd_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     ``e'(z) = p^31 * E_A * poly'(t)``, ``t = clip(z, -32, 32) / 32``, times
     the clip's derivative: 1 inside, 1/2 exactly on the edge (``jax.grad``
     of ``jnp.clip`` splits a tie; autograd of ``torch.clamp`` would give 1)
-    and 0 outside.  ``S >= p(0)^32`` (about 1), so ``max(S, 1e-30)`` is S."""
-    xf = x.to(torch.float32)
-    gf = g.to(torch.float32)
+    and 0 outside.  ``S >= p(0)^32`` (about 1), so ``max(S, 1e-30)`` is S.
+    Evaluated in ``dtype``, as :func:`taylor_softmax_ref`."""
+    xf = x.to(dtype)
+    gf = g.to(dtype)
     scale = 32.0
     z = xf - torch.amax(xf, dim=-1, keepdim=True)
     t = torch.clamp(z, -scale, scale) / scale

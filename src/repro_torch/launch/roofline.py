@@ -126,15 +126,18 @@ def sampling_work(case) -> Work:
     step (60) when 0 < top_k < V, and the exponential, division and sum
     (3) plus a compare and an add per top-p step (60) when top_p < 1."""
     b, v = case["dims"]
+    temperature = case.get("temperature", (1.0,) * b)
+    top_k = case.get("top_k", (0,) * b)
+    top_p = case.get("top_p", (1.0,) * b)
     ops = logs = 0
     for i in range(b):
         ops += 1
-        if case.get("temperature", (1.0,) * b)[i] > 0:
+        if temperature[i] > 0:
             ops += 3 + 25
             logs += 2
-            if 0 < case.get("top_k", (0,) * b)[i] < v:
+            if 0 < top_k[i] < v:
                 ops += 60
-            if case.get("top_p", (1.0,) * b)[i] < 1.0:
+            if top_p[i] < 1.0:
                 ops += 63
                 logs += 1
     return Work(4 * b * v, ops * v, FP32_FLOP_PER_S, 0.0, logs * v)
