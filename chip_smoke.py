@@ -4,7 +4,11 @@
 Needs one NVIDIA GPU (written for an H100, ``sm_90a``) and the CUDA toolkit;
 takes no arguments.  It builds the port's CUDA kernels from
 ``src/repro_torch/csrc``, holds every kernel against its plain PyTorch
-version on the card, serves a LAKP-pruned and a dense full-width
+version on the card (and, for the sampling and decode kernels, the
+reference's contracts: a permuted launch, the chi-square of seeded draws,
+the argmax at T <= 0, the output of a paged slot whatever its other
+slots' sentinels alias, a slot's output whatever the batch it is launched
+in), serves a LAKP-pruned and a dense full-width
 ``capsnet-mnist`` through ``CapsuleEngine`` with the routing in the
 hand-written kernel, trains a full-width ``capsnet-mnist`` on the card and
 carries it through the paper's Fig. 6 pipeline (LAKP prune, masked
@@ -32,7 +36,11 @@ reference; each step timed and its peak memory set beside the dry run's
 count), serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
 ``ServeEngine`` with prefill attention, decode attention and
 sampling in the hand-written kernels (and ``generate()`` and the
-interleave and SLO-batching schedulers on the same engine), serves it
+interleave and SLO-batching schedulers on the same engine; and its
+seeded requests alone, at 3 slots and under memory pressure, held to the
+sampling contract against the same run: a token drawn from a
+bit-identical logits row must be the same, and where the rows part is
+reported; ``tools/trace_seeded.py`` names the op on demand), serves it
 again from the paged KV cache (bf16 pages, then int8 pages, with a shared
 prompt prefix; then under memory pressure: preemption, host spill and
 prefix eviction in one serve) with
@@ -42,22 +50,23 @@ serves it disaggregated (a prefill engine and two decode engines joined by
 cache handoffs under each transport, dense and paged, held against the
 unified engine), serves the pruned CapsNet through a pool of two engines,
 replays a seeded bursty trace against an autoscaled disaggregated pool,
-serves a full-width ``deepseek-moe-16b`` (12 of 28 layers, bf16
+serves a full-width ``deepseek-moe-16b`` (6 of 28 layers, bf16
 parameters; one-hot and scatter dispatch) from dense slots and bf16 and
 int8 pages and a full-width ``llama-3.2-vision-90b`` (5 layers: 4
 self-attention, 1 cross-attention; bf16 parameters) from dense slots and
 bf16 pages, each against its plain path and disaggregated, and the vision
-model's cross path with image features, serves a full-size ``qwen3-1.7b``
-(float32 parameters; 8 requests from dense slots, bf16 and int8 pages)
+model's cross path with image features, serves a full-width ``qwen3-1.7b``
+(14 of 28 layers, float32 parameters; 4 requests from dense slots, bf16
+and int8 pages)
 and, at full width
 cut to 4 layers with bf16 parameters, ``qwen1.5-110b`` (dense slots),
 ``mistral-large-123b`` (12 query heads per KV head: two chunks of the
 decode kernel's heads; dense slots and int8 pages) and ``dbrx-132b`` (dense slots,
 its moe admission numbers), each against its plain path, serves an
 ``xlstm-1.3b`` (8 of
-48 layers) and a full-size ``zamba2-1.2b`` (float32 parameters; admitted
-in one prefill group per prompt length) against their plain paths and
-disaggregated, each at the published size over every transport (zamba2
+48 layers) and a ``zamba2-1.2b`` (18 of 38 layers, float32 parameters;
+admitted in one prefill group per prompt length) against their plain paths
+and disaggregated, each at the published size over every transport (zamba2
 also with bf16 parameters), runs the launcher at ``--no-reduced`` (and
 its fit check's refusal of ``mistral-large-123b``), runs a
 full-size ``hubert-xlarge`` encoder (flash attention
@@ -136,9 +145,9 @@ from repro_torch.data.tokens import TokenStream, TokenStreamConfig  # noqa: E402
 from repro_torch.deploy import FastCapsPipeline, RoutingSpec  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.attention.kernel import (  # noqa: E402
-    decode_attention_cuda, decode_attention_plain, flash_attention_cuda,
-    flash_attention_dequant_cuda, flash_attention_dequant_plain,
-    flash_attention_plain)
+    decode_attention_cuda, decode_attention_plain, decode_smem_bytes,
+    flash_attention_cuda, flash_attention_dequant_cuda,
+    flash_attention_dequant_plain, flash_attention_plain)
 from repro_torch.kernels.registry import registry  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -278,6 +287,7 @@ OPT_GRAD_TOL = 1e-3
 # every layer (FFN: 8 blocks at sparsity 0.5; heads: 2 of 8 KV groups) and
 # serving the pruned model through the kernels against the plain path.
 TRAIN_LM_STEPS = 30
+TRAIN_LM_SERVE_REQUESTS = 8
 TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 512
 TRAIN_LM_LR, TRAIN_LM_WARMUP = 1e-3, 3
 TRAIN_LM_PROFILE_STEPS = 3
@@ -332,10 +342,12 @@ TRACE_MAX_ENGINES = 3
 # image features: every cross gate at VLM_GATE, VLM_PROMPT prompt tokens,
 # VLM_DECODE_STEPS decode steps), which run at the same widths.
 MOE_ARCH = "deepseek-moe-16b"
-MOE_LAYERS = 12
+MOE_LAYERS = 6
 VLM_ARCH = "llama-3.2-vision-90b"
 VLM_LAYERS = 5
 FAMILY_REQUESTS = 8
+QWEN3_REQUESTS = 4
+RECURRENT_REQUESTS = 4
 FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16",
                           f"n_layers 28 -> {MOE_LAYERS}"],
                VLM_ARCH: ["param_dtype float32 -> bfloat16",
@@ -348,11 +360,12 @@ FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16",
 # bit-identical across two kernel runs; no tick breakdown, disaggregation
 # or scatter dispatch (serve_moe's and serve_vlm's checks, which these
 # models would repeat).  qwen3-1.7b (28 layers, d_model 2048, 16 x 128
-# query heads over 8 KV heads (G 2), qk-norm, vocab 151936) at its
-# published size with float32 parameters, as serve_lm, on the first
-# FAMILY_REQUESTS of serve_lm's requests from dense slots and of
-# serve_paged's from bf16 and int8 pages (16 each took the script 98 s on
-# an H100, of a budget it could not spare).
+# query heads over 8 KV heads (G 2), qk-norm, vocab 151936) at full width
+# with float32 parameters, as serve_lm, its depth cut to QWEN3_LAYERS (the
+# published size runs through the launcher), on the first QWEN3_REQUESTS of
+# serve_lm's requests from dense slots and of serve_paged's from bf16 and
+# int8 pages (16 each at 28 layers took the script 98 s on an H100, of a
+# budget it could not spare; 8 took 41.5 s).
 # Then, at full width with bf16 parameters, random weights from seed 0 and
 # the depth cut to LARGE_LAYERS (the whole models need 220-492 GB), on the
 # first FAMILY_REQUESTS requests: qwen1.5-110b (d_model 8192, 64 x 128 over
@@ -363,13 +376,17 @@ FAMILY_CUTS = {MOE_ARCH: ["param_dtype float32 -> bfloat16",
 # 10752 top-4, vocab 100352) from dense slots with its admission tick's moe
 # numbers (aux loss, capacities, drops) as serve_moe prints them.
 QWEN3_ARCH = "qwen3-1.7b"
+QWEN3_LAYERS = 14
 QWEN3_MODES = ("dense", "paged", "paged_int8")
 LARGE_LAYERS = 4
 LARGE_MODES = (("qwen1.5-110b", ("dense",)),
                ("mistral-large-123b", ("dense", "paged_int8")),
                ("dbrx-132b", ("dense",)))
 FAMILY_CUTS.update({
-    QWEN3_ARCH: [f"requests {LM_REQUESTS} -> {FAMILY_REQUESTS}"],
+    QWEN3_ARCH: [f"requests {LM_REQUESTS} -> {QWEN3_REQUESTS}",
+                 f"n_layers 28 -> {QWEN3_LAYERS} (the published size "
+                 f"runs through the launcher: serve_hybrid's "
+                 f"launcher_runs)"],
     **{arch: ["param_dtype float32 -> bfloat16",
               f"n_layers {layers} -> {LARGE_LAYERS}"]
        for arch, layers in (("qwen1.5-110b", 80), ("mistral-large-123b", 88),
@@ -384,16 +401,18 @@ VLM_DECODE_STEPS = 8
 # 7 mLSTM blocks and 1 sLSTM block, d_model 2048, 4 heads, vocab 50304)
 # with its depth cut to SSM_LAYERS for the serve against the plain path and
 # the in_process handoff, and zamba2-1.2b (38 Mamba-2 layers and one shared
-# attention + MLP block at 6 sites, 32 heads of 64, vocab 32000) at the
-# published size, on serve_lm's engine width and cache length and the first
-# FAMILY_REQUESTS of its requests, unified, then disaggregated (one prefill
+# attention + MLP block at 6 sites, 32 heads of 64, vocab 32000) with its
+# depth cut to HYBRID_LAYERS (3 sites) for the same and for its bf16 run,
+# on serve_lm's engine width and cache length and the first
+# RECURRENT_REQUESTS of its requests, unified, then disaggregated (one prefill
 # engine of LM_SLOTS slots, DISAGG_DECODES decode engines of DISAGG_SLOTS,
 # in_process).  Then each model at the published size over the other two
-# transports (RECURRENT_TRANSPORTS): zamba2 on the same requests, xlstm on
-# those whose prompts are at least RECURRENT_HANDOFF_PROMPT tokens long,
-# cut to that length (one admission group of one 256-token chunk: an odd
-# length costs seconds a prompt to admit, ROADMAP A6c); zamba2 with bf16
-# parameters against its plain engine; and the launcher at --no-reduced
+# transports (RECURRENT_TRANSPORTS), on those requests whose prompts are at
+# least RECURRENT_HANDOFF_PROMPT tokens long, cut to that length (xlstm:
+# one admission group of one 256-token chunk, where an odd length costs
+# seconds a prompt to admit, ROADMAP A6c), against a plain engine of the
+# published model; zamba2 with bf16 parameters against its plain engine;
+# and the launcher at --no-reduced
 # (LAUNCHER_RUNS: each recurrent model and qwen3-1.7b serves, hubert is
 # refused as the reference refuses audio, mistral-large-123b by the fit
 # check before a weight is drawn).  hubert-xlarge (48 bidirectional layers,
@@ -406,19 +425,21 @@ VLM_DECODE_STEPS = 8
 SSM_ARCH = "xlstm-1.3b"
 SSM_LAYERS = 8
 HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_LAYERS = 18
 AUDIO_ARCH = "hubert-xlarge"
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1000
 AUDIO_RATIO = 2.0
 RECURRENT_TRANSPORTS = ("host_staged", "device_to_device")
 RECURRENT_HANDOFF_PROMPT = 256
-LAUNCHER_ARGS = ("--no-reduced", "--requests", "2", "--max-new", "4",
+RECURRENT_HANDOFF_NEW = 16
+LAUNCHER_ARGS = ("--no-reduced", "--requests", "1", "--max-new", "4",
                  "--decode-kernel", "--attn-impl", "cuda")
 # (arch, exit code, what its output must hold)
 LAUNCHER_RUNS = (
-    (HYBRID_ARCH, 0, "rid=1: "),
-    (SSM_ARCH, 0, "rid=1: "),
+    (HYBRID_ARCH, 0, "rid=0: "),
+    (SSM_ARCH, 0, "rid=0: "),
     (AUDIO_ARCH, 1, "encoder-only arch has no decode path"),
-    (QWEN3_ARCH, 0, "rid=1: "),
+    (QWEN3_ARCH, 0, "rid=0: "),
     # refused by check_fits before a weight is drawn
     ("mistral-large-123b", 1,
      "mistral-large-123b: the parameters and caches need"))
@@ -621,6 +642,20 @@ QWEN_LAYOUTS = (
     {**QWEN_PAGED, "dtype": "bfloat16"},
     {**QWEN_PAGED, "dtype": "bfloat16", "quant": True},
 )
+def split_threads(case: dict, splits: int) -> int:
+    """The most threads (the base 256 down, whole warps) whose decode block
+    holds ``splits`` splits' state in shared memory at ``case``'s head dim
+    and bf16 or int8 cache."""
+    from repro_torch.kernels.limits import MAX_DYNAMIC_SMEM
+
+    kv_bytes = 1 if case.get("quant") else 2
+    threads = 256
+    while decode_smem_bytes(case["dims"][-1], threads, kv_bytes,
+                            splits) > MAX_DYNAMIC_SMEM:
+        threads -= 32
+    return threads
+
+
 SPLIT_VALID = ((0, 1, 31, 32, 33, 1024, 100, 200),
                (255, 256, 257, 127, 129, 1023, 511, 513))
 # decode_attention at serve_moe's widths (D 128, G 1; its pool of 512 pages
@@ -826,8 +861,10 @@ EXTRA_CASES = {
         *({**lay, "valid": valid, "atol": 1e-2}
           for lay in DECODE_LAYOUTS for valid in SPLIT_VALID),
         # every kv_splits of the space, all four layouts, qwen3 widths
+        # (past what the plan gives 512 rows, so each at a block size that
+        # holds its splits)
         *({**lay, "valid": (512, 100, 0, 333), "atol": 1e-2,
-           "config": {"kv_splits": n}}
+           "config": {"kv_splits": n, "threads": split_threads(lay, n)}}
           for lay in QWEN_LAYOUTS for n in DECODE_SPLITS),
         # serve_moe's decode (G = 1, D = 128: dense slots, bf16 and int8
         # pages) and serve_vlm's self-attention decode (G = 8, D = 128)
@@ -1054,7 +1091,179 @@ def phase_kernels() -> tuple:
             fail(f"kernels: a {name} body never ran: {by_body}")
     emit("kernels", bodies={k: v for k, v in counts.items()
                             if k in DECODE_ROWS or "/" in k})
+    emit("kernels", part="contracts", alias=alias_invariance(),
+         batch=batch_invariance(), sampling=sampling_contract())
     return worst, flash_attention_dequant_cuda.launches, by_case
+
+
+# The reference's chi-square check of fused_sampling, at the card's
+# width: CHI2_DRAWS draws (one per seed) from one fixed row of CHI2_LANES
+# logits at temperature 1, against the softmax law; df = 15, and 45 lies
+# past its 1e-4 tail.
+CHI2_LANES, CHI2_DRAWS, CHI2_BOUND = 16, 4096, 45.0
+
+
+def alias_invariance() -> dict:
+    """Rows 7 and 8 (the paged bodies) on PAGED_CASE's pool, whose tables
+    hold -1 sentinels past each slot's valid pages: launched with the
+    sentinels clipped to page 0 and again with them re-clipped to page 6
+    (the reference's check, tests/test_decode_kernels.py:196-208).  A
+    body reads no row at or past the slot's kv_valid_len, so the outputs
+    must be bit-identical; each is held against the plain version at the
+    case's tolerance."""
+    spec = registry.get("decode_attention")
+    n_pages = PAGED_CASE["paged"][0]
+    out = {}
+    for row, quant in (("decode_attention_paged", False),
+                       ("decode_attention_paged_dequant", True)):
+        case = {**PAGED_CASE, "dtype": "bfloat16", "valid": PAGED_VALID,
+                "quant": quant}
+        args, kwargs = spec.make_example(case, device=DEVICE)
+        tab = kwargs.pop("tables")
+        sentinels = int((tab < 0).sum())
+        clipped = torch.clamp(tab, 0, n_pages - 1)
+        again = torch.where(tab < 0, (tab + 7) % n_pages, tab)
+        if sentinels < 1 or torch.equal(clipped, again):
+            fail(f"kernels: the {row} alias case has no sentinel to move")
+        cfg = registry.default_config("decode_attention", *args,
+                                      tables=clipped, **kwargs)
+        got = [decode_attention_cuda(*args, tables=t, **kwargs, **cfg)
+               for t in (clipped, again)]
+        torch.cuda.synchronize()
+        errs = [float((g.float() - spec.ref_call(*args, tables=t, **kwargs)
+                       .float()).abs().max())
+                for g, t in zip(got, (clipped, again))]
+        identical = torch.equal(got[0], got[1])
+        out[row] = {"sentinels": sentinels, "bit_identical": identical,
+                    "max_abs_err": errs, "atol": 1e-2, "config": cfg}
+        if not identical:
+            fail(f"kernels: {row} output changes with where the sentinels "
+                 f"alias")
+        if max(errs) > 1e-2:
+            fail(f"kernels: {row} alias case off its plain version by "
+                 f"{max(errs)} > 1e-2")
+    return out
+
+
+# One slot's decode query launched among 1, 3, 4 and 8 slots: the decode
+# batches of serve_lm's schedules (a request alone, OTHER_SLOTS slots, the
+# disaggregated decode engines' DISAGG_SLOTS, LM_SLOTS); the slot is
+# PAGED_VALID's 700-row one.
+BATCH_SIZES = (1, 3, 4, 8)
+BATCH_SLOT = 4
+
+
+def batch_invariance() -> dict:
+    """Rows 5 and 7 (bf16 dense cache and bf16 pages, PAGED_CASE's widths):
+    slot BATCH_SLOT launched with the default config first among
+    BATCH_SIZES slots (the case's other slots after it) must give the same
+    bits in every batch, and agree with the plain version at the row's
+    tolerance: the split plan (decode_kv_splits) follows the cache and
+    the model, never the batch, as the sampling contract's schedule
+    invariance needs.  Beside it the 8-slot
+    launch at each kv_splits of the tuning space, held bit for bit against
+    the default (reported, not failed: the split count sets a row's sums,
+    which is why the plan must not follow the batch; ROADMAP §C)."""
+    spec = registry.get("decode_attention")
+    order = [BATCH_SLOT] + [i for i in range(LM_SLOTS) if i != BATCH_SLOT]
+    out = {}
+    for row, paged in (("decode_attention", False),
+                       ("decode_attention_paged", True)):
+        case = {"dims": PAGED_CASE["dims"], "dtype": "bfloat16",
+                "valid": PAGED_VALID}
+        if paged:
+            case.update(paged=PAGED_CASE["paged"], shuffled=True)
+        (q, k, v, valid), kwargs = spec.make_example(case, device=DEVICE)
+        got, configs = {}, {}
+        for b in BATCH_SIZES:
+            idx = torch.tensor(order[:b], device=DEVICE)
+            args = (q[idx], k if paged else k[idx], v if paged else v[idx],
+                    valid[idx])
+            kw = {key: t[idx] if key == "tables" else t
+                  for key, t in kwargs.items()}
+            configs[b] = registry.default_config("decode_attention", *args,
+                                                 **kw)
+            got[b] = decode_attention_cuda(*args, **kw, **configs[b])[0]
+        full = got[BATCH_SIZES[-1]]
+        forced = {}
+        for splits in spec.space["kv_splits"]:
+            again = decode_attention_cuda(
+                *args, **kw, threads=configs[BATCH_SIZES[-1]]["threads"],
+                kv_splits=splits)[0]
+            forced[splits] = {
+                "bit_identical_to_default": torch.equal(again, full),
+                "max_abs_diff": float((again.float() - full.float())
+                                      .abs().max())}
+        err = float((full.float() - spec.ref_call(*args, **kw)[0].float())
+                    .abs().max())
+        torch.cuda.synchronize()
+        differ = [b for b in BATCH_SIZES if not torch.equal(got[b], full)]
+        out[row] = {"slot_valid": PAGED_VALID[BATCH_SLOT],
+                    "configs": configs, "bit_identical_across_batches":
+                    not differ, "max_abs_err": err, "atol": 1e-2,
+                    "forced_kv_splits": forced}
+        if differ:
+            fail(f"kernels: {row}: slot {BATCH_SLOT}'s output changes when "
+                 f"it is launched among {differ} slots (configs {configs})")
+        if err > 1e-2:
+            fail(f"kernels: {row} batch case off its plain version by {err} "
+                 f"> 1e-2")
+    return out
+
+
+def sampling_contract() -> dict:
+    """Row 9's contract on the card (the reference's
+    tests/test_decode_kernels.py:381-435): the chi-square of CHI2_DRAWS
+    seeded draws from one fixed row under CHI2_BOUND, the same counters
+    drawing the same tokens again and equal to the plain version's; and
+    T <= 0 the raw argmax's first maximum, on rows with a planted tie and
+    top-k / top-p that must be ignored."""
+    rng = np.random.RandomState(0)
+    row = (rng.standard_normal(CHI2_LANES) * 1.5).astype(np.float32)
+    probs = np.exp(row - row.max())
+    probs /= probs.sum()
+    n = CHI2_DRAWS
+    logits = torch.from_numpy(np.tile(row, (n, 1))).to(DEVICE)
+    rows = (torch.ones(n, device=DEVICE),
+            torch.arange(n, dtype=torch.int32, device=DEVICE),
+            torch.zeros(n, dtype=torch.int32, device=DEVICE),
+            torch.zeros(n, dtype=torch.int32, device=DEVICE),
+            torch.ones(n, device=DEVICE))
+    cfg = registry.default_config("fused_sampling", logits, *rows)
+    toks = fused_sampling_cuda(logits, *rows, **cfg)
+    again = fused_sampling_cuda(logits, *rows, **cfg)
+    plain = registry.get("fused_sampling").ref_call(logits, *rows)
+    obs = np.bincount(toks.cpu().numpy(), minlength=CHI2_LANES)
+    chi2 = float(((obs - probs * n) ** 2 / (probs * n)).sum())
+    if not (chi2 < CHI2_BOUND):
+        fail(f"kernels: fused_sampling chi-square {chi2} >= {CHI2_BOUND}")
+    if not (torch.equal(toks, again) and torch.equal(toks, plain)):
+        fail("kernels: fused_sampling's seeded draws are not a function of "
+             "their counters (two runs, or the plain version, differ)")
+    # T <= 0: a tie planted at two lanes above every other logit
+    b, v = LM_SLOTS, 128256
+    rng = np.random.RandomState(5)
+    x = rng.standard_normal((b, v)).astype(np.float32)
+    lanes = np.sort(rng.choice(v, size=(b, 2), replace=False), axis=1)
+    for i, (j1, j2) in enumerate(lanes):
+        x[i, j1] = x[i, j2] = x[i].max() + 1.0
+    greedy = (torch.from_numpy(x).to(DEVICE),
+              torch.tensor([0.0, -1.0] * (b // 2), device=DEVICE),
+              torch.arange(b, dtype=torch.int32, device=DEVICE),
+              torch.full((b,), 7, dtype=torch.int32, device=DEVICE),
+              torch.full((b,), 5, dtype=torch.int32, device=DEVICE),
+              torch.full((b,), 0.5, device=DEVICE))
+    cfg_g = registry.default_config("fused_sampling", *greedy)
+    got = fused_sampling_cuda(*greedy, **cfg_g).cpu().numpy()
+    first = torch.argmax(greedy[0], -1).cpu().numpy()
+    if not (np.array_equal(got, lanes[:, 0])
+            and np.array_equal(first, lanes[:, 0])):
+        fail(f"kernels: fused_sampling at T <= 0 drew {got.tolist()}, the "
+             f"first maxima are {lanes[:, 0].tolist()}")
+    return {"chi2": chi2, "chi2_bound": CHI2_BOUND, "lanes": CHI2_LANES,
+            "draws": n, "observed": obs.tolist(),
+            "expected": (probs * n).tolist(), "config": cfg,
+            "greedy_first_max": True, "greedy_config": cfg_g}
 
 
 def make_requests(n_requests: int, cfg) -> list:
@@ -1174,10 +1383,13 @@ def forward_breakdown(deployed, n_forwards: int = 20) -> dict:
 # PROFILE_ATTEMPTS reported as None with ``trace_dropped``.  TRACES tallies
 # the traces of a run (the ``done`` line): taken, dropped with no kernel
 # event, dropped with some.  A trace of engine ticks is long and costly to
-# take again: TRACED_TICKS ticks, TICK_TRACE_ATTEMPTS times at most.
+# take and to read: TRACED_TICKS ticks (two, to fit the script's time
+# limit), TICK_TRACE_ATTEMPTS times at most.
 PROFILE_ATTEMPTS = 3
-TRACED_TICKS = 4
-TICK_TRACE_ATTEMPTS = 2
+TRACED_TICKS = 2
+TICK_TRACE_ATTEMPTS = 1
+TRACED_REDUCED = [f"traced ticks a trace 4 -> {TRACED_TICKS}",
+                  f"attempts at a tick trace 2 -> {TICK_TRACE_ATTEMPTS}"]
 TRACES = {"taken": 0, "dropped_empty": 0, "dropped_partial": 0}
 # the host events of a kernel launch (cudaLaunchKernel*, cuLaunchKernel*)
 LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel")
@@ -1786,22 +1998,53 @@ def margin_of(logits_row) -> dict:
             "threshold": margin_threshold(float(np.abs(row).max()))}
 
 
-def record_margins(engine) -> dict:
+class Margins(dict):
+    """(rid, position) -> margin_of the logits row that token was drawn
+    from.  A host-sampled row is kept as recorded (``rows``); a decode
+    tick's rows leave on the device only their top two logits and largest
+    |logit| (``ticks``: one (B, 3) tensor a tick, ``at``: key -> (tick,
+    row)), copied to the host when first read.  A margin is computed when
+    first read: a comparison reads few."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows, self.ticks, self.at, self._host = {}, [], {}, {}
+
+    def __missing__(self, key):
+        if key in self.rows:
+            value = margin_of(self.rows.pop(key))
+        else:
+            tick, i = self.at.pop(key)
+            if tick not in self._host:
+                self._host[tick] = self.ticks[tick].cpu().numpy()
+            top1, top2, max_abs = (float(x) for x in self._host[tick][i])
+            value = {"margin": abs(top1 - top2),
+                     "threshold": margin_threshold(max_abs)}
+        self[key] = value
+        return value
+
+    def __contains__(self, key):
+        return (dict.__contains__(self, key) or key in self.rows
+                or key in self.at)
+
+
+def record_margins(engine) -> Margins:
     """Record, for each host-sampled token of ``engine``, the top-2 margin
     of the logits it was drawn from and its threshold (margin_of), keyed
     by (rid, position)."""
-    margins = {}
+    margins = Margins()
     inner = engine._sample_task_row
 
     def wrapped(logits_row, task, pos):
-        margins[(task.rid, pos)] = margin_of(logits_row)
+        margins.rows[(task.rid, pos)] = np.array(logits_row, np.float32)
         return inner(logits_row, task, pos)
 
     engine._sample_task_row = wrapped
     return margins
 
 
-def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
+def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8,
+                          admission_trace: bool = True) -> dict:
     """Where a decode tick's time goes with every slot busy: 8 requests of
     512 prompt tokens, every fourth sampled as in the serve mix, are
     admitted in one tick traced by ``torch.profiler`` (``prefill_tick``:
@@ -1810,8 +2053,13 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     in the copy of the tokens to the host) and TRACED_TICKS more are traced
     (profile_ms: up to TICK_TRACE_ATTEMPTS times, each of TRACED_TICKS more
     ticks, until a trace holds every launch; the admission tick is traced
-    once); ``decode_ms`` and ``sampling_ms`` are the decode attention and
-    sampling kernels' device time per traced tick."""
+    once, unless not ``admission_trace``: the families' serves, to fit the
+    script's time limit); ``decode_ms`` and ``sampling_ms`` are the decode
+    attention and sampling kernels' device time per traced tick.  The
+    requests ask for
+    the tokens those ticks and served_sampling's draw and two more, so no
+    slot empties before the last measured tick and few unmeasured ticks
+    follow it."""
     rng = np.random.RandomState(2)
     for i in range(LM_SLOTS):
         kw = {}
@@ -1819,11 +2067,16 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
             kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3000 + i)
         engine.submit(Request(
             prompt=[int(t) for t in rng.randint(1, vocab // 2, size=512)],
-            max_new_tokens=4 * n_ticks + 4, rid=1000 + i, **kw))
+            max_new_tokens=n_ticks + TRACED_TICKS * TICK_TRACE_ATTEMPTS + 3,
+            rid=1000 + i, **kw))
     # admission and the first step: one tick, traced once
-    kernels, _, trace = profile_ms(engine.tick, 1, attempts=1)
-    prefill = dict(busy_numbers(kernels, trace, 6),
-                   flash_ms=device_ms_of(kernels, "flash_attention"))
+    if admission_trace:
+        kernels, _, trace = profile_ms(engine.tick, 1, attempts=1)
+        prefill = dict(busy_numbers(kernels, trace, 6),
+                       flash_ms=device_ms_of(kernels, "flash_attention"))
+    else:
+        engine.tick()
+        prefill = {"not_measured": ["the admission tick's profiler trace"]}
     walls = []
     for _ in range(n_ticks):
         t0 = time.perf_counter()
@@ -1842,16 +2095,29 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8) -> dict:
     out["host_ms_by_op"] = dict(
         sorted(host.items(), key=lambda kv: -kv[1])[:12])
     out["sampling_on_served_logits"] = served_sampling(engine)
+    out["breakdown_reduced"] = TRACED_REDUCED
     engine.run_until_idle()
     return out
+
+
+# The profiler's kernel_ms of the served logits is taken for the engine's
+# own call only: the other two labels' traces (about 35 s of the script's
+# time limit on an H100 over the breakdowns) are measurements given up to
+# fit the sampling contract's checks across schedules, not cuts of depth.
+SERVED_SAMPLING_NOT_MEASURED = ["kernel_ms by profiler of mixed and of the "
+                                "seeded normal logits (their ms by CUDA "
+                                "events stays)"]
 
 
 def served_sampling(engine) -> dict:
     """Row 9 on the logits of one served decode tick: the engine's own
     call (``tick_rows``: every fourth row sampled) and the same logits with
     every row sampled as the serve mix samples (``mixed``), timed as
-    ``timing_row`` times the kernel, their tokens held against the plain
-    version (equal) and over two runs (bit-identical); beside them the
+    ``timing_row`` times the kernel (kernel_ms for ``tick_rows`` only:
+    SERVED_SAMPLING_NOT_MEASURED), their tokens held against the plain
+    version (equal) and over two runs (bit-identical), and the launch with
+    its rows permuted giving its tokens permuted bit for bit (the
+    reference's tests/test_decode_kernels.py:410); beside them the
     same timings and the logits' spread on the ``mixed`` timing case's
     seeded normal logits.  The lanes each row keeps under top-k 50 and
     top-p 0.9 at T 0.8 set how many lanes a bisection pass visits (it
@@ -1901,7 +2167,14 @@ def served_sampling(engine) -> dict:
             return fused_sampling_cuda(x, *rows, **cfg)
 
         got, again = run(), run()
+        perm = torch.from_numpy(
+            np.random.RandomState(4).permutation(b)).to(x.device)
+        permuted = fused_sampling_cuda(x[perm], *(r[perm] for r in rows),
+                                       **cfg)
         torch.cuda.synchronize()
+        if not torch.equal(permuted, got[perm]):
+            fail(f"fused_sampling on served logits ({label}): permuting the "
+                 f"rows of a launch does not permute its tokens")
         want = spec.ref_call(x, *rows)
         if not torch.equal(got, want):
             fail(f"fused_sampling on served logits ({label}): tokens differ "
@@ -1912,10 +2185,11 @@ def served_sampling(engine) -> dict:
         z = x.float() / 0.8
         mass = torch.softmax(z, -1).sort(-1, descending=True).values
         top_p_lanes = (mass.cumsum(-1) < 0.9).sum(-1) + 1
+        traced = (kernel_ms_of(run, "fused_sampling") if label == "tick_rows"
+                  else (None, {"trace_dropped": None, "attempts": 0}))
         out[label] = {
             "ms": median_ms(run), "config": cfg,
-            **dict(zip(("kernel_ms", "trace"),
-                       kernel_ms_of(run, "fused_sampling"))),
+            **dict(zip(("kernel_ms", "trace"), traced)),
             "logit_std_mean": float(x.float().std(-1).mean()),
             "logit_range_mean": float((x.max(-1).values
                                        - x.min(-1).values).mean()),
@@ -1923,6 +2197,7 @@ def served_sampling(engine) -> dict:
             "top_p_lanes_max": int(top_p_lanes.max()),
             "pass_lane_visits_mean": float(pass_lane_visits(z).mean()),
             "clocks_after": clocks_line()}
+    out["not_measured"] = SERVED_SAMPLING_NOT_MEASURED
     return out
 
 
@@ -1975,7 +2250,7 @@ def compare_with_plain(phase: str, reqs, tok, tok_plain, tok_again, margins,
     first_diff = {}
     for r in reqs:
         a, b = tok[r.rid], tok_plain[r.rid]
-        if len(a) != len(r.prompt) + LM_MAX_NEW:
+        if len(a) != len(r.prompt) + r.max_new_tokens:
             fail(f"{phase}: rid {r.rid} has {len(a) - len(r.prompt)} new "
                  f"tokens")
         if min(a) < 0 or max(a) >= vocab:
@@ -2001,14 +2276,15 @@ def compare_with_plain(phase: str, reqs, tok, tok_plain, tok_again, margins,
 
 
 def serve_against_plain(phase: str, cfg, params, breakdown: bool,
-                        further=None) -> tuple:
+                        further=None, n_requests: int = LM_REQUESTS) -> tuple:
     """``params`` of full-width llama3.2-1b through ServeEngine: the kernel
     path (flash_attention in prefill, decode_attention and fused_sampling
     in every decode tick) against the plain path (chunked attention, host
     sampling) on lm_requests, held by the margin rule; the kernel engine's
     second run (the seeded requests' bit-identity) records its own margins
-    (kernel_margins_of); ``further(kern, reqs, tok, tok_again, margins)``
-    then adds checks on the kernel engine; with ``breakdown``,
+    and seeded logits rows (kernel_margins_of);
+    ``further(kern, reqs, tok, tok_again, margins, seeded_logits)`` then
+    adds checks on the kernel engine; with ``breakdown``,
     decode_tick_breakdown after.  Returns (the phase's numbers, the
     launches of the first kernel run by kernel-table row)."""
     kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
@@ -2016,7 +2292,7 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool,
     plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
                         n_slots=LM_SLOTS, max_len=LM_MAX_LEN, device=DEVICE)
     del params
-    reqs = lm_requests(cfg.vocab)
+    reqs = lm_requests(cfg.vocab, n_requests)
 
     # warm-up outside the engines' stats: a short generate() through each
     # path (cuBLAS handles, the kernels' first launches)
@@ -2030,8 +2306,8 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool,
     counts = launch_counts()
     stats = kern.stats()
     n_groups, n_ticks = groups[0], ticks[0]
-    if len(done) != LM_REQUESTS:
-        fail(f"{phase}: {len(done)} of {LM_REQUESTS} requests completed")
+    if len(done) != len(reqs):
+        fail(f"{phase}: {len(done)} of {len(reqs)} requests completed")
     want = {"flash_attention": cfg.n_layers * n_groups,
             "decode_attention": cfg.n_layers * n_ticks,
             "dense": cfg.n_layers * n_ticks,
@@ -2045,7 +2321,8 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool,
     margins = record_margins(plain)
     done_plain = plain.serve(fresh(reqs))
     del plain
-    tok_again, kmargins = kernel_margins_of(kern, reqs)
+    together = {}
+    tok_again, kmargins = kernel_margins_of(kern, reqs, together)
     tok = {c.rid: c.tokens for c in done}
     tok_plain = {c.rid: c.tokens for c in done_plain}
     compared, ambiguous, first_diff = compare_with_plain(
@@ -2076,7 +2353,8 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool,
             and tok[r.rid] == tok_plain[r.rid]),
         seeded_bit_identical=True)
     if further is not None:
-        numbers.update(further(kern, reqs, tok, tok_again, kmargins))
+        numbers.update(further(kern, reqs, tok, tok_again, kmargins,
+                               together))
     if breakdown:
         numbers.update(decode_tick_breakdown(kern, cfg.vocab))
     return numbers, {"flash_attention": counts["flash_attention"],
@@ -2166,17 +2444,242 @@ def phase_serve_lm() -> dict:
     cfg, params, init_s, n_params = init_lm()
     further = {}
 
-    def checks(*args):
-        numbers, further["launches"] = generate_and_schedulers(*args)
-        return numbers
+    def checks(kern, reqs, tok, tok_again, margins, together):
+        numbers, further["launches"] = generate_and_schedulers(
+            kern, reqs, tok, tok_again, margins)
+        seeded, further["seeded"] = seeded_schedules(kern, reqs, tok_again,
+                                                     together)
+        return {**numbers, "seeded_schedules": seeded}
 
     numbers, launches = serve_against_plain("serve_lm", cfg, params,
                                             breakdown=True, further=checks)
     emit("serve_lm", arch=LM_ARCH, params=n_params, init_s=init_s,
          **numbers)
-    for row, n in further["launches"].items():
-        launches[row] += n
+    for got in (further["launches"], further["seeded"]):
+        for row, n in got.items():
+            launches[row] = launches.get(row, 0) + n
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The sampling contract across schedules (docs/torch_kernels.md): a seeded
+# request's draws are a function of its seed and positions alone, so two
+# schedules that hand the sampler the same logits row must draw the same
+# token.  Whether the logits rows themselves stay bit-identical across
+# schedules is measured here; where they part, tools/trace_seeded.py (on
+# demand: the readings repeat bit for bit from run to run) finds the first
+# operation whose output for each such request differs, and ROADMAP §C
+# records what it found.
+# ---------------------------------------------------------------------------
+
+OTHER_SLOTS = 3
+# The pressured schedule of serve_lm's requests: they share no prefix, so
+# the pool is three quarters of the pages (PRESSURE_PAGES' half would run
+# dry in a decode tick with no preempted request left to spill, once the
+# eight longest prompts are resident together)
+SEEDED_PRESSURE_PAGES = 3 * N_PAGES // 4
+
+
+def record_seeded_logits(engine, logits: dict) -> None:
+    """Keep in ``logits``, by (rid, position), the logits row each token of
+    a sampled (temperature > 0) request of ``engine`` is drawn from: the
+    host-sampled first token's row (float32, on the host) and each decode
+    tick's fused_sampling row (a float32 copy left on the device, so
+    nothing crosses to the host while the engine serves; compare_seeded
+    brings them over)."""
+    def sampled(task) -> bool:
+        return float(getattr(task.payload, "temperature", 0.0) or 0.0) > 0
+
+    on_host_inner = engine._sample_task_row
+
+    def on_host(logits_row, task, pos):
+        if sampled(task):
+            logits[(task.rid, pos)] = np.array(logits_row, np.float32)
+        return on_host_inner(logits_row, task, pos)
+
+    on_device_inner = engine._sample_batch_device
+
+    def on_device(rows, active, pos_of, lo=0):
+        for s, task in active:
+            if sampled(task):
+                logits[(task.rid, pos_of(s))] = rows[s - lo].to(
+                    torch.float32, copy=True)
+        return on_device_inner(rows, active, pos_of, lo)
+
+    engine._sample_task_row = on_host
+    engine._sample_batch_device = on_device
+
+
+def rows_on_host(rows: dict) -> dict:
+    """``rows`` (record_seeded_logits) with the rows left on the device
+    brought to the host in one copy."""
+    left = [k for k, v in rows.items() if isinstance(v, torch.Tensor)]
+    if not left:
+        return rows
+    host = torch.stack([rows[k] for k in left]).cpu().numpy()
+    return {**rows, **dict(zip(left, host))}
+
+
+def compare_seeded(name: str, reqs, base: tuple, other: tuple) -> tuple:
+    """The sampling contract between two schedules of ``reqs``: ``base``
+    and ``other`` are (tokens by rid, seeded logits rows by (rid,
+    position)).  Fails if a token is drawn from logits rows that are bit
+    for bit the same in both and differs.  Reports, per sampled request,
+    the first step whose logits rows differ with their largest difference
+    there, and the first step whose token differs (the comparison stops
+    there: the contexts part).  Returns (numbers, every sampled request
+    whose logits differ as (rid, first position that differs, prompt
+    length))."""
+    (tok_a, rows_a), (tok_b, rows_b) = base, other
+    rows_a, rows_b = rows_on_host(rows_a), rows_on_host(rows_b)
+    per, targets = {}, []
+    for r in reqs:
+        if r.temperature <= 0:
+            continue
+        n = len(r.prompt)
+        a, b = tok_a[r.rid], tok_b[r.rid]
+        if len(a) != n + r.max_new_tokens or len(b) != len(a):
+            fail(f"{name}: rid {r.rid} has {len(a) - n} and {len(b) - n} "
+                 f"new tokens")
+        first_logits = first_token = diff = None
+        same_rows = 0
+        for p in range(n, n + r.max_new_tokens):
+            ra, rb = rows_a.get((r.rid, p)), rows_b.get((r.rid, p))
+            if ra is None or rb is None:
+                fail(f"{name}: rid {r.rid} position {p}: no logits row "
+                     f"captured")
+            same = ra.tobytes() == rb.tobytes()
+            same_rows += same
+            if not same and first_logits is None:
+                first_logits, diff = p, float(np.abs(ra - rb).max())
+            if a[p] != b[p]:
+                if same:
+                    fail(f"{name}: rid {r.rid} draws {a[p]} and {b[p]} at "
+                         f"position {p} from bit-identical logits rows (the "
+                         f"sampling contract)")
+                first_token = p
+                break
+        per[r.rid] = {"tokens_equal": a == b,
+                      "logits_rows_bit_identical": same_rows,
+                      "first_logits_difference": (
+                          None if first_logits is None else
+                          {"step": first_logits - n, "max_abs": diff}),
+                      "first_token_difference": (
+                          None if first_token is None
+                          else first_token - n)}
+        if first_logits is not None:
+            targets.append((r.rid, first_logits, n))
+    numbers = {"seeded_sequences": len(per),
+               "bit_identical_sequences": sum(
+                   1 for v in per.values() if v["tokens_equal"]),
+               "logits_bit_identical_sequences": sum(
+                   1 for v in per.values()
+                   if v["first_logits_difference"] is None),
+               "by_rid": per}
+    return numbers, targets
+
+
+def kernel_engine(cfg, params, n_slots: int = LM_SLOTS, **kw):
+    return ServeEngine(cfg, params, n_slots=n_slots, max_len=LM_MAX_LEN,
+                       decode_kernel=True, device=DEVICE, **kw)
+
+
+def serve_seeded(engine, reqs, logits=None) -> dict:
+    """``reqs`` on ``engine``, its seeded logits rows kept in ``logits``."""
+    if logits is not None:
+        record_seeded_logits(engine, logits)
+    return {c.rid: c.tokens for c in engine.serve(fresh(reqs))}
+
+
+def seeded_runs(cfg, params, reqs, pressure=None) -> dict:
+    """serve_lm's other schedules of ``reqs``, by label, each a function of
+    (a dict for the seeded logits rows or None, the rids to serve or None
+    for all) returning tokens by rid: each sampled request alone in a fresh
+    engine of LM_SLOTS slots (``rids`` picks which), all of ``reqs`` at
+    OTHER_SLOTS slots, and all of them through the pressured paged engine
+    (pressured_serve, bf16 pages, SEEDED_PRESSURE_PAGES; its preemptions
+    and pages go into the dict ``pressure``)."""
+    seeded = [r for r in reqs if r.temperature > 0]
+
+    def alone(logits=None, rids=None):
+        tok = {}
+        for r in seeded:
+            if rids is None or r.rid in rids:
+                tok.update(serve_seeded(kernel_engine(cfg, params), [r],
+                                        logits))
+        return tok
+
+    def other_slots(logits=None, rids=None):
+        return serve_seeded(kernel_engine(cfg, params, OTHER_SLOTS), reqs,
+                            logits)
+
+    def pressured(logits=None, rids=None):
+        tok, st, pg, _ = pressured_serve(cfg, params, False, reqs, logits,
+                                         SEEDED_PRESSURE_PAGES)
+        if pressure is not None:
+            pressure.update(preempted=st.preempted, pages=pg)
+        return tok
+
+    return {"alone": alone, f"n_slots {OTHER_SLOTS}": other_slots,
+            "pressured": pressured}
+
+
+# The op tools/trace_seeded.py names where a request's prefill parts
+# between schedules (ROADMAP §C): the MLP's output projection on a
+# prompt's 75 rows, inside the 128 rows of its prefill alone and the 8192
+# of a group of eight, probed at each M between.
+GEMM_PROBE_ROWS, GEMM_PROBE_M = 75, (128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def gemm_probe(cfg) -> dict:
+    """One request's GEMM_PROBE_ROWS rows (bf16, seeded) through
+    ``h @ wo`` at the model's (d_ff, d_model), inside batches of each M of
+    GEMM_PROBE_M rows: whether cuBLAS gives those rows the same bits as at
+    the smallest M, and by how much they differ.  Reported, not failed: a
+    library's choice, open in ROADMAP §C."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn(GEMM_PROBE_M[-1], cfg.d_ff, device=DEVICE,
+                    generator=gen).to(torch.bfloat16)
+    w = (torch.randn(cfg.d_ff, cfg.d_model, device=DEVICE, generator=gen)
+         * cfg.d_ff ** -0.5).to(torch.bfloat16)
+    rows = [(x[:m] @ w)[:GEMM_PROBE_ROWS] for m in GEMM_PROBE_M]
+    torch.cuda.synchronize()
+    return {"rows": GEMM_PROBE_ROWS, "k": cfg.d_ff, "n": cfg.d_model,
+            "by_m": {m: {"bit_identical_to_smallest_m":
+                         torch.equal(r, rows[0]),
+                         "max_abs_diff": float((r.float() - rows[0].float())
+                                               .abs().max())}
+                     for m, r in zip(GEMM_PROBE_M, rows)}}
+
+
+def seeded_schedules(kern, reqs, tok_together, together: dict) -> tuple:
+    """The sampled requests of ``reqs`` (every fourth) held against their
+    run in serve_lm's kernel engine (``tok_together``, ``together``: its
+    logits rows) under each of seeded_runs' schedules (compare_seeded),
+    and gemm_probe.  Returns (numbers, launches by kernel-table row)."""
+    base = (tok_together, rows_on_host(together))
+    pressure = {}
+    reset_counts()
+    out = {}
+    for label, run in seeded_runs(kern.cfg, kern.params, reqs,
+                                  pressure).items():
+        t0 = time.perf_counter()
+        rows = {}
+        tok = run(rows)
+        out[label], _ = compare_seeded(f"serve_lm (seeded, {label})", reqs,
+                                       base, (tok, rows))
+        out[label]["seconds"] = time.perf_counter() - t0
+        del rows
+    if pressure.get("preempted", 0) < 1:
+        fail(f"serve_lm (seeded, pressured): no request was preempted: "
+             f"{pressure}")
+    out["pressured"]["pressure"] = pressure
+    out["gemm_probe"] = gemm_probe(kern.cfg)
+    counts = launch_counts()
+    return out, {"flash_attention": counts["flash_attention"],
+                 "decode_attention": counts["dense"],
+                 "decode_attention_paged": counts["paged"],
+                 "fused_sampling": counts["fused_sampling"]}
 
 
 def flat_paths(tree, path: tuple = ()) -> list:
@@ -2548,7 +3051,8 @@ def phase_train_lm() -> dict:
     torch.cuda.empty_cache()
     serve_cfg = dataclasses.replace(cfg, attn_impl="cuda")
     numbers, launches = serve_against_plain("train_lm (serve)", serve_cfg,
-                                            params, breakdown=False)
+                                            params, breakdown=False,
+                                            n_requests=TRAIN_LM_SERVE_REQUESTS)
     del params
     torch.cuda.empty_cache()
     # 6. the serve half's path went through rows 3, 5 and 9
@@ -2556,7 +3060,9 @@ def phase_train_lm() -> dict:
         if launches.get(row, 0) < 1:
             fail(f"train_lm: {row} was never launched serving the pruned "
                  f"model")
-    emit("train_lm", part="serve", refusals=len(refused), **numbers,
+    emit("train_lm", part="serve", refusals=len(refused),
+         reduced=[f"requests {LM_REQUESTS} -> {TRAIN_LM_SERVE_REQUESTS}"],
+         **numbers,
          seconds=time.perf_counter() - t_phase)
     return launches
 
@@ -3128,57 +3634,72 @@ def b6_cross_check(kern, reqs, cfg) -> dict:
             "launches_paged_int8": counts_b["paged_int8"]}
 
 
-def paged_pressure(cfg, params, quantize: bool, reqs, tok_ref,
+def pressured_serve(cfg, params, quantize: bool, reqs, logits=None,
+                    n_pages=None) -> tuple:
+    """One pressured serve (ROADMAP §C 1): the kernel engine with a
+    PriorityScheduler and a pool of ``n_pages`` pages (PRESSURE_PAGES).  The first
+    LM_SLOTS of ``reqs`` arrive at priority 1 and are resident after
+    PRESSURE_LEAD ticks; the others then arrive at priority 0 and preempt
+    them one a tick.  The preempted keep their pages until the pool runs
+    dry, when _spill_preempted copies them to the host (resume re-imports
+    them into fresh pages), and cached prefix pages are evicted LRU.  With
+    a dict ``logits``, the seeded logits rows go there
+    (record_seeded_logits).  Returns (tokens by rid, stats, page counters,
+    wall seconds)."""
+    eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      page_size=PAGE, n_pages=n_pages or PRESSURE_PAGES,
+                      quantize_pages=quantize, scheduler=PriorityScheduler(),
+                      decode_kernel=True, device=DEVICE)
+    if logits is not None:
+        record_seeded_logits(eng, logits)
+    t0 = time.perf_counter()
+    for r in reqs[:LM_SLOTS]:
+        eng.submit(dataclasses.replace(r, prompt=list(r.prompt), priority=1))
+    for _ in range(PRESSURE_LEAD):
+        eng.tick()
+    for r in reqs[LM_SLOTS:]:
+        eng.submit(dataclasses.replace(r, prompt=list(r.prompt), priority=0))
+    done = eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs):
+        fail(f"pressured serve: {len(done)} of {len(reqs)} requests "
+             f"completed")
+    st = eng.stats()
+    return {c.rid: c.tokens for c in done}, st, dict(st.pages), wall
+
+
+def paged_pressure(cfg, params, quantize: bool, reqs, unpressured: tuple,
                    margins) -> dict:
-    """serve_paged under memory pressure (ROADMAP §C 1): the kernel engine
-    with a PriorityScheduler and a pool of PRESSURE_PAGES pages.  The
-    first LM_SLOTS requests arrive at priority 1 and are resident after
-    PRESSURE_LEAD ticks; the other LM_SLOTS then arrive at priority 0 and
-    preempt them one a tick.  The preempted keep their pages until the
-    pool runs dry, when _spill_preempted copies them to the host (resume
-    re-imports them into fresh pages), and cached prefix pages are evicted
-    LRU.  Fails unless preemption, spill and eviction each happened, the
-    greedy tokens hold against ``tok_ref`` (the unpressured kernel run of
-    the same mode, whose margins are ``margins``) by the margin rule, and
-    a second pressured run gives the seeded tokens bit for bit.  The
+    """serve_paged under memory pressure (pressured_serve, twice).  Fails
+    unless preemption, spill and eviction each happened, the greedy tokens
+    hold against ``unpressured`` (the unpressured kernel run of the same
+    mode: tokens and seeded logits rows; its margins are ``margins``) by
+    the margin rule, and the second pressured run gives the seeded tokens
+    bit for bit.  The seeded requests of the first run are held against
+    the unpressured run by the sampling contract (compare_seeded).  The
     numbers carry both runs' launches."""
     mode = "paged_int8" if quantize else "paged"
     name = f"serve_paged ({mode}, pressure)"
     runs = []
     reset_counts()
-    for _ in range(2):
-        eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
-                          page_size=PAGE, n_pages=PRESSURE_PAGES,
-                          quantize_pages=quantize,
-                          scheduler=PriorityScheduler(), decode_kernel=True,
-                          device=DEVICE)
+    for logits in ({}, None):
         body = launch_counts()[mode]
-        t0 = time.perf_counter()
-        for r in reqs[:LM_SLOTS]:
-            eng.submit(dataclasses.replace(r, prompt=list(r.prompt),
-                                           priority=1))
-        for _ in range(PRESSURE_LEAD):
-            eng.tick()
-        for r in reqs[LM_SLOTS:]:
-            eng.submit(dataclasses.replace(r, prompt=list(r.prompt),
-                                           priority=0))
-        done = eng.run_until_idle()
-        wall = time.perf_counter() - t0
-        st = eng.stats()
-        pg = dict(st.pages)
-        if len(done) != len(reqs):
-            fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+        tok, st, pg, wall = pressured_serve(cfg, params, quantize, reqs,
+                                            logits)
         if not (st.preempted > 0 and pg.get("spilled_pages", 0) > 0
                 and pg.get("cache_evicted", 0) > 0):
             fail(f"{name}: preempted {st.preempted}, pages {pg}: expected "
                  f"preemption, spill and eviction")
         if launch_counts()[mode] == body:
             fail(f"{name}: the {mode} decode body never ran")
-        runs.append(({c.rid: c.tokens for c in done}, st, pg, wall))
-    tok, st, pg, wall = runs[0]
+        runs.append((tok, st, pg, wall, logits))
+    tok, st, pg, wall, logits = runs[0]
+    tok_ref = unpressured[0]
     counts = launch_counts()
     compared, ambiguous, first_diff = compare_with_plain(
         name, reqs, tok, tok_ref, runs[1][0], margins, cfg.vocab)
+    seeded, _ = compare_seeded(f"{name} (seeded)", reqs, unpressured,
+                               (tok, logits))
     return {"n_pages": PRESSURE_PAGES, "lead_ticks": PRESSURE_LEAD,
             "preempted": st.preempted, "pages": pg, "ticks": st.ticks,
             "wall_s": wall, "tok_per_s": st.items / wall,
@@ -3190,6 +3711,7 @@ def paged_pressure(cfg, params, quantize: bool, reqs, tok_ref,
                 1 for r in reqs if r.temperature == 0
                 and tok[r.rid] == tok_ref[r.rid]),
             "seeded_bit_identical_across_pressured_runs": True,
+            "seeded_against_unpressured": seeded,
             "launches": {k: counts[k] for k in ("flash_attention", mode,
                                                 "fused_sampling")}}
 
@@ -3238,15 +3760,17 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
     del plain
     # a second kernel engine: the same requests meet the same (empty)
     # prefix cache, so every prefill group has the same composition; it
-    # records its margins, the pressured runs' rule
+    # records its margins (the pressured runs' rule) and its seeded logits
+    unpressured = {}
     tok_again, kmargins = kernel_margins_of(
-        ServeEngine(cfg, params, decode_kernel=True, **kw), reqs)
+        ServeEngine(cfg, params, decode_kernel=True, **kw), reqs,
+        unpressured)
     compared, ambiguous, first_diff = compare_with_plain(
         f"serve_paged ({mode})", reqs, {c.rid: c.tokens for c in done},
         {c.rid: c.tokens for c in done_plain}, tok_again, margins,
         cfg.vocab)
     out = {"pressure": paged_pressure(cfg, params, quantize, reqs,
-                                      tok_again, kmargins)}
+                                      (tok_again, unpressured), kmargins)}
     if quantize:
         out["b6_cross_check"] = b6_cross_check(kern, reqs, cfg)
     breakdown = decode_tick_breakdown(kern, cfg.vocab)
@@ -3303,27 +3827,36 @@ def phase_serve_paged() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def record_kernel_margins(engine) -> dict:
+def record_kernel_margins(engine) -> Margins:
     """record_margins for a kernel engine: the prefill tokens are sampled on
     the host, the decode tokens by one fused_sampling launch a tick, whose
-    logits' top-2 margins are read here for every active slot."""
+    logits rows' top two and largest |logit| are kept on the device for
+    every active slot (Margins.ticks: nothing crosses to the host while the
+    engine serves)."""
     margins = record_margins(engine)
     inner = engine._sample_batch_device
 
     def wrapped(logits, active, pos_of, lo=0):
-        rows = logits.float().cpu().numpy()
+        x = logits.float()
+        top2 = x.topk(2, -1).values
+        margins.ticks.append(torch.stack(
+            (top2[:, 0], top2[:, 1], x.abs().amax(-1)), -1))
+        tick = len(margins.ticks) - 1
         for s, task in active:
-            margins[(task.rid, pos_of(s))] = margin_of(rows[s - lo])
+            margins.at[(task.rid, pos_of(s))] = (tick, s - lo)
         return inner(logits, active, pos_of, lo)
 
     engine._sample_batch_device = wrapped
     return margins
 
 
-def kernel_margins_of(engine, reqs) -> tuple:
-    """``reqs`` served on the kernel engine with record_kernel_margins, the
-    engine's own sampling hooks back in place after: (tokens by rid,
-    margins), the margin rule's input for a comparison with this run."""
+def kernel_margins_of(engine, reqs, logits=None) -> tuple:
+    """``reqs`` served on the kernel engine with record_kernel_margins (and,
+    given a dict ``logits``, record_seeded_logits into it), the engine's
+    own sampling hooks back in place after: (tokens by rid, margins), the
+    margin rule's input for a comparison with this run."""
+    if logits is not None:
+        record_seeded_logits(engine, logits)
     margins = record_kernel_margins(engine)
     try:
         done = engine.serve(fresh(reqs))
@@ -3333,26 +3866,26 @@ def kernel_margins_of(engine, reqs) -> tuple:
     return {c.rid: c.tokens for c in done}, margins
 
 
-def unified_reference(cfg, params, reqs, **kw) -> tuple:
-    """The unified kernel engine on ``reqs``: a timed run (tokens, tok/s,
-    ms per tick) and a second run on a fresh engine that records the top-2
-    margin of every token, the margin rule's input."""
-    def engine():
-        eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
-                          decode_kernel=True, device=DEVICE, **kw)
-        eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
-        return eng
-
-    eng = engine()
+def unified_reference(cfg, params, reqs, seeded=None, **kw) -> tuple:
+    """The unified kernel engine on ``reqs``: one timed run that keeps the
+    margin rule's input on the device (record_kernel_margins): (tokens,
+    margins, tok/s and ms per tick).  Given a dict ``seeded``, a second,
+    untimed run on the same engine puts its tokens under ``tokens`` and
+    its seeded logits rows under ``rows`` (record_seeded_logits)."""
+    eng = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      decode_kernel=True, device=DEVICE, **kw)
+    eng.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+    margins = record_kernel_margins(eng)
     t0 = time.perf_counter()
     done = eng.serve(fresh(reqs))
     wall = time.perf_counter() - t0
     stats = eng.stats()
+    if seeded is not None:
+        for hook in ("_sample_task_row", "_sample_batch_device"):
+            eng.__dict__.pop(hook, None)
+        seeded["rows"] = {}
+        seeded["tokens"] = serve_seeded(eng, reqs, seeded["rows"])
     del eng
-    marked = engine()
-    margins = record_kernel_margins(marked)
-    marked.serve(fresh(reqs))
-    del marked
     return ({c.rid: c.tokens for c in done}, margins,
             {"tok_per_s": stats.items / wall, "ms_per_tick": stats.ms_per_tick,
              "engine_tok_per_s": stats.throughput, "wall_s": wall})
@@ -3401,10 +3934,9 @@ def copy_bounds(nbytes: int) -> dict:
     return out
 
 
-def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
-    """One transport of phase serve_disagg: the dense disaggregated engine
-    (DisaggScheduler(overlap=True) for device_to_device) on ``reqs``;
-    returns (tokens, numbers, launch counts)."""
+def disagg_engine(cfg, params, transport: str):
+    """serve_disagg's dense disaggregated engine over ``transport``
+    (DisaggScheduler(overlap=True) for device_to_device), warmed up."""
     eng = disaggregated_lm_engine(
         cfg, params, n_slots=DISAGG_SLOTS, max_len=LM_MAX_LEN,
         n_decode=DISAGG_DECODES, prefill_slots=LM_SLOTS,
@@ -3413,6 +3945,18 @@ def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
             overlap=transport == "device_to_device"),
         decode_kernel=True, device=DEVICE)
     warm_disagg(eng)
+    return eng
+
+
+def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
+    """One transport of phase serve_disagg: the dense disaggregated engine
+    on ``reqs``, its seeded logits rows recorded (record_seeded_logits on
+    every member); returns (tokens, numbers, launch counts, seeded logits
+    rows)."""
+    eng = disagg_engine(cfg, params, transport)
+    logits = {}
+    for member in eng._members():
+        record_seeded_logits(member, logits)
     reset_counts()
     t0 = time.perf_counter()
     done = eng.serve(fresh(reqs))
@@ -3446,7 +3990,7 @@ def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
         "launches": {k: counts[k] for k in ("flash_attention", "dense",
                                             "fused_sampling")}}
     check_prefill_bodies(f"serve_disagg ({transport})", counts)
-    return {c.rid: c.tokens for c in done}, numbers, counts
+    return {c.rid: c.tokens for c in done}, numbers, counts, logits
 
 
 def disagg_paged(cfg, params, reqs, quantize: bool) -> tuple:
@@ -3627,18 +4171,27 @@ def phase_serve_disagg() -> dict:
 
     lm_rows = {"flash_attention": "flash_attention",
                "decode_attention": "dense", "fused_sampling": "fused_sampling"}
-    tok_ref, margins, unified = unified_reference(cfg, params, reqs)
+    together = {}
+    tok_ref, margins, unified = unified_reference(cfg, params, reqs,
+                                                  seeded=together)
+    together = (together["tokens"], rows_on_host(together["rows"]))
     first, results = None, []
     for transport in DISAGG_TRANSPORTS:
-        tok, numbers, counts = disagg_transport(cfg, params, reqs, transport)
+        tok, numbers, counts, logits = disagg_transport(cfg, params, reqs,
+                                                        transport)
         compared, ambiguous, first_diff = compare_with_plain(
             f"serve_disagg ({transport})", reqs, tok, tok_ref,
             first if first is not None else tok, margins, cfg.vocab)
         first = first if first is not None else tok
+        # the sampling contract against the unified engine's run
+        seeded, _ = compare_seeded(f"serve_disagg ({transport}, seeded)",
+                                   reqs, together, (tok, logits))
         numbers.update(greedy_tokens_compared=compared,
                        ambiguous_positions=ambiguous,
                        first_divergence=first_diff,
-                       seeded_bit_identical_across_transports=True)
+                       seeded_bit_identical_across_transports=True,
+                       seeded_against_unified=seeded)
+        del logits
         results.append(numbers)
         add(counts, lm_rows)
     bounds = copy_bounds(results[0]["legs"]["bytes_per_handoff"])
@@ -4094,12 +4647,15 @@ def vlm_cross(cfg, params) -> tuple:
             }, counts
 
 
-def phase_serve_family(phase: str, cfg, modes, further: bool = True) -> dict:
+def phase_serve_family(phase: str, cfg, modes, further: bool = True,
+                       n_requests: int = FAMILY_REQUESTS) -> dict:
     """A full-width model through ServeEngine in each cache mode of
     ``modes`` (dense slots on the first FAMILY_REQUESTS of serve_lm's
     requests, pages on serve_paged's), the kernel path against the plain
     path, a moe's admission numbers from its dense slots; with ``further``
-    also each mode's decode tick breakdown, then on the dense-slot requests
+    also the dense mode's decode tick breakdown (the paged modes' were cut
+    to fit the script's time limit: their ``not_measured`` says so), then on
+    the dense-slot requests
     the moe scatter dispatch (moe_scatter) and the model disaggregated
     (over_transports), and for vlm the cross path with image features
     (vlm_cross).  Returns the launches by kernel-table row."""
@@ -4115,19 +4671,23 @@ def phase_serve_family(phase: str, cfg, modes, further: bool = True) -> dict:
 
     for mode in modes:
         t0 = time.perf_counter()
-        reqs = (lm_requests(cfg.vocab, FAMILY_REQUESTS) if mode == "dense"
-                else paged_requests(cfg.vocab, FAMILY_REQUESTS))
+        reqs = (lm_requests(cfg.vocab, n_requests) if mode == "dense"
+                else paged_requests(cfg.vocab, n_requests))
         numbers, counts, kern, tok_k, kmargins = serve_family_mode(
             phase, cfg, params, reqs, mode)
         if mode == "dense":
             dense = (reqs, tok_k, kmargins)
             if cfg.moe is not None:
                 numbers["admission"] = moe_admission(phase, kern, reqs, cfg)
-        if further:
-            numbers.update(decode_tick_breakdown(kern, cfg.vocab))
+        if further and mode == "dense":
+            numbers.update(decode_tick_breakdown(kern, cfg.vocab,
+                                                 admission_trace=False))
         del kern
         emit(phase, arch=cfg.arch_id, params=n_params, param_bytes=n_bytes,
              init_s=init_s, reduced=FAMILY_CUTS[cfg.arch_id],
+             not_measured=(["the decode tick breakdown (the dense mode's "
+                            "stands for the model)"]
+                           if further and mode != "dense" else []),
              n_layers=cfg.n_layers, self_layers=cfg.n_self_layers(),
              cross_layers=cfg.n_cross_layers(), slots=LM_SLOTS,
              max_len=LM_MAX_LEN, page_size=PAGE if mode != "dense" else None,
@@ -4186,14 +4746,15 @@ def phase_serve_vlm() -> dict:
 
 
 def phase_serve_qwen3() -> dict:
-    """qwen3-1.7b at its published size (28 layers, float32 parameters, as
-    serve_lm): the first FAMILY_REQUESTS of serve_lm's requests from dense
-    slots and of serve_paged's from bf16 and int8 pages, each through the
-    kernels (qk-norm, D 128 at G 2, sampling over 151936 logits) against
-    the plain path."""
+    """qwen3-1.7b at full width, its depth cut to QWEN3_LAYERS (float32
+    parameters, as serve_lm): the first QWEN3_REQUESTS of serve_lm's
+    requests from dense slots and of serve_paged's from bf16 and int8
+    pages, each through the kernels (qk-norm, D 128 at G 2, sampling over
+    151936 logits) against the plain path."""
     cfg = dataclasses.replace(cfg_lib.get_config(QWEN3_ARCH),
-                              attn_impl="cuda")
-    return phase_serve_family("serve_qwen3", cfg, QWEN3_MODES, further=False)
+                              attn_impl="cuda", n_layers=QWEN3_LAYERS)
+    return phase_serve_family("serve_qwen3", cfg, QWEN3_MODES, further=False,
+                              n_requests=QWEN3_REQUESTS)
 
 
 def phase_serve_large() -> dict:
@@ -4270,13 +4831,21 @@ def recurrent_handoffs(phase: str, cfg, params, reqs, tok_plain, margins,
     beside what the card's links give for one handoff's bytes
     (copy_bounds).  With ``own_plain`` (the phase served a cut model) the
     requests are those of ``reqs`` with prompts of at least
-    RECURRENT_HANDOFF_PROMPT tokens, cut to that length, held against a
-    plain engine of this model on them; otherwise ``reqs`` against
-    ``tok_plain``.  Returns (numbers, launch counts summed)."""
+    RECURRENT_HANDOFF_PROMPT tokens, cut to that length, asking for
+    RECURRENT_HANDOFF_NEW new tokens, held against a plain engine of this
+    model on them; otherwise ``reqs`` against
+    ``tok_plain``.  A sampled request must be among them (its tokens are
+    what the transports are held to bit for bit).  Returns (numbers,
+    launch counts summed)."""
     if own_plain:
         reqs = [dataclasses.replace(
-                    r, prompt=list(r.prompt[:RECURRENT_HANDOFF_PROMPT]))
+                    r, prompt=list(r.prompt[:RECURRENT_HANDOFF_PROMPT]),
+                    max_new_tokens=RECURRENT_HANDOFF_NEW)
                 for r in reqs if len(r.prompt) >= RECURRENT_HANDOFF_PROMPT]
+    if not any(r.temperature > 0 for r in reqs):
+        fail(f"{phase}: no sampled request among the handoffs' "
+             f"{[r.rid for r in reqs]}")
+    if own_plain:
         plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"),
                             params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                             device=DEVICE)
@@ -4341,7 +4910,7 @@ def recurrent_bf16(cfg, reqs) -> tuple:
 
 def launcher_runs() -> list:
     """``python -m repro_torch.launch.serve --arch A`` with LAUNCHER_ARGS
-    (the published size, two requests of four new tokens through the
+    (the published size, one request of four new tokens through the
     kernels) for each of LAUNCHER_RUNS, all at once (they load the library
     the build phase made): each recurrent model and qwen3-1.7b exits 0 and
     prints its requests' tokens; hubert exits 1 with the message of the
@@ -4377,17 +4946,25 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
     depth cut to ``n_layers`` when one is given: the kernel engine (fused
     sampling in every decode tick; for the hybrid, flash prefill and decode
     attention in the shared block at each site) against the plain engine
-    on FAMILY_REQUESTS of serve_lm's requests, admitted in exact-length
+    on RECURRENT_REQUESTS of serve_lm's requests, admitted in exact-length
     groups; then disaggregated (in_process); then at its published size
     over RECURRENT_TRANSPORTS (recurrent_handoffs).  Returns the launches
     by kernel-table row."""
     cfg_full, params_full, init_s, n_params, n_bytes = init_full(arch)
     cfg, params = ((cfg_full, params_full) if not n_layers
                    else first_units(cfg_full, params_full, n_layers))
+    bf16 = ", the bf16 run" if cfg_full.family == "hybrid" else ""
     reduced = ([f"n_layers {cfg_full.n_layers} -> {n_layers} (the serve "
-                f"against the plain path and the in_process handoff)"]
+                f"against the plain path, the in_process handoff{bf16})"]
                if n_layers else [])
-    reqs = lm_requests(cfg.vocab, FAMILY_REQUESTS)
+    reduced.append(f"requests {FAMILY_REQUESTS} -> {RECURRENT_REQUESTS} "
+                   f"(the serve against the plain path, the in_process "
+                   f"handoff{bf16}; the handoffs at the published size take "
+                   f"those of the {FAMILY_REQUESTS} with prompts of at least "
+                   f"{RECURRENT_HANDOFF_PROMPT} tokens, cut to that length, "
+                   f"with {RECURRENT_HANDOFF_NEW} new tokens of "
+                   f"{LM_MAX_NEW})")
+    reqs = lm_requests(cfg.vocab, RECURRENT_REQUESTS)
     kern = ServeEngine(cfg, params, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
                        decode_kernel=True, device=DEVICE)
     plain = ServeEngine(dataclasses.replace(cfg, attn_impl="chunked"), params,
@@ -4438,7 +5015,7 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
     compared, ambiguous, first_diff = compare_with_plain(
         phase, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
         margins, cfg.vocab)
-    breakdown = decode_tick_breakdown(kern, cfg.vocab)
+    breakdown = decode_tick_breakdown(kern, cfg.vocab, admission_trace=False)
     state_bytes = lm.cache_nbytes(cfg, LM_SLOTS, LM_MAX_LEN)
     del kern
     torch.cuda.empty_cache()
@@ -4469,9 +5046,12 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
          seeded_bit_identical=True, disagg=disagg, **breakdown)
     del leaves
     t0 = time.perf_counter()
-    handoffs, hcounts = recurrent_handoffs(phase, cfg_full, params_full,
-                                           reqs, tok_plain, margins,
-                                           own_plain=bool(n_layers))
+    # the handoffs take the first FAMILY_REQUESTS of serve_lm's requests
+    # (those long enough, cut), so that a sampled one is among them
+    handoffs, hcounts = recurrent_handoffs(
+        phase, cfg_full, params_full,
+        lm_requests(cfg.vocab, FAMILY_REQUESTS) if n_layers else reqs,
+        tok_plain, margins, own_plain=bool(n_layers))
     emit(phase, part="handoffs", arch=arch, params=n_params,
          param_bytes=n_bytes, margin_rule=MARGIN_RULE,
          seconds=time.perf_counter() - t0, **handoffs)
@@ -4480,7 +5060,7 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
     runs = [counts, dcounts, hcounts]
     if cfg.family == "hybrid":
         t0 = time.perf_counter()
-        numbers, bcounts = recurrent_bf16(cfg_full, reqs)
+        numbers, bcounts = recurrent_bf16(cfg, reqs)
         emit(phase, part="bf16", arch=arch, margin_rule=MARGIN_RULE,
              seconds=time.perf_counter() - t0, **numbers)
         runs.append(bcounts)
@@ -4501,11 +5081,15 @@ def phase_serve_ssm() -> dict:
 
 
 def phase_serve_hybrid() -> dict:
-    """zamba2-1.2b at its published size: the shared block's flash prefill
-    and decode attention at each of its 6 sites, fused sampling; with bf16
-    parameters; then the launcher at --no-reduced (launcher_runs)."""
-    launches = phase_serve_recurrent("serve_hybrid", HYBRID_ARCH)
-    emit("serve_hybrid", part="launcher", runs=launcher_runs())
+    """zamba2-1.2b, its depth cut to HYBRID_LAYERS (the shared block's flash
+    prefill and decode attention at each of its 3 sites of 6, fused
+    sampling) against the plain path and in_process, and with bf16
+    parameters; at its published size over RECURRENT_TRANSPORTS; then the
+    launcher at --no-reduced (launcher_runs)."""
+    launches = phase_serve_recurrent("serve_hybrid", HYBRID_ARCH,
+                                     HYBRID_LAYERS)
+    emit("serve_hybrid", part="launcher", runs=launcher_runs(),
+         reduced=["requests 2 -> 1 a run"])
     return launches
 
 
@@ -4648,7 +5232,8 @@ def tick_numbers(engine, vocab: int, n_ticks: int = 8) -> dict:
         engine.submit(Request(
             prompt=[int(t) for t in rng.randint(1, vocab // 2,
                                                 size=LM_MAX_LEN // 2)],
-            max_new_tokens=3 * n_ticks + 4, rid=2000 + i))
+            max_new_tokens=n_ticks + TRACED_TICKS * TICK_TRACE_ATTEMPTS + 2,
+            rid=2000 + i))
     engine.tick()                           # admission and the first step
     walls = []
     for _ in range(n_ticks):
@@ -4660,7 +5245,7 @@ def tick_numbers(engine, vocab: int, n_ticks: int = 8) -> dict:
                                    TICK_TRACE_ATTEMPTS)
     engine.run_until_idle()
     wall = walls[len(walls) // 2]
-    return {"tick_wall_ms": wall, **busy_numbers(
+    return {"tick_wall_ms": wall, "reduced": TRACED_REDUCED, **busy_numbers(
         kernels, trace, 0, wall, "device_idle_share_of_tick")}
 
 
@@ -4940,17 +5525,17 @@ KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
 
 
 def timing_row(name, case, n_profile: int = 20, config=None,
-               plain: bool = True) -> dict:
+               plain: bool = True, repeats: int = 5, example=None) -> dict:
     """Kernel time by CUDA events (``ms``, wrapper included), the kernel
     alone by profiler events (``kernel_ms``: device time over the events of
     a trace that holds every launch, else None with ``trace_dropped``; not
     taken when ``n_profile`` is 0), the plain version's and the library
     call's time, and the bound, at one case, with the default config or
     ``config`` over it (the plain version's and the library call's times
-    only when ``plain``).  A ``kernel_ms`` below the bound fails: no
-    complete trace can read so."""
+    only when ``plain``; ``example``, the case's inputs when already made).
+    A ``kernel_ms`` below the bound fails: no complete trace can read so."""
     spec = registry.get(name)
-    args, kwargs = spec.make_example(case, device=DEVICE)
+    args, kwargs = example or spec.make_example(case, device=DEVICE)
     cfg = {**registry.default_config(name, *args, **kwargs),
            **(config or {})}
     wrapper = spec.build()
@@ -4958,7 +5543,7 @@ def timing_row(name, case, n_profile: int = 20, config=None,
     def call():
         return wrapper(*args, **kwargs, **cfg)
 
-    ms = median_ms(call)
+    ms = median_ms(call, repeats=repeats)
     kernel_ms, trace = (kernel_ms_of(call, name, n_profile) if n_profile
                         else (None, {"trace_dropped": None, "attempts": 0}))
     t_bytes, t_ops = BOUNDS[name](case)
@@ -4983,9 +5568,14 @@ def timing_row(name, case, n_profile: int = 20, config=None,
 
 # The sweeps take CUDA-event times only: their profiler traces (about 40 s
 # of the script's time limit for 108 points on an H100) were cut to pay
-# for serve_tuned and the scaled cases; each sweep line says so.
+# for serve_tuned and the scaled cases, and their repeats from 5 to
+# SWEEP_REPEATS to pay for the sampling contract's checks; each sweep line
+# says so.
+SWEEP_REPEATS = 3
 SWEEP_REDUCED = ["sweep points timed by CUDA events only (ms); no profiler "
-                 "trace, so kernel_ms is null"]
+                 "trace, so kernel_ms is null",
+                 f"repeats of 20 back-to-back calls a point 5 -> "
+                 f"{SWEEP_REPEATS}"]
 
 
 def sweep(name, case) -> dict:
@@ -5005,7 +5595,9 @@ def sweep(name, case) -> dict:
         key = ",".join(f"{k}={v}" for k, v in point.items())
         try:
             out[key] = timing_row(name, case, n_profile=0, plain=False,
-                                  config={**base, **point})
+                                  config={**base, **point},
+                                  repeats=SWEEP_REPEATS,
+                                  example=(args, kwargs))
         except ValueError as err:
             out[key] = {"refused": str(err)}
     return out
@@ -5457,8 +6049,7 @@ def past_the_limits() -> list:
     """``(label, wrapper, call)`` of configs built just past a shared-memory,
     cluster or block limit; each wrapper must refuse its own with
     ``ValueError`` before it launches."""
-    from repro_torch.kernels.attention.kernel import (DECODE_MAX_THREADS,
-                                                      decode_smem_bytes)
+    from repro_torch.kernels.attention.kernel import DECODE_MAX_THREADS
     from repro_torch.kernels.limits import MAX_CLUSTER, MAX_DYNAMIC_SMEM
     from repro_torch.kernels.routing.routing_kernel import max_input_capsules
     from repro_torch.kernels.sampling.kernel import sampling_smem_bytes
@@ -6055,7 +6646,7 @@ def tuner_spread(timings: dict, repeats: list, default: dict,
 # models served through it (every resolved config must equal the planted
 # one, and nothing is tuned); then the launcher twice on one cache.
 SERVE_TUNED_IMAGE_REQUESTS = 8
-SERVE_TUNED_LM_REQUESTS = 8
+SERVE_TUNED_LM_REQUESTS = 4
 TUNED_LAUNCHER_ARGS = ("--arch", "capsnet-mnist", "--no-reduced",
                        "--routing", "cuda", "--kernel-tune")
 
@@ -6307,7 +6898,8 @@ def _serve_tuned(root: str) -> dict:
                        "winner": a["best"], "winner_ms": best_ms,
                        "winner_over_default": best_ms / default_ms,
                        "autotune_s": a["seconds"]})
-    emit("serve_tuned", part="tuned", capsnet={
+    emit("serve_tuned", part="tuned",
+         reduced=[f"LM requests 8 -> {SERVE_TUNED_LM_REQUESTS}"], capsnet={
         "requests": len(images), "frames": sum(len(r.images) for r in images),
         "max_abs_err_lengths": caps_err, "classes_identical": True,
         "tuned_keys": [a["key"] for a in caps.autotunes]},

@@ -89,6 +89,9 @@ DECODE_TILE = 32                    # cache rows per warp tile of the decode ker
 DECODE_STAGES = 2                   # tiles a decode warp keeps staged
 DECODE_ROW_PAD = 16                 # bytes after each staged cache row
 DECODE_MAX_SPLITS = MAX_CLUSTER     # blocks of a decode cluster
+# cache rows a decode split is planned for at least: a staged tile for each
+# stage of each of the default block's 8 warps
+DECODE_SPLIT_ROWS = 8 * DECODE_STAGES * DECODE_TILE
 DECODE_MAX_THREADS = 512
 H100_SMS = 132                      # the SM count planned for off the card
 _SOFTMAX_MODES = ("exact", "taylor")
@@ -593,17 +596,22 @@ def decode_smem_bytes(d: int, threads: int, kv_bytes: int,
             + 4 * kv_splits * DECODE_CHUNK_GROUP * (d + 2))
 
 
-def decode_kv_splits(b: int, nkv: int, t: int, asked: int,
+def decode_kv_splits(nkv: int, t: int, asked: int,
                      n_sm: int = H100_SMS, group: int = 1) -> int:
     """Blocks per (slot, KV head, chunk of its ``group`` query heads): the
-    largest power of two that puts no more than one block on each of
-    ``n_sm`` SMs (B * K * chunks * splits <= n_sm, at least 1), no more
-    than ``asked``, than ``DECODE_MAX_SPLITS`` or than the slot's ``t``
-    rows have tiles.  (A block of the default 8 warps stages two tiles a
-    warp, 166 KB at D = 64 bf16: one fits an SM.)"""
+    largest power of two that gives each split at least
+    ``DECODE_SPLIT_ROWS`` of the cache's ``t`` rows and puts one slot's
+    blocks on no more than ``n_sm`` SMs (K * chunks * splits <= n_sm), at
+    least 1 and no more than ``asked`` or ``DECODE_MAX_SPLITS``.  The split
+    count sets a row's sums (the split ranges and their join), so it is
+    planned from the cache and the model alone, never from the batch: a
+    slot's output does not change with how many slots share the launch
+    (the sampling contract's schedule invariance).  (A block of the
+    default 8 warps stages two tiles a warp, 166 KB at D = 64 bf16: one
+    fits an SM.)"""
     chunks = decode_group_chunks(group)
     want = 1
-    while want < DECODE_MAX_SPLITS and b * nkv * chunks * want * 2 <= n_sm:
+    while (want < DECODE_MAX_SPLITS and nkv * chunks * want * 2 <= n_sm
+           and want * 2 * DECODE_SPLIT_ROWS <= t):
         want *= 2
-    tiles = -(-t // DECODE_TILE)
-    return max(1, min(int(asked), want, tiles, DECODE_MAX_SPLITS))
+    return max(1, min(int(asked), want))

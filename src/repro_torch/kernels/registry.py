@@ -649,11 +649,11 @@ _SM_COUNTS: Dict[Any, int] = {}
 
 def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
                      tables=None, **kwargs) -> Dict[str, Any]:
-    """``kv_splits`` no more than :func:`decode_kv_splits` plans for the
-    slots, KV heads, chunks of their query heads and rows at hand on this
-    card; then whole warps, at most 512 threads, and no more warps than the
-    block's shared memory holds at this head dim, cache type and split
-    count.  Shapes the wrapper refuses on every device (a cache that does
+    """``kv_splits`` no more than :func:`decode_kv_splits` plans for one
+    slot's KV heads, chunks of their query heads and rows on this card
+    (the same for every batch); then whole warps, at most 512 threads,
+    and no more warps than the block's shared memory holds at this head
+    dim, cache type and split count.  Shapes the wrapper refuses on every device (a cache that does
     not fit q) raise its ``ValueError``.  Idempotent."""
     from repro_torch.kernels.attention.kernel import (
         DECODE_MAX_THREADS, _check_decode_cache, decode_kv_splits,
@@ -663,10 +663,10 @@ def _legalize_decode(config: Dict[str, Any], q, k=None, *args,
     if len(args) >= 2:
         _check_decode_cache(q, k, args[0], args[1], tables,
                             kwargs.get("ks"), kwargs.get("vs"))
-    b, h, d = q.shape[0], q.shape[2], q.shape[-1]
+    h, d = q.shape[2], q.shape[-1]
     nkv, kv_bytes = k.shape[2], k.element_size()
     t = (tables.shape[1] * k.shape[1] if tables is not None else k.shape[1])
-    splits = decode_kv_splits(b, nkv, t, int(config["kv_splits"]),
+    splits = decode_kv_splits(nkv, t, int(config["kv_splits"]),
                               _sm_count(q.device), h // nkv)
     threads = max(WARP, min(DECODE_MAX_THREADS,
                             int(config["threads"]) // WARP * WARP))

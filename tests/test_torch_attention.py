@@ -516,11 +516,11 @@ class TestLegalize:
                                             **kwargs) == {"q_block": 32}
         spec = port_registry.get("decode_attention")
         args, kwargs = spec.make_example(spec.example_cases[0])
-        # 4 slots x 2 KV heads of 128 rows: the split is capped by the
-        # rows' four tiles
+        # 4 slots x 2 KV heads of 128 rows: one split (a split is planned
+        # for at least DECODE_SPLIT_ROWS rows)
         assert port_registry.default_config("decode_attention", *args,
                                             **kwargs) == {"threads": 256,
-                                                          "kv_splits": 4}
+                                                          "kv_splits": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -896,8 +896,9 @@ class TestDecodePlanner:
                                           torch.int8])
     def test_every_legal_config_fits_shared_memory(self, d, kv_dtype):
         spec = port_registry.get("decode_attention")
-        q = torch.zeros(8, 1, 16, d)
-        k = torch.zeros(8, 512, 8, d).to(kv_dtype)
+        q = torch.zeros(8, 1, 16, d, device="meta")
+        # a cache long enough for every split count of the space
+        k = torch.zeros(8, 4096, 8, d, dtype=kv_dtype, device="meta")
         for threads in spec.space["threads"] + (512,):
             for splits in spec.space["kv_splits"]:
                 cfg = port_registry_mod._legalize_decode(
@@ -910,14 +911,17 @@ class TestDecodePlanner:
                 assert port_registry_mod._legalize_decode(
                     dict(cfg), q, k) == cfg
 
-    @pytest.mark.parametrize("b,nkv,t,want", [
-        (8, 8, 1024, 2),       # serve_lm: 64 (slot, head) pairs, 128 blocks
-        (4, 8, 512, 4),        # qwen3 widths: 32 pairs
-        (1, 8, 1024, 8),
-        (16, 8, 1024, 1),      # 128 pairs fill the card alone
-        (2, 8, 64, 2),         # two tiles of rows
-        (1, 1, 16, 1),
+    @pytest.mark.parametrize("nkv,t,want", [
+        (8, 1024, 2),          # serve_lm: 512 rows a split
+        (8, 512, 1),           # qwen3 widths
+        (8, 4096, 8),          # a long cache: 8 splits of 512 rows
+        (32, 4096, 4),         # 32 heads: one slot's 128 blocks
+        (128, 4096, 1),        # 128 heads fill the card alone
+        (8, 64, 1),
+        (1, 16, 1),
     ])
-    def test_default_splits_fill_the_card(self, b, nkv, t, want):
-        assert port_attn.decode_kv_splits(b, nkv, t, 8) == want
-        assert port_attn.decode_kv_splits(b, nkv, t, 8, n_sm=66) <= want
+    def test_default_splits_fill_the_card(self, nkv, t, want):
+        """A split gets at least DECODE_SPLIT_ROWS rows and one slot's
+        blocks never outnumber the SMs, whatever the batch."""
+        assert port_attn.decode_kv_splits(nkv, t, 8) == want
+        assert port_attn.decode_kv_splits(nkv, t, 8, n_sm=66) <= want

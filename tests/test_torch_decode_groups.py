@@ -152,16 +152,17 @@ class TestPlanAgainstSource:
             assert sum(sizes) == g and min(sizes) >= 1
             assert max(sizes) <= port_attn.DECODE_CHUNK_GROUP
 
-    @pytest.mark.parametrize("b,nkv,g,want", [
-        (8, 8, 4, 2),        # serve_lm: unchanged
-        (8, 8, 6, 2),        # dbrx: one chunk
-        (8, 8, 12, 1),       # mistral-large: two chunks, 128 blocks
-        (4, 8, 12, 2),       # 64 blocks before splits
-        (4, 8, 40, 1),       # five chunks: 160 blocks
-        (2, 8, 24, 2),       # three chunks: 48 blocks
+    @pytest.mark.parametrize("nkv,g,want", [
+        (8, 4, 8),           # serve_lm: one chunk, 8 blocks a slot
+        (8, 6, 8),           # dbrx: one chunk
+        (16, 12, 4),         # two chunks: 32 blocks before splits
+        (8, 40, 2),          # five chunks: 40 blocks
+        (8, 24, 4),          # three chunks: 24 blocks
+        (32, 20, 1),         # three chunks: 96 blocks
     ])
-    def test_splits_count_chunks_as_blocks(self, b, nkv, g, want):
-        assert port_attn.decode_kv_splits(b, nkv, 1024, 8, group=g) == want
+    def test_splits_count_chunks_as_blocks(self, nkv, g, want):
+        # a cache of 8192 rows: 8 splits by rows, so the SMs bind
+        assert port_attn.decode_kv_splits(nkv, 8192, 8, group=g) == want
 
     @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
                                           torch.int8])
@@ -171,15 +172,18 @@ class TestPlanAgainstSource:
         the block's shared memory, counting chunks as blocks, and the plan
         capslint proves is the wrapper's."""
         spec = port_registry.get("decode_attention")
-        q = torch.zeros(8, 1, h, 128)
-        k = torch.zeros(8, 512, 8, 128).to(kv_dtype)
+        q = torch.zeros(8, 1, h, 128, device="meta")
+        # a cache long enough for every split count of the space
+        k = torch.zeros(8, 4096, 8, 128, dtype=kv_dtype, device="meta")
         chunks = port_attn.decode_group_chunks(h // 8)
         for threads in spec.space["threads"] + (512,):
             for splits in spec.space["kv_splits"]:
                 cfg = port_registry_mod._legalize_decode(
                     {"threads": threads, "kv_splits": splits}, q, k)
-                assert 8 * 8 * chunks * cfg["kv_splits"] <= \
+                assert 8 * chunks * cfg["kv_splits"] <= \
                     port_attn.H100_SMS or cfg["kv_splits"] == 1
+                assert cfg["kv_splits"] * port_attn.DECODE_SPLIT_ROWS \
+                    <= 4096
                 smem = port_attn.decode_smem_bytes(
                     128, cfg["threads"], k.element_size(), cfg["kv_splits"])
                 assert smem <= port_attn.MAX_DYNAMIC_SMEM

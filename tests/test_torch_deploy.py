@@ -300,7 +300,8 @@ def _imports(path: pathlib.Path):
 
 
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("pt_*.py"))
+    ROOT / "chip_smoke.py", ROOT / "tools" / "trace_seeded.py"] + sorted(
+    (ROOT / "examples").glob("pt_*.py"))
 
 
 def test_port_has_files_to_check():
