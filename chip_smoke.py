@@ -103,9 +103,16 @@ tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
 size and threads; sampling on a served decode tick's logits; and flash,
 decode and sampling at the geometries of qwen3-1.7b and the large models,
-which the kernel table lists under their rows).  Every
+which the kernel table lists under their rows; each kernel a captured path
+launches also inside one CUDA graph of 20 launches).  The CapsNet forward
+and the dense LM decode tick are replayed from CUDA graphs
+(``repro_torch.graphs``): ``serve_pruned``, ``serve_dense``, ``serve_lm``
+and ``serve_paged`` hold each graph against the same code run eagerly
+(lengths and logits rows bit for bit, the replayed launches against the
+counters, FPS, tok/s and tick ms both ways), and every phase's seconds
+line counts the graphs it captured and replayed.  Every
 profiler reading comes from a trace that holds every launch its calls made
-(``trace_rule``), or is null.  One JSON
+(``trace_rule``), taken eagerly, or is null.  One JSON
 object per phase goes to standard output, and a line of seconds after
 each phase; the last three lines are the
 kernel table, the card's name and power limit, and ``{"ok": true,
@@ -116,6 +123,7 @@ device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -138,6 +146,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import configs as cfg_lib  # noqa: E402
+from repro_torch import graphs  # noqa: E402
 from repro_torch.checkpointing import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.core import capsnet, pruning  # noqa: E402
 from repro_torch.data import synthetic_digits as sd  # noqa: E402
@@ -1336,9 +1345,11 @@ def forward_breakdown(deployed, n_forwards: int = 20) -> dict:
     """Where a full tick's time goes, at the engine's batch size.
 
     ``step_wall_ms``: host wall-clock of the engine's own step (pinned copy
-    in, forward, copy out; median of 20).  ``forward_wall_ms``: host
+    in, forward, copy out; median of 20), through the replayed graph, then
+    eager (``_eager``), then the graph again.  ``forward_wall_ms``: host
     wall-clock per forward of ``n_forwards`` back-to-back forwards ending in
-    a synchronise.  ``device_busy_ms``: the sum of the kernels' device times
+    a synchronise, graph then eager; ``forward_device_ms_graph`` a replayed
+    forward's device span by CUDA events.  ``device_busy_ms``: the sum of the kernels' device times
     per forward from a ``torch.profiler`` trace that holds every launch
     (None when every trace dropped events: profile_ms), with the busiest
     kernels by name; the device's idle share of a forward is what is left
@@ -1349,22 +1360,32 @@ def forward_breakdown(deployed, n_forwards: int = 20) -> dict:
                      cfg.in_channels).astype(np.float32)
     engine = deployed.serve(batch_size=BATCH)
     engine.warmup()
-    walls = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        engine.forward_host(batch)
-        walls.append((time.perf_counter() - t0) * 1e3)
-    walls.sort()
-    out = {"step_wall_ms": walls[len(walls) // 2]}
+    out = {}
+    for key, scope in (("step_wall_ms", contextlib.nullcontext),
+                       ("step_wall_ms_eager", graphs.eager),
+                       ("step_wall_ms_graph_again", contextlib.nullcontext)):
+        walls = []
+        with scope():
+            for _ in range(20):
+                t0 = time.perf_counter()
+                engine.forward_host(batch)
+                walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        out[key] = walls[len(walls) // 2]
 
     x = torch.from_numpy(batch).to(DEVICE)
-    deployed.forward(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_forwards):
-        deployed.forward(x)
-    torch.cuda.synchronize()
-    out["forward_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n_forwards
+    for key, fn in (("forward_wall_ms", deployed.forward),
+                    ("forward_wall_ms_eager", deployed._forward_eager)):
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_forwards):
+            fn(x)
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) * 1e3 / n_forwards
+    # the device's span of one replayed forward (the copy in, the graph,
+    # the copy of the lengths out), by CUDA events
+    out["forward_device_ms_graph"] = median_ms(lambda: deployed.forward(x))
 
     kernels, _, info = profile_ms(lambda: deployed.forward(x), n_forwards)
     out.update(busy_numbers(kernels, info, 6, out["forward_wall_ms"],
@@ -1458,7 +1479,9 @@ def profile_ms(fn, n_calls: int, attempts: int = PROFILE_ATTEMPTS,
     profiler's own overhead in it.  ``expect`` adds launches the counters
     cannot see (``{"Memcpy": n}``: a copy a call).  The info says whether
     the last trace was dropped, its events and launches, and the attempts
-    taken."""
+    taken.  The traced calls run eagerly (``graphs.eager``, ``"eager"`` in
+    the info): a graph's replay makes no launch call on the host, so the
+    counting rule could not hold a trace of one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1467,8 +1490,9 @@ def profile_ms(fn, n_calls: int, attempts: int = PROFILE_ATTEMPTS,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             before = wrapper_launches()
-            for _ in range(n_calls):
-                fn()
+            with graphs.eager():
+                for _ in range(n_calls):
+                    fn()
             torch.cuda.synchronize()
             after = wrapper_launches()
         rows, host, calls = [], {}, 0
@@ -1487,6 +1511,7 @@ def profile_ms(fn, n_calls: int, attempts: int = PROFILE_ATTEMPTS,
             rows, {**expected_launches(before, after, calls),
                    **(expect or {})}, n_calls)
         info["attempts"] = attempt
+        info["eager"] = True
         TRACES["taken"] += 1
         if kernels is not None:
             break
@@ -1524,7 +1549,8 @@ def busy_numbers(kernels, info, top: int, wall_ms=None,
     out = {"device_busy_ms": busy, "trace_dropped": info["trace_dropped"],
            "trace": {"kernel_events": info["events"].get(""),
                      "launches": info["launches"].get(""),
-                     "attempts": info["attempts"]},
+                     "attempts": info["attempts"],
+                     "eager": info.get("eager", True)},
            "device_ms_by_kernel": dict(sorted(
                (kernels or {}).items(), key=lambda kv: -kv[1])[:top])}
     if wall_ms is not None:
@@ -1576,6 +1602,8 @@ def phase_serve(phase: str, prune: bool, n_requests: int) -> dict:
             fail(f"{phase}: rid {r.rid} classes differ between variants")
     if max_err > 1e-4:
         fail(f"{phase}: lengths differ by {max_err} > 1e-4 between variants")
+    graph_numbers = {"cuda": capsnet_graphs(phase, fused, requests),
+                     "optimized": capsnet_graphs(phase, unfused, requests)}
 
     lat = stats.latency_summary()
     emit(phase, capsules=fused.cfg.n_primary_caps, params=fused.n_params,
@@ -1593,7 +1621,7 @@ def phase_serve(phase: str, prune: bool, n_requests: int) -> dict:
                   fused.cfg.digit_dim), device=DEVICE)),
          softmax_launches_unfused=counts_ref["taylor_softmax"],
          max_abs_err_vs_optimized=max_err, ambiguous_frames=ambiguous,
-         **forward_breakdown(fused))
+         graphs=graph_numbers, **forward_breakdown(fused))
     return {"fused_routing": counts["fused_routing"],
             "taylor_softmax": counts_ref["taylor_softmax"]}
 
@@ -2043,6 +2071,44 @@ def record_margins(engine) -> Margins:
     return margins
 
 
+def tick_walls(engine, n_ticks: int) -> dict:
+    """``n_ticks`` decode-only ticks by the host clock (a tick ends in the
+    copy of the tokens to the host) and by the device's span (CUDA
+    events), replayed from the engine's graphs (``tick_wall_ms``), then as
+    many eager (``_eager``): the medians.  An engine with a staged tick
+    (the dense family's) holds the replays' launches against the
+    counters over its graph ticks (replay_window: ``replayed_launches``);
+    the other families' ticks are eager both times."""
+    out = {}
+    calls = [sh.tick for sh in engine._shards if sh.tick is not None]
+    for suffix, scope in (("", contextlib.nullcontext),
+                          ("_eager", graphs.eager)):
+        walls, spans = [], []
+
+        def ticks():
+            for _ in range(n_ticks):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                engine.tick()
+                end.record()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                spans.append((start, end))
+
+        with scope():
+            if calls and not suffix:
+                out["replayed_launches"] = replay_window(calls, ticks)
+            else:
+                ticks()
+        torch.cuda.synchronize()
+        spans = sorted(a.elapsed_time(b) for a, b in spans)
+        walls.sort()
+        out[f"tick_wall_ms{suffix}"] = walls[len(walls) // 2]
+        out[f"tick_device_span_ms{suffix}"] = spans[len(spans) // 2]
+    return out
+
+
 def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8,
                           admission_trace: bool = True) -> dict:
     """Where a decode tick's time goes with every slot busy: 8 requests of
@@ -2055,7 +2121,9 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8,
     ticks, until a trace holds every launch; the admission tick is traced
     once, unless not ``admission_trace``: the families' serves, to fit the
     script's time limit); ``decode_ms`` and ``sampling_ms`` are the decode
-    attention and sampling kernels' device time per traced tick.  The
+    attention and sampling kernels' device time per traced tick (traced
+    eagerly: profile_ms); the timed ticks run through the engine's graphs,
+    then as many eager (tick_walls).  The
     requests ask for
     the tokens those ticks and served_sampling's draw and two more, so no
     slot empties before the last measured tick and few unmeasured ticks
@@ -2067,8 +2135,8 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8,
             kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3000 + i)
         engine.submit(Request(
             prompt=[int(t) for t in rng.randint(1, vocab // 2, size=512)],
-            max_new_tokens=n_ticks + TRACED_TICKS * TICK_TRACE_ATTEMPTS + 3,
-            rid=1000 + i, **kw))
+            max_new_tokens=2 * n_ticks + TRACED_TICKS * TICK_TRACE_ATTEMPTS
+            + 3, rid=1000 + i, **kw))
     # admission and the first step: one tick, traced once
     if admission_trace:
         kernels, _, trace = profile_ms(engine.tick, 1, attempts=1)
@@ -2077,13 +2145,7 @@ def decode_tick_breakdown(engine, vocab: int, n_ticks: int = 8,
     else:
         engine.tick()
         prefill = {"not_measured": ["the admission tick's profiler trace"]}
-    walls = []
-    for _ in range(n_ticks):
-        t0 = time.perf_counter()
-        engine.tick()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    walls.sort()
-    out = {"prefill_tick": prefill, "tick_wall_ms": walls[len(walls) // 2]}
+    out = {"prefill_tick": prefill, **tick_walls(engine, n_ticks)}
     kernels, host, trace = profile_ms(engine.tick, TRACED_TICKS,
                                       TICK_TRACE_ATTEMPTS)
     out.update(busy_numbers(kernels, trace, 8, out["tick_wall_ms"],
@@ -2125,19 +2187,24 @@ def served_sampling(engine) -> dict:
     from repro_torch import kernels as kernels_pkg
 
     seen = []
-    call = kernels_pkg.fused_sampling
+    call = kernels_pkg.fused_sampling_rows
 
-    def capture(logits, temp, seeds, pos, top_k=None, top_p=None, **kw):
+    def capture(logits, rows, **kw):
         if not seen:
-            seen.append((logits.clone(), temp, seeds, pos, top_k, top_p))
-        return call(logits, temp, seeds, pos, top_k=top_k, top_p=top_p,
-                    **kw)
+            host = rows.cpu().numpy()
+            seen.append((logits.clone(), host[0].view(np.float32),
+                         host[1].view(np.uint32), host[2], host[3],
+                         host[4].view(np.float32)))
+        return call(logits, rows, **kw)
 
-    kernels_pkg.fused_sampling = capture
+    # the tick eager (its graph would not call back into Python), its
+    # sampling launch's logits and packed rows kept
+    kernels_pkg.fused_sampling_rows = capture
     try:
-        engine.tick()
+        with graphs.eager():
+            engine.tick()
     finally:
-        kernels_pkg.fused_sampling = call
+        kernels_pkg.fused_sampling_rows = call
     logits, temp, seeds, pos, top_k, top_p = seen[0]
     b = logits.shape[0]
 
@@ -2449,7 +2516,8 @@ def phase_serve_lm() -> dict:
             kern, reqs, tok, tok_again, margins)
         seeded, further["seeded"] = seeded_schedules(kern, reqs, tok_again,
                                                      together)
-        return {**numbers, "seeded_schedules": seeded}
+        return {**numbers, "seeded_schedules": seeded,
+                "graphs": lm_graphs("serve_lm", kern, reqs, tok)}
 
     numbers, launches = serve_against_plain("serve_lm", cfg, params,
                                             breakdown=True, further=checks)
@@ -2459,6 +2527,202 @@ def phase_serve_lm() -> dict:
         for row, n in got.items():
             launches[row] = launches.get(row, 0) + n
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The compiled entry points (repro_torch.graphs): the CapsNet forward and the
+# dense family's decode tick replay CUDA graphs, the port's counterparts of
+# the reference's jax.jit.  Each is held here against the same staged code
+# run eagerly (graphs.eager) on the same card, back to back: the CapsNet's
+# lengths and the LM's logits rows bit for bit, classes and tokens equal;
+# the launches the replays added (each graph's capture-time counts times
+# its replays) against the wrappers' counters; the graphs captured and
+# re-captured and the capture seconds; FPS, tok/s and tick wall ms in both
+# modes.  The profiler's traces stay eager (profile_ms).
+# ---------------------------------------------------------------------------
+
+
+def graph_totals() -> dict:
+    return dict(graphs.TOTALS)
+
+
+def totals_since(before: dict) -> dict:
+    return {k: graphs.TOTALS[k] - before[k] for k in before}
+
+
+def replay_window(calls, run) -> dict:
+    """``run()`` with every graph of ``calls`` (CapturedCalls) already
+    captured: the wrappers' counter growth against the launches the
+    replays added (each call's capture-time counts times its replays in
+    the window), by kernel, for every counter a graph launches (an eager
+    prefill in the window launches flash, which no graph does); fails
+    where they differ, or where a call captured again."""
+    before = graphs.counters()
+    stats0 = [dict(c.stats) for c in calls]
+    run()
+    grown = graphs.count_delta(before, graphs.counters())
+    replayed = {}
+    for c, st in zip(calls, stats0):
+        if c.stats["captures"] != st["captures"]:
+            fail(f"{c.name}: captured again inside a replay window")
+        n = c.stats["replays"] - st["replays"]
+        for key, k in c.delta.items():
+            replayed[key] = replayed.get(key, 0) + n * k
+    seen = {k: grown.get(k, 0) for k in replayed}
+    if seen != replayed or not replayed:
+        fail(f"graphs: replayed launches {replayed} differ from the "
+             f"counters' growth {seen}")
+    return {"/".join(str(x) for x in key if x is not None): n
+            for key, n in sorted(replayed.items(), key=str)}
+
+
+def capsnet_graphs(phase: str, deployed, requests) -> dict:
+    """The CapsNet served through replayed graphs against the same engine
+    eager, back to back (graph, eager, graph): lengths bit-identical and
+    classes equal; the graphs' counts; the replayed launches against the
+    counters over a window of replays; FPS each way."""
+    engine = deployed.serve(batch_size=BATCH)
+    t_before = graph_totals()
+    engine.warmup()                        # captures every batch shape
+    calls = list(deployed._graphs.values())
+
+    def serve_once():
+        for r in requests:
+            engine.submit(ImageRequest(images=r.images, rid=r.rid))
+        t0 = time.perf_counter()
+        done = engine.run_until_idle()
+        wall = time.perf_counter() - t0
+        frames = sum(len(c.lengths) for c in done)
+        return {c.rid: c for c in done}, frames / wall
+
+    runs = {}
+    launches = replay_window(calls, lambda: runs.update(graph=serve_once()))
+    with graphs.eager():
+        runs["eager"] = serve_once()
+    runs["graph_again"] = serve_once()
+    (g, fps_g), (e, fps_e), (_, fps_g2) = (runs["graph"], runs["eager"],
+                                           runs["graph_again"])
+    same = sum(1 for r in requests
+               if np.array_equal(g[r.rid].lengths.view(np.int32),
+                                 e[r.rid].lengths.view(np.int32)))
+    for r in requests:
+        if not np.array_equal(g[r.rid].classes, e[r.rid].classes):
+            fail(f"{phase} (graphs): rid {r.rid} classes differ between the "
+                 f"replayed graph and the eager forward")
+    diff = max(float(np.abs(g[r.rid].lengths - e[r.rid].lengths).max())
+               for r in requests)
+    st = engine.graph_stats()
+    if st["recaptures"] or st["captures"] != len(
+            engine.scheduler.shapes(engine.capacity)):
+        fail(f"{phase} (graphs): {st}")
+    return {"card": nvidia_smi_line(),
+            "requests_bit_identical_lengths": same,
+            "requests": len(requests), "classes_identical": True,
+            "max_abs_lengths_graph_vs_eager": diff,
+            "captures": st["captures"], "recaptures": st["recaptures"],
+            "replays": st["replays"], "capture_s": st["capture_s"],
+            "totals": totals_since(t_before),
+            "replayed_launches": launches,
+            "fps_graph": fps_g, "fps_eager": fps_e, "fps_graph_again": fps_g2}
+
+
+def record_all_logits(engine, rows: dict) -> None:
+    """Keep in ``rows``, by (rid, position), every decode tick's logits row
+    (a float32 copy on the device) each active slot's token is drawn
+    from."""
+    inner = engine._observe_logits
+
+    def observe(logits, active, pos_of, lo=0):
+        for s, task in active:
+            rows[(task.rid, pos_of(s))] = logits[s - lo].to(torch.float32,
+                                                           copy=True)
+        inner(logits, active, pos_of, lo)
+
+    engine._observe_logits = observe
+
+
+def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
+    """A kernel engine's decode ticks replayed from its graphs against the
+    same engine's staged ticks run eagerly, back to back: every request's
+    tokens equal (and ``want_tokens``'s, an earlier run's), every decode
+    logits row bit for bit (else the first (rid, position) that parts and
+    by how much); the graphs' counts; the launches the graph run's replays
+    added, by kernel (its admission ticks' eager prefills launch more, the
+    decode of a one-token continuation among them: tick_walls holds the
+    replays against the counters over decode-only ticks); tok/s and ms
+    per tick each way."""
+    t_before = graph_totals()
+    if any(sh.tick is None for sh in engine._shards):
+        engine.serve([Request(prompt=[1, 2, 3, 4] * 8, max_new_tokens=3,
+                              rid=10 ** 6)])
+    calls = [sh.tick for sh in engine._shards]
+    runs = {}
+
+    def serve(mode):
+        rows = {}
+        record_all_logits(engine, rows)
+        stats0 = engine.stats()
+        t0 = time.perf_counter()
+        try:
+            done = engine.serve(fresh(reqs))
+        finally:
+            engine.__dict__.pop("_observe_logits", None)
+        wall = time.perf_counter() - t0
+        st = engine.stats()
+        runs[mode] = {"tokens": {c.rid: c.tokens for c in done},
+                      "rows": rows, "wall_s": wall,
+                      "tok_per_s": (st.items - stats0.items) / wall,
+                      "ms_per_tick": 1e3 * (st.wall_s - stats0.wall_s)
+                      / max(st.ticks - stats0.ticks, 1)}
+
+    replays0 = [c.stats["replays"] for c in calls]
+    serve("graph")
+    replays = [c.stats["replays"] - r for c, r in zip(calls, replays0)]
+    launches = {}
+    for c, n in zip(calls, replays):
+        for key, k in c.delta.items():
+            name = "/".join(str(x) for x in key if x is not None)
+            launches[name] = launches.get(name, 0) + n * k
+    with graphs.eager():
+        serve("eager")
+    g, e = runs["graph"], runs["eager"]
+    if g["tokens"] != e["tokens"]:
+        bad = sorted(r for r in g["tokens"] if g["tokens"][r] != e["tokens"][r])
+        fail(f"{label} (graphs): tokens of rids {bad} differ between the "
+             f"replayed graph and the eager tick")
+    if want_tokens is not None and any(g["tokens"].get(r) != t
+                                       for r, t in want_tokens.items()):
+        fail(f"{label} (graphs): the graph run's tokens part from the "
+             f"first run's")
+    keys = sorted(g["rows"])
+    if sorted(e["rows"]) != keys:
+        fail(f"{label} (graphs): the two runs drew other (rid, position)s")
+    a = torch.stack([g["rows"][k] for k in keys])
+    b = torch.stack([e["rows"][k] for k in keys])
+    differs = (a != b).any(-1).cpu().numpy()
+    first = None
+    if differs.any():
+        i = int(np.argmax(differs))
+        first = {"rid": keys[i][0], "position": keys[i][1],
+                 "max_abs": float((a[i] - b[i]).abs().max())}
+    del a, b, runs
+    st = engine.graph_stats()
+    if st["recaptures"]:
+        fail(f"{label} (graphs): {st['recaptures']} re-captures")
+    return {"card": nvidia_smi_line(), "tokens_identical": True,
+            "requests": len(reqs),
+            "tokens_equal_first_run": want_tokens is not None,
+            "logits_rows": len(keys),
+            "logits_rows_bit_identical": int((~differs).sum()),
+            "first_differing_row": first,
+            "captures": st["captures"], "recaptures": st["recaptures"],
+            "replays_in_graph_run": sum(replays),
+            "capture_s": st["capture_s"],
+            "totals": totals_since(t_before), "replayed_launches": launches,
+            "tok_per_s_graph": g["tok_per_s"],
+            "tok_per_s_eager": e["tok_per_s"],
+            "ms_per_tick_graph": g["ms_per_tick"],
+            "ms_per_tick_eager": e["ms_per_tick"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2497,17 +2761,17 @@ def record_seeded_logits(engine, logits: dict) -> None:
             logits[(task.rid, pos)] = np.array(logits_row, np.float32)
         return on_host_inner(logits_row, task, pos)
 
-    on_device_inner = engine._sample_batch_device
+    on_device_inner = engine._observe_logits
 
     def on_device(rows, active, pos_of, lo=0):
         for s, task in active:
             if sampled(task):
                 logits[(task.rid, pos_of(s))] = rows[s - lo].to(
                     torch.float32, copy=True)
-        return on_device_inner(rows, active, pos_of, lo)
+        on_device_inner(rows, active, pos_of, lo)
 
     engine._sample_task_row = on_host
-    engine._sample_batch_device = on_device
+    engine._observe_logits = on_device
 
 
 def rows_on_host(rows: dict) -> dict:
@@ -2675,6 +2939,16 @@ def seeded_schedules(kern, reqs, tok_together, together: dict) -> tuple:
              f"{pressure}")
     out["pressured"]["pressure"] = pressure
     out["gemm_probe"] = gemm_probe(kern.cfg)
+    # ROADMAP §C Open 1, step 1: cuBLAS's bf16 reduced-precision
+    # reduction off (the port never sets it)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out["gemm_probe_no_reduced_precision"] = gemm_probe(kern.cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    out["gemm_probe"]["allow_bf16_reduced_precision_reduction"] = flag
     counts = launch_counts()
     return out, {"flash_attention": counts["flash_attention"],
                  "decode_attention": counts["dense"],
@@ -3750,6 +4024,9 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
                  f"decode ticks)")
     check_prefill_bodies(f"serve_paged ({mode})", counts)
     pg = dict(stats.pages)
+    # the prefix cache is warm from here on: the graph and eager runs
+    # meet it alike (the first run's prefill groups were other ones)
+    graph_numbers = lm_graphs(f"serve_paged ({mode})", kern, reqs)
     if not (pg["prefix_hits"] >= LM_SLOTS - 1 and pg["allocated"] > 0
             and pg["prefix_pages_hit"]
             == SHARED_PREFIX // PAGE * pg["prefix_hits"]):
@@ -3790,7 +4067,7 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
             b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
         greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
         margin_rule=MARGIN_RULE, first_divergence=first_diff,
-        seeded_bit_identical=True, **breakdown)
+        seeded_bit_identical=True, graphs=graph_numbers, **breakdown)
     return out, counts
 
 
@@ -3834,7 +4111,7 @@ def record_kernel_margins(engine) -> Margins:
     every active slot (Margins.ticks: nothing crosses to the host while the
     engine serves)."""
     margins = record_margins(engine)
-    inner = engine._sample_batch_device
+    inner = engine._observe_logits
 
     def wrapped(logits, active, pos_of, lo=0):
         x = logits.float()
@@ -3844,9 +4121,9 @@ def record_kernel_margins(engine) -> Margins:
         tick = len(margins.ticks) - 1
         for s, task in active:
             margins.at[(task.rid, pos_of(s))] = (tick, s - lo)
-        return inner(logits, active, pos_of, lo)
+        inner(logits, active, pos_of, lo)
 
-    engine._sample_batch_device = wrapped
+    engine._observe_logits = wrapped
     return margins
 
 
@@ -3861,7 +4138,7 @@ def kernel_margins_of(engine, reqs, logits=None) -> tuple:
     try:
         done = engine.serve(fresh(reqs))
     finally:
-        for hook in ("_sample_task_row", "_sample_batch_device"):
+        for hook in ("_sample_task_row", "_observe_logits"):
             engine.__dict__.pop(hook, None)
     return {c.rid: c.tokens for c in done}, margins
 
@@ -3881,7 +4158,7 @@ def unified_reference(cfg, params, reqs, seeded=None, **kw) -> tuple:
     wall = time.perf_counter() - t0
     stats = eng.stats()
     if seeded is not None:
-        for hook in ("_sample_task_row", "_sample_batch_device"):
+        for hook in ("_sample_task_row", "_observe_logits"):
             eng.__dict__.pop(hook, None)
         seeded["rows"] = {}
         seeded["tokens"] = serve_seeded(eng, reqs, seeded["rows"])
@@ -5199,18 +5476,26 @@ def sharded_mesh():
 def launches_by_block(engine) -> list:
     """Per block of a sharded ServeEngine, the launches its per-block calls
     made (the counters' growth across each call, the block read from the
-    call's shard or its first slot)."""
+    call's shard or its first slot; a staged tick's replay adds its
+    graph's launches; a call inside a counted one is counted there)."""
     by = [{} for _ in engine._shards]
+    depth = [0]
 
     def counted(k, fn, *a, **kw):
+        if depth[0]:
+            return fn(*a, **kw)
         before = launch_counts()
-        out = fn(*a, **kw)
+        depth[0] += 1
+        try:
+            out = fn(*a, **kw)
+        finally:
+            depth[0] -= 1
         for name, n in launch_counts().items():
             by[k][name] = by[k].get(name, 0) + n - before[name]
         return out
 
     for method in ("_prefill_scatter", "_decode", "_decode_paged_impl",
-                   "_prefill_paged_impl"):
+                   "_prefill_paged_impl", "_tick_shard"):
         inner = getattr(engine, method)
         setattr(engine, method,
                 lambda sh, *a, _f=inner, **kw: counted(sh.index, _f, sh, *a,
@@ -5524,12 +5809,53 @@ KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
                 "fused_sampling": "fused_sampling_kernel"}
 
 
+# The kernels a captured path launches (the CapsNet forward's routing and
+# softmax, the decode tick's attention and sampling): timing_row also times
+# them inside one CUDA graph (graph_ms).
+GRAPHED = ("fused_routing", "taylor_softmax", "decode_attention",
+           "fused_sampling")
+GRAPH_LAUNCHES = 20
+
+
+def graph_ms(call, launches: int = GRAPH_LAUNCHES, repeats: int = 5) -> float:
+    """ms per launch of ``call`` inside one CUDA graph of ``launches``
+    back-to-back calls, by CUDA events around a replay (median of
+    ``repeats``): the kernel's time without the wrapper's host work.  The
+    warm-up and the capture leave the launch counters as they were."""
+    before = graphs.counters()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(launches):
+            call()
+    graphs.restore_counts(before)
+    g.replay()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del g
+    times.sort()
+    return times[len(times) // 2]
+
+
 def timing_row(name, case, n_profile: int = 20, config=None,
                plain: bool = True, repeats: int = 5, example=None) -> dict:
     """Kernel time by CUDA events (``ms``, wrapper included), the kernel
     alone by profiler events (``kernel_ms``: device time over the events of
     a trace that holds every launch, else None with ``trace_dropped``; not
-    taken when ``n_profile`` is 0), the plain version's and the library
+    taken when ``n_profile`` is 0), for a kernel of a captured path
+    (GRAPHED) the time a launch takes inside a CUDA graph (``graph_ms``,
+    with ``n_profile``), the plain version's and the library
     call's time, and the bound, at one case, with the default config or
     ``config`` over it (the plain version's and the library call's times
     only when ``plain``; ``example``, the case's inputs when already made).
@@ -5556,6 +5882,8 @@ def timing_row(name, case, n_profile: int = 20, config=None,
     if kernel_ms is not None and kernel_ms < row["bound_ms"]:
         fail(f"timings: {name} {case_shape(case)} {cfg}: kernel ms "
              f"{kernel_ms} below its bound {row['bound_ms']}")
+    if n_profile and name in GRAPHED:
+        row["graph_ms"] = graph_ms(call)
     if plain:
         fn = PLAIN.get(name)
         plain_call = ((lambda: fn(*args, **kwargs)) if fn
@@ -6730,6 +7058,43 @@ def hold_images(label: str, got: dict, want: dict) -> float:
     return err
 
 
+def tuned_schedules(cfg, params, reqs) -> dict:
+    """ROADMAP §C Open 2: serve_tuned's requests, every one sampled (seed
+    2000 + rid), through kernel_tune=True engines of LM_SLOTS and of
+    OTHER_SLOTS slots on the phase's tune cache: the sampling contract
+    between the two schedules (compare_seeded: tokens and logits rows)
+    and the decode configs each engine resolved (TuneWatch), which must
+    be the same launch plans (the tuned config is keyed without the
+    batch)."""
+    seeded = [dataclasses.replace(r, prompt=list(r.prompt), temperature=0.8,
+                                  top_k=50, top_p=0.9, seed=2000 + r.rid)
+              for r in reqs]
+    runs, plans = {}, {}
+    for n in (LM_SLOTS, OTHER_SLOTS):
+        eng = ServeEngine(cfg, params, n_slots=n, max_len=LM_MAX_LEN,
+                          decode_kernel=True, kernel_tune=True, device=DEVICE)
+        rows = {}
+        with TuneWatch() as watch:
+            tok = serve_seeded(eng, seeded, rows)
+        runs[n] = (tok, rows)
+        plans[n] = sorted({(key, json.dumps(c, sort_keys=True))
+                           for name, key, c in watch.resolved
+                           if name == "decode_attention"})
+        del eng
+    numbers, _ = compare_seeded(
+        f"serve_tuned ({OTHER_SLOTS} slots against {LM_SLOTS})", seeded,
+        runs[LM_SLOTS], runs[OTHER_SLOTS])
+    configs = {n: sorted({c for _, c in p}) for n, p in plans.items()}
+    if configs[LM_SLOTS] != configs[OTHER_SLOTS]:
+        fail(f"serve_tuned: the tuned decode plans follow the batch: "
+             f"{configs}")
+    numbers["decode_keys"] = {str(n): [k for k, _ in p]
+                              for n, p in plans.items()}
+    numbers["decode_configs"] = {str(n): [json.loads(c) for c in cs]
+                                 for n, cs in configs.items()}
+    return numbers
+
+
 def serve_lm_tuned(label: str, cfg, params, reqs, tok_ref, margins) -> tuple:
     """``reqs`` twice through a fresh ServeEngine(kernel_tune=True) with the
     kernels: greedy tokens held against the untuned engine's (``tok_ref``,
@@ -6884,6 +7249,7 @@ def _serve_tuned(root: str) -> dict:
         if a["name"] == "flash_attention")
     lm_numbers["tok_per_s_without_autotune"] = lm_numbers["new_tokens"] / (
         lm_numbers["tick_wall_s"] - decode_s)
+    lm_numbers["schedules"] = tuned_schedules(lm_cfg, params, reqs)
     # each tuned key's default and winner, back to back (M2)
     record = []
     for a in caps.autotunes + lm_watch.autotunes:
@@ -6955,10 +7321,14 @@ def _serve_tuned(root: str) -> dict:
 
 
 def timed(phase: str, fn, *args):
-    """``fn(*args)``, then the phase's own line of seconds."""
+    """``fn(*args)``, then the phase's own line of seconds, with the CUDA
+    graphs the phase captured, re-captured and replayed, its eager runs of
+    graph call sites and its capture seconds."""
     t0 = time.perf_counter()
+    before = graph_totals()
     out = fn(*args)
-    emit(phase, part="seconds", seconds=time.perf_counter() - t0)
+    emit(phase, part="seconds", seconds=time.perf_counter() - t0,
+         graphs=totals_since(before), card=nvidia_smi_line())
     return out
 
 

@@ -3,7 +3,7 @@
 
 The port keeps the reference's conventions that no general-purpose linter
 knows about: shared engine state mutates under its annotated lock
-(``# guarded-by:``), the code a captured CUDA graph would replay stays free
+(``# guarded-by:``), the code a captured CUDA graph replays stays free
 of host syncs and frozen host reads, every tuner candidate a kernel's
 ``legalize`` can emit fits Hopper's launch limits, and broad ``except``
 handlers never swallow errors silently.  This package turns those

@@ -1,9 +1,9 @@
-"""graph-purity: the code a captured CUDA graph would replay stays pure.
+"""graph-purity: the code a captured CUDA graph replays stays pure.
 
-Where the reference jits (``jax.jit``, ``pl.pallas_call``), the port runs
-eager PyTorch; a CUDA graph (ROADMAP A2) is what would stand there.  A
-captured graph replays the device work it recorded once, so four classes
-of Python are wrong in the code it captures:
+Where the reference jits (``jax.jit``, ``pl.pallas_call``), the port
+captures a CUDA graph (:mod:`repro_torch.graphs`) or launches its own
+kernels.  A captured graph replays the device work it recorded once, so
+four classes of Python are wrong in the code it captures:
 
 * **host-branch** — a Python ``if``/``while`` on a tensor-derived value
   (the branch needs the value on the host, and the one taken at capture
@@ -18,13 +18,18 @@ of Python are wrong in the code it captures:
   (``# guarded-by:`` annotated fields, the annotation the lock-discipline
   rule uses): the graph bakes one snapshot while the engine mutates.
 
-**Roots.**  The port captures no graph yet and marks no root in its code,
-so the roots are a fixed table, :data:`ROOTS`: for each of the reference's
-24 ``jax.jit`` / ``pl.pallas_call`` roots (what ``repro.analysis``' own
-root finder gives over ``src/repro``), the port's counterparts — Python
-functions (``module:qualname``) or, for a Pallas body, the CUDA C++ kernel
-in ``csrc/`` (``csrc/<file>.cu:<function>``: not Python, so not scanned,
-but it must be there).  A row that no longer resolves is itself an error
+**Roots.**  The port marks no root in its code: the roots are a fixed
+table, :data:`ROOTS`.  For each of the reference's 24 ``jax.jit`` /
+``pl.pallas_call`` roots (what ``repro.analysis``' own root finder gives
+over ``src/repro``) it names the port's counterparts — Python functions
+(``module:qualname``) or, for a Pallas body, the CUDA C++ kernel in
+``csrc/`` (``csrc/<file>.cu:<function>``: not Python, so not scanned, but
+it must be there).  The functions the port really captures are among
+them: ``DeployedCapsNet._forward_body`` (the compiled forward, a graph
+per input shape), ``ServeEngine._tick_body`` (the dense family's staged
+decode tick, dense caches or paged) and ``kernels.registry``'s
+``fused_sampling_rows`` (the device half of sampling that tick
+launches).  A row that no longer resolves is itself an error
 (**missing-root**), so the table cannot rot silently.  A Python root is
 checked when its module is scanned; a root whose module is missing is
 reported only when the scan holds the whole package (its
@@ -103,7 +108,8 @@ _DECODE_CU = ("csrc/decode_attention.cu:decode_attention_kernel",)
 #: The reference's 24 roots and their counterparts in the port.
 ROOTS: Tuple[Root, ...] = (
     Root("src/repro/deploy/pipeline.py:209 FastCapsPipeline.<lambda>",
-         ("repro_torch.deploy.pipeline:DeployedCapsNet.forward",)),
+         ("repro_torch.deploy.pipeline:DeployedCapsNet.forward",
+          "repro_torch.deploy.pipeline:DeployedCapsNet._forward_body")),
     Root("src/repro/kernels/attention/kernel.py:55 _flash_kernel",
          _FLASH_CU),
     Root("src/repro/kernels/attention/kernel.py:155 _flash_dequant_kernel",
@@ -128,7 +134,8 @@ ROOTS: Tuple[Root, ...] = (
     Root("src/repro/kernels/registry.py:565 decode_attention_entry",
          (f"{_ATTN}:decode_attention_cuda",)),
     Root("src/repro/kernels/registry.py:711 fused_sampling_entry",
-         ("repro_torch.kernels.sampling.kernel:fused_sampling_cuda",)),
+         ("repro_torch.kernels.sampling.kernel:fused_sampling_cuda",
+          "repro_torch.kernels.registry:fused_sampling_rows")),
     Root("src/repro/kernels/routing/routing_kernel.py:50 _routing_kernel",
          ("csrc/routing.cu:fused_routing_kernel",)),
     Root("src/repro/kernels/sampling/kernel.py:20 _fused_sampling_kernel",
@@ -141,7 +148,7 @@ ROOTS: Tuple[Root, ...] = (
          ("repro_torch.launch.train:train_capsnet.forward_classes",),
          host=("c",)),
     Root("src/repro/serving/engine.py:145 ServeEngine.<lambda>",
-         (f"{_ENGINE}._decode",)),
+         (f"{_ENGINE}._decode", f"{_ENGINE}._tick_body")),
     Root("src/repro/serving/engine.py:148 ServeEngine.<lambda>",
          (f"{_ENGINE}._prefill_scatter",)),
     Root("src/repro/serving/engine.py:152 ServeEngine.<lambda>",
@@ -149,7 +156,7 @@ ROOTS: Tuple[Root, ...] = (
     Root("src/repro/serving/engine.py:154 ServeEngine.<lambda>",
          ("repro_torch.models.lm:scatter_cache_rows",), host=("slot_idx",)),
     Root("src/repro/serving/engine.py:163 ServeEngine.<lambda>",
-         (f"{_ENGINE}._decode_paged_impl",)),
+         (f"{_ENGINE}._decode_paged_impl", f"{_ENGINE}._tick_body")),
     Root("src/repro/serving/engine.py:166 ServeEngine.<lambda>",
          (f"{_ENGINE}._prefill_paged_impl",)),
     Root("src/repro/training/trainer.py:63 step",
@@ -182,7 +189,7 @@ class _Root:
 
 class GraphPurityChecker:
     name = "graph-purity"
-    description = ("functions a captured CUDA graph would replay (the "
+    description = ("functions a captured CUDA graph replays (the "
                    "port's counterparts of the reference's jit roots) "
                    "must not branch on tensors, copy them to the host, "
                    "read wall-clock/RNG globals, or close over guarded "

@@ -7,11 +7,14 @@
     deployed = pipe.compile(routing="cuda")
 
 ``compile`` returns an immutable :class:`DeployedCapsNet`: config + params
-frozen together with an eager fixed-signature forward and parameter/FLOP
+frozen together with a fixed-signature forward and parameter/FLOP
 accounting — the artifact :class:`repro_torch.serving.CapsuleEngine`
-serves.  ``deployed.serve(scheduler=...)`` wraps it in that engine
-directly, so the Fig. 6 pipeline flows into SLO-scheduled serving in one
-chain.
+serves.  On the card the forward is compiled the way the reference's
+``jax.jit`` compiles it, once per input shape: the first call of a shape
+captures a CUDA graph of the forward (:mod:`repro_torch.graphs`), every
+later call replays it.  ``deployed.serve(scheduler=...)`` wraps it in that
+engine directly, so the Fig. 6 pipeline flows into SLO-scheduled serving
+in one chain.
 
 Stages are enforced in order (``prune`` before ``compact``; ``compact``
 before a second ``prune``), matching the one-way arrows of Fig. 6; every
@@ -26,16 +29,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.checkpointing import checkpoint
 from repro_torch.core import capsnet as capsnet_lib
 from repro_torch.core import lakp as lakp_lib
 from repro_torch.core import routing as routing_lib
 from repro_torch.deploy.registry import RoutingSpec, normalize
 from repro_torch.device import resolve_device
+from repro_torch.models.common import tree_leaves
 
 
 class PipelineError(RuntimeError):
@@ -66,11 +72,16 @@ def _to_device(tree: Any, device: torch.device) -> Any:
 class DeployedCapsNet:
     """Immutable deployment artifact: config + params + forward.
 
-    The forward runs eagerly under ``torch.inference_mode()`` (no
-    ``torch.compile``, no CUDA graph) on parameters that were moved to
-    ``device`` once, when the artifact was built (``device=None`` means the
-    card and raises when there is none).  Building an artifact switches
-    TF32 off for cuDNN convolutions and for matmuls
+    The forward runs under ``torch.inference_mode()`` on parameters that
+    were moved to ``device`` once, when the artifact was built
+    (``device=None`` means the card and raises when there is none).  On
+    the card it replays one CUDA graph per input shape and type, captured
+    at the shape's first call (the counterpart of the reference's
+    ``jax.jit`` retracing per shape; :mod:`repro_torch.graphs`): the images
+    are copied into the graph's static input (from the device, or
+    asynchronously from pinned host memory), and the lengths come back as
+    a fresh tensor.  On the CPU the same forward runs eagerly.  Building
+    an artifact switches TF32 off for cuDNN convolutions and for matmuls
     (``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` are set to False, process
     wide): cuDNN would otherwise run a float32 convolution in TF32, which
@@ -94,14 +105,49 @@ class DeployedCapsNet:
         object.__setattr__(self, "params", _to_device(self.params, device))
         object.__setattr__(
             self, "cfg", dataclasses.replace(self.cfg, routing=self.spec))
+        # one captured forward per input (shape, type, tuning policy); not
+        # a field, so dataclasses.replace makes a replica with graphs of
+        # its own.  The lock keeps two threads' calls off one static input.
+        object.__setattr__(self, "_graphs", {})
+        object.__setattr__(self, "_lock", threading.Lock())
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, C) on ``device`` -> class capsule lengths
-        (B, n_classes)."""
-        with torch.inference_mode():
-            return capsnet_lib.forward(self.params, self.cfg, images)[0]
+        """images (B, H, W, C) -> class capsule lengths (B, n_classes),
+        a fresh tensor.  The images are copied into the static input of
+        their shape (from ``device``, or asynchronously from pinned host
+        memory); on the card that shape's graph is replayed (captured at
+        its first call under the current tuning policy:
+        :func:`repro_torch.graphs.config_key`), on the CPU the same
+        forward runs eagerly."""
+        key = (tuple(images.shape), images.dtype) + graphs.config_key()
+        with self._lock, torch.inference_mode():
+            call = self._graphs.get(key)
+            if call is None:
+                call = graphs.CapturedCall(
+                    self._forward_body,
+                    {"images": torch.empty(images.shape, dtype=images.dtype,
+                                           device=self.device)},
+                    name=f"DeployedCapsNet.forward {key}")
+                self._graphs[key] = call
+            call.stage(images=images)
+            return call(reads=tree_leaves(self.params))
 
     __call__ = forward
+
+    def _forward_eager(self, images: torch.Tensor) -> torch.Tensor:
+        """The forward run eagerly on ``images`` on ``device``, no graph
+        and no static input: what the graphs are held against."""
+        with torch.inference_mode():
+            return self._forward_body(images)
+
+    def _forward_body(self, images: torch.Tensor) -> torch.Tensor:
+        """What a graph captures: the forward on its static images."""
+        return capsnet_lib.forward(self.params, self.cfg, images)[0]
+
+    def graph_stats(self) -> Dict[str, float]:
+        """Graphs captured, re-captured and replayed, eager runs and
+        capture seconds of this artifact's forward."""
+        return graphs.graph_stats(list(self._graphs.values()))
 
     def classify(self, images: torch.Tensor) -> torch.Tensor:
         """images -> predicted class ids (B,)."""
@@ -238,8 +284,10 @@ class FastCapsPipeline:
         ``routing``: a :class:`RoutingSpec`, a variant name (deployment
         defaults via ``RoutingSpec.named``), or None to keep the config's
         own spec.  Valid from any stage with params (deploy-the-dense-model
-        is the Fig. 1 baseline).  Nothing is traced or compiled: the
-        forward is an eager closure over the frozen config.
+        is the Fig. 1 baseline).  The artifact's forward is compiled per
+        input shape at its first call on the card, as the reference's
+        ``jax.jit`` is: a CUDA graph captured then and replayed after
+        (:meth:`DeployedCapsNet.forward`).
         """
         self._require("built", "pruned", "finetuned", "compacted")
         if routing is None:

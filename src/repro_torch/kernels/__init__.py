@@ -15,6 +15,8 @@ from repro_torch.kernels.registry import (KernelRegistry,  # noqa: F401
                                           flash_attention,
                                           flash_attention_dequant,
                                           fused_routing,
-                                          fused_sampling, registry,
+                                          fused_sampling,
+                                          fused_sampling_rows,
+                                          pack_sampling_rows, registry,
                                           taylor_softmax,
                                           taylor_softmax_bwd)

@@ -165,10 +165,14 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use and loaded once per
-    process."""
+    process; a first use inside a CUDA graph's capture raises
+    :class:`repro_torch.graphs.GraphError` (the kernels build before it)."""
     global _library
     with _lock:
         if _library is None:
+            from repro_torch import graphs
+
+            graphs.refuse_in_capture("building the kernels' library")
             tag = _source_hash()
             path = build_dir() / f"libfastcaps_{tag}.so"
             if not path.exists():

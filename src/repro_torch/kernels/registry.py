@@ -69,6 +69,11 @@ class KernelSpec:
     example_cases: Tuple[Mapping[str, Any], ...] = ()
     ref_accepts: Tuple[str, ...] = ()     # semantic kwargs the oracle takes
     launch_plan: Optional[Callable[..., Dict[str, int]]] = None
+    # the tuned config is keyed without each argument's leading (batch)
+    # axis (:func:`repro_torch.kernels.tuning.cache_key_for`), for a kernel
+    # whose tunables set a row's sums: a tuned launch then gives a slot the
+    # same bits at every batch
+    batch_free_key: bool = False
 
     def ref_call(self, *args, **kwargs):
         """Invoke the plain version, filtering kwargs it does not accept."""
@@ -765,6 +770,9 @@ registry.register(KernelSpec(
          "softmax_mode": "taylor", "atol": 5e-2},
     ) + PORT_DECODE_CASES,
     ref_accepts=("tables", "ks", "vs"),
+    # kv_splits and threads set a slot's sums (the split ranges and the
+    # warps' tiles, joined in order)
+    batch_free_key=True,
 ))
 
 
@@ -926,20 +934,15 @@ def decode_attention(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
                          tune=tune)
 
 
-def fused_sampling(logits, temperature, seeds, pos, top_k=None, top_p=None,
-                   cluster: Optional[int] = None,
-                   threads: Optional[int] = None,
-                   tune: Optional[bool] = None):
-    """Fused sampling: logits (B, V) float32 and per-row temperature / seed
-    / position / top_k / top_p -> (B,) int32 tokens.  Scalars and host
-    arrays are broadcast to (B,) and reach the logits' device in one copy;
-    ``top_k`` None or 0 and ``top_p`` None or 1.0 leave the restriction
-    off.  Seeds are taken modulo 2^32, as the kernel's uint32 hash reads
-    them."""
+def pack_sampling_rows(b: int, temperature, seeds, pos, top_k=None,
+                       top_p=None):
+    """The host half of :func:`fused_sampling`: the five per-row arguments
+    broadcast to (B,) and packed as one (5, B) int32 numpy array of bit
+    patterns (temperature, seed, position, top_k, top_p; the floats'
+    float32 bits, the integers' low 32 bits, so a seed of 2^31 or more
+    keeps its bits).  ``top_k`` None or 0 and ``top_p`` None or 1.0 leave
+    the restriction off."""
     import numpy as np
-    import torch
-
-    b = logits.shape[0]
 
     def row(x, default, floating):
         """(B,) int32 bit patterns of a float32 or a uint32 row."""
@@ -949,12 +952,41 @@ def fused_sampling(logits, temperature, seeds, pos, top_k=None, top_p=None,
         return (x.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32).view(
             np.int32)
 
-    packed = np.stack([row(temperature, 0.0, True), row(seeds, 0, False),
-                       row(pos, 0, False), row(top_k, 0, False),
-                       row(top_p, 1.0, True)])
-    temp, seed, posr, tk, tp = torch.from_numpy(packed).to(
-        logits.device).unbind(0)
+    return np.stack([row(temperature, 0.0, True), row(seeds, 0, False),
+                     row(pos, 0, False), row(top_k, 0, False),
+                     row(top_p, 1.0, True)])
+
+
+def fused_sampling_rows(logits, rows, cluster: Optional[int] = None,
+                        threads: Optional[int] = None,
+                        tune: Optional[bool] = None):
+    """The device half of :func:`fused_sampling`: logits (B, V) float32 and
+    the packed (5, B) int32 rows of :func:`pack_sampling_rows`, already
+    where the logits are, -> (B,) int32 tokens.  It reads nothing on the
+    host, so a captured decode tick launches it on its static buffers."""
+    import torch
+
+    temp, seed, posr, tk, tp = rows.unbind(0)
     return registry.call(
         "fused_sampling", logits, temp.view(torch.float32), seed, posr, tk,
         tp.view(torch.float32),
         config={"cluster": cluster, "threads": threads}, tune=tune)
+
+
+def fused_sampling(logits, temperature, seeds, pos, top_k=None, top_p=None,
+                   cluster: Optional[int] = None,
+                   threads: Optional[int] = None,
+                   tune: Optional[bool] = None):
+    """Fused sampling: logits (B, V) float32 and per-row temperature / seed
+    / position / top_k / top_p -> (B,) int32 tokens.  Scalars and host
+    arrays are broadcast to (B,) and reach the logits' device in one copy
+    (:func:`pack_sampling_rows`, then :func:`fused_sampling_rows`);
+    ``top_k`` None or 0 and ``top_p`` None or 1.0 leave the restriction
+    off.  Seeds are taken modulo 2^32, as the kernel's uint32 hash reads
+    them."""
+    import torch
+
+    packed = pack_sampling_rows(logits.shape[0], temperature, seeds, pos,
+                                top_k, top_p)
+    return fused_sampling_rows(logits, torch.from_numpy(packed).to(
+        logits.device), cluster=cluster, threads=threads, tune=tune)

@@ -370,8 +370,13 @@ def autotune(spec, args: tuple, kwargs: Optional[dict] = None,
     back to back); the winner is stored in ``cache``
     (the default on-disk cache when None) under the shape-bucket key, so
     later dispatches pick it up.  ``timer(fn, warmup=, iters=)`` replaces
-    the CUDA-event measurement (tests inject a deterministic one).
+    the CUDA-event measurement (tests inject a deterministic one).  Inside
+    a CUDA graph's capture it raises :class:`repro_torch.graphs.GraphError`
+    (configs resolve before a capture).
     """
+    from repro_torch import graphs
+
+    graphs.refuse_in_capture(f"autotune of {spec.name}")
     kwargs = dict(kwargs or {})
     cache = cache or default_cache()
     timer = timer or _time_call
@@ -399,8 +404,11 @@ def backend_of(args: tuple) -> str:
 
 
 def cache_key_for(spec, args: tuple) -> str:
-    """(kernel, backend, shape-bucket, dtype) key for these arguments."""
-    shapes = [tuple(getattr(a, "shape", ())) for a in args
+    """(kernel, backend, shape-bucket, dtype) key for these arguments; a
+    spec with ``batch_free_key`` leaves each argument's leading (batch)
+    axis out of the bucket."""
+    drop = 1 if getattr(spec, "batch_free_key", False) else 0
+    shapes = [tuple(getattr(a, "shape", ()))[drop:] for a in args
               if hasattr(a, "shape")]
     first = next((a for a in args if hasattr(a, "dtype")), None)
     dtype = (str(first.dtype).replace("torch.", "") if first is not None

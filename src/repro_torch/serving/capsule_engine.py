@@ -17,12 +17,16 @@ fixed-shape forward per tick:
   wall-clock, plus per-request latency from submit to completion.
 
 A tick on the card is: numpy batch -> pinned host tensor -> asynchronous
-copy to the device -> ``deployed.forward`` (two convolutions, one einsum,
-one launch of the routing kernel) -> copy of the lengths back to the host,
-which is also the tick's synchronisation.
+copy into the static input of the batch shape's CUDA graph -> replay of
+``deployed.forward``'s graph (two convolutions, one einsum, one launch of
+the routing kernel) -> copy of the lengths back to the host, which is
+also the tick's synchronisation.  The warm-up captures the graph of
+every batch shape the scheduler can emit, so no tick pays for a capture
+(one that does excludes its seconds from the tick wall).
 
 Under a :class:`repro_torch.serving.ShardedScheduler` each distinct
-device of the mesh's batch axes holds one replica of the deployed model;
+device of the mesh's batch axes holds one replica of the deployed model
+(with graphs of its own);
 a tick's padded frame batch is split by ``place()`` into one contiguous
 block per device, every block's forward is launched before the first
 copy back, and the lengths come back in frame order.
@@ -127,9 +131,11 @@ class CapsuleEngine(EngineCore):
 
     def forward_host(self, batch: np.ndarray) -> np.ndarray:
         """One forward of a host batch; returns the lengths on the host.
-        The copy back waits for the device, so no other synchronisation
-        is needed.  Sharded: one forward per block on its device's
-        replica, all launched before the first copy back."""
+        On the card the batch is pinned and staged straight into the
+        static input of its shape's graph.  The copy back waits for the
+        device, so no other synchronisation is needed.  Sharded: one
+        forward per block on its device's replica, all launched before the
+        first copy back."""
         x = torch.from_numpy(np.ascontiguousarray(batch))
         if self._replicas:
             # place() gives a block per device in order (or the whole
@@ -138,16 +144,30 @@ class CapsuleEngine(EngineCore):
                     for k, b in enumerate(self.scheduler.place(x))]
             return np.concatenate([o.cpu().numpy() for o in outs])
         if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
+            x = x.pin_memory()
         lengths = self.deployed.forward(self.scheduler.place(x))
         return lengths.cpu().numpy()
+
+    def graph_stats(self) -> Dict[str, float]:
+        """The forward's graphs: captured, re-captured and replayed, eager
+        runs and capture seconds, over every replica."""
+        models = {id(m): m for m in [self.deployed] + self._replicas}
+        out: Dict[str, float] = {}
+        for m in models.values():
+            for k, v in getattr(m, "graph_stats", dict)().items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     def _step(self, active: List[Tuple[int, SlotTask]], n_batch: int
               ) -> Tuple[List[int], int]:
         batch = np.zeros((n_batch,) + self._frame_shape, np.float32)
         for i, (_, task) in enumerate(active):
             batch[i] = task.payload[1]
+        captured_s = self.graph_stats().get("capture_s", 0.0)
         lengths = self.forward_host(batch)
+        # a shape the warm-up did not capture: its capture is one-off work
+        self._exclude_tick_time(
+            self.graph_stats().get("capture_s", 0.0) - captured_s)
         for i, (_, task) in enumerate(active):
             k = task.payload[0]
             self._requests[task.rid].state["lengths"][k] = lengths[i]
@@ -169,8 +189,9 @@ class CapsuleEngine(EngineCore):
 
     def _warmup(self) -> None:
         # run every batch shape the scheduler can emit, so no tick (and no
-        # SLO latency observation) pays a first-run cost; on the card the
-        # first of these runs also builds and loads the kernels
+        # SLO latency observation) pays a first-run cost; on the card each
+        # captures its shape's graph, and the first also builds and loads
+        # the kernels
         for n in self.scheduler.shapes(self.capacity):
             self.forward_host(
                 np.zeros((n,) + self._frame_shape, np.float32))

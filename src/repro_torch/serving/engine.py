@@ -29,6 +29,21 @@ crosses to the host; with ``cfg.attn_impl == "cuda"`` prefill attention
 runs the ``flash_attention`` kernel.  Without the kernels the tick copies
 the logits to the host and samples there (``sample_token_host``).
 
+The dense family's kernel tick (dense caches or paged, bf16 or int8) is
+*staged* and, on the card, a captured CUDA graph: the counterpart of the
+reference's jitted ``_decode`` / ``_decode_paged``.  The host packs each
+block's pending tokens, positions, the five sampling rows and (paged) the
+table rows into one pinned int32 buffer, one copy stages it into the
+block's static device buffer, and the block's graph replays
+``lm.decode_step`` plus one ``fused_sampling`` launch on it
+(:meth:`ServeEngine._tick_body`).  The batch is pinned at capacity, so a
+block has one graph, captured at its first decode tick (whose seconds are
+kept out of the tick wall: :meth:`ServeEngine.graph_stats`); the caches
+and pool leaves are written in place, and a leaf that moved is
+re-captured (:mod:`repro_torch.graphs`).  On the CPU the same staged body
+runs eagerly.  Prefill, preemption's row copies and the other families'
+ticks stay eager.
+
 The engine casts the parameters to the compute type once, when it is
 built (:func:`repro_torch.models.lm.compute_params`), and updates its
 caches in place.  It shares ``submit() / poll() / run_until_idle() /
@@ -79,7 +94,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.common import LMConfig
+from repro_torch.models.common import LMConfig, tree_leaves
 from repro_torch.serving.core import EngineCore, SlotTask
 from repro_torch.serving.pages import PagePool, PagePoolExhausted
 from repro_torch.serving.schedulers import (Scheduler, ShardedScheduler,
@@ -103,6 +118,10 @@ class _Shard:
     caches: Any = None
     pool: Optional[Dict[str, torch.Tensor]] = None
     residual: Optional[Dict[str, torch.Tensor]] = None
+    # the staged decode tick: its call (graphs.CapturedCall) and the host
+    # buffer staged into it, made at the block's first tick
+    tick: Any = None
+    tick_host: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -373,16 +392,13 @@ class ServeEngine(EngineCore):
             top_k=int(getattr(req, "top_k", 0) or 0),
             top_p=float(getattr(req, "top_p", 1.0)))
 
-    def _sample_batch_device(self, logits: torch.Tensor, active, pos_of,
-                             lo: int = 0) -> torch.Tensor:
-        """Kernel-path sampling: one fused_sampling launch draws the token
-        of every slot of a block (``logits`` row ``i`` is slot ``lo + i``)
-        where the logits are; returns the (n,) int32 tokens on the device
-        (the caller's copy to the host is the tick's synchronisation).
-        Free slots sample greedily and are ignored."""
+    def _sampling_rows(self, n: int, active, pos_of, lo: int = 0
+                       ) -> np.ndarray:
+        """The (5, n) int32 rows one fused_sampling launch reads for a
+        block's ``n`` slots (row ``i`` is slot ``lo + i``; the bit patterns
+        of ``kernels.pack_sampling_rows``).  Free slots sample greedily."""
         from repro_torch import kernels
 
-        n = logits.shape[0]
         temp = np.zeros((n,), np.float32)
         seeds = np.zeros((n,), np.uint32)
         poss = np.zeros((n,), np.int32)
@@ -396,8 +412,29 @@ class ServeEngine(EngineCore):
             poss[i] = pos_of(s)
             tks[i] = int(getattr(req, "top_k", 0) or 0)
             tps[i] = float(getattr(req, "top_p", 1.0))
-        return kernels.fused_sampling(logits, temp, seeds, poss, top_k=tks,
-                                      top_p=tps, tune=False)
+        return kernels.pack_sampling_rows(n, temp, seeds, poss, tks, tps)
+
+    def _sample_batch_device(self, logits: torch.Tensor, active, pos_of,
+                             lo: int = 0) -> torch.Tensor:
+        """Kernel-path sampling: one fused_sampling launch draws the token
+        of every slot of a block (``logits`` row ``i`` is slot ``lo + i``)
+        where the logits are; returns the (n,) int32 tokens on the device
+        (the caller's copy to the host is the tick's synchronisation).
+        Free slots sample greedily and are ignored."""
+        from repro_torch import kernels
+
+        rows = self._sampling_rows(logits.shape[0], active, pos_of, lo)
+        return kernels.fused_sampling_rows(
+            logits, torch.from_numpy(rows).to(logits.device), tune=False)
+
+    def _observe_logits(self, logits: torch.Tensor, active, pos_of,
+                        lo: int = 0) -> None:
+        """Called with a block's decode logits on the device (row ``i`` is
+        slot ``lo + i``; ``pos_of(s)`` the position slot ``s``'s token will
+        take) each kernel tick, before the block's tokens are drawn
+        (unstaged) or right after its graph's replay (staged: the logits
+        stay valid until the next replay).  A no-op: the hook of
+        measurements."""
 
     # -- single-batch convenience ------------------------------------------
 
@@ -861,30 +898,151 @@ class ServeEngine(EngineCore):
               ) -> Tuple[List[int], int]:
         """One decode tick: ``lm.decode_step`` (and, with the kernels, one
         ``fused_sampling`` launch) on each block, back to back, then
-        each block's tokens (or logits) copied to the host."""
+        each block's tokens (or logits) copied to the host.  The dense
+        family's kernel tick is staged (:meth:`_tick_shard`)."""
         tables = None
         if self._pages is not None:
             self._ensure_decode_pages(active)
             tables = self._pages.tables_snapshot()
+        # each token's sampling counter is the position it will occupy
+        pos_of = lambda s: int(self._pos[s]) + 1          # noqa: E731
+        outs = []
+        if self._staged:
+            for sh in self._shards:
+                mine = [(s, t) for s, t in active if sh.lo <= s < sh.hi]
+                outs.append(self._tick_shard(sh, mine, tables, pos_of))
+            return self._finish_tick(
+                active, np.concatenate([o.cpu().numpy() for o in outs]))
         toks = self._blocks(self._tok[:, None])
         poss = self._blocks(self._pos)
-        outs = []
         for sh, tok, pos in zip(self._shards, toks, poss):
             if tables is not None:
-                rows = tables[sh.lo:sh.hi]
-                local = np.where(rows >= 0, rows - sh.page_lo, -1)
-                logits, sh.pool = self._decode_paged_impl(sh, tok, pos,
-                                                          local)
+                logits, sh.pool = self._decode_paged_impl(
+                    sh, tok, pos, self._local_tables(sh, tables))
             else:
                 logits, sh.caches = self._decode(sh, tok, pos, sh.caches)
             if self._decode_kernel:
-                # fused sampling where the logits are; each token's
-                # counter is the position it will occupy (pos + 1)
+                # fused sampling where the logits are
                 mine = [(s, t) for s, t in active if sh.lo <= s < sh.hi]
-                logits = self._sample_batch_device(
-                    logits, mine, lambda s: int(self._pos[s]) + 1, sh.lo)
+                self._observe_logits(logits, mine, pos_of, sh.lo)
+                logits = self._sample_batch_device(logits, mine, pos_of,
+                                                   sh.lo)
             outs.append(logits)
-        host = np.concatenate([o.cpu().numpy() for o in outs])
+        return self._finish_tick(
+            active, np.concatenate([o.cpu().numpy() for o in outs]))
+
+    @staticmethod
+    def _local_tables(sh: _Shard, tables: np.ndarray) -> np.ndarray:
+        """Block ``sh``'s rows of the page tables in its local page ids
+        (-1 stays unmapped)."""
+        rows = tables[sh.lo:sh.hi]
+        return np.where(rows >= 0, rows - sh.page_lo, -1)
+
+    # -- the staged decode tick ----------------------------------------------
+
+    @property
+    def _staged(self) -> bool:
+        """Whether decode ticks are staged and, on the card, replayed from
+        a CUDA graph: the dense family with the decode kernels, over dense
+        caches or pages."""
+        return self._decode_kernel and self.cfg.family == "dense"
+
+    def _tick_width(self, sh: _Shard) -> int:
+        """int32 words of a block's staged tick: tokens, positions, the
+        five sampling rows, then (paged) the table rows."""
+        n = sh.hi - sh.lo
+        pages = (n * self._pages.pages_per_slot if self._pages is not None
+                 else 0)
+        return 7 * n + pages
+
+    def _stage_rows(self, sh: _Shard, active, tables, pos_of) -> np.ndarray:
+        """Block ``sh``'s staged tick on the host, as the unstaged tick
+        passes it: pending tokens, positions, the sampling rows of
+        ``active`` and (paged) the table rows in local page ids."""
+        n = sh.hi - sh.lo
+        out = np.empty((self._tick_width(sh),), np.int32)
+        out[:n] = self._tok[sh.lo:sh.hi]
+        out[n:2 * n] = self._pos[sh.lo:sh.hi]
+        out[2 * n:7 * n] = self._sampling_rows(n, active, pos_of,
+                                               sh.lo).reshape(-1)
+        if tables is not None:
+            out[7 * n:] = self._local_tables(sh, tables).reshape(-1)
+        return out
+
+    def _tick_body(self, sh: _Shard, rows: torch.Tensor):
+        """What block ``sh``'s graph captures: one decode step over its
+        caches (or pool) and one fused_sampling launch, reading only the
+        staged ``rows`` (int32, :meth:`_stage_rows`' layout) on the
+        device.  Returns (tokens (n,) int32, logits (n, V))."""
+        from repro_torch import kernels
+
+        n = sh.hi - sh.lo
+        batch = {"tokens": rows[:n].view(n, 1), "pos": rows[n:2 * n]}
+        sampling = rows[2 * n:7 * n].view(5, n)
+        if self._pages is not None:
+            tree = self._pages.pool_tree(sh.pool, sh.residual)
+            logits, _ = lm.decode_step(sh.params, self.cfg, batch, tree,
+                                       paged_tables=rows[7 * n:].view(n, -1))
+        else:
+            logits, _ = lm.decode_step(sh.params, self.cfg, batch, sh.caches)
+        return kernels.fused_sampling_rows(logits, sampling,
+                                           tune=False), logits
+
+    def _tick_call(self, sh: _Shard):
+        """Block ``sh``'s staged call and pinned host buffer, made at its
+        first tick (and again if the tuning policy changed since:
+        :func:`repro_torch.graphs.config_key`)."""
+        from repro_torch import graphs
+
+        key = graphs.config_key()
+        if sh.tick is None or sh.tick.key != key:
+            width = self._tick_width(sh)
+            sh.tick_host = torch.zeros((width,), dtype=torch.int32,
+                                       pin_memory=sh.device.type == "cuda")
+            sh.tick = graphs.CapturedCall(
+                lambda rows, sh=sh: self._tick_body(sh, rows),
+                {"rows": torch.zeros((width,), dtype=torch.int32,
+                                     device=sh.device)},
+                name=f"ServeEngine decode tick (block {sh.index})",
+                keep=(1,))
+            sh.tick.key = key
+        return sh.tick
+
+    def _tick_reads(self, sh: _Shard) -> List[torch.Tensor]:
+        """What a block's graph reads and writes in place: its parameters
+        and its caches, or its pool and residual leaves."""
+        state = (sh.caches if self._pages is None
+                 else [sh.pool, sh.residual or {}])
+        return tree_leaves(sh.params) + tree_leaves(state)
+
+    def _tick_shard(self, sh: _Shard, active, tables, pos_of
+                    ) -> torch.Tensor:
+        """Block ``sh``'s staged decode tick: its rows packed on the host
+        and staged in one copy, then its call (the graph replayed, or
+        captured at the first tick, whose capture seconds are kept out of
+        the tick wall; eagerly on the CPU); returns its tokens on its
+        device."""
+        call = self._tick_call(sh)
+        sh.tick_host.numpy()[:] = self._stage_rows(sh, active, tables,
+                                                   pos_of)
+        call.stage(rows=sh.tick_host)
+        tokens, logits = call(reads=self._tick_reads(sh))
+        self._exclude_tick_time(call.last_capture_s)
+        self._observe_logits(logits, active, pos_of, sh.lo)
+        return tokens
+
+    def graph_stats(self) -> Dict[str, float]:
+        """The staged decode tick's graphs, over every block: captured,
+        re-captured and replayed, eager runs, and capture seconds (kept
+        out of the tick wall)."""
+        from repro_torch import graphs
+
+        return graphs.graph_stats([sh.tick for sh in self._shards])
+
+    def _finish_tick(self, active: List[Tuple[int, SlotTask]],
+                     host: np.ndarray) -> Tuple[List[int], int]:
+        """The tick's tokens (kernel path) or logits rows, by slot, onto
+        the tasks."""
         finished = []
         for s, task in active:
             if self._decode_kernel:

@@ -16,7 +16,9 @@ differs bit for bit is named with where in the port it was called and,
 for a kernel of the port, the launch config it resolved.
 
 It needs one CUDA device and builds the kernels as ``chip_smoke.py``
-does.  From the repo root, on the card::
+does.  Every run is eager (``repro_torch.graphs.eager``): a captured
+decode tick calls nothing back in Python to trace.  From the repo root, on
+the card::
 
     python3 tools/trace_seeded.py
 
@@ -61,7 +63,8 @@ NOT_COMPUTED = frozenset((
     "as_strided", "detach", "alias", "split", "split_with_sizes", "unbind",
     "lift_fresh", "resize_", "set_", "_local_scalar_dense"))
 GEMM_OPS = frozenset(("mm", "addmm", "bmm", "baddbmm", "matmul", "linear"))
-TRACED_KERNELS = ("flash_attention", "decode_attention", "fused_sampling")
+TRACED_KERNELS = ("flash_attention", "decode_attention", "fused_sampling",
+                  "fused_sampling_rows")
 
 
 def port_caller() -> str:
@@ -143,6 +146,8 @@ class OpTrace(TorchDispatchMode):
 
 def resolved_config(name: str, args, kw) -> dict:
     """The config a kernel wrapper's call resolves to (no tuning)."""
+    if name == "fused_sampling_rows":       # the logits decide it
+        name, args = "fused_sampling", args[:1]
     kwargs = {k: v for k, v in kw.items()
               if k not in ("tune", "config") and v is not None}
     try:
@@ -356,6 +361,11 @@ def main() -> None:
     cs.phase_build()
     print(json.dumps({"device": cs.nvidia_smi_line()}), flush=True)
     cfg, params, _, _ = cs.init_lm()
+    with cs.graphs.eager():
+        compare_all(cfg, params)
+
+
+def compare_all(cfg, params) -> None:
     for name, (reqs, base_run, others) in comparisons(cfg, params).items():
         rows = {}
         base = (base_run(rows), cs.rows_on_host(rows))
