@@ -34,13 +34,15 @@ no AdamW step of it fits one card, the loss and gradients of one unit of
 ``llama-3.2-vision-90b`` with its cross gates open, chunked against
 reference; each step timed and its peak memory set beside the dry run's
 count), serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
-``ServeEngine`` with prefill attention, decode attention and
-sampling in the hand-written kernels (and ``generate()`` and the
+``ServeEngine`` with prefill attention, decode attention,
+sampling and every projection (the fixed-order GEMM, whose rows
+``gemm_probe`` holds bit-identical at every M from 75 to 8192, and at a
+decode tick's 1, 3 and 8, beside cuBLAS's) in the hand-written kernels (and ``generate()`` and the
 interleave and SLO-batching schedulers on the same engine; and its
 seeded requests alone, at 3 slots and under memory pressure, held to the
-sampling contract against the same run: a token drawn from a
-bit-identical logits row must be the same, and where the rows part is
-reported; ``tools/trace_seeded.py`` names the op on demand), serves it
+sampling contract against the same run: every logits row must be
+bit-identical, and a token drawn from one the same;
+``tools/trace_seeded.py`` names the op on demand), serves it
 again from the paged KV cache (bf16 pages, then int8 pages, with a shared
 prompt prefix; then under memory pressure: preemption, host spill and
 prefix eviction in one serve) with
@@ -96,20 +98,23 @@ config, timed back to back), serves through tuned kernel configs
 through ``kernel_tune=True`` engines against the untuned ones, then
 through a planted cache of non-default configs, every resolved config
 checked, then the launcher's ``--kernel-tune`` twice on one cache), and
-times the ten kernels
-(the nine TPU entry points and the softmax backward; routing also at the
+times the eleven kernels
+(the nine TPU entry points, the softmax backward and the GEMM; routing also at the
 dense shape; routing, softmax, decode and sampling at every point of their
 tunables' spaces:
 ``i_splits`` and threads, threads, ``kv_splits`` and threads, the cluster
 size and threads; sampling on a served decode tick's logits; and flash,
 decode and sampling at the geometries of qwen3-1.7b and the large models,
 which the kernel table lists under their rows; each kernel a captured path
-launches also inside one CUDA graph of 20 launches).  The CapsNet forward
-and the dense LM decode tick are replayed from CUDA graphs
-(``repro_torch.graphs``): ``serve_pruned``, ``serve_dense``, ``serve_lm``
-and ``serve_paged`` hold each graph against the same code run eagerly
-(lengths and logits rows bit for bit, the replayed launches against the
-counters, FPS, tok/s and tick ms both ways), and every phase's seconds
+launches also inside one CUDA graph of 20 launches; and the fixed-order
+GEMM at llama3.2-1b's projections, prefill and decode, beside cuBLAS).
+The CapsNet forward, the dense LM decode tick and the dense LM's
+admission (prefill, paged prefill, gather, inject) are replayed from CUDA
+graphs (``repro_torch.graphs``): ``serve_pruned``, ``serve_dense``,
+``serve_lm``, ``serve_paged`` and ``serve_disagg`` hold each graph
+against the same code run eagerly (lengths, logits rows and every cache
+or pool leaf bit for bit, the replayed launches against the counters,
+FPS, tok/s, tick and admission ms both ways), and every phase's seconds
 line counts the graphs it captured and replayed.  Every
 profiler reading comes from a trace that holds every launch its calls made
 (``trace_rule``), taken eagerly, or is null.  One JSON
@@ -157,6 +162,8 @@ from repro_torch.kernels.attention.kernel import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain, decode_smem_bytes,
     flash_attention_cuda, flash_attention_dequant_cuda,
     flash_attention_dequant_plain, flash_attention_plain)
+from repro_torch.kernels.gemm.kernel import (  # noqa: E402
+    fixed_order_matmul_cuda)
 from repro_torch.kernels.registry import registry  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -199,7 +206,8 @@ WRAPPERS = {"fused_routing": fused_routing_cuda,
             "flash_attention": flash_attention_cuda,
             "flash_attention_dequant": flash_attention_dequant_cuda,
             "decode_attention": decode_attention_cuda,
-            "fused_sampling": fused_sampling_cuda}
+            "fused_sampling": fused_sampling_cuda,
+            "fixed_order_matmul": fixed_order_matmul_cuda}
 
 # decode_attention's four bodies, by the row of the kernel table each fills
 # (the TPU entry point each replaces)
@@ -609,6 +617,16 @@ KERNELS = {
         "main_case": {"dims": (LM_SLOTS, 128256),
                       "temperature": (0.0,) * LM_SLOTS},
     },
+    # no TPU kernel: the reference leaves its projections to XLA's dot (the
+    # MLP's output projection, the product of ROADMAP §C Open 1); its main
+    # shape is that product in serve_lm's prefill of 8 x 1024 positions
+    "fixed_order_matmul": {
+        "kernel": "fixed_order_matmul",
+        "route": "cuda", "source": "src/repro_torch/csrc/gemm.cu",
+        "replaces": "src/repro/models/mlp.py:38",
+        "main_case": {"dims": (LM_SLOTS * LM_MAX_LEN, 2048, 8192),
+                      "dtype": "bfloat16", "rng": "device"},
+    },
 }
 
 
@@ -706,6 +724,34 @@ G12_LAYOUTS = (
     {**G12_PAGED, "dtype": "bfloat16", "quant": True},
 )
 G6_DECODE = {"dims": (LM_SLOTS, LM_MAX_LEN, 48, 8, 128), "dtype": "bfloat16"}
+
+# The fixed-order GEMM at llama3.2-1b's projections (d 2048, 32 query and
+# 8 KV heads of 64, d_ff 8192, the tied unembed over V 128256 read as the
+# (V, d) table's transpose): serve_lm's prefill of 8 x 1024 positions, its
+# decode tick's 8 slots and serve_lm's other schedule's 3.  (label, N, K,
+# w layout); the inputs are drawn on the card (8192 x 8192 and the
+# unembed's table take seconds in numpy).
+GEMM_PROJECTIONS = (("q", 2048, 2048, "kn"), ("k, v", 512, 2048, "kn"),
+                    ("o", 2048, 2048, "kn"), ("wi, wg", 8192, 2048, "kn"),
+                    ("wo", 2048, 8192, "kn"))
+GEMM_UNEMBED = ("unembed V 128256", 128256, 2048, "nk")
+GEMM_PREFILL_M = LM_SLOTS * LM_MAX_LEN
+GEMM_ATOL = 4e-2          # one bf16 step of an output below 8
+
+
+def gemm_case(m: int, n: int, k: int, layout: str) -> dict:
+    return {"dims": (m, n, k), "dtype": "bfloat16", "layout": layout,
+            "rng": "device", "atol": GEMM_ATOL}
+
+
+# (label, case) of each timed GEMM geometry: every projection at the
+# prefill's M and the tick's, the unembed at the tick's (a prefill
+# unembeds only each prompt's last row: M = its group)
+GEMM_TIMINGS = tuple(
+    (f"llama3.2-1b {label}, {phase} M {m}", gemm_case(m, n, k, layout))
+    for phase, m in (("prefill", GEMM_PREFILL_M), ("decode", LM_SLOTS))
+    for label, n, k, layout in GEMM_PROJECTIONS + (
+        (GEMM_UNEMBED,) if phase == "decode" else ()))
 
 # Main-path shapes beyond the registry's example cases.  Tolerances: the
 # kernels sum in another order than the plain versions and use rsqrtf/expf,
@@ -915,6 +961,12 @@ EXTRA_CASES = {
         {"dims": (2, 64, 256, 8, 2, 32), "dtype": "bfloat16",
          "causal": False, "atol": 1e-2},
     ),
+    # the GEMM against cuBLAS at every timed geometry, at 3 slots, and at
+    # a ragged prefill's 1000 rows (no multiple of the 128-row tile)
+    "fixed_order_matmul": tuple(case for _, case in GEMM_TIMINGS) + tuple(
+        gemm_case(m, n, k, layout)
+        for m in (3, 1000)
+        for _, n, k, layout in GEMM_PROJECTIONS + (GEMM_UNEMBED,)),
     "fused_sampling": (
         {"dims": (8, 128256), "temperature": (0.0,) * 8, "atol": 0},
         {"dims": (8, 128256), **MIXED, "atol": 0},
@@ -1290,7 +1342,7 @@ def make_requests(n_requests: int, cfg) -> list:
 # in launch_counts(): decode_attention's by DECODE_ROWS' keys, the flash
 # wrappers' as "<wrapper>/tensor_core" and "<wrapper>/fma"
 BODY_COUNTERS = ("decode_attention", "flash_attention",
-                 "flash_attention_dequant")
+                 "flash_attention_dequant", "fixed_order_matmul")
 
 
 def reset_counts() -> None:
@@ -2378,7 +2430,8 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool,
     want = {"flash_attention": cfg.n_layers * n_groups,
             "decode_attention": cfg.n_layers * n_ticks,
             "dense": cfg.n_layers * n_ticks,
-            "fused_sampling": n_ticks}
+            "fused_sampling": n_ticks,
+            "fixed_order_matmul": gemm_launches(cfg, n_groups + n_ticks)}
     for name, n in want.items():
         if counts[name] != n or n < 1:
             fail(f"{phase}: {name} launched {counts[name]} times, expected "
@@ -2426,7 +2479,15 @@ def serve_against_plain(phase: str, cfg, params, breakdown: bool,
         numbers.update(decode_tick_breakdown(kern, cfg.vocab))
     return numbers, {"flash_attention": counts["flash_attention"],
                      "decode_attention": counts["dense"],
-                     "fused_sampling": counts["fused_sampling"]}
+                     "fused_sampling": counts["fused_sampling"],
+                     "fixed_order_matmul": counts["fixed_order_matmul"]}
+
+
+def gemm_launches(cfg, passes: int) -> int:
+    """The fixed-order GEMM's launches in ``passes`` forward passes of a
+    dense model (a prefill group or a decode tick each): q, k, v, o and the
+    FFN's two or three products in every layer, and the unembed."""
+    return passes * (cfg.n_layers * (4 + (3 if cfg.glu else 2)) + 1)
 
 
 def first_difference(a: list, b: list) -> int:
@@ -2641,48 +2702,218 @@ def record_all_logits(engine, rows: dict) -> None:
     engine._observe_logits = observe
 
 
+def staged_calls(engine) -> list:
+    """Every staged call of a ServeEngine's blocks: the decode ticks and
+    the admission calls (prefill, paged prefill, gather, inject)."""
+    return [c for sh in engine._shards
+            for c in ([sh.tick] if sh.tick is not None else [])
+            + list(sh.calls.values())]
+
+
+def state_leaves(sh) -> list:
+    """A block's caches, or its pool and residual leaves."""
+    return tree_leaves(sh.caches if sh.caches is not None
+                       else [sh.pool, sh.residual or {}])
+
+
+def out_leaves(out) -> list:
+    return [] if out is None else tree_leaves(out)
+
+
+def graph_pool_bytes():
+    """Bytes the allocator holds in the CUDA graphs' private pools (every
+    segment outside the default pool), or None where the snapshot does not
+    say."""
+    try:
+        segments = torch.cuda.memory_snapshot()
+    except RuntimeError:
+        return None
+    ids = [tuple(seg.get("segment_pool_id", (0, 0))) for seg in segments]
+    return sum(seg["total_size"] for seg, i in zip(segments, ids)
+               if i != (0, 0))
+
+
+def graph_vs_eager(label: str, engine) -> dict:
+    """Each captured admission call of ``engine`` (the reference's jitted
+    _prefill, _prefill_paged, _gather, _inject) replayed from its graph and
+    then run eagerly (graphs.eager) on its last staged inputs, both from
+    one snapshot of its block's caches or pool: the outputs (first-token
+    logits, gathered rows) and every cache or pool leaf bit for bit.
+    Returns, by kind, the calls held and the graphs' counts; fails where
+    one differs, or where a graph was re-captured."""
+    out = {}
+    for sh in engine._shards:
+        state, reads = state_leaves(sh), engine._tick_reads(sh)
+        for key, call in sh.calls.items():
+            if call._graph is None:
+                continue
+            snap = [t.clone() for t in state]
+            got = call(reads=reads)
+            after = [t.clone() for t in state]
+            for t, v in zip(state, snap):
+                t.copy_(v)
+            with graphs.eager():
+                want = call(reads=reads)
+            same_out = all(torch.equal(a, b) for a, b in zip(
+                out_leaves(got), out_leaves(want)))
+            same_state = all(torch.equal(a, b) for a, b in zip(after, state))
+            if not (same_out and same_state):
+                fail(f"{label} (graphs): {key[0]} {key[1]} of block "
+                     f"{sh.index}: the replayed graph and the eager body "
+                     f"differ (outputs {same_out}, leaves {same_state})")
+            out.setdefault(key[0], {"calls_held": 0})["calls_held"] += 1
+            del snap, after, got, want
+    for kind, numbers in out.items():
+        numbers.update(engine.graph_stats(kind))
+        if numbers["recaptures"]:
+            fail(f"{label} (graphs): {kind}: {numbers['recaptures']} "
+                 f"re-captures")
+    return out
+
+
+def replayed_counts(calls, stats0) -> dict:
+    """The launches the replays of ``calls`` added since ``stats0`` (each
+    call's stats then), by counter: each capture's counts times its
+    replays."""
+    replayed = {}
+    for c, st in zip(calls, stats0):
+        n = c.stats["replays"] - st["replays"]
+        for key, k in c.delta.items():
+            replayed[key] = replayed.get(key, 0) + n * k
+    return replayed
+
+
+# prompts of one token: a prefill bucket (or a paged span) of one row, the
+# attention's one-token branch inside a captured prefill
+ONE_TOKEN_PROMPTS = ([11], [257], [4099])
+
+
+def one_token_admission(label: str, engine) -> dict:
+    """ONE_TOKEN_PROMPTS served through the graphs twice (the first
+    serve captures the one-row prefill, the second replays it) and then
+    eagerly (graphs.eager): tokens equal and every first-token logits row
+    bit for bit; fails where they part, or where no one-row prefill graph
+    was captured."""
+    def serve():
+        first = {}
+        sample = engine._sample_task_row
+
+        def on_host(logits_row, task, pos):
+            first[task.rid] = np.array(logits_row, np.float32)
+            return sample(logits_row, task, pos)
+
+        engine._sample_task_row = on_host
+        try:
+            done = engine.serve([
+                Request(prompt=list(p), max_new_tokens=2, rid=2 * 10 ** 6 + i,
+                        seed=900 + i, temperature=0.8 if i % 2 else 0.0)
+                for i, p in enumerate(ONE_TOKEN_PROMPTS)])
+        finally:
+            engine.__dict__.pop("_sample_task_row", None)
+        return {c.rid: list(c.tokens) for c in done}, first
+
+    kind = "paged prefill" if engine.paged else "prefill"
+    st0 = engine.graph_stats(kind)
+    runs = [serve(), serve()]
+    with graphs.eager():
+        runs.append(serve())
+    st = engine.graph_stats(kind)
+    one_row = [k for sh in engine._shards for k, c in sh.calls.items()
+               if k[0] == kind and k[1][1] == 1 and c._graph is not None]
+    if not one_row:
+        fail(f"{label} (one-token prompts): no one-row {kind} graph was "
+             f"captured")
+    (tok_c, first_c), (tok_r, first_r), (tok_e, first_e) = runs
+    same = sum(first_r[r].tobytes() == first_e[r].tobytes()
+               and first_c[r].tobytes() == first_e[r].tobytes()
+               for r in first_e)
+    if (not tok_c == tok_r == tok_e or not first_e
+            or same != len(first_e)):
+        fail(f"{label} (one-token prompts): the graph runs and the eager "
+             f"run part: tokens {tok_c} {tok_r} {tok_e}, {same} of "
+             f"{len(first_e)} first-token rows bit-identical")
+    return {"requests": len(ONE_TOKEN_PROMPTS), "keys": sorted(
+                k[1] for k in one_row),
+            "first_token_rows_bit_identical": same,
+            "captures": st["captures"] - st0["captures"],
+            "replays": st["replays"] - st0["replays"],
+            "recaptures": st["recaptures"] - st0["recaptures"]}
+
+
 def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
-    """A kernel engine's decode ticks replayed from its graphs against the
-    same engine's staged ticks run eagerly, back to back: every request's
-    tokens equal (and ``want_tokens``'s, an earlier run's), every decode
-    logits row bit for bit (else the first (rid, position) that parts and
-    by how much); the graphs' counts; the launches the graph run's replays
-    added, by kernel (its admission ticks' eager prefills launch more, the
-    decode of a one-token continuation among them: tick_walls holds the
-    replays against the counters over decode-only ticks); tok/s and ms
-    per tick each way."""
+    """A kernel engine's decode ticks and admissions replayed from its
+    graphs against the same engine's staged calls run eagerly, back to
+    back: every request's tokens equal (and ``want_tokens``'s, an earlier
+    run's), every logits row a token is drawn from bit for bit (the first
+    token's from the prefill graph, the rest from the tick's; else the
+    first (rid, position) that parts and by how much); then each admission
+    graph against its eager body from one snapshot (graph_vs_eager).  The
+    graph run makes every launch from a replay: the counters' growth must
+    equal the replays' counts (a run that captured a new shape is served
+    again first).  Reports the graphs' counts by kind and the pool bytes
+    they hold, tok/s, ms per tick and ms per admission each way."""
     t_before = graph_totals()
     if any(sh.tick is None for sh in engine._shards):
         engine.serve([Request(prompt=[1, 2, 3, 4] * 8, max_new_tokens=3,
                               rid=10 ** 6)])
-    calls = [sh.tick for sh in engine._shards]
     runs = {}
 
     def serve(mode):
-        rows = {}
+        rows, first, admits = {}, {}, []
         record_all_logits(engine, rows)
+        sample, admit = engine._sample_task_row, engine._admit
+
+        def on_host(logits_row, task, pos):
+            first[(task.rid, pos)] = np.array(logits_row, np.float32)
+            return sample(logits_row, task, pos)
+
+        def timed_admit(new):
+            t0 = time.perf_counter()
+            try:
+                return admit(new)
+            finally:
+                admits.append(time.perf_counter() - t0)
+
+        engine._sample_task_row, engine._admit = on_host, timed_admit
         stats0 = engine.stats()
         t0 = time.perf_counter()
         try:
             done = engine.serve(fresh(reqs))
         finally:
-            engine.__dict__.pop("_observe_logits", None)
+            for name in ("_observe_logits", "_sample_task_row", "_admit"):
+                engine.__dict__.pop(name, None)
         wall = time.perf_counter() - t0
         st = engine.stats()
         runs[mode] = {"tokens": {c.rid: c.tokens for c in done},
-                      "rows": rows, "wall_s": wall,
+                      "rows": rows, "first": first, "wall_s": wall,
                       "tok_per_s": (st.items - stats0.items) / wall,
                       "ms_per_tick": 1e3 * (st.wall_s - stats0.wall_s)
-                      / max(st.ticks - stats0.ticks, 1)}
+                      / max(st.ticks - stats0.ticks, 1),
+                      "ms_per_admission": 1e3 * sum(admits)
+                      / max(len(admits), 1)}
 
-    replays0 = [c.stats["replays"] for c in calls]
-    serve("graph")
-    replays = [c.stats["replays"] - r for c, r in zip(calls, replays0)]
-    launches = {}
-    for c, n in zip(calls, replays):
-        for key, k in c.delta.items():
-            name = "/".join(str(x) for x in key if x is not None)
-            launches[name] = launches.get(name, 0) + n * k
+    captured_first = 0
+    for attempt in range(2):
+        calls = staged_calls(engine)
+        stats0 = [dict(c.stats) for c in calls]
+        counters0 = graphs.counters()
+        serve("graph")
+        grown = graphs.count_delta(counters0, graphs.counters())
+        captured = (len(staged_calls(engine)) - len(calls)) + sum(
+            c.stats["captures"] - st["captures"]
+            for c, st in zip(calls, stats0))
+        if not captured:
+            break
+        captured_first += captured        # a new shape: serve again
+    if captured:
+        fail(f"{label} (graphs): the graph run captured {captured} graphs "
+             f"again in a second run of the same requests")
+    replayed = replayed_counts(calls, stats0)
+    if grown != replayed:
+        fail(f"{label} (graphs): replayed launches {replayed} differ from "
+             f"the counters' growth {grown}")
+    launches = {"/".join(str(x) for x in key if x is not None): n
+                for key, n in sorted(replayed.items(), key=str)}
     with graphs.eager():
         serve("eager")
     g, e = runs["graph"], runs["eager"]
@@ -2695,7 +2926,7 @@ def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
         fail(f"{label} (graphs): the graph run's tokens part from the "
              f"first run's")
     keys = sorted(g["rows"])
-    if sorted(e["rows"]) != keys:
+    if sorted(e["rows"]) != keys or sorted(e["first"]) != sorted(g["first"]):
         fail(f"{label} (graphs): the two runs drew other (rid, position)s")
     a = torch.stack([g["rows"][k] for k in keys])
     b = torch.stack([e["rows"][k] for k in keys])
@@ -2705,24 +2936,42 @@ def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
         i = int(np.argmax(differs))
         first = {"rid": keys[i][0], "position": keys[i][1],
                  "max_abs": float((a[i] - b[i]).abs().max())}
-    del a, b, runs
+    first_same = sum(g["first"][k].tobytes() == e["first"][k].tobytes()
+                     for k in g["first"])
+    del a, b
+    one_token = one_token_admission(label, engine)
+    admission = graph_vs_eager(label, engine)
     st = engine.graph_stats()
     if st["recaptures"]:
         fail(f"{label} (graphs): {st['recaptures']} re-captures")
-    return {"card": nvidia_smi_line(), "tokens_identical": True,
-            "requests": len(reqs),
-            "tokens_equal_first_run": want_tokens is not None,
-            "logits_rows": len(keys),
-            "logits_rows_bit_identical": int((~differs).sum()),
-            "first_differing_row": first,
-            "captures": st["captures"], "recaptures": st["recaptures"],
-            "replays_in_graph_run": sum(replays),
-            "capture_s": st["capture_s"],
-            "totals": totals_since(t_before), "replayed_launches": launches,
-            "tok_per_s_graph": g["tok_per_s"],
-            "tok_per_s_eager": e["tok_per_s"],
-            "ms_per_tick_graph": g["ms_per_tick"],
-            "ms_per_tick_eager": e["ms_per_tick"]}
+    numbers = {
+        "card": nvidia_smi_line(), "tokens_identical": True,
+        "requests": len(reqs),
+        "tokens_equal_first_run": want_tokens is not None,
+        "logits_rows": len(keys),
+        "logits_rows_bit_identical": int((~differs).sum()),
+        "first_differing_row": first,
+        "first_token_rows": len(g["first"]),
+        "first_token_rows_bit_identical": first_same,
+        "captures": st["captures"], "recaptures": st["recaptures"],
+        "replays_in_graph_run": sum(
+            c.stats["replays"] - s0["replays"]
+            for c, s0 in zip(calls, stats0)),
+        "captured_before_the_graph_run": captured_first,
+        "capture_s": st["capture_s"], "admission": admission,
+        "one_token_admission": one_token,
+        "graph_pool_bytes": graph_pool_bytes(),
+        "totals": totals_since(t_before), "replayed_launches": launches,
+        "tok_per_s_graph": g["tok_per_s"], "tok_per_s_eager": e["tok_per_s"],
+        "ms_per_tick_graph": g["ms_per_tick"],
+        "ms_per_tick_eager": e["ms_per_tick"],
+        "ms_per_admission_graph": g["ms_per_admission"],
+        "ms_per_admission_eager": e["ms_per_admission"]}
+    del runs
+    if first is not None or first_same != len(g["first"]):
+        fail(f"{label} (graphs): logits rows part between the replayed "
+             f"graphs and the eager run: {numbers}")
+    return numbers
 
 
 # ---------------------------------------------------------------------------
@@ -2888,39 +3137,68 @@ def seeded_runs(cfg, params, reqs, pressure=None) -> dict:
             "pressured": pressured}
 
 
-# The op tools/trace_seeded.py names where a request's prefill parts
-# between schedules (ROADMAP §C): the MLP's output projection on a
-# prompt's 75 rows, inside the 128 rows of its prefill alone and the 8192
-# of a group of eight, probed at each M between.
-GEMM_PROBE_ROWS, GEMM_PROBE_M = 75, (128, 256, 512, 1024, 2048, 4096, 8192)
+# The op tools/trace_seeded.py named where a request's prefill parted
+# between schedules (ROADMAP §C Open 1): the MLP's output projection on a
+# prompt's 75 rows, alone (M 75), inside the 128 rows of its prefill's
+# bucket and the 8192 of a group of eight, probed at each M between; the
+# Ms off a tile boundary (75, 200, 1000) put the zero-filled ragged edge
+# inside the probed rows' tile.  A decode tick's M (its slots) holds the
+# first rows the same way.
+GEMM_PROBE_ROWS = 75
+GEMM_PROBE_M = (75, 128, 200, 256, 512, 1000, 1024, 2048, 4096, 8192)
+GEMM_PROBE_DECODE_M = (1, 3, 8, 16, 17)
 
 
 def gemm_probe(cfg) -> dict:
     """One request's GEMM_PROBE_ROWS rows (bf16, seeded) through
     ``h @ wo`` at the model's (d_ff, d_model), inside batches of each M of
-    GEMM_PROBE_M rows: whether cuBLAS gives those rows the same bits as at
-    the smallest M, and by how much they differ.  Reported, not failed: a
-    library's choice, open in ROADMAP §C."""
+    GEMM_PROBE_M rows, through the port's fixed-order GEMM (the serving
+    path's) and through cuBLAS: whether each gives those rows the same
+    bits as at the smallest M, and by how much they differ.  A port row
+    that differs at any M fails the run (§C Open 1's repair); cuBLAS's are
+    reported."""
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     x = torch.randn(GEMM_PROBE_M[-1], cfg.d_ff, device=DEVICE,
                     generator=gen).to(torch.bfloat16)
     w = (torch.randn(cfg.d_ff, cfg.d_model, device=DEVICE, generator=gen)
          * cfg.d_ff ** -0.5).to(torch.bfloat16)
-    rows = [(x[:m] @ w)[:GEMM_PROBE_ROWS] for m in GEMM_PROBE_M]
+    cublas = [(x[:m] @ w)[:GEMM_PROBE_ROWS] for m in GEMM_PROBE_M]
+    port = [fixed_order_matmul_cuda(x[:m], w)[:GEMM_PROBE_ROWS]
+            for m in GEMM_PROBE_M]
+    decode = [fixed_order_matmul_cuda(x[:m], w) for m in GEMM_PROBE_DECODE_M]
     torch.cuda.synchronize()
-    return {"rows": GEMM_PROBE_ROWS, "k": cfg.d_ff, "n": cfg.d_model,
-            "by_m": {m: {"bit_identical_to_smallest_m":
-                         torch.equal(r, rows[0]),
-                         "max_abs_diff": float((r.float() - rows[0].float())
-                                               .abs().max())}
-                     for m, r in zip(GEMM_PROBE_M, rows)}}
+
+    def by_m(ms, rows, ref):
+        return {m: {"bit_identical_to_smallest_m": torch.equal(
+                        r, ref[:r.shape[0]]),
+                    "max_abs_diff": float((r.float() - ref[:r.shape[0]]
+                                           .float()).abs().max())}
+                for m, r in zip(ms, rows)}
+
+    out = {"rows": GEMM_PROBE_ROWS, "k": cfg.d_ff, "n": cfg.d_model,
+           "by_m": by_m(GEMM_PROBE_M, cublas, cublas[0]),
+           "port_by_m": by_m(GEMM_PROBE_M, port, port[0]),
+           "port_decode_by_m": by_m(GEMM_PROBE_DECODE_M, decode, port[0]),
+           "port_vs_cublas_max_abs": max(
+               float((a.float() - b.float()).abs().max())
+               for a, b in zip(port, cublas))}
+    parted = [m for key in ("port_by_m", "port_decode_by_m")
+              for m, v in out[key].items()
+              if not v["bit_identical_to_smallest_m"]]
+    if parted:
+        fail(f"gemm_probe: the fixed-order GEMM gives the probed rows other "
+             f"bits at M {parted}: {out['port_by_m']} "
+             f"{out['port_decode_by_m']}")
+    return out
 
 
 def seeded_schedules(kern, reqs, tok_together, together: dict) -> tuple:
     """The sampled requests of ``reqs`` (every fourth) held against their
     run in serve_lm's kernel engine (``tok_together``, ``together``: its
-    logits rows) under each of seeded_runs' schedules (compare_seeded),
-    and gemm_probe.  Returns (numbers, launches by kernel-table row)."""
+    logits rows) under each of seeded_runs' schedules (compare_seeded):
+    since the fixed-order GEMM (§C Open 1) a logits row that parts
+    between schedules fails the run; then gemm_probe.  Returns (numbers,
+    launches by kernel-table row)."""
     base = (tok_together, rows_on_host(together))
     pressure = {}
     reset_counts()
@@ -2930,30 +3208,25 @@ def seeded_schedules(kern, reqs, tok_together, together: dict) -> tuple:
         t0 = time.perf_counter()
         rows = {}
         tok = run(rows)
-        out[label], _ = compare_seeded(f"serve_lm (seeded, {label})", reqs,
-                                       base, (tok, rows))
+        out[label], parted = compare_seeded(f"serve_lm (seeded, {label})",
+                                            reqs, base, (tok, rows))
         out[label]["seconds"] = time.perf_counter() - t0
         del rows
+        if parted:
+            fail(f"serve_lm (seeded, {label}): logits rows part from the "
+                 f"run together, (rid, position, prompt length) "
+                 f"{parted}: {out[label]['by_rid']}")
     if pressure.get("preempted", 0) < 1:
         fail(f"serve_lm (seeded, pressured): no request was preempted: "
              f"{pressure}")
     out["pressured"]["pressure"] = pressure
-    out["gemm_probe"] = gemm_probe(kern.cfg)
-    # ROADMAP §C Open 1, step 1: cuBLAS's bf16 reduced-precision
-    # reduction off (the port never sets it)
-    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        out["gemm_probe_no_reduced_precision"] = gemm_probe(kern.cfg)
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            flag
-    out["gemm_probe"]["allow_bf16_reduced_precision_reduction"] = flag
     counts = launch_counts()
+    out["gemm_probe"] = gemm_probe(kern.cfg)
     return out, {"flash_attention": counts["flash_attention"],
                  "decode_attention": counts["dense"],
                  "decode_attention_paged": counts["paged"],
-                 "fused_sampling": counts["fused_sampling"]}
+                 "fused_sampling": counts["fused_sampling"],
+                 "fixed_order_matmul": counts["fixed_order_matmul"]}
 
 
 def flat_paths(tree, path: tuple = ()) -> list:
@@ -4016,7 +4289,8 @@ def serve_paged_mode(cfg, params, quantize: bool, reqs) -> dict:
     want = {"flash_attention": cfg.n_layers * n_groups,
             mode: cfg.n_layers * n_ticks,
             "decode_attention": cfg.n_layers * n_ticks,
-            "fused_sampling": n_ticks}
+            "fused_sampling": n_ticks,
+            "fixed_order_matmul": gemm_launches(cfg, n_groups + n_ticks)}
     for name, n in want.items():
         if counts[name] != n or n < 1:
             fail(f"serve_paged ({mode}): {name} launched {counts[name]} "
@@ -4235,6 +4509,7 @@ def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
     for member in eng._members():
         record_seeded_logits(member, logits)
     reset_counts()
+    window = pool_window(eng)
     t0 = time.perf_counter()
     done = eng.serve(fresh(reqs))
     wall = time.perf_counter() - t0
@@ -4265,9 +4540,53 @@ def disagg_transport(cfg, params, reqs, transport: str) -> tuple:
                   for k, (n, p50, p95, peak)
                   in stats.depth_summary().items()},
         "launches": {k: counts[k] for k in ("flash_attention", "dense",
-                                            "fused_sampling")}}
+                                            "fused_sampling")},
+        "graphs": disagg_graphs(f"serve_disagg ({transport})", eng,
+                                window)}
     check_prefill_bodies(f"serve_disagg ({transport})", counts)
     return {c.rid: c.tokens for c in done}, numbers, counts, logits
+
+
+def pool_window(eng) -> tuple:
+    """The staged calls of a disaggregated pool's engines, their stats and
+    the launch counters now: the start of a window disagg_graphs reads."""
+    calls = [c for m in (eng.prefill, *eng.decodes) for c in staged_calls(m)]
+    return calls, [dict(c.stats) for c in calls], graphs.counters()
+
+
+def disagg_graphs(label: str, eng, window: tuple) -> dict:
+    """A disaggregated pool's staged calls since ``window``
+    (pool_window): the launches their replays added, held against the
+    counters' growth where the window captured nothing new (every launch
+    of the pool's dense kernel path is then a replay); then the prefill
+    engine's prefill and gather graphs and each decode engine's inject
+    graphs against their eager bodies (graph_vs_eager)."""
+    calls, stats0, counters0 = window
+    grown = graphs.count_delta(counters0, graphs.counters())
+    now = [c for m in (eng.prefill, *eng.decodes) for c in staged_calls(m)]
+    new = [c for c in now if all(c is not d for d in calls)]
+    zero = dict.fromkeys(("captures", "replays"), 0)
+    captured = len(new) + sum(c.stats["captures"] - st["captures"]
+                              for c, st in zip(calls, stats0))
+    replayed = replayed_counts(calls + new, stats0 + [zero] * len(new))
+    if not captured and grown != replayed:
+        fail(f"{label} (graphs): replayed launches {replayed} differ from "
+             f"the counters' growth {grown}")
+
+    def named(counts):
+        return {"/".join(str(x) for x in key if x is not None): n
+                for key, n in sorted(counts.items(), key=str)}
+
+    # a window that captured: each new graph's first run launched
+    # eagerly, so the counters grew by those launches beyond the replays'
+    return {"card": nvidia_smi_line(), "captured_in_window": captured,
+            "replays_counters_held": not captured,
+            "replayed_launches": named(replayed),
+            "counter_growth": named(grown),
+            "prefill_engine": graph_vs_eager(label, eng.prefill),
+            "decode_engines": [graph_vs_eager(label, e)
+                               for e in eng.decodes],
+            "graph_pool_bytes": graph_pool_bytes()}
 
 
 def disagg_paged(cfg, params, reqs, quantize: bool) -> tuple:
@@ -4287,6 +4606,7 @@ def disagg_paged(cfg, params, reqs, quantize: bool) -> tuple:
         transport="in_process", decode_kernel=True, device=DEVICE, **kw)
     warm_disagg(eng)
     reset_counts()
+    window = pool_window(eng)
     t0 = time.perf_counter()
     half = LM_REQUESTS // 2
     done = eng.serve(fresh(reqs[:half])) + eng.serve(fresh(reqs[half:]))
@@ -4329,7 +4649,8 @@ def disagg_paged(cfg, params, reqs, quantize: bool) -> tuple:
         "ambiguous_positions": ambiguous, "first_divergence": first_diff,
         "seeded_rows_equal_unified": seeded_equal,
         "launches": {k: counts[k] for k in ("flash_attention", mode,
-                                            "fused_sampling")}}
+                                            "fused_sampling")},
+        "graphs": disagg_graphs(f"serve_disagg ({mode})", eng, window)}
     check_prefill_bodies(f"serve_disagg ({mode})", counts)
     return numbers, counts
 
@@ -4538,15 +4859,18 @@ def init_family(cfg) -> tuple:
 def watch_flash() -> tuple:
     """Count the flash_attention wrapper's calls by its ``causal`` flag
     (vlm prefill: causal self-attention, non-causal cross-attention); the
-    launches themselves are the wrapper's own count.  Returns (calls,
-    a function that removes the watch)."""
+    launches themselves are the wrapper's own count.  A call inside a
+    capture launches nothing and is not counted, and a replayed graph
+    makes no call.  Returns (calls, a function that removes the watch)."""
     from repro_torch import kernels as kernels_pkg
 
     calls = {"causal": 0, "non_causal": 0}
     inner = kernels_pkg.flash_attention
 
     def watched(q, k, v, **kw):
-        calls["causal" if kw.get("causal", True) else "non_causal"] += 1
+        if not graphs.capturing():
+            calls["causal" if kw.get("causal", True)
+                  else "non_causal"] += 1
         return inner(q, k, v, **kw)
 
     kernels_pkg.flash_attention = watched
@@ -4597,8 +4921,10 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
         if counts[key] != n or n < 1:
             fail(f"{name}: {key} launched {counts[key]} times, expected {n} "
                  f"({n_groups} prefill groups, {n_ticks} decode ticks)")
-    if (flash["causal"] != n_self * n_groups
-            or flash["non_causal"] != n_cross * n_groups):
+    # a staged engine's prefill replays its graphs, which call no Python:
+    # there (the dense family, no cross-attention) only the flag is held
+    if (flash["non_causal"] != n_cross * n_groups
+            or (flash["causal"] != n_self * n_groups and not kern._staged)):
         fail(f"{name}: flash calls {flash}, expected {n_self * n_groups} "
              f"causal and {n_cross * n_groups} non-causal")
     check_prefill_bodies(name, counts)
@@ -5792,6 +6118,9 @@ def library_call(name, args, kwargs):
     if name == "fused_sampling":
         logits = args[0]
         return lambda: torch.argmax(logits, dim=-1)
+    if name == "fixed_order_matmul":
+        x, w = args
+        return lambda: torch.matmul(x, w)          # cuBLAS
     return None
 
 
@@ -5806,14 +6135,16 @@ KERNEL_EVENT = {"fused_routing": "fused_routing_kernel",
                 "flash_attention": "flash_attention_kernel",
                 "flash_attention_dequant": "flash_attention_kernel",
                 "decode_attention": "decode_attention_kernel",
-                "fused_sampling": "fused_sampling_kernel"}
+                "fused_sampling": "fused_sampling_kernel",
+                "fixed_order_matmul": "fixed_order_gemm"}
 
 
 # The kernels a captured path launches (the CapsNet forward's routing and
-# softmax, the decode tick's attention and sampling): timing_row also times
+# softmax, the decode tick's attention and sampling, the prefill's flash
+# attention, every projection's fixed-order GEMM): timing_row also times
 # them inside one CUDA graph (graph_ms).
 GRAPHED = ("fused_routing", "taylor_softmax", "decode_attention",
-           "fused_sampling")
+           "fused_sampling", "fixed_order_matmul", "flash_attention")
 GRAPH_LAUNCHES = 20
 
 
@@ -5829,9 +6160,13 @@ def graph_ms(call, launches: int = GRAPH_LAUNCHES, repeats: int = 5) -> float:
         call()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=side):
-        for _ in range(launches):
-            call()
+    gc.disable()                # as graphs.CapturedCall: no collection
+    try:                        # (of another graph) inside the capture
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(launches):
+                call()
+    finally:
+        gc.enable()
     graphs.restore_counts(before)
     g.replay()
     times = []
@@ -6060,6 +6395,20 @@ def phase_timings(launches: dict, worst: dict, by_case: dict,
                  **timing_row(kernel, case)}
         if "mixed" in label:
             entry["library_ms"] = None      # argmax is not this function
+        table.append(entry)
+        emit("timings", case=label, **entry)
+    # the fixed-order GEMM at llama3.2-1b's projections, prefill and
+    # decode, beside cuBLAS (library_ms), listed in the kernels line under
+    # its row; their launches are the kernels phase's at each geometry
+    info = KERNELS["fixed_order_matmul"]
+    for label, case in GEMM_TIMINGS:
+        seen = by_case[case_key("fixed_order_matmul", case)]
+        entry = {"name": f"fixed_order_matmul: {label}",
+                 "route": info["route"], "source": info["source"],
+                 "replaces": info["replaces"], "launches": seen["launches"],
+                 "launch_source": "kernels phase",
+                 "max_abs_err": seen["max_abs_err"],
+                 **timing_row("fixed_order_matmul", case)}
         table.append(entry)
         emit("timings", case=label, **entry)
     # the serve mix's sampling rows (temperature 0.8, top-k 50, top-p 0.9)
@@ -6335,7 +6684,8 @@ TUNING_ATOL = {"fused_routing": 1e-4, "taylor_softmax": 1e-6,
                "flash_attention_dequant": 1e-2, "decode_attention": 1e-2,
                "decode_attention_dequant": 1e-2,
                "decode_attention_paged": 1e-2,
-               "decode_attention_paged_dequant": 1e-2, "fused_sampling": 0}
+               "decode_attention_paged_dequant": 1e-2, "fused_sampling": 0,
+               "fixed_order_matmul": 4e-2}
 TUNING_BUDGET_S = 90
 
 
@@ -6907,6 +7257,8 @@ def _tune_on_the_card(t_phase: float):
     rows = []
     for row, name, case in main_cases:
         spec = registry.get(name)
+        if not spec.tuned:
+            continue                    # nothing to tune (the GEMM)
         wrapper = spec.build()
         args, kwargs = spec.make_example(case, device=DEVICE)
         default = registry.default_config(name, *args, **kwargs)
@@ -6983,7 +7335,7 @@ class TuneWatch:
     """Within its scope, every measured autotune (kernel, cache key,
     arguments, winner, timings, seconds) and every config the registry
     resolves with tuning on for arguments on the card (kernel, cache key,
-    config) are recorded."""
+    config; kernels with tunables) are recorded."""
 
     def __init__(self):
         self.autotunes, self.resolved = [], []
@@ -7005,7 +7357,9 @@ class TuneWatch:
         def resolve(name, *args, overrides=None, tune=None, **kwargs):
             config = inner_resolve(name, *args, overrides=overrides,
                                    tune=tune, **kwargs)
+            # a kernel without tunables (the GEMM) is never looked up
             if ((tune if tune is not None else tuning.tune_enabled())
+                    and registry.get(name).tuned
                     and tuning.backend_of(args) == "cuda"):
                 self.resolved.append((name, tuning.cache_key_for(
                     registry.get(name), args), dict(config)))

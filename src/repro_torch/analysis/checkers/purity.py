@@ -150,15 +150,17 @@ ROOTS: Tuple[Root, ...] = (
     Root("src/repro/serving/engine.py:145 ServeEngine.<lambda>",
          (f"{_ENGINE}._decode", f"{_ENGINE}._tick_body")),
     Root("src/repro/serving/engine.py:148 ServeEngine.<lambda>",
-         (f"{_ENGINE}._prefill_scatter",)),
+         (f"{_ENGINE}._prefill_scatter", f"{_ENGINE}._prefill_body")),
     Root("src/repro/serving/engine.py:152 ServeEngine.<lambda>",
-         ("repro_torch.models.lm:gather_cache_rows",), host=("slot_idx",)),
+         ("repro_torch.models.lm:gather_cache_rows",)),
     Root("src/repro/serving/engine.py:154 ServeEngine.<lambda>",
-         ("repro_torch.models.lm:scatter_cache_rows",), host=("slot_idx",)),
+         ("repro_torch.models.lm:scatter_cache_rows",
+          f"{_ENGINE}._inject_rows.body")),
     Root("src/repro/serving/engine.py:163 ServeEngine.<lambda>",
          (f"{_ENGINE}._decode_paged_impl", f"{_ENGINE}._tick_body")),
     Root("src/repro/serving/engine.py:166 ServeEngine.<lambda>",
-         (f"{_ENGINE}._prefill_paged_impl",)),
+         (f"{_ENGINE}._prefill_paged_impl",
+          f"{_ENGINE}._prefill_paged_body")),
     Root("src/repro/training/trainer.py:63 step",
          ("repro_torch.training.trainer:make_train_step.step",)),
 )

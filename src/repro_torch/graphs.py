@@ -25,7 +25,9 @@ A call site keeps one :class:`CapturedCall` per key (a batch shape) and:
   the next replay of any graph of the device's pool).
 
 A capture that fails raises :class:`GraphError`; nothing falls back to the
-eager run on a CUDA tensor.  Under :func:`capturing`, a tuner run
+eager run on a CUDA tensor.  The cyclic garbage collector is off during a
+capture: an unreachable engine's graph destroyed mid-capture would
+invalidate it.  Under :func:`capturing`, a tuner run
 (:func:`repro_torch.kernels.tuning.autotune`) or a kernel build
 (:func:`repro_torch.kernels.build.load_library`) raises.  On the CPU, and
 inside :func:`eager` (the profiler's traced runs and the comparisons of
@@ -42,6 +44,7 @@ each replay adds it once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import threading
 import time
@@ -119,6 +122,7 @@ COUNTED_WRAPPERS = (
     "repro_torch.kernels.attention.kernel:flash_attention_dequant_cuda",
     "repro_torch.kernels.attention.kernel:decode_attention_cuda",
     "repro_torch.kernels.sampling.kernel:fused_sampling_cuda",
+    "repro_torch.kernels.gemm.kernel:fixed_order_matmul_cuda",
 )
 
 CounterKey = Tuple[str, str, Any]
@@ -289,6 +293,11 @@ class CapturedCall:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         _local.capturing = getattr(_local, "capturing", 0) + 1
+        # no garbage collection inside the capture: a graph collected there
+        # (an engine's, freed with its reference cycle) destroys itself
+        # with calls a capture forbids, which invalidates this one
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=_pool(device), stream=side,
                                   capture_error_mode="thread_local"):
@@ -296,6 +305,8 @@ class CapturedCall:
         except Exception as e:
             raise GraphError(f"{self.name}: capture failed: {e}") from e
         finally:
+            if collecting:
+                gc.enable()
             _local.capturing -= 1
             after = counters()
             restore_counts(before)

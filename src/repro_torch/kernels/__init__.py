@@ -14,6 +14,7 @@ from repro_torch.kernels.registry import (KernelRegistry,  # noqa: F401
                                           KernelSpec, decode_attention,
                                           flash_attention,
                                           flash_attention_dequant,
+                                          fixed_order_matmul,
                                           fused_routing,
                                           fused_sampling,
                                           fused_sampling_rows,

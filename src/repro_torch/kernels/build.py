@@ -31,7 +31,7 @@ import torch
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("routing.cu", "softmax.cu", "flash_attention.cu",
-           "decode_attention.cu", "sampling.cu", "device.cu")
+           "decode_attention.cu", "sampling.cu", "gemm.cu", "device.cu")
 HEADERS = ("approx_math.cuh", "launch.cuh", "wgmma.cuh")
 # Sources compiled once per part, the part's number in a macro
 # (``-D<macro>=<part>``): each part holds some of the source's template
@@ -159,6 +159,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_sampling_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                           i, p]
     lib.fused_sampling_launch.restype = i
+    lib.fixed_order_matmul_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.fixed_order_matmul_launch.restype = i
     lib.fastcaps_grid_limits.argtypes = [i, ctypes.POINTER(i)]
     lib.fastcaps_grid_limits.restype = i
 

@@ -122,7 +122,8 @@ class KernelRegistry:
         spec = self.get(name)
         config = spec.legalize(dict(spec.base_config), *args, **kwargs)
         use_tune = tune if tune is not None else tuning.tune_enabled()
-        if use_tune and tuning.backend_of(args) == "cuda":
+        # a kernel without tunables has nothing to measure
+        if use_tune and spec.tuned and tuning.backend_of(args) == "cuda":
             cache = tuning.default_cache()
             cached = cache.get(tuning.cache_key_for(spec, args))
             if cached is None:
@@ -861,6 +862,90 @@ registry.register(KernelSpec(
 ))
 
 
+# -- fixed_order_matmul -----------------------------------------------------
+# y = x @ w with one CTA tile and one K order for every M, so a request's
+# rows get the same bits whoever shares the call (ROADMAP §C Open 1).  No
+# TPU kernel: the reference leaves its projections to XLA.  It has no
+# tunables, by design: a tunable tile or split would set a row's sums.  The
+# example cases put M off N and K (kernel-legality scales the rows), w as
+# stored (``nk`` the transpose of an (N, K) table) and M past one tile.
+
+
+def _build_fixed_order_matmul():
+    from repro_torch.kernels.gemm.kernel import fixed_order_matmul_cuda
+
+    return fixed_order_matmul_cuda
+
+
+def _gemm_reference():
+    from repro_torch.kernels.gemm.kernel import fixed_order_matmul_plain
+
+    return fixed_order_matmul_plain
+
+
+def _legalize_gemm(config: Dict[str, Any], x, w, *args, **kwargs
+                   ) -> Dict[str, Any]:
+    """Nothing to clamp (no tunables); refuses with ``ValueError`` /
+    ``TypeError`` what the wrapper refuses: a misfit on every device, and
+    on the card and on meta what the kernel refuses (type, layout,
+    alignment, rows past the grid).  Idempotent."""
+    from repro_torch.kernels.gemm.kernel import check_kernel, check_shapes
+
+    check_shapes(x, w)
+    if x.device.type != "cpu":
+        check_kernel(x, w)
+    return config
+
+
+def _gemm_launch_plan(config: Dict[str, Any], x, w, *args, **kwargs
+                      ) -> Dict[str, int]:
+    from repro_torch.kernels.gemm.kernel import (GEMM_SMEM, gemm_grid,
+                                                 gemm_plan)
+
+    plan = gemm_plan(x, w)
+    return {"threads": plan["threads"], "cluster": 1,
+            "grid": gemm_grid(x.shape[0], w.shape[1], x.dtype),
+            "smem_bytes": GEMM_SMEM if plan["body"] == "tensor_core" else 0}
+
+
+def _gemm_example(case, device="cpu"):
+    m, n, k = case.get("dims", (75, 96, 64))
+    dtype, seed, rng = (case.get("dtype", "bfloat16"), case.get("seed", 0),
+                        case.get("rng"))
+    x = _rand(seed, (m, k), dtype, device=device, rng=rng)
+    if case.get("layout", "kn") == "nk":
+        w = _rand(seed + 1, (n, k), dtype, scale=k ** -0.5, device=device,
+                  rng=rng).T
+    else:
+        w = _rand(seed + 1, (k, n), dtype, scale=k ** -0.5, device=device,
+                  rng=rng)
+    return (x, w), {}
+
+
+registry.register(KernelSpec(
+    name="fixed_order_matmul",
+    build=_build_fixed_order_matmul,
+    reference=_gemm_reference,
+    space={},
+    tuned=(),
+    base_config={},
+    legalize=_legalize_gemm,
+    launch_plan=_gemm_launch_plan,
+    make_example=_gemm_example,
+    example_cases=(
+        # bf16 against the plain product (float32 sums rounded to bf16 in
+        # another order): one bf16 step of an output below 8
+        {"dims": (75, 96, 64), "atol": 4e-2},
+        {"dims": (200, 264, 136), "layout": "nk", "atol": 4e-2},
+        {"dims": (1, 128, 2048), "atol": 4e-2},
+        {"dims": (33, 40, 24), "dtype": "float32", "atol": 1e-5},
+        {"dims": (70, 24, 40), "dtype": "float32", "layout": "nk",
+         "atol": 1e-5},
+    ),
+    ref_accepts=(),
+))
+
+
 # ---------------------------------------------------------------------------
 # Ergonomic wrappers (registry dispatch with explicit tunable overrides)
 # ---------------------------------------------------------------------------
@@ -932,6 +1017,14 @@ def decode_attention(q, k, v, kv_valid_len, tables=None, ks=None, vs=None,
                          softmax_mode=softmax_mode,
                          config={"threads": threads, "kv_splits": kv_splits},
                          tune=tune)
+
+
+def fixed_order_matmul(x, w):
+    """x (M, K) @ w (K, N) -> (M, N): one tile and one K order for every
+    M, so a row's bits do not depend on the rows beside it; ``w`` read as
+    stored (row-major, or the transpose of a row-major (N, K)).  No
+    tunables, so nothing to tune."""
+    return registry.call("fixed_order_matmul", x, w)
 
 
 def pack_sampling_rows(b: int, temperature, seeds, pos, top_k=None,

@@ -511,7 +511,9 @@ def main(argv=None) -> int:
     if not args.selfcheck and not args.pretune:
         ap.print_help()
         return 0
-    names = (registry.names() if args.pretune == "all"
+    # "all": every kernel with something to tune
+    names = ([n for n in registry.names() if registry.get(n).tuned]
+             if args.pretune == "all"
              else [registry.get(args.pretune).name] if args.pretune else [])
     device = resolve_device(args.device)
     if names and device.type != "cuda":

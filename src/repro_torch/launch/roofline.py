@@ -178,6 +178,17 @@ def softmax_bwd_work(shape, elem: int = 4) -> Work:
     return Work(3 * elem * n, 43 * n, FP32_FLOP_PER_S)
 
 
+def gemm_work(case) -> Work:
+    """y = x @ w, x (M, K), w (K, N): 2 * M * N * K operations at the peak
+    of the case's type (the bf16 tensor cores, or float32 outside them);
+    x and w read and y written once."""
+    m, n, k = case["dims"]
+    width = elem_bytes({"dtype": case.get("dtype", "bfloat16")})
+    ops = 2.0 * m * n * k
+    peak = BF16_FLOP_PER_S if width == 2 else FP32_FLOP_PER_S
+    return Work(width * (m * k + k * n + m * n), ops, peak, ops)
+
+
 def flash_bound(case, int8: bool = False):
     return flash_work(case, int8).times()
 
@@ -215,6 +226,7 @@ KERNEL_WORK = {
     "flash_attention_dequant": lambda c: flash_work(c, int8=True),
     "decode_attention": decode_work,
     "fused_sampling": sampling_work,
+    "fixed_order_matmul": gemm_work,
 }
 
 # registry kernel name -> (seconds for the bytes, seconds for the operations)

@@ -128,10 +128,19 @@ def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 def _project_qkv(params, cfg: LMConfig, xq: torch.Tensor, xkv: torch.Tensor):
+    """q, k, v (B, S, heads, head_dim); on ``common.fixed_order_route``
+    each a 2-D fixed-order product over (B * S, d_model) against its
+    (d, h, k) weight read as (d, h * k)."""
     cd = cfg.cdtype()
-    q = torch.einsum("bsd,dhk->bshk", xq.to(cd), params["wq"].to(cd))
-    k = torch.einsum("btd,dhk->bthk", xkv.to(cd), params["wk"].to(cd))
-    v = torch.einsum("btd,dhk->bthk", xkv.to(cd), params["wv"].to(cd))
+    xq, xkv = xq.to(cd), xkv.to(cd)
+    wq, wk, wv = (params[n].to(cd) for n in ("wq", "wk", "wv"))
+    if common.fixed_order_route(cfg, xq, xkv, wq, wk, wv):
+        q, k, v = (common.fixed_matmul(x, w.flatten(1)).unflatten(
+            -1, w.shape[1:]) for x, w in ((xq, wq), (xkv, wk), (xkv, wv)))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", xq, wq)
+        k = torch.einsum("btd,dhk->bthk", xkv, wk)
+        v = torch.einsum("btd,dhk->bthk", xkv, wv)
     if cfg.qkv_bias:
         q = q + params["bq"].to(cd)
         k = k + params["bk"].to(cd)
@@ -143,8 +152,14 @@ def _project_qkv(params, cfg: LMConfig, xq: torch.Tensor, xkv: torch.Tensor):
 
 
 def _out_proj(params, cfg: LMConfig, attn_out: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads, head_dim) -> (B, S, d_model); on
+    ``common.fixed_order_route`` a 2-D fixed-order product over (B * S,
+    h * k) against the (h, k, d) weight read as (h * k, d)."""
     cd = cfg.cdtype()
-    return torch.einsum("bshk,hkd->bsd", attn_out.to(cd), params["wo"].to(cd))
+    x, wo = attn_out.to(cd), params["wo"].to(cd)
+    if common.fixed_order_route(cfg, x, wo):
+        return common.fixed_matmul(x.flatten(-2), wo.flatten(0, 1))
+    return torch.einsum("bshk,hkd->bsd", x, wo)
 
 
 def _group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -357,7 +372,9 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
       * cache given, x.shape[1] == 1 — decode: writes cache[idx] and attends
                                        to cache[0:idx+1].  A vector
                                        ``cache_index`` (B,) gives every slot
-                                       its own row; a scalar one is shared.
+                                       its own row; a scalar one is shared;
+                                       none (a one-token prompt's prefill)
+                                       writes row ``prefill_offset``.
                                        With ``paged_tables`` (B, P) the cache
                                        leaves are the page pool's.
 
@@ -408,7 +425,14 @@ def self_attention(params, cfg: LMConfig, x: torch.Tensor,
         return _out_proj(params, cfg, out), cache
 
     b = x.shape[0]
-    idx = cache_index if cache_index is not None else positions[:, 0].max()
+    if cache_index is not None:
+        idx = cache_index
+    else:
+        # a one-token prefill (ragged at offset 0, or a continuation)
+        # writes row ``off``, which its positions hold (lm._prefill_batch
+        # builds them from the offset): known on the host, so a captured
+        # prefill reads nothing back from the device
+        idx = off
     vector = torch.is_tensor(idx) and idx.dim() == 1
     if paged_tables is not None:
         if not vector:

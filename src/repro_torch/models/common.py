@@ -440,13 +440,39 @@ def embed_inputs(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
     return x.to(cfg.cdtype())
 
 
+def fixed_order_route(cfg: LMConfig, *xs: torch.Tensor) -> bool:
+    """Whether a serving projection takes the port's fixed-order GEMM
+    (:func:`fixed_matmul`): on the kernel path (``cfg.attn_impl ==
+    "cuda"``) when no gradient is asked of the product; the kernel has no
+    backward, so training keeps torch's product."""
+    if cfg.attn_impl != "cuda":
+        return False
+    return not (torch.is_grad_enabled() and any(x.requires_grad for x in xs))
+
+
+def fixed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) as one 2-D product over the flattened rows
+    through ``kernels.fixed_order_matmul``: one tile and one K order for
+    every row count, so a request's rows take the same bits whoever shares
+    the call (on a CPU tensor its plain version).  ``w`` is read as stored
+    (row-major, or the transpose of a row-major table)."""
+    from repro_torch import kernels
+
+    y = kernels.fixed_order_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
+                                   w)
+    return y.view(*x.shape[:-1], w.shape[-1])
+
+
 def unembed(params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits in the compute type, cast to float32 (then soft-capped).  A
     tied model reads ``tok_cd`` (the compute-type copy of the table an
-    engine makes once) when it is there, else casts ``tok``."""
+    engine makes once) when it is there, else casts ``tok``.  On
+    :func:`fixed_order_route` the product is :func:`fixed_matmul`'s."""
     cd = cfg.cdtype()
     if cfg.tie_embeddings:
         w = params.get("tok_cd", params["tok"]).to(cd).T
     else:
         w = params["unembed"].to(cd)
-    return softcap((x.to(cd) @ w).float(), cfg.logit_softcap)
+    x = x.to(cd)
+    y = fixed_matmul(x, w) if fixed_order_route(cfg, x, w) else x @ w
+    return softcap(y.float(), cfg.logit_softcap)

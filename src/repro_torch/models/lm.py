@@ -680,6 +680,12 @@ def _map_leaves(fn, specs, *trees):
     return fn(specs, *trees)
 
 
+def cache_batch_axes(cfg: LMConfig) -> Any:
+    """The ``batch`` (slot) axis of each leaf of :func:`make_caches`' tree,
+    as a tree of ints."""
+    return _map_leaves(lambda axes: axes.index("batch"), cache_specs(cfg))
+
+
 def gather_cache_rows(cfg: LMConfig, slot_idx, caches: Any) -> Any:
     """Copies of the cache rows of slots ``slot_idx`` (k,) along each
     leaf's ``batch`` axis: a :func:`make_caches`-shaped tree of batch k."""
@@ -709,16 +715,16 @@ def scatter_cache_rows(cfg: LMConfig, slot_idx, rows: Any, caches: Any
                        ) -> Any:
     """Write the sub-batch ``rows`` into ``caches`` at slots ``slot_idx``,
     in place, and return ``caches``.  A slot index outside the caches (a
-    sub-batch's pad row) drops its row, as the reference's scatter does.
-    The indices are read on the host."""
-    idx = torch.as_tensor(slot_idx, dtype=torch.int64).cpu()
-
+    sub-batch's pad row) drops its row, as the reference's scatter does,
+    on the device (``attention.put_rows``): nothing is read on the host,
+    so a captured prefill or re-injection stages its indices."""
     def one(axes, n, o):
         ax = axes.index("batch")
-        keep = (idx >= 0) & (idx < o.shape[ax])
-        src = torch.index_select(n, ax, torch.nonzero(keep)[:, 0]
-                                 .to(n.device))
-        o.index_copy_(ax, idx[keep].to(o.device), src.to(o.dtype))
+        idx = torch.as_tensor(slot_idx).to(device=o.device,
+                                           dtype=torch.int64)
+        ok = (idx >= 0) & (idx < o.shape[ax])
+        attn_lib.put_rows(torch.movedim(o, ax, 0), (idx,), ok,
+                          torch.movedim(n, ax, 0))
         return o
 
     return _map_leaves(one, cache_specs(cfg), rows, caches)

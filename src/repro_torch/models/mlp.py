@@ -7,7 +7,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models.common import (LMConfig, ParamDef, activation,
-                                       fanin_init, zeros_init)
+                                       fanin_init, fixed_matmul,
+                                       fixed_order_route, zeros_init)
 
 
 def mlp_defs(cfg: LMConfig, d_ff: int = 0) -> Dict[str, Any]:
@@ -26,16 +27,22 @@ def mlp_defs(cfg: LMConfig, d_ff: int = 0) -> Dict[str, Any]:
 
 def mlp_apply(params: Dict[str, torch.Tensor], cfg: LMConfig,
               x: torch.Tensor) -> torch.Tensor:
+    """The FFN; its three products through the fixed-order GEMM on
+    :func:`~repro_torch.models.common.fixed_order_route`."""
     cd = cfg.cdtype()
     act = activation(cfg.act)
-    h = x.to(cd) @ params["wi"].to(cd)
+    x = x.to(cd)
+    wi = params["wi"].to(cd)
+    mm = (fixed_matmul if fixed_order_route(cfg, x, wi)
+          else torch.matmul)
+    h = mm(x, wi)
     if "bi" in params:
         h = h + params["bi"].to(cd)
     if cfg.glu:
-        h = act(x.to(cd) @ params["wg"].to(cd)) * h
+        h = act(mm(x, params["wg"].to(cd))) * h
     else:
         h = act(h)
-    y = h @ params["wo"].to(cd)
+    y = mm(h, params["wo"].to(cd))
     if "bo" in params:
         y = y + params["bo"].to(cd)
     return y

@@ -247,11 +247,14 @@ class PrefillEngine(ServeEngine):
                     base += n
         elif pending:
             for sh, members in self._by_shard(pending):
-                rows_all = lm.gather_cache_rows(
-                    self.cfg, [s - sh.lo for s, _ in members], sh.caches)
-                for i, (_, task) in enumerate(members):
-                    task.state["handoff"].rows = lm.gather_cache_rows(
-                        self.cfg, [i], rows_all)
+                # one staged gather (the reference's _gather) per slot:
+                # each handoff owns its rows, not a view that would hold
+                # the whole group's rows until its last handoff is
+                # delivered; k replays where the batched gather and its
+                # k per-slot splits made k + 1 copies
+                for s, task in members:
+                    task.state["handoff"].rows = self._gather_rows(
+                        sh, [s - sh.lo])
         # every admitted slot retires this tick: the slot's state left in
         # the handoff, the slot itself is free for the next admission
         return [s for s, _ in new], items
@@ -402,12 +405,9 @@ class DecodeEngine(ServeEngine):
         elif live:
             # each group's rows go to the device that owns its slots
             for sh, members in self._by_shard(live):
-                rows = lm.concat_cache_rows(
-                    self.cfg, [_to_device(h.rows, sh.device)
-                               for _, h in members])
-                sh.caches = lm.scatter_cache_rows(
-                    self.cfg, np.asarray([s - sh.lo for s, _ in members],
-                                         np.int64), rows, sh.caches)
+                self._inject_rows(sh, [s - sh.lo for s, _ in members],
+                                  [_to_device(h.rows, sh.device)
+                                   for _, h in members])
         for s, task in hand:
             h = task.payload.handoff
             h.rows = h.ready = None   # the state lives in this engine now

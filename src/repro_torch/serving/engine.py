@@ -41,8 +41,14 @@ block has one graph, captured at its first decode tick (whose seconds are
 kept out of the tick wall: :meth:`ServeEngine.graph_stats`); the caches
 and pool leaves are written in place, and a leaf that moved is
 re-captured (:mod:`repro_torch.graphs`).  On the CPU the same staged body
-runs eagerly.  Prefill, preemption's row copies and the other families'
-ticks stay eager.
+runs eagerly.  The same engine stages its admission, the counterparts of
+the reference's jitted ``_prefill``, ``_prefill_paged``, ``_gather`` and
+``_inject`` (:meth:`ServeEngine._run_staged`): the ragged prefill per
+``(nb, plen)`` bucket, the paged prefill per ``(nb, plen, off)``,
+preemption's and the handoff's row gather and inject per row count, each
+a graph per block and key on the card.  ``generate()``, the recurrent
+families' length-bucketed prefill and the other families' ticks and
+admission stay eager.
 
 The engine casts the parameters to the compute type once, when it is
 built (:func:`repro_torch.models.lm.compute_params`), and updates its
@@ -94,7 +100,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.common import LMConfig, tree_leaves
+from repro_torch.models.common import (LMConfig, tree_leaves,
+                                       tree_unflatten)
 from repro_torch.serving.core import EngineCore, SlotTask
 from repro_torch.serving.pages import PagePool, PagePoolExhausted
 from repro_torch.serving.schedulers import (Scheduler, ShardedScheduler,
@@ -122,6 +129,9 @@ class _Shard:
     # buffer staged into it, made at the block's first tick
     tick: Any = None
     tick_host: Optional[torch.Tensor] = None
+    # the staged admission calls (prefill, paged prefill, gather, inject),
+    # one per (kind, shape key, tuning policy), made at first use
+    calls: Dict[Any, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -197,6 +207,8 @@ class ServeEngine(EngineCore):
         self.params = self._shards[0].params
         self._tok = np.zeros((n_slots,), np.int32)   # pending token per slot
         self._pos = np.zeros((n_slots,), np.int32)   # its cache index
+        # the row tree a staged inject of k rows takes (_inject_tree)
+        self._inject_trees: Dict[int, tuple] = {}
 
     def _make_shards(self, params: Any, device: Any) -> List[_Shard]:
         """One block of slots per device of a ShardedScheduler's mesh (one
@@ -266,7 +278,11 @@ class ServeEngine(EngineCore):
 
     # -- device steps --------------------------------------------------------
 
-    def _to_dev(self, x: np.ndarray, device: Any = None) -> torch.Tensor:
+    def _to_dev(self, x: Any, device: Any = None) -> torch.Tensor:
+        """A host array on ``device`` (the engine's by default); a tensor
+        (a staged call's slice of its device buffer) passes through."""
+        if torch.is_tensor(x):
+            return x
         return torch.from_numpy(np.ascontiguousarray(x)).to(
             self.device if device is None else device)
 
@@ -278,14 +294,15 @@ class ServeEngine(EngineCore):
             return self.scheduler.place(arr)
         return [self._to_dev(self.scheduler.place(arr))]
 
-    def _prefill_scatter(self, sh: _Shard, tokens: np.ndarray,
-                         lengths: np.ndarray, slot_idx: np.ndarray,
-                         caches: Any):
+    def _prefill_scatter(self, sh: _Shard, tokens: Any, lengths: Any,
+                         slot_idx: Any, caches: Any):
         """Prefill a (bucketed) sub-batch on fresh caches on block ``sh``'s
         device, then scatter its rows into ``caches`` at the block-local
         ``slot_idx`` (pad rows carry an index past the block and are
-        dropped); returns (logits on the device, caches).  Admission cost
-        scales with the admitted slots, not the capacity."""
+        dropped on the device); returns (logits on the device, caches).
+        Admission cost scales with the admitted slots, not the capacity.
+        The arguments are host arrays, or the staged call's device slices
+        (:meth:`_prefill_body`)."""
         sub = lm.make_caches(self.cfg, tokens.shape[0], self.max_len,
                              sh.device)
         logits, sub = lm.ragged_prefill_step(
@@ -327,16 +344,19 @@ class ServeEngine(EngineCore):
         return logits, pages.scatter_decode_rows(sh.pool, view, tables_t,
                                                  batch["pos"])
 
-    def _prefill_paged_impl(self, sh: _Shard, off: int, tokens: np.ndarray,
-                            lengths: np.ndarray, page_map: np.ndarray,
-                            prefix_rows: np.ndarray, slot_idx: np.ndarray):
+    def _prefill_paged_impl(self, sh: _Shard, off: int, tokens: Any,
+                            lengths: Any, page_map: Any, prefix_rows: Any,
+                            slot_idx: Any):
         """Paged (possibly continuation) prefill on block ``sh``: a fresh
         sub cache just long enough for the written page span, prefilled
         from position ``off`` (0 = ordinary ragged prefill; > 0 continues
         from the dequantized shared-prefix pages ``prefix_rows``), then
         scattered into the block's pool at page granularity (``page_map``
-        and ``prefix_rows`` in local page ids, ``slot_idx`` block-local).
-        Returns (logits, pool, residual)."""
+        and ``prefix_rows`` in local page ids, ``slot_idx`` block-local;
+        the sentinel and out-of-range slots drop their rows on the
+        device).  The arguments are host arrays, or the staged call's
+        device slices (:meth:`_prefill_paged_body`).  Returns (logits,
+        pool, residual)."""
         pages = self._pages
         nb = tokens.shape[0]
         total = off + page_map.shape[1] * pages.page_size
@@ -538,12 +558,10 @@ class ServeEngine(EngineCore):
         pre_finished: List[int] = []
         for sh, members in self._by_shard(resume):
             # the rows come from the device the task was evicted on
-            rows = lm.concat_cache_rows(
-                self.cfg, [_to_device(t.state.pop("resume_rows"), sh.device)
-                           for _, t in members])
-            sh.caches = lm.scatter_cache_rows(
-                self.cfg, np.asarray([s - sh.lo for s, _ in members],
-                                     np.int64), rows, sh.caches)
+            self._inject_rows(
+                sh, [s - sh.lo for s, _ in members],
+                [_to_device(t.state.pop("resume_rows"), sh.device)
+                 for _, t in members])
         for s, task in resume:
             self._tok[s] = task.state.pop("resume_tok")
             self._pos[s] = task.state.pop("resume_pos")
@@ -582,8 +600,15 @@ class ServeEngine(EngineCore):
                 tokens[i, :len(p)] = p
                 lengths[i] = len(p)
                 slot_idx[i] = s - sh.lo
-            logits, sh.caches = self._prefill_scatter(sh, tokens, lengths,
-                                                      slot_idx, sh.caches)
+            if self._staged:
+                logits = self._run_staged(
+                    sh, "prefill", (nb, plen),
+                    lambda rows, sh=sh, nb=nb, plen=plen:
+                        self._prefill_body(sh, nb, plen, rows),
+                    tokens, lengths, slot_idx)
+            else:
+                logits, sh.caches = self._prefill_scatter(
+                    sh, tokens, lengths, slot_idx, sh.caches)
             runs.append((members, logits, lengths))
         finished = []
         for members, logits, lengths in runs:
@@ -711,8 +736,17 @@ class ServeEngine(EngineCore):
                 if hits:
                     hit_reqs += 1
                     hit_pages += len(hits)
-            logits, sh.pool, sh.residual = self._prefill_paged_impl(
-                sh, off, tokens, lengths, page_rows, prefix_rows, slot_idx)
+            if self._staged:
+                logits = self._run_staged(
+                    sh, "paged prefill", (nb, splen, off),
+                    lambda rows, sh=sh, nb=nb, splen=splen, npg=npg, off=off:
+                        self._prefill_paged_body(sh, off, nb, splen, npg,
+                                                 rows),
+                    tokens, lengths, slot_idx, page_rows, prefix_rows)
+            else:
+                logits, sh.pool, sh.residual = self._prefill_paged_impl(
+                    sh, off, tokens, lengths, page_rows, prefix_rows,
+                    slot_idx)
             runs.append((members, logits))
         finished = []
         for members, logits in runs:
@@ -856,8 +890,7 @@ class ServeEngine(EngineCore):
             task.state["resume_pos"] = int(self._pos[slot])
             return
         sh = self._shard_of(slot)
-        task.state["resume_rows"] = lm.gather_cache_rows(
-            self.cfg, [slot - sh.lo], sh.caches)
+        task.state["resume_rows"] = self._gather_rows(sh, [slot - sh.lo])
         task.state["resume_tok"] = int(self._tok[slot])
         task.state["resume_pos"] = int(self._pos[slot])
 
@@ -1031,13 +1064,150 @@ class ServeEngine(EngineCore):
         self._observe_logits(logits, active, pos_of, sh.lo)
         return tokens
 
-    def graph_stats(self) -> Dict[str, float]:
-        """The staged decode tick's graphs, over every block: captured,
-        re-captured and replayed, eager runs, and capture seconds (kept
-        out of the tick wall)."""
+    # -- the staged admission calls ----------------------------------------
+    #
+    # The reference's jitted _prefill, _prefill_paged, _gather and _inject
+    # (src/repro/serving/engine.py:144-167), dense family: each staged from
+    # one int32 buffer (a fresh pinned host copy, one copy to the device)
+    # and, on the card, replayed from a graph captured per block and shape
+    # key, as the reference's jit retraces per shape; on the CPU the same
+    # body runs eagerly.
+
+    def _run_staged(self, sh: _Shard, kind: str, key: tuple, body,
+                    *parts: np.ndarray, inputs=None, stage=None) -> Any:
+        """``body(rows, **other inputs)`` as block ``sh``'s staged call of
+        ``kind`` at ``key`` (and the tuning policy,
+        :func:`repro_torch.graphs.config_key`), made at first use:
+        ``parts`` packed as int32 into ``rows`` and staged in one copy;
+        ``inputs()`` makes the call's other static inputs and
+        ``stage(inputs)`` fills them before each run.  Capture seconds are
+        kept out of the tick wall."""
         from repro_torch import graphs
 
-        return graphs.graph_stats([sh.tick for sh in self._shards])
+        words = np.concatenate([np.asarray(p).reshape(-1) for p in parts]
+                               ).astype(np.int32)
+        full = (kind, key, graphs.config_key())
+        call = sh.calls.get(full)
+        if call is None:
+            call = sh.calls[full] = graphs.CapturedCall(
+                body, {"rows": torch.zeros(words.shape, dtype=torch.int32,
+                                           device=sh.device),
+                       **(inputs() if inputs is not None else {})},
+                name=f"ServeEngine {kind} {key} (block {sh.index})")
+        host = torch.from_numpy(words)
+        if sh.device.type == "cuda":
+            # a fresh pinned copy: the caching host allocator keeps it
+            # until the asynchronous copy has read it
+            host = host.pin_memory()
+        call.stage(rows=host)
+        if stage is not None:
+            stage(call.inputs)
+        out = call(reads=self._tick_reads(sh))
+        self._exclude_tick_time(call.last_capture_s)
+        return out
+
+    def _prefill_body(self, sh: _Shard, nb: int, plen: int,
+                      rows: torch.Tensor) -> torch.Tensor:
+        """What block ``sh``'s prefill graph captures (the reference's
+        ``_prefill``): :meth:`_prefill_scatter` on its caches, reading the
+        staged tokens (nb, plen), lengths and slot indices; returns the
+        first-token logits."""
+        tokens = rows[:nb * plen].view(nb, plen)
+        lengths = rows[nb * plen:nb * plen + nb]
+        slot_idx = rows[nb * plen + nb:nb * plen + 2 * nb]
+        return self._prefill_scatter(sh, tokens, lengths, slot_idx,
+                                     sh.caches)[0]
+
+    def _prefill_paged_body(self, sh: _Shard, off: int, nb: int, splen: int,
+                            npg: int, rows: torch.Tensor) -> torch.Tensor:
+        """What block ``sh``'s paged prefill graph captures (the
+        reference's ``_prefill_paged``, ragged at ``off`` 0, a continuation
+        past it): :meth:`_prefill_paged_impl` on its pool, reading the
+        staged tokens (nb, splen), lengths, slot indices, page map (nb,
+        npg) and prefix rows (nb, off // page_size); returns the
+        first-token logits."""
+        cuts = np.cumsum([0, nb * splen, nb, nb, nb * npg,
+                          nb * (off // self._pages.page_size)])
+        tokens, lengths, slot_idx, page_map, prefix = (
+            rows[a:b] for a, b in zip(cuts[:-1], cuts[1:]))
+        return self._prefill_paged_impl(
+            sh, off, tokens.view(nb, splen), lengths, slot_idx=slot_idx,
+            page_map=page_map.view(nb, npg),
+            prefix_rows=prefix.view(nb, off // self._pages.page_size))[0]
+
+    def _gather_rows(self, sh: _Shard, local: List[int]) -> Any:
+        """Copies of block ``sh``'s cache rows at the block-local slots
+        ``local`` (preemption; the reference's ``_gather``): staged and,
+        on the card, a graph per block and row count for the dense
+        kernel path; ``lm.gather_cache_rows`` as it is otherwise."""
+        if not self._staged:
+            return lm.gather_cache_rows(self.cfg, local, sh.caches)
+        return self._run_staged(
+            sh, "gather", (len(local),),
+            lambda rows, sh=sh: lm.gather_cache_rows(self.cfg, rows,
+                                                     sh.caches),
+            np.asarray(local))
+
+    def _inject_rows(self, sh: _Shard, local: List[int],
+                     rows_list: List[Any]) -> None:
+        """Write gathered row trees (one slot each, on ``sh``'s device)
+        into block ``sh``'s caches at the block-local slots ``local`` (a
+        resume; the reference's ``_inject``): staged and, on the card, a
+        graph per block and row count for the dense kernel path, the rows
+        copied into the call's static row tree; otherwise concatenated and
+        scattered as they are."""
+        if not self._staged:
+            sh.caches = lm.scatter_cache_rows(
+                self.cfg, np.asarray(local, np.int64),
+                lm.concat_cache_rows(self.cfg, rows_list), sh.caches)
+            return
+        k = len(local)
+        like, names, axes = self._inject_tree(k)
+
+        def body(rows, **leaves):
+            lm.scatter_cache_rows(
+                self.cfg, rows,
+                tree_unflatten(like, [leaves[n] for n in names]), sh.caches)
+
+        def inputs():
+            return {n: torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                   device=sh.device)
+                    for n, leaf in zip(names, tree_leaves(like))}
+
+        def stage(static):
+            for j, rows in enumerate(rows_list):
+                for n, ax, src in zip(names, axes, tree_leaves(rows)):
+                    static[n].narrow(ax, j, 1).copy_(src)
+
+        self._run_staged(sh, "inject", (k,), body, np.asarray(local),
+                         inputs=inputs, stage=stage)
+
+    def _inject_tree(self, k: int) -> tuple:
+        """A staged inject of ``k`` rows: its row tree (a cache tree of
+        ``k`` slots on the meta device), the names of its leaves as the
+        call's static inputs and each leaf's slot axis, made once per
+        ``k``."""
+        got = self._inject_trees.get(k)
+        if got is None:
+            like = lm.make_caches(self.cfg, k, self.max_len, device="meta")
+            got = self._inject_trees[k] = (
+                like, [f"leaf{i}" for i in range(len(tree_leaves(like)))],
+                tree_leaves(lm.cache_batch_axes(self.cfg)))
+        return got
+
+    def graph_stats(self, kind: str = "tick") -> Dict[str, float]:
+        """The graphs of the staged decode tick (``kind`` "tick"), of one
+        kind of staged admission call ("prefill", "paged prefill",
+        "gather", "inject") or of all of them ("all"), over every block:
+        captured, re-captured and replayed, eager runs, and capture
+        seconds (kept out of the tick wall)."""
+        from repro_torch import graphs
+
+        calls = ([sh.tick for sh in self._shards]
+                 if kind in ("tick", "all") else [])
+        calls += [c for sh in self._shards for key, c in sh.calls.items()
+                  if kind in (key[0], "all")]
+        return graphs.graph_stats(calls)
 
     def _finish_tick(self, active: List[Tuple[int, SlotTask]],
                      host: np.ndarray) -> Tuple[List[int], int]:

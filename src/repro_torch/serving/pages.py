@@ -136,11 +136,6 @@ def _index(x: Any, device: torch.device) -> torch.Tensor:
         device=device, dtype=torch.int64)
 
 
-def _host(x: Any) -> np.ndarray:
-    """An index map read on the host, as int64."""
-    return np.asarray(x.cpu() if torch.is_tensor(x) else x, np.int64)
-
-
 class PagePool:
     """Global page pool + per-slot page tables for one serving engine.
 
@@ -428,31 +423,30 @@ class PagePool:
         wrote (kv_seq length >= ``off + npg * page_size``); ``page_map``
         (nb, npg) maps each batch row's page-aligned span starting at
         ``off`` to pool page ids, with the sentinel ``n_pages`` marking pad
-        rows and unallocated tail pages (dropped; the map is read on the
-        host).  Quantized pools quantize per row here — the one place
-        prefilled state crosses into int8."""
-        pmap = _host(page_map)
-        nb, npg = pmap.shape
-        ps = self.page_size
-        flat = pmap.reshape(-1)
-        keep = np.nonzero((flat >= 0) & (flat < self._pages_in(pool)))[0]
+        rows and unallocated tail pages (dropped on the device,
+        ``attention.put_rows``: nothing is read on the host, so a captured
+        prefill stages the map).  Quantized pools quantize per row here —
+        the one place prefilled state crosses into int8."""
         dev = next(iter(pool.values())).device
-        sel = torch.from_numpy(keep).to(dev)
-        dst = torch.from_numpy(flat[keep]).to(dev)
+        flat = _index(page_map, dev)
+        nb, npg = flat.shape
+        flat = flat.reshape(-1)
+        ps = self.page_size
+        ok = (flat >= 0) & (flat < self._pages_in(pool))
         for lf in self._paged:
             sm = torch.movedim(_get(sub_caches, lf.path), (lf.bax, lf.sax),
                                (0, 1))
             span = sm[:, off:off + npg * ps]
-            rows = span.reshape((nb * npg, ps) + tuple(sm.shape[2:]))[sel]
+            rows = span.reshape((nb * npg, ps) + tuple(sm.shape[2:]))
             pm = torch.movedim(pool[lf.key], (lf.bax, lf.sax), (0, 1))
             if lf.scale_key is not None:
                 q, sc = attention.quantize_kv_rows(rows)
-                pm[dst] = q
+                attention.put_rows(pm, (flat,), ok, q)
                 sp = torch.movedim(pool[lf.scale_key], (lf.bax, lf.sax),
                                    (0, 1))
-                sp[dst] = sc
+                attention.put_rows(sp, (flat,), ok, sc)
             else:
-                pm[dst] = rows.to(pm.dtype)
+                attention.put_rows(pm, (flat,), ok, rows)
         return pool
 
     def make_continuation_caches(self, pool: Dict[str, torch.Tensor],
@@ -518,18 +512,15 @@ class PagePool:
                               rows: Dict[str, torch.Tensor],
                               slot_idx: Any) -> Dict[str, torch.Tensor]:
         """Write per-slot residual rows in place; out-of-range
-        ``slot_idx`` (pad entries = ``n_slots``) drop (read on the
-        host)."""
-        idx = _host(slot_idx)
+        ``slot_idx`` (pad entries = ``n_slots``) drop, on the device
+        (``attention.put_rows``)."""
         for rl in self._residual:
-            n = residual[rl.key].shape[rl.bax]      # a block's slots, or all
-            keep = np.nonzero((idx >= 0) & (idx < n))[0]
-            dev = residual[rl.key].device
-            src = torch.index_select(rows[rl.key], rl.bax,
-                                     torch.from_numpy(keep).to(dev))
-            residual[rl.key].index_copy_(
-                rl.bax, torch.from_numpy(idx[keep]).to(dev),
-                src.to(residual[rl.key].dtype))
+            leaf = residual[rl.key]
+            n = leaf.shape[rl.bax]                  # a block's slots, or all
+            idx = _index(slot_idx, leaf.device)
+            attention.put_rows(torch.movedim(leaf, rl.bax, 0), (idx,),
+                               (idx >= 0) & (idx < n),
+                               torch.movedim(rows[rl.key], rl.bax, 0))
         return residual
 
     def export_pages(self, pool: Dict[str, torch.Tensor],

@@ -428,10 +428,11 @@ class TestRootTable:
                     assert fn is not None, target
                     python += 1
         # the seven registry wrappers and nine deploy, engine, model and
-        # training functions, and the four captured ones (the forward's
+        # training functions, and the seven captured ones (the forward's
         # body, the staged decode tick under both engine rows, sampling's
-        # device half); the nine Pallas bodies name 13 CUDA kernels
-        assert python == 20 and cuda == 13
+        # device half, the staged prefill, paged prefill and inject
+        # bodies); the nine Pallas bodies name 13 CUDA kernels
+        assert python == 23 and cuda == 13
 
     def test_no_root_markers_in_the_port(self):
         """The roots live in the table only: no decorator, marker or hook
@@ -453,7 +454,7 @@ class TestRootTable:
         new, accepted, stale = baseline.split(kept)
         assert new == [] and stale == []
         assert {e["rule"] for e in baseline.entries.values()} \
-            == {"graph-purity"}
+            <= {"graph-purity"}
         assert len(accepted) == len(baseline.entries)
 
 
@@ -772,10 +773,14 @@ class TestRegistryAndGate:
         assert all(c["scaled"] >= 1 for c in cases.values()), cases
 
     def test_baseline_holds_graph_purity_only(self):
+        """The baseline only shrinks: whatever it still accepts is a
+        graph-purity finding, and lm.scatter_cache_rows' host read of its
+        slot indices (its last entry) is gone from it."""
         blob = json.loads((REPO / "tools" /
                            "capslint_torch_baseline.json").read_text())
-        assert blob["findings"]
-        assert {e["rule"] for e in blob["findings"]} == {"graph-purity"}
+        assert {e["rule"] for e in blob["findings"]} <= {"graph-purity"}
+        assert not any(e["symbol"] == "scatter_cache_rows"
+                       for e in blob["findings"])
 
     def test_list_catalogue(self):
         proc = subprocess.run(

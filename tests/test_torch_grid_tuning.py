@@ -127,6 +127,17 @@ def source_grid(name: str, args: tuple, kwargs: dict, config: dict) -> tuple:
                     r"cfg\.gridDim = dim3\(([^,]+), 1, 1\);")
         return (c_eval(expr, B=args[0].shape[0], cluster=config["cluster"]),
                 1, 1)
+    if name == "fixed_order_matmul":
+        text = source("gemm.cu")
+        consts = {c: int(grab(text, rf"constexpr int {c} = (\d+);"))
+                  for c in ("kGemmBM", "kGemmBN", "kGemmF32Tile")}
+        bf16 = args[0].dtype == torch.bfloat16
+        launcher = text[text.index("int launch_gemm_bf16(" if bf16
+                                   else "int launch_gemm_f32("):]
+        x_expr, y_expr = re.search(r"const dim3 grid\(([^,]+),\s*([^;]+)\);",
+                                   launcher).groups()
+        env = dict(consts, m=args[0].shape[0], n=args[1].shape[1])
+        return (c_eval(x_expr, **env), c_eval(y_expr.rstrip(")"), **env), 1)
     raise AssertionError(name)
 
 
@@ -375,12 +386,12 @@ class TestLegalizeRefusesWhatTheWrapperRefuses:
             "decode_attention": 117, "flash_attention": 79,
             "flash_attention_dequant": 66, "fused_routing": 70,
             "fused_sampling": 47, "taylor_softmax": 40,
-            "taylor_softmax_bwd": 56}
+            "taylor_softmax_bwd": 56, "fixed_order_matmul": 32}
         assert {n: c["refused"] for n, c in checker.cases.items()} == {
             "decode_attention": 39, "flash_attention": 15,
             "flash_attention_dequant": 13, "fused_routing": 25,
             "fused_sampling": 0, "taylor_softmax": 0,
-            "taylor_softmax_bwd": 0}
+            "taylor_softmax_bwd": 0, "fixed_order_matmul": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +514,7 @@ PINNED = {
     "fused_sampling": (47, 0, 0, 0),
     "taylor_softmax": (40, 0, 0, 0),
     "taylor_softmax_bwd": (55, 1, 0, 0),
+    "fixed_order_matmul": (32, 0, 0, 0),
 }
 
 

@@ -53,13 +53,15 @@ def _case_input(case):
 class TestRegistryEntries:
     def test_inventory(self):
         """The reference's kernels, plus the backward of row 2, which the
-        reference leaves to ``jax.grad`` of its plain softmax."""
+        reference leaves to ``jax.grad`` of its plain softmax, and the
+        fixed-order GEMM, which the reference leaves to XLA's dot."""
         assert port_registry.names() == sorted(
             PORTED + ("flash_attention", "flash_attention_dequant",
                       "decode_attention", "fused_sampling",
-                      "taylor_softmax_bwd"))
+                      "taylor_softmax_bwd", "fixed_order_matmul"))
         assert port_registry.names() == sorted(
-            ref_registry.names() + ["taylor_softmax_bwd"])
+            ref_registry.names() + ["taylor_softmax_bwd",
+                                    "fixed_order_matmul"])
 
     @pytest.mark.parametrize("name", PORTED)
     def test_example_cases_copied_from_reference(self, name):

@@ -228,7 +228,7 @@ TABLE_CASES = [
 ]
 REGISTRY_CASES = [(name, dict(case)) for name in registry.names()
                   for case in registry.get(name).example_cases
-                  if name != "decode_attention"] + [
+                  if name in OLD_BOUNDS and name != "decode_attention"] + [
     ("decode_attention", dict(case))
     for case in registry.get("decode_attention").example_cases]
 
