@@ -37,7 +37,8 @@ count), serves a full-width ``llama3.2-1b`` (random weights, seed 0) through
 ``ServeEngine`` with prefill attention, decode attention,
 sampling and every projection (the fixed-order GEMM, whose rows
 ``gemm_probe`` holds bit-identical at every M from 75 to 8192, and at a
-decode tick's 1, 3 and 8, beside cuBLAS's) in the hand-written kernels (and ``generate()`` and the
+decode tick's 1, 3 and 8 and the warpgroup edge 64 / 65, for one weight of
+each BN class, beside cuBLAS's) in the hand-written kernels (and ``generate()`` and the
 interleave and SLO-batching schedulers on the same engine; and its
 seeded requests alone, at 3 slots and under memory pressure, held to the
 sampling contract against the same run: every logits row must be
@@ -163,7 +164,7 @@ from repro_torch.kernels.attention.kernel import (  # noqa: E402
     flash_attention_cuda, flash_attention_dequant_cuda,
     flash_attention_dequant_plain, flash_attention_plain)
 from repro_torch.kernels.gemm.kernel import (  # noqa: E402
-    fixed_order_matmul_cuda)
+    fixed_order_matmul_cuda, gemm_plan)
 from repro_torch.kernels.registry import registry  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -961,11 +962,13 @@ EXTRA_CASES = {
         {"dims": (2, 64, 256, 8, 2, 32), "dtype": "bfloat16",
          "causal": False, "atol": 1e-2},
     ),
-    # the GEMM against cuBLAS at every timed geometry, at 3 slots, and at
-    # a ragged prefill's 1000 rows (no multiple of the 128-row tile)
+    # the GEMM against cuBLAS at every timed geometry and, for every BN
+    # class, at 3 slots, at 65 rows (the second consumer warpgroup's first
+    # row) and at a ragged prefill's 1000 rows (no multiple of the 128-row
+    # tile)
     "fixed_order_matmul": tuple(case for _, case in GEMM_TIMINGS) + tuple(
         gemm_case(m, n, k, layout)
-        for m in (3, 1000)
+        for m in (3, 65, 1000)
         for _, n, k, layout in GEMM_PROJECTIONS + (GEMM_UNEMBED,)),
     "fused_sampling": (
         {"dims": (8, 128256), "temperature": (0.0,) * 8, "atol": 0},
@@ -3143,25 +3146,57 @@ def seeded_runs(cfg, params, reqs, pressure=None) -> dict:
 # bucket and the 8192 of a group of eight, probed at each M between; the
 # Ms off a tile boundary (75, 200, 1000) put the zero-filled ragged edge
 # inside the probed rows' tile.  A decode tick's M (its slots) holds the
-# first rows the same way.
+# first rows the same way, and 64 / 65 are the edge where the second
+# consumer warpgroup of a row tile starts to hold a row.  Every BN class
+# the rule gives llama3.2-1b's projections (gemm_classes) is probed: one
+# weight of each (BN, layout).
 GEMM_PROBE_ROWS = 75
 GEMM_PROBE_M = (75, 128, 200, 256, 512, 1000, 1024, 2048, 4096, 8192)
-GEMM_PROBE_DECODE_M = (1, 3, 8, 16, 17)
+GEMM_PROBE_DECODE_M = (1, 3, 8, 16, 17, 64, 65)
 
 
-def gemm_probe(cfg) -> dict:
-    """One request's GEMM_PROBE_ROWS rows (bf16, seeded) through
-    ``h @ wo`` at the model's (d_ff, d_model), inside batches of each M of
-    GEMM_PROBE_M rows, through the port's fixed-order GEMM (the serving
-    path's) and through cuBLAS: whether each gives those rows the same
-    bits as at the smallest M, and by how much they differ.  A port row
-    that differs at any M fails the run (§C Open 1's repair); cuBLAS's are
-    reported."""
-    gen = torch.Generator(device=DEVICE).manual_seed(6)
-    x = torch.randn(GEMM_PROBE_M[-1], cfg.d_ff, device=DEVICE,
+def gemm_geometry(case) -> dict:
+    """The instruction, BN and stages the GEMM's plan gives a case (its
+    (M, N, K) and w's layout), read on meta tensors."""
+    m, n, k = case["dims"]
+    w = (torch.empty((n, k), dtype=torch.bfloat16, device="meta").T
+         if case.get("layout") == "nk"
+         else torch.empty((k, n), dtype=torch.bfloat16, device="meta"))
+    plan = gemm_plan(torch.empty((m, k), dtype=torch.bfloat16,
+                                 device="meta"), w)
+    return {"instruction": plan["instruction"], "bn": plan["tile"][1],
+            "stages": plan["stages"]}
+
+
+def gemm_classes() -> list:
+    """(label, N, K, layout) of one projection of llama3.2-1b per (BN,
+    layout) its GEMM plans give, ``wo``'s first (the product of §C Open 1),
+    then the others in GEMM_PROJECTIONS' order and the unembedding."""
+    seen, out = set(), []
+    projections = GEMM_PROJECTIONS + (GEMM_UNEMBED,)
+    for label, n, k, layout in sorted(projections,
+                                      key=lambda p: p[0] != "wo"):
+        key = (gemm_geometry(gemm_case(1, n, k, layout))["bn"], layout)
+        if key not in seen:
+            seen.add(key)
+            out.append((label, n, k, layout))
+    return out
+
+
+def gemm_probe_one(n: int, k: int, layout: str, seed: int) -> dict:
+    """One request's GEMM_PROBE_ROWS rows (bf16, seeded) through a (K, N)
+    weight in ``layout`` inside batches of each M of GEMM_PROBE_M rows,
+    through the port's fixed-order GEMM (the serving path's) and through
+    cuBLAS: whether each gives those rows the same bits as at the smallest
+    M, and by how much they differ; the decode Ms hold their rows against
+    the same rows at M 75."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(GEMM_PROBE_M[-1], k, device=DEVICE,
                     generator=gen).to(torch.bfloat16)
-    w = (torch.randn(cfg.d_ff, cfg.d_model, device=DEVICE, generator=gen)
-         * cfg.d_ff ** -0.5).to(torch.bfloat16)
+    w = (torch.randn(k, n, device=DEVICE, generator=gen)
+         * k ** -0.5).to(torch.bfloat16)
+    if layout == "nk":
+        w = w.T.contiguous().T
     cublas = [(x[:m] @ w)[:GEMM_PROBE_ROWS] for m in GEMM_PROBE_M]
     port = [fixed_order_matmul_cuda(x[:m], w)[:GEMM_PROBE_ROWS]
             for m in GEMM_PROBE_M]
@@ -3175,20 +3210,37 @@ def gemm_probe(cfg) -> dict:
                                            .float()).abs().max())}
                 for m, r in zip(ms, rows)}
 
-    out = {"rows": GEMM_PROBE_ROWS, "k": cfg.d_ff, "n": cfg.d_model,
-           "by_m": by_m(GEMM_PROBE_M, cublas, cublas[0]),
-           "port_by_m": by_m(GEMM_PROBE_M, port, port[0]),
-           "port_decode_by_m": by_m(GEMM_PROBE_DECODE_M, decode, port[0]),
-           "port_vs_cublas_max_abs": max(
-               float((a.float() - b.float()).abs().max())
-               for a, b in zip(port, cublas))}
-    parted = [m for key in ("port_by_m", "port_decode_by_m")
-              for m, v in out[key].items()
+    return {"rows": GEMM_PROBE_ROWS, "k": k, "n": n, "layout": layout,
+            **gemm_geometry(gemm_case(1, n, k, layout)),
+            "by_m": by_m(GEMM_PROBE_M, cublas, cublas[0]),
+            "port_by_m": by_m(GEMM_PROBE_M, port, port[0]),
+            "port_decode_by_m": by_m(GEMM_PROBE_DECODE_M, decode, port[0]),
+            "port_vs_cublas_max_abs": max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(port, cublas))}
+
+
+def gemm_probe(cfg) -> dict:
+    """gemm_probe_one at one weight of each BN class (gemm_classes; the
+    first is ``h @ wo`` at the model's (d_ff, d_model), whose numbers stay
+    at the top level, the others under ``classes``).  A port row that
+    differs at any M in any class fails the run (§C Open 1's repair);
+    cuBLAS's are reported."""
+    classes = [gemm_probe_one(n, k, layout, seed=6 + i)
+               for i, (_, n, k, layout) in enumerate(gemm_classes())]
+    assert (classes[0]["k"], classes[0]["n"]) == (cfg.d_ff, cfg.d_model)
+    out = {**classes[0], "classes": [
+        {key: c[key] for key in ("n", "k", "layout", "instruction", "bn",
+                                  "stages", "port_by_m", "port_decode_by_m",
+                                  "port_vs_cublas_max_abs")}
+        for c in classes]}
+    parted = [(c["bn"], c["layout"], m) for c in classes
+              for key in ("port_by_m", "port_decode_by_m")
+              for m, v in c[key].items()
               if not v["bit_identical_to_smallest_m"]]
     if parted:
         fail(f"gemm_probe: the fixed-order GEMM gives the probed rows other "
-             f"bits at M {parted}: {out['port_by_m']} "
-             f"{out['port_decode_by_m']}")
+             f"bits at (BN, layout, M) {parted}: {out['classes']}")
     return out
 
 
@@ -6358,6 +6410,8 @@ def phase_timings(launches: dict, worst: dict, by_case: dict,
         row = {"name": name, "route": info["route"], "source": info["source"],
                "replaces": info["replaces"], "launches": launches[name],
                "max_abs_err": worst[name],
+               **(gemm_geometry(case) if kernel == "fixed_order_matmul"
+                  else {}),
                **timing_row(kernel, case)}
         table.append(row)
         emit("timings", **row)
@@ -6407,7 +6461,7 @@ def phase_timings(launches: dict, worst: dict, by_case: dict,
                  "route": info["route"], "source": info["source"],
                  "replaces": info["replaces"], "launches": seen["launches"],
                  "launch_source": "kernels phase",
-                 "max_abs_err": seen["max_abs_err"],
+                 "max_abs_err": seen["max_abs_err"], **gemm_geometry(case),
                  **timing_row("fixed_order_matmul", case)}
         table.append(entry)
         emit("timings", case=label, **entry)

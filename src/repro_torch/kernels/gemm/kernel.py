@@ -6,12 +6,15 @@ from M, so a request's rows took other bits when other rows shared the
 call (ROADMAP §C Open 1).  :func:`fixed_order_matmul_cuda` computes
 ``y = x @ w`` for x (M, K) and w (K, N) with one CTA tile, one instruction
 shape and one K order for every M (:func:`gemm_plan` reads no M): a row's
-bits depend only on that row of x and on w.  bf16 operands accumulate in
-float32 on the tensor cores and round once to bf16; float32 operands take
-the FMA body, K in ascending order.  At M <= :data:`GEMM_SMALL_M` (a
-decode tick's slots) the bf16 body multiplies only the tile's first
-16-row block, the one that holds every row: each stored row gets the same
-instructions in the same order, so the same bits.
+bits depend only on that row of x and on w.  bf16 operands take the
+Hopper body: TMA copies into a ring of swizzled shared-memory stages, one
+producer warp, two consumer warpgroups issuing ``wgmma`` m64n<BN>k16 with
+float32 accumulation, one rounding to bf16; BN comes from N
+(:func:`gemm_block_n`), never from M.  float32 operands take the
+FMA body, K in ascending order.  At a decode tick's M the rows past M are
+the copies' zero fill, and a consumer warpgroup with no row below M
+issues nothing: each stored row gets the same instructions in the same
+order at every M, so the same bits.
 
 ``w`` is read as stored: a contiguous (K, N) matrix (``kn``, a projection's
 weight, N contiguous; the (d, h, k) and (h, k, d) attention weights flatten
@@ -37,18 +40,16 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.limits import MAX_GRID_YZ
 
-# The source's geometry (kGemmBM, kGemmBN, kGemmBK, kGemmStages,
-# kGemmSmallM, kGemmThreads, kGemmF32Tile, kGemmF32K; a CPU test holds them
-# equal)
-GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
-GEMM_STAGES = 6
-GEMM_SMALL_M = 16           # rows up to which one 16-row block is multiplied
-GEMM_THREADS = 256
-GEMM_SMEM = GEMM_STAGES * 2 * GEMM_BM * GEMM_BK * 2
+# The source's geometry (kGemmBM, kGemmBK, kGemmConsumers, kGemmThreads,
+# kGemmStagesN<BN>, kGemmF32Tile, kGemmF32K; a CPU test holds them equal)
+GEMM_BM, GEMM_BK = 128, 64
+GEMM_CONSUMERS = 2          # consumer warpgroups, one 64-row wgmma each
+GEMM_THREADS = 384          # the consumers, then the producer's warpgroup
+GEMM_STAGES = {64: 8, 128: 7, 256: 4}     # stages in the ring, by BN
 GEMM_F32_TILE, GEMM_F32_K = 64, 16
 GEMM_F32_THREADS = 256
 GEMM_BODIES = ("tensor_core", "fma")
-GEMM_ALIGN = 8              # bf16 elements of one 16-byte cp.async copy
+GEMM_ALIGN = 8              # bf16 elements of 16 bytes (a tensor map's rule)
 
 GEMM_HINT = ("the models take it only when no gradient is asked for; "
              "train through the plain products")
@@ -72,29 +73,55 @@ def w_layout(w: torch.Tensor) -> str:
     return "strided"
 
 
+def gemm_block_n(n: int) -> int:
+    """The bf16 CTA's columns, which are the ``wgmma`` instruction's N: a
+    function of N, never of M (the source's
+    ``gemm_block_n``, which a CPU test holds equal).  The widest of 256,
+    128 and 64 that still cuts N into at least 16 column tiles, else 64: a
+    wide product takes the tile that runs a prefill fastest, a narrow one
+    more CTAs to stream its w at a decode tick."""
+    if n >= 16 * 256:
+        return 256
+    if n >= 16 * 128:
+        return 128
+    return 64
+
+
+def gemm_smem(bn: int) -> int:
+    """The bf16 body's dynamic shared memory at BN ``bn``: 1024 bytes to
+    align the ring, then each stage's A tile (128 x 64), B tile (BN x 64)
+    and two 8-byte mbarriers."""
+    return 1024 + GEMM_STAGES[bn] * (2 * GEMM_BK * (GEMM_BM + bn) + 16)
+
+
 def gemm_plan(x: torch.Tensor, w: torch.Tensor) -> Dict[str, object]:
     """What decides the bits of an output row: the body, the CTA tile, the
-    K step and order, the pipeline depth and w's layout.  A function of
-    the types, N, K and the layout only; it reads no M (the rows of x), so
-    a row gets the same sums at every M."""
+    instruction, the K step and order, the pipeline depth and w's layout.
+    A function of the types, N, K and the layout only; it reads no M (the
+    rows of x), so a row gets the same sums at every M."""
     body = gemm_body(x.dtype)
+    layout = w_layout(w)
+    k, n = int(w.shape[0]), int(w.shape[1])
     if body == "tensor_core":
-        tile = (GEMM_BM, GEMM_BN, GEMM_BK)
-        mma, stages, threads = "m16n8k16", GEMM_STAGES, GEMM_THREADS
+        bn = gemm_block_n(n)
+        tile = (GEMM_BM, bn, GEMM_BK)
+        mma, stages = f"wgmma m64n{bn}k16", GEMM_STAGES[bn]
+        threads = GEMM_THREADS
     else:
         tile = (GEMM_F32_TILE, GEMM_F32_TILE, GEMM_F32_K)
         mma, stages, threads = "fmaf", 1, GEMM_F32_THREADS
     return {"body": body, "tile": tile, "instruction": mma,
             "k_order": "ascending", "split_k": 1, "stages": stages,
-            "threads": threads, "layout": w_layout(w),
-            "n": int(w.shape[1]), "k": int(w.shape[0])}
+            "threads": threads, "layout": layout, "n": n, "k": k}
 
 
 def gemm_grid(m: int, n: int, dtype: torch.dtype) -> Tuple[int, int, int]:
     """The source's grid: a CTA per output tile, N tiles on x, M tiles on
     y."""
-    bm, bn = ((GEMM_BM, GEMM_BN) if gemm_body(dtype) == "tensor_core"
-              else (GEMM_F32_TILE, GEMM_F32_TILE))
+    if gemm_body(dtype) == "tensor_core":
+        bm, bn = GEMM_BM, gemm_block_n(n)
+    else:
+        bm = bn = GEMM_F32_TILE
     return (-(-n // bn), -(-m // bm), 1)
 
 
@@ -127,7 +154,7 @@ def check_kernel(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"the transpose of a row-major matrix")
     if x.dtype == torch.bfloat16 and (n % GEMM_ALIGN or k % GEMM_ALIGN):
         raise ValueError(f"fixed_order_matmul: bf16 N {n} and K {k} must "
-                         f"be multiples of {GEMM_ALIGN} (16-byte copies)")
+                         f"be multiples of {GEMM_ALIGN} (16-byte rows)")
     if gemm_grid(m, n, x.dtype)[1] > MAX_GRID_YZ:
         raise ValueError(f"fixed_order_matmul: {m} rows need more than "
                          f"{MAX_GRID_YZ} row tiles")

@@ -899,13 +899,14 @@ def _legalize_gemm(config: Dict[str, Any], x, w, *args, **kwargs
 
 def _gemm_launch_plan(config: Dict[str, Any], x, w, *args, **kwargs
                       ) -> Dict[str, int]:
-    from repro_torch.kernels.gemm.kernel import (GEMM_SMEM, gemm_grid,
-                                                 gemm_plan)
+    from repro_torch.kernels.gemm.kernel import (gemm_grid, gemm_plan,
+                                                 gemm_smem)
 
     plan = gemm_plan(x, w)
     return {"threads": plan["threads"], "cluster": 1,
             "grid": gemm_grid(x.shape[0], w.shape[1], x.dtype),
-            "smem_bytes": GEMM_SMEM if plan["body"] == "tensor_core" else 0}
+            "smem_bytes": (gemm_smem(plan["tile"][1])
+                           if plan["body"] == "tensor_core" else 0)}
 
 
 def _gemm_example(case, device="cpu"):

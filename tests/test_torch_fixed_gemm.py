@@ -9,7 +9,9 @@ Held here, where no card is:
   object for every M from 1 to 8192, for both types and both layouts of w;
   the launch grid's y axis is the only thing M moves;
 * the Python mirror of the source's geometry equals the source's
-  ``constexpr``s, and the pipeline fits a block's shared memory;
+  ``constexpr``s, the pipeline fits a block's shared memory, the BN rule
+  is the source's, and every served projection of every full-width
+  config gets a legal plan;
 * the legalizer refuses what the wrapper refuses (a misfit everywhere; type,
   layout, alignment and the grid's axis y on the card and on meta);
 * the wrapper refuses a gradient, and on the CPU is ``torch.matmul`` bit
@@ -35,7 +37,8 @@ from repro_torch import configs as port_configs
 from repro_torch import convert, kernels
 from repro_torch.kernels import build
 from repro_torch.kernels.gemm import kernel as gk
-from repro_torch.kernels.limits import MAX_DYNAMIC_SMEM, MAX_GRID_YZ
+from repro_torch.kernels.limits import (MAX_DYNAMIC_SMEM, MAX_GRID_X,
+                                        MAX_GRID_YZ, MAX_THREADS)
 from repro_torch.kernels.registry import registry
 from repro_torch.launch import op_cost, roofline
 from repro_torch.models import lm as port_lm
@@ -97,18 +100,124 @@ def test_no_tunables():
 def test_source_geometry_is_the_mirrors():
     got = {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                SOURCE).group(1))
-           for name in ("kGemmBM", "kGemmBN", "kGemmBK", "kGemmStages",
-                        "kGemmSmallM", "kGemmThreads", "kGemmF32Tile",
-                        "kGemmF32K")}
-    assert got == {"kGemmBM": gk.GEMM_BM, "kGemmBN": gk.GEMM_BN,
-                   "kGemmBK": gk.GEMM_BK, "kGemmStages": gk.GEMM_STAGES,
-                   "kGemmSmallM": gk.GEMM_SMALL_M,
+           for name in ("kGemmBM", "kGemmBK", "kGemmConsumers",
+                        "kGemmThreads", "kGemmStagesN64", "kGemmStagesN128",
+                        "kGemmStagesN256", "kGemmF32Tile", "kGemmF32K")}
+    assert got == {"kGemmBM": gk.GEMM_BM, "kGemmBK": gk.GEMM_BK,
+                   "kGemmConsumers": gk.GEMM_CONSUMERS,
                    "kGemmThreads": gk.GEMM_THREADS,
+                   "kGemmStagesN64": gk.GEMM_STAGES[64],
+                   "kGemmStagesN128": gk.GEMM_STAGES[128],
+                   "kGemmStagesN256": gk.GEMM_STAGES[256],
                    "kGemmF32Tile": gk.GEMM_F32_TILE,
                    "kGemmF32K": gk.GEMM_F32_K}
-    assert gk.GEMM_SMEM <= MAX_DYNAMIC_SMEM
-    assert "split" not in re.sub(r"//.*", "", SOURCE).lower()
+    # two 64-row consumer warpgroups and a producer's; one wgmma shape a BN
+    assert gk.GEMM_CONSUMERS * 64 == gk.GEMM_BM
+    assert gk.GEMM_THREADS == 128 * (gk.GEMM_CONSUMERS + 1)
+    code = re.sub(r"//.*", "", SOURCE)
+    for bn in gk.GEMM_STAGES:
+        assert f"wgmma.mma_async.sync.aligned.m64n{bn}k16.f32.bf16.bf16" \
+            in code
+        assert gk.gemm_smem(bn) <= MAX_DYNAMIC_SMEM
+        # the stages fill the block: one more would not fit
+        assert gk.gemm_smem(bn) + 2 * gk.GEMM_BK * (gk.GEMM_BM + bn) + 16 \
+            > MAX_DYNAMIC_SMEM or gk.GEMM_STAGES[bn] == 8
+    # TMA copies into an mbarrier ring, registers moved to the consumers;
+    # the mma.sync body and its cp.async copies are gone
+    for needle in ("cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                   "setmaxnreg.dec", "setmaxnreg.inc", "__grid_constant__",
+                   "cuTensorMapEncodeTiled", "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert needle in code, needle
+    for gone in ("mma.sync", "ldmatrix", "cp.async.cg", "kGemmSmallM"):
+        assert gone not in code, gone
+    assert "split" not in code.lower()
     assert "gemm.cu" in build.SOURCES
+
+
+def source_bn_rule():
+    """The source's ``gemm_block_n`` as a Python function of n: each
+    ``if (n >= a * b) return v;`` line in order, then the last
+    ``return v;``."""
+    body = re.search(r"inline int gemm_block_n\(int n\) \{\n(.*?)\n\}",
+                     SOURCE, re.S).group(1)
+    rules = []
+    for line in body.splitlines():
+        line = line.strip()
+        m = re.fullmatch(r"if \(n >= (\d+) \* (\d+)\) return (\d+);", line)
+        if m:
+            rules.append((int(m.group(1)) * int(m.group(2)), int(m.group(3))))
+            continue
+        m = re.fullmatch(r"return (\d+);", line)
+        assert m, f"gemm_block_n: a line the mirror does not read: {line}"
+        rules.append((0, int(m.group(1))))
+
+    def rule(n):
+        return next(value for least, value in rules if n >= least)
+    return rule
+
+
+def test_bn_rule_is_the_sources():
+    """The Python BN rule equals the C one at every N of a grid of widths
+    (multiples of 8 from 8 to past the largest vocabulary) and at every
+    served projection's, and gives only BNs the source has an instance
+    of."""
+    rule = source_bn_rule()
+    widths = {8, 16, 56, 64, 72, 128, 136, 256, 264, 512, 1024, 1536, 2040,
+              2048, 2056, 4088, 4096, 4104, 6144, 8192, 10752, 12288, 16384,
+              28672, 32768, 49152, 100352, 128256, 151936, 152064}
+    widths |= {n for arch in SERVED
+               for _, _, n in served_projections(port_configs.get_config(arch))}
+    for n in sorted(widths):
+        assert gk.gemm_block_n(n) == rule(n), n
+        assert rule(n) in gk.GEMM_STAGES
+
+
+# every config chip_smoke.py serves at full width through the dense kernel
+# path, with its served projections: (label, K, N) of q, k / v, o, the
+# dense FFN's wi / wg and wo (dbrx's experts are the moe layer's, not this
+# kernel's) and the unembedding (a tied table's transpose)
+SERVED = ("llama3.2-1b", "qwen3-1.7b", "qwen1.5-110b", "mistral-large-123b",
+          "dbrx-132b")
+
+
+def served_projections(cfg):
+    d, hd = cfg.d_model, cfg.head_dim
+    out = [("q", d, cfg.n_heads * hd), ("k, v", d, cfg.n_kv_heads * hd),
+           ("o", cfg.n_heads * hd, d)]
+    if cfg.family != "moe":
+        out += [("wi, wg", d, cfg.d_ff), ("wo", cfg.d_ff, d)]
+    out.append(("unembed", d, cfg.vocab))
+    return out
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_every_served_projection_has_a_legal_plan(arch):
+    """Shared memory within a block's, an instruction N wgmma has (a
+    multiple of 8 up to 256), the grid within the card's axes at the
+    prefill's rows and at a decode tick's, in both layouts of w; and the
+    plan is the same at both M."""
+    cfg = port_configs.get_config(arch)
+    spec = registry.get("fixed_order_matmul")
+    for label, k, n in served_projections(cfg):
+        for layout in ("kn", "nk"):
+            w = weight(k, n, layout)
+            plans = []
+            for m in (8, 8 * 1024):
+                x = meta((m, k))
+                assert spec.legalize({}, x, w) == {}
+                launch = spec.launch_plan({}, x, w)
+                plan = gk.gemm_plan(x, w)
+                bn = plan["tile"][1]
+                assert plan["instruction"] == f"wgmma m64n{bn}k16"
+                assert bn % 8 == 0 and 8 <= bn <= 256, (arch, label, bn)
+                assert launch["smem_bytes"] == gk.gemm_smem(bn)
+                assert launch["smem_bytes"] <= MAX_DYNAMIC_SMEM
+                assert launch["threads"] == gk.GEMM_THREADS <= MAX_THREADS
+                gx, gy, gz = launch["grid"]
+                assert gx == -(-n // bn) <= MAX_GRID_X
+                assert gy == -(-m // gk.GEMM_BM) <= MAX_GRID_YZ and gz == 1
+                plans.append(plan)
+            assert plans[0] == plans[1], (arch, label, layout)
 
 
 # ---------------------------------------------------------------------------

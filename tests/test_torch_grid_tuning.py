@@ -130,15 +130,29 @@ def source_grid(name: str, args: tuple, kwargs: dict, config: dict) -> tuple:
     if name == "fixed_order_matmul":
         text = source("gemm.cu")
         consts = {c: int(grab(text, rf"constexpr int {c} = (\d+);"))
-                  for c in ("kGemmBM", "kGemmBN", "kGemmF32Tile")}
+                  for c in ("kGemmBM", "kGemmF32Tile")}
         bf16 = args[0].dtype == torch.bfloat16
         launcher = text[text.index("int launch_gemm_bf16(" if bf16
                                    else "int launch_gemm_f32("):]
         x_expr, y_expr = re.search(r"const dim3 grid\(([^,]+),\s*([^;]+)\);",
                                    launcher).groups()
-        env = dict(consts, m=args[0].shape[0], n=args[1].shape[1])
+        n = args[1].shape[1]
+        env = dict(consts, m=args[0].shape[0], n=n,
+                   BN=source_gemm_block_n(n) if bf16 else None)
         return (c_eval(x_expr, **env), c_eval(y_expr.rstrip(")"), **env), 1)
     raise AssertionError(name)
+
+
+def source_gemm_block_n(n: int) -> int:
+    """``gemm_block_n`` of the GEMM source (the bf16 CTA's columns), its
+    rules read out of the source and run here."""
+    text = source("gemm.cu")
+    fn = text[text.index("inline int gemm_block_n(int n) {"):]
+    fn = fn[:fn.index("\n}")]
+    for least, value in re.findall(r"if \(n >= ([^)]+)\) return (\d+);", fn):
+        if n >= c_eval(least):
+            return int(value)
+    return int(grab(fn, r"\n  return (\d+);"))
 
 
 def source_flash_head_chunks(g: int) -> int:
