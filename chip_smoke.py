@@ -109,14 +109,15 @@ decode and sampling at the geometries of qwen3-1.7b and the large models,
 which the kernel table lists under their rows; each kernel a captured path
 launches also inside one CUDA graph of 20 launches; and the fixed-order
 GEMM at llama3.2-1b's projections, prefill and decode, beside cuBLAS).
-The CapsNet forward, the dense LM decode tick and the dense LM's
-admission (prefill, paged prefill, gather, inject) are replayed from CUDA
-graphs (``repro_torch.graphs``): ``serve_pruned``, ``serve_dense``,
-``serve_lm``, ``serve_paged`` and ``serve_disagg`` hold each graph
-against the same code run eagerly (lengths, logits rows and every cache
-or pool leaf bit for bit, the replayed launches against the counters,
-FPS, tok/s, tick and admission ms both ways), and every phase's seconds
-line counts the graphs it captured and replayed.  Every
+The CapsNet forward and every LM family's decode tick and admission
+(prefill, paged prefill, gather, inject) are replayed from CUDA graphs
+(``repro_torch.graphs``): ``serve_pruned``, ``serve_dense``,
+``serve_lm``, ``serve_paged``, ``serve_disagg``, ``serve_moe``,
+``serve_vlm``, ``serve_ssm`` and ``serve_hybrid`` hold each graph against
+the same code run eagerly (lengths, logits rows and every cache, pool or
+state leaf bit for bit, the replayed launches against the counters, FPS,
+tok/s, tick and admission ms both ways), and every phase's seconds line
+counts the graphs it captured and replayed.  Every
 profiler reading comes from a trace that holds every launch its calls made
 (``trace_rule``), taken eagerly, or is null.  One JSON
 object per phase goes to standard output, and a line of seconds after
@@ -2130,10 +2131,10 @@ def tick_walls(engine, n_ticks: int) -> dict:
     """``n_ticks`` decode-only ticks by the host clock (a tick ends in the
     copy of the tokens to the host) and by the device's span (CUDA
     events), replayed from the engine's graphs (``tick_wall_ms``), then as
-    many eager (``_eager``): the medians.  An engine with a staged tick
-    (the dense family's) holds the replays' launches against the
-    counters over its graph ticks (replay_window: ``replayed_launches``);
-    the other families' ticks are eager both times."""
+    many eager (``_eager``): the medians.  A kernel engine (every family's
+    tick is staged) holds the replays' launches against the counters over
+    its graph ticks (replay_window: ``replayed_launches``); a plain
+    engine's ticks are eager both times."""
     out = {}
     calls = [sh.tick for sh in engine._shards if sh.tick is not None]
     for suffix, scope in (("", contextlib.nullcontext),
@@ -2594,9 +2595,9 @@ def phase_serve_lm() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The compiled entry points (repro_torch.graphs): the CapsNet forward and the
-# dense family's decode tick replay CUDA graphs, the port's counterparts of
-# the reference's jax.jit.  Each is held here against the same staged code
+# The compiled entry points (repro_torch.graphs): the CapsNet forward and
+# every LM family's decode tick and admission replay CUDA graphs, the port's
+# counterparts of the reference's jax.jit.  Each is held here against the same staged code
 # run eagerly (graphs.eager) on the same card, back to back: the CapsNet's
 # lengths and the LM's logits rows bit for bit, classes and tokens equal;
 # the launches the replays added (each graph's capture-time counts times
@@ -2711,6 +2712,17 @@ def staged_calls(engine) -> list:
     return [c for sh in engine._shards
             for c in ([sh.tick] if sh.tick is not None else [])
             + list(sh.calls.values())]
+
+
+def python_runs(engine, kind: str, before: dict) -> tuple:
+    """Of ``engine``'s staged calls of ``kind`` since ``before`` (its
+    graph_stats(kind) then): (the runs that executed the Python body, an
+    eager run or the one before a capture, all runs).  A replay runs no
+    Python, so a watch on a model function sees only the first."""
+    st = engine.graph_stats(kind)
+    ran = (st["captures"] - before["captures"]
+           + st["eager"] - before["eager"])
+    return int(ran), int(ran + st["replays"] - before["replays"])
 
 
 def state_leaves(sh) -> list:
@@ -2843,7 +2855,8 @@ def one_token_admission(label: str, engine) -> dict:
             "recaptures": st["recaptures"] - st0["recaptures"]}
 
 
-def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
+def lm_graphs(label: str, engine, reqs, want_tokens=None,
+              keep=None) -> dict:
     """A kernel engine's decode ticks and admissions replayed from its
     graphs against the same engine's staged calls run eagerly, back to
     back: every request's tokens equal (and ``want_tokens``'s, an earlier
@@ -2854,7 +2867,10 @@ def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
     graph run makes every launch from a replay: the counters' growth must
     equal the replays' counts (a run that captured a new shape is served
     again first).  Reports the graphs' counts by kind and the pool bytes
-    they hold, tok/s, ms per tick and ms per admission each way."""
+    they hold, tok/s, ms per tick and ms per admission each way.  Given a
+    dict ``keep``, puts the graph run's tokens under ``tokens`` and its
+    sampled requests' logits rows under ``rows`` (record_seeded_logits'
+    keys: the batch's side of seeded_alone)."""
     t_before = graph_totals()
     if any(sh.tick is None for sh in engine._shards):
         engine.serve([Request(prompt=[1, 2, 3, 4] * 8, max_new_tokens=3,
@@ -2942,6 +2958,11 @@ def lm_graphs(label: str, engine, reqs, want_tokens=None) -> dict:
     first_same = sum(g["first"][k].tobytes() == e["first"][k].tobytes()
                      for k in g["first"])
     del a, b
+    if keep is not None:
+        sampled = {r.rid for r in reqs if r.temperature > 0}
+        keep["tokens"] = g["tokens"]
+        keep["rows"] = {k: v for part in (g["first"], g["rows"])
+                        for k, v in part.items() if k[0] in sampled}
     one_token = one_token_admission(label, engine)
     admission = graph_vs_eager(label, engine)
     st = engine.graph_stats()
@@ -3043,7 +3064,8 @@ def compare_seeded(name: str, reqs, base: tuple, other: tuple) -> tuple:
     for bit the same in both and differs.  Reports, per sampled request,
     the first step whose logits rows differ with their largest difference
     there, and the first step whose token differs (the comparison stops
-    there: the contexts part).  Returns (numbers, every sampled request
+    there: the contexts part), with the rows compared up to it that part
+    and their largest difference.  Returns (numbers, every sampled request
     whose logits differ as (rid, first position that differs, prompt
     length))."""
     (tok_a, rows_a), (tok_b, rows_b) = base, other
@@ -3058,7 +3080,8 @@ def compare_seeded(name: str, reqs, base: tuple, other: tuple) -> tuple:
             fail(f"{name}: rid {r.rid} has {len(a) - n} and {len(b) - n} "
                  f"new tokens")
         first_logits = first_token = diff = None
-        same_rows = 0
+        same_rows = parted = 0
+        largest = 0.0
         for p in range(n, n + r.max_new_tokens):
             ra, rb = rows_a.get((r.rid, p)), rows_b.get((r.rid, p))
             if ra is None or rb is None:
@@ -3066,6 +3089,9 @@ def compare_seeded(name: str, reqs, base: tuple, other: tuple) -> tuple:
                      f"captured")
             same = ra.tobytes() == rb.tobytes()
             same_rows += same
+            if not same:
+                parted += 1
+                largest = max(largest, float(np.abs(ra - rb).max()))
             if not same and first_logits is None:
                 first_logits, diff = p, float(np.abs(ra - rb).max())
             if a[p] != b[p]:
@@ -3077,6 +3103,8 @@ def compare_seeded(name: str, reqs, base: tuple, other: tuple) -> tuple:
                 break
         per[r.rid] = {"tokens_equal": a == b,
                       "logits_rows_bit_identical": same_rows,
+                      "logits_rows_parted": parted,
+                      "largest_difference": largest,
                       "first_logits_difference": (
                           None if first_logits is None else
                           {"step": first_logits - n, "max_abs": diff}),
@@ -3091,6 +3119,11 @@ def compare_seeded(name: str, reqs, base: tuple, other: tuple) -> tuple:
                "logits_bit_identical_sequences": sum(
                    1 for v in per.values()
                    if v["first_logits_difference"] is None),
+               "logits_rows_parted": sum(
+                   v["logits_rows_parted"] for v in per.values()),
+               "largest_difference": max(
+                   [v["largest_difference"] for v in per.values()],
+                   default=0.0),
                "by_rid": per}
     return numbers, targets
 
@@ -3279,6 +3312,32 @@ def seeded_schedules(kern, reqs, tok_together, together: dict) -> tuple:
                  "decode_attention_paged": counts["paged"],
                  "fused_sampling": counts["fused_sampling"],
                  "fixed_order_matmul": counts["fixed_order_matmul"]}
+
+
+def seeded_alone(label: str, kern, reqs, together: dict) -> tuple:
+    """The sampling contract across schedules for a family served from
+    graphs: each sampled request of ``reqs`` alone in a fresh kernel engine
+    of LM_SLOTS slots (seeded_runs' ``alone``) against its run in the
+    served batch (``together``: lm_graphs' graph run), by compare_seeded.
+    A logits row that parts is reported with the largest difference
+    (ROADMAP §C records the product it parts in), not failed; a token
+    drawn otherwise from bit-identical rows fails.  Returns (numbers,
+    launch counts)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = {}
+    tok = seeded_runs(kern.cfg, kern.params, reqs)["alone"](rows)
+    counts = launch_counts()
+    numbers, parted = compare_seeded(
+        f"{label} (seeded, alone)", reqs,
+        (together["tokens"], together["rows"]), (tok, rows))
+    numbers.update(card=nvidia_smi_line(), schedule="alone",
+                   parted=[{"rid": r, "position": p, "prompt_length": n}
+                           for r, p, n in parted],
+                   seconds=time.perf_counter() - t0)
+    del rows
+    release()
+    return numbers, counts
 
 
 def flat_paths(tree, path: tuple = ()) -> list:
@@ -3868,7 +3927,10 @@ def watch_routing(masks: list) -> tuple:
     """Wrap moe_apply so that every call's routed (token, expert) pairs are
     counted by expert (routing_counts) against the experts LAKP pruned in
     its layer (``masks``, one (E,) keep-mask a layer; calls come in layer
-    order).  Returns (the tallies, a function that removes the watch)."""
+    order).  A staged call is watched where it runs its Python (eagerly,
+    or before its capture; the capture itself reads nothing back, and a
+    replay calls nothing).  Returns (the tallies, a function that removes
+    the watch)."""
     from repro_torch.models import moe as moe_lib
 
     seen = {"calls": 0, "pairs": 0, "pairs_to_pruned": 0,
@@ -3876,6 +3938,8 @@ def watch_routing(masks: list) -> tuple:
     inner = moe_lib.moe_apply
 
     def watched(p, c, x, token_mask=None):
+        if graphs.capturing():         # recorded, not run: no host read
+            return inner(p, c, x, token_mask=token_mask)
         pruned = ~masks[seen["calls"] % len(masks)].to(torch.bool)
         seen["calls"] += 1
         load = torch.tensor(routing_counts(p, c, x, token_mask)
@@ -4893,10 +4957,19 @@ def family_cfg(arch: str, n_layers: int = 0):
     return dataclasses.replace(cfg_lib.get_config(arch), **cut)
 
 
+def release() -> None:
+    """Free what dropped engines hold on the card.  A kernel engine is a
+    reference cycle (each staged call's body closes over it), so its
+    caches, parameter copy and graphs go only at a collection; then the
+    allocator's cached blocks, the graphs' pool among them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def init_family(cfg) -> tuple:
     """Random weights from seed 0 drawn on the card: (params, seconds,
     parameter count, parameter bytes)."""
-    torch.cuda.empty_cache()
+    release()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -4950,6 +5023,8 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
     groups = count_calls(kern, "_prefill_paged_group" if paged
                          else "_prefill_group")
     ticks = count_calls(kern, "_step")
+    kind = "paged prefill" if paged else "prefill"
+    staged0 = kern.graph_stats(kind)
     flash, unwatch = watch_flash()
     reset_counts()
     t0 = time.perf_counter()
@@ -4961,8 +5036,12 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
     counts = launch_counts()
     stats = kern.stats()
     n_groups, n_ticks = groups[0], ticks[0]
+    ran, staged = python_runs(kern, kind, staged0)
     if len(done) != len(reqs):
         fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
+    if staged != n_groups:
+        fail(f"{name}: {staged} staged {kind} calls for {n_groups} prefill "
+             f"groups")
     # vlm decodes a gathered view of its pages through the dense body
     body = mode if paged and cfg.family != "vlm" else "dense"
     n_self, n_cross = cfg.n_self_layers(), cfg.n_cross_layers()
@@ -4973,12 +5052,13 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
         if counts[key] != n or n < 1:
             fail(f"{name}: {key} launched {counts[key]} times, expected {n} "
                  f"({n_groups} prefill groups, {n_ticks} decode ticks)")
-    # a staged engine's prefill replays its graphs, which call no Python:
-    # there (the dense family, no cross-attention) only the flag is held
-    if (flash["non_causal"] != n_cross * n_groups
-            or (flash["causal"] != n_self * n_groups and not kern._staged)):
-        fail(f"{name}: flash calls {flash}, expected {n_self * n_groups} "
-             f"causal and {n_cross * n_groups} non-causal")
+    # a replayed prefill graph calls no Python: the wrapper is called by
+    # the prefill groups that ran theirs (the run before each capture)
+    if (flash["non_causal"] != n_cross * ran
+            or flash["causal"] != n_self * ran):
+        fail(f"{name}: flash calls {flash}, expected {n_self * ran} causal "
+             f"and {n_cross * ran} non-causal ({ran} of {n_groups} prefill "
+             f"groups ran their Python, the others replayed)")
     check_prefill_bodies(name, counts)
     if paged and stats.pages.get("prefix_hits", 0) < 1:
         fail(f"{name}: no prefix hit: {dict(stats.pages)}")
@@ -5006,6 +5086,7 @@ def serve_family_mode(phase: str, cfg, params, reqs, mode: str) -> tuple:
         latency_ms={k: {"n": n, "p50": p50, "p95": p95}
                     for k, (n, p50, p95) in lat.items()},
         launches={k: counts[k] for k in want}, flash_calls=flash,
+        prefill_groups_replayed=n_groups - ran,
         prefill_launches_by_body={
             b: counts[f"flash_attention/{b}"] for b in ("tensor_core", "fma")},
         greedy_tokens_compared=compared, ambiguous_positions=ambiguous,
@@ -5051,9 +5132,11 @@ def routing_counts(params, cfg, x, token_mask) -> dict:
 
 def moe_admission(phase: str, kern, reqs, cfg) -> dict:
     """The admission tick of the first LM_SLOTS requests of ``reqs`` on
-    ``kern`` with every moe layer's prefill watched: the aux loss the
-    forward sums over the layers (the reference's training term), the
-    buffer and per-row capacities, and the pairs routed and dropped."""
+    ``kern`` with every moe layer's prefill watched (the staged prefill
+    run eagerly, graphs.eager, so that the watch reads each layer): the
+    aux loss the forward sums over the layers (the reference's training
+    term), the buffer and per-row capacities, and the pairs routed and
+    dropped."""
     from repro_torch.models import moe as moe_lib
 
     layers, aux = [], []
@@ -5070,7 +5153,8 @@ def moe_admission(phase: str, kern, reqs, cfg) -> dict:
     try:
         for r in fresh(reqs[:LM_SLOTS]):
             kern.submit(r)
-        kern.tick()
+        with graphs.eager():           # the staged prefill's Python runs
+            kern.tick()
     finally:
         moe_lib.moe_apply = inner
     kern.run_until_idle()
@@ -5091,9 +5175,10 @@ def moe_scatter(cfg, params, reqs, tok_ref, margins) -> tuple:
     """The moe scatter dispatch on the card (ROADMAP §C 4): serve_moe's
     dense-slot requests once more on a kernel engine whose config takes
     dispatch ``scatter`` (per-row sort and ``index_add_``), over the
-    phase's parameters.  Each moe layer's dispatch is counted: the scatter
-    path a layer each prefill group and decode tick, the one-hot path
-    never.  The greedy tokens hold against the one-hot kernel engine's
+    phase's parameters, its tick and prefill captured and replayed.  Each
+    moe layer's dispatch is counted: the scatter path a layer each prefill
+    group and decode tick that ran its Python (the others replayed), the
+    one-hot path never.  The greedy tokens hold against the one-hot kernel engine's
     (``tok_ref``, whose margins are ``margins``) by the margin rule;
     ``index_add_`` is not deterministic on CUDA, so the seeded requests
     must complete but are not compared.  Returns (numbers, launch
@@ -5109,10 +5194,12 @@ def moe_scatter(cfg, params, reqs, tok_ref, margins) -> tuple:
     ticks = count_calls(eng, "_step")
     calls = {"scatter": 0, "onehot": 0}
     inner = {k: getattr(moe_lib, f"_moe_{k}") for k in calls}
+    staged0 = {k: eng.graph_stats(k) for k in ("prefill", "tick")}
 
     def watched(kind):
         def call(*a, **kw):
-            calls[kind] += 1
+            if not graphs.capturing():
+                calls[kind] += 1
             return inner[kind](*a, **kw)
         return call
 
@@ -5129,16 +5216,25 @@ def moe_scatter(cfg, params, reqs, tok_ref, margins) -> tuple:
     counts = launch_counts()
     if len(done) != len(reqs):
         fail(f"{name}: {len(done)} of {len(reqs)} requests completed")
-    want = cfg.n_layers * (groups[0] + ticks[0])
-    if calls["scatter"] != want or calls["onehot"]:
+    # the staged calls that ran their Python (each prefill group and tick
+    # that was captured), of all of them (the rest replayed)
+    runs = [python_runs(eng, k, st) for k, st in staged0.items()]
+    ran = sum(r for r, _ in runs)
+    want = cfg.n_layers * ran
+    if (calls["scatter"] != want or calls["onehot"]
+            or sum(n for _, n in runs) != groups[0] + ticks[0]):
         fail(f"{name}: dispatch calls {calls}, expected {want} scatter "
-             f"({groups[0]} prefill groups, {ticks[0]} decode ticks)")
+             f"({groups[0]} prefill groups, {ticks[0]} decode ticks, "
+             f"{ran} of them ran their Python)")
     tok = {c.rid: c.tokens for c in done}
     compared, ambiguous, first_diff = compare_with_plain(
         name, reqs, tok, tok_ref, tok, margins, cfg.vocab)
     return {"dispatch": "scatter", "requests": len(done), "wall_s": wall,
             "prefill_groups": groups[0], "decode_ticks": ticks[0],
-            "dispatch_calls": calls, "greedy_tokens_compared": compared,
+            "dispatch_calls": calls, "staged_calls_replayed":
+                groups[0] + ticks[0] - ran,
+            "graphs": eng.graph_stats("all"),
+            "greedy_tokens_compared": compared,
             "ambiguous_positions": ambiguous,
             "first_divergence": first_diff,
             "greedy_sequences_equal_onehot": sum(
@@ -5186,7 +5282,7 @@ def disagg_check(name: str, cfg, params, reqs, tok_ref, margins,
         name, reqs, tok, tok_ref, tok if tok_seeded is None else tok_seeded,
         margins, cfg.vocab)
     del eng
-    torch.cuda.empty_cache()
+    release()
     return {"transport": transport, "n_layers": cfg.n_layers,
             "prefill_slots": LM_SLOTS, "decode_engines": DISAGG_DECODES,
             "decode_slots": DISAGG_SLOTS, "requests": stats.completed,
@@ -5313,7 +5409,10 @@ def phase_serve_family(phase: str, cfg, modes, further: bool = True,
     the dense-slot requests
     the moe scatter dispatch (moe_scatter) and the model disaggregated
     (over_transports), and for vlm the cross path with image features
-    (vlm_cross).  Returns the launches by kernel-table row."""
+    (vlm_cross); with ``further`` each mode's kernel engine is also held
+    graph against eager (lm_graphs) and, in dense slots, each sampled
+    request alone against the batch (seeded_alone).  Returns the launches
+    by kernel-table row."""
     params, init_s, n_params, n_bytes = init_family(cfg)
     params = lm.compute_params(cfg, params)       # bf16: the same tensors
     launches = {}
@@ -5337,7 +5436,19 @@ def phase_serve_family(phase: str, cfg, modes, further: bool = True,
         if further and mode == "dense":
             numbers.update(decode_tick_breakdown(kern, cfg.vocab,
                                                  admission_trace=False))
+        if further:
+            # the same requests from the graphs against the staged calls
+            # run eagerly; in dense slots, each sampled request alone
+            together = {} if mode == "dense" else None
+            numbers["graphs"] = lm_graphs(f"{phase} ({mode})", kern, reqs,
+                                          keep=together)
+            if mode == "dense":
+                numbers["seeded_schedules"], scounts = seeded_alone(
+                    phase, kern, reqs, together)
+                add(scounts)
+                del together
         del kern
+        release()
         emit(phase, arch=cfg.arch_id, params=n_params, param_bytes=n_bytes,
              init_s=init_s, reduced=FAMILY_CUTS[cfg.arch_id],
              not_measured=(["the decode tick breakdown (the dense mode's "
@@ -5351,7 +5462,7 @@ def phase_serve_family(phase: str, cfg, modes, further: bool = True,
             else "dense")
     if not further:
         del params
-        torch.cuda.empty_cache()
+        release()
         emit(phase, arch=cfg.arch_id, part="launches", launches=launches)
         return launches
     reqs, tok_k, kmargins = dense
@@ -5361,6 +5472,7 @@ def phase_serve_family(phase: str, cfg, modes, further: bool = True,
         emit(phase, part="scatter", seconds=time.perf_counter() - t0,
              margin_rule=MARGIN_RULE, **numbers)
         add(counts)
+        release()
     t0 = time.perf_counter()
     runs, counts = over_transports(phase, FAMILY_TRANSPORTS, cfg, params,
                                    reqs, tok_k, kmargins)
@@ -5375,7 +5487,7 @@ def phase_serve_family(phase: str, cfg, modes, further: bool = True,
              **numbers)
         add(counts)
     del params
-    torch.cuda.empty_cache()
+    release()
     emit(phase, part="launches", launches=launches)
     return launches
 
@@ -5445,16 +5557,22 @@ def init_full(arch: str) -> tuple:
 
 def time_groups(engine) -> list:
     """Record each prefill group of a recurrent engine as (prompt length,
-    prompts, host ms); a group ends in the copy of its logits to the host,
-    so the host clock holds its device work."""
+    prompts, host ms, graphs captured and their capture seconds); a group
+    ends in the copy of its logits to the host, so the host clock holds
+    its device work, and a group captured (a length met for the first
+    time) its eager run and its capture."""
     groups = []
     inner = engine._prefill_group
 
     def timed(new, plen):
+        st0 = engine.graph_stats("prefill")
         t0 = time.perf_counter()
         out = inner(new, plen)
-        groups.append({"plen": int(plen), "prompts": len(new),
-                       "ms": (time.perf_counter() - t0) * 1e3})
+        ms = (time.perf_counter() - t0) * 1e3
+        st = engine.graph_stats("prefill")
+        groups.append({"plen": int(plen), "prompts": len(new), "ms": ms,
+                       "captured": int(st["captures"] - st0["captures"]),
+                       "capture_s": st["capture_s"] - st0["capture_s"]})
         return out
 
     engine._prefill_group = timed
@@ -5507,7 +5625,7 @@ def recurrent_handoffs(phase: str, cfg, params, reqs, tok_plain, margins,
         margins = record_margins(plain)
         tok_plain = {c.rid: c.tokens for c in plain.serve(fresh(reqs))}
         del plain
-        torch.cuda.empty_cache()
+        release()
     runs, total = over_transports(phase, RECURRENT_TRANSPORTS, cfg, params,
                                   reqs, tok_plain, margins)
     row_bytes = lm.cache_nbytes(cfg, 1, LM_MAX_LEN)
@@ -5547,7 +5665,7 @@ def recurrent_bf16(cfg, reqs) -> tuple:
     margins = record_margins(plain)
     tok_plain = {c.rid: c.tokens for c in plain.serve(fresh(reqs))}
     del plain, kern
-    torch.cuda.empty_cache()
+    release()
     tok = {c.rid: c.tokens for c in done}
     compared, ambiguous, first_diff = compare_with_plain(
         name, reqs, tok, tok_plain, tok, margins, cfg.vocab)
@@ -5602,9 +5720,12 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
     sampling in every decode tick; for the hybrid, flash prefill and decode
     attention in the shared block at each site) against the plain engine
     on RECURRENT_REQUESTS of serve_lm's requests, admitted in exact-length
-    groups; then disaggregated (in_process); then at its published size
-    over RECURRENT_TRANSPORTS (recurrent_handoffs).  Returns the launches
-    by kernel-table row."""
+    groups, each length's prefill a graph captured at its first group (its
+    capture seconds by length, the graph pool's bytes); the engine graph
+    against eager (lm_graphs) and the sampled request alone against the
+    batch (seeded_alone); then disaggregated (in_process); then at its
+    published size over RECURRENT_TRANSPORTS (recurrent_handoffs).
+    Returns the launches by kernel-table row."""
     cfg_full, params_full, init_s, n_params, n_bytes = init_full(arch)
     cfg, params = ((cfg_full, params_full) if not n_layers
                    else first_units(cfg_full, params_full, n_layers))
@@ -5629,6 +5750,7 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
 
     groups = time_groups(kern)
     ticks = count_calls(kern, "_step")
+    staged0 = kern.graph_stats("prefill")
     flash, unwatch = watch_flash()
     reset_counts()
     t0 = time.perf_counter()
@@ -5639,8 +5761,10 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
     wall = time.perf_counter() - t0
     counts = launch_counts()
     stats = kern.stats()
+    pool_bytes = graph_pool_bytes()
     admission = sorted(groups, key=lambda g: g["plen"])
     n_groups, n_ticks = len(admission), ticks[0]
+    ran, staged = python_runs(kern, "prefill", staged0)
     if len(done) != len(reqs):
         fail(f"{phase}: {len(done)} of {len(reqs)} requests completed")
     if n_groups != len({len(r.prompt) for r in reqs}):
@@ -5654,9 +5778,13 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
         if counts[key] != n or counts["fused_sampling"] < 1:
             fail(f"{phase}: {key} launched {counts[key]} times, expected {n} "
                  f"({n_groups} prefill groups, {n_ticks} decode ticks)")
-    if flash["non_causal"] or flash["causal"] != n_sites * n_groups:
-        fail(f"{phase}: flash calls {flash}, expected "
-             f"{n_sites * n_groups} causal")
+    if staged != n_groups:
+        fail(f"{phase}: {staged} staged prefill calls for {n_groups} "
+             f"prefill groups")
+    # a replayed prefill graph calls no Python (see serve_family_mode)
+    if flash["non_causal"] or flash["causal"] != n_sites * ran:
+        fail(f"{phase}: flash calls {flash}, expected {n_sites * ran} causal "
+             f"({ran} of {n_groups} prefill groups ran their Python)")
     if n_sites:
         check_prefill_bodies(phase, counts)
 
@@ -5671,9 +5799,13 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
         phase, reqs, tok, tok_plain, {c.rid: c.tokens for c in again},
         margins, cfg.vocab)
     breakdown = decode_tick_breakdown(kern, cfg.vocab, admission_trace=False)
+    together = {}
+    graph_numbers = lm_graphs(phase, kern, reqs, keep=together)
+    seeded, scounts = seeded_alone(phase, kern, reqs, together)
+    del together
     state_bytes = lm.cache_nbytes(cfg, LM_SLOTS, LM_MAX_LEN)
     del kern
-    torch.cuda.empty_cache()
+    release()
     disagg, dcounts, _ = disagg_check(f"{phase} (disagg, in_process)", cfg,
                                       params, reqs, tok_plain, margins,
                                       "in_process")
@@ -5689,7 +5821,7 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
          ticks=stats.ticks, prefill_groups=n_groups, decode_ticks=n_ticks,
          wall_s=wall, tok_per_s=stats.throughput,
          ms_per_tick=stats.ms_per_tick,
-         admission_by_length=admission,
+         admission_by_length=admission, graph_pool_bytes=pool_bytes,
          latency_ms={k: {"n": n, "p50": p50, "p95": p95}
                      for k, (n, p50, p95) in lat.items()},
          launches={k: counts[k] for k in want}, flash_calls=flash,
@@ -5698,7 +5830,8 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
          greedy_sequences_equal_plain=sum(
              1 for r in reqs if r.temperature == 0
              and tok[r.rid] == tok_plain[r.rid]),
-         seeded_bit_identical=True, disagg=disagg, **breakdown)
+         seeded_bit_identical=True, disagg=disagg, graphs=graph_numbers,
+         seeded_schedules=seeded, **breakdown)
     del leaves
     t0 = time.perf_counter()
     # the handoffs take the first FAMILY_REQUESTS of serve_lm's requests
@@ -5711,8 +5844,8 @@ def phase_serve_recurrent(phase: str, arch: str, n_layers: int = 0) -> dict:
          param_bytes=n_bytes, margin_rule=MARGIN_RULE,
          seconds=time.perf_counter() - t0, **handoffs)
     del params_full
-    torch.cuda.empty_cache()
-    runs = [counts, dcounts, hcounts]
+    release()
+    runs = [counts, scounts, dcounts, hcounts]
     if cfg.family == "hybrid":
         t0 = time.perf_counter()
         numbers, bcounts = recurrent_bf16(cfg, reqs)

@@ -26,7 +26,7 @@ over ``src/repro``) it names the port's counterparts — Python functions
 ``csrc/`` (``csrc/<file>.cu:<function>``: not Python, so not scanned, but
 it must be there).  The functions the port really captures are among
 them: ``DeployedCapsNet._forward_body`` (the compiled forward, a graph
-per input shape), ``ServeEngine._tick_body`` (the dense family's staged
+per input shape), ``ServeEngine._tick_body`` (every family's staged
 decode tick, dense caches or paged) and ``kernels.registry``'s
 ``fused_sampling_rows`` (the device half of sampling that tick
 launches).  A row that no longer resolves is itself an error
@@ -39,9 +39,10 @@ reported only when the scan holds the whole package (its
 without an annotation, or whose annotation names ``Tensor`` or ``Any``,
 except the row's ``host`` names.  Taint propagates through assignments;
 tensor metadata (``x.shape``, ``x.dtype``, ``x.device``, ``x.dim()``,
-``x.data_ptr()`` ...), identity tests (``x is None``) and calls of a def
-whose return annotation names no tensor are host data and untaint.  host-branch and the
-casts of host-sync are reported where a tainted value reaches them.
+``x.data_ptr()`` ...), identity tests (``x is None``), key tests on a
+dict (``"router_b" in params``) and calls of a def whose return
+annotation names no tensor are host data and untaint.  host-branch and
+the casts of host-sync are reported where a tainted value reaches them.
 
 **Reachability**, as the reference's: calls are chased through
 same-module defs, package imports and ``self.`` methods; every reachable
@@ -338,6 +339,16 @@ def _returns_host(project: Project, fn: _Fn, func: ast.expr) -> bool:
     return not _TENSOR_ANNOTATION.search(ast.unparse(target.node.returns))
 
 
+def _key_test(expr: ast.expr) -> bool:
+    """Whether ``expr`` is a membership test of a string constant
+    (``"router_b" in params``): a key looked up in a dict of the parameter
+    or batch tree, decided on the host whatever the dict holds."""
+    return (isinstance(expr, ast.Compare)
+            and all(isinstance(op, (ast.In, ast.NotIn)) for op in expr.ops)
+            and isinstance(expr.left, ast.Constant)
+            and isinstance(expr.left.value, str))
+
+
 def _taint_scan(project: Project, root: _Root) -> Iterator[Finding]:
     module, fn = root.fn.module, root.fn.node
     findings: Dict[Tuple[str, int], Finding] = {}
@@ -348,6 +359,8 @@ def _taint_scan(project: Project, root: _Root) -> Iterator[Finding]:
         if isinstance(expr, ast.Compare) and all(
                 isinstance(op, (ast.Is, ast.IsNot)) for op in expr.ops):
             return False              # identity is decided on the host
+        if _key_test(expr):
+            return False              # a key of a dict, on the host
         if isinstance(expr, ast.Attribute):
             if expr.attr in UNTAINT_ATTRS:
                 return False

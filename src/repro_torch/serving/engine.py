@@ -29,26 +29,29 @@ crosses to the host; with ``cfg.attn_impl == "cuda"`` prefill attention
 runs the ``flash_attention`` kernel.  Without the kernels the tick copies
 the logits to the host and samples there (``sample_token_host``).
 
-The dense family's kernel tick (dense caches or paged, bf16 or int8) is
-*staged* and, on the card, a captured CUDA graph: the counterpart of the
-reference's jitted ``_decode`` / ``_decode_paged``.  The host packs each
-block's pending tokens, positions, the five sampling rows and (paged) the
-table rows into one pinned int32 buffer, one copy stages it into the
-block's static device buffer, and the block's graph replays
-``lm.decode_step`` plus one ``fused_sampling`` launch on it
-(:meth:`ServeEngine._tick_body`).  The batch is pinned at capacity, so a
-block has one graph, captured at its first decode tick (whose seconds are
-kept out of the tick wall: :meth:`ServeEngine.graph_stats`); the caches
-and pool leaves are written in place, and a leaf that moved is
-re-captured (:mod:`repro_torch.graphs`).  On the CPU the same staged body
-runs eagerly.  The same engine stages its admission, the counterparts of
-the reference's jitted ``_prefill``, ``_prefill_paged``, ``_gather`` and
+With ``decode_kernel=True`` every family's decode tick (dense caches or
+paged, bf16 or int8 pages) is *staged* and, on the card, a captured CUDA
+graph: the counterpart of the reference's jitted ``_decode`` /
+``_decode_paged``.  The host packs each block's pending tokens,
+positions, the five sampling rows and (paged) the table rows into one
+pinned int32 buffer, one copy stages it into the block's static device
+buffer, and the block's graph replays ``lm.decode_step`` (for a paged vlm
+the gathered view, its decode and the scatter of the new rows) plus one
+``fused_sampling`` launch on it (:meth:`ServeEngine._tick_body`).  The
+batch is pinned at capacity, so a block has one graph, captured at its
+first decode tick (whose seconds are kept out of the tick wall:
+:meth:`ServeEngine.graph_stats`); the caches, the recurrent state and the
+pool leaves are written in place, and a leaf that moved is re-captured
+(:mod:`repro_torch.graphs`).  On the CPU the same staged body runs
+eagerly.  The same engine stages its admission, the counterparts of the
+reference's jitted ``_prefill``, ``_prefill_paged``, ``_gather`` and
 ``_inject`` (:meth:`ServeEngine._run_staged`): the ragged prefill per
-``(nb, plen)`` bucket, the paged prefill per ``(nb, plen, off)``,
+``(nb, plen)`` bucket (a recurrent family's exact-length group per
+``(nb, plen)`` too, so most of its keys run once, as the reference's jit
+compiles each length once), the paged prefill per ``(nb, plen, off)``,
 preemption's and the handoff's row gather and inject per row count, each
-a graph per block and key on the card.  ``generate()``, the recurrent
-families' length-bucketed prefill and the other families' ticks and
-admission stay eager.
+a graph per block and key on the card.  ``generate()`` stays eager, and
+without ``decode_kernel`` nothing is staged.
 
 The engine casts the parameters to the compute type once, when it is
 built (:func:`repro_torch.models.lm.compute_params`), and updates its
@@ -319,7 +322,8 @@ class ServeEngine(EngineCore):
     def _decode_paged_impl(self, sh: _Shard, tok: torch.Tensor,
                            pos: torch.Tensor, tables: np.ndarray):
         """One paged decode tick of block ``sh`` (``tables``: its slots'
-        rows in local page ids); returns (logits on the device, pool).
+        rows in local page ids, a host array or the staged tick's device
+        slice); returns (logits on the device, pool).
 
         Kernel path (``decode_kernel=True``): the pool leaves pass straight
         through (:meth:`PagePool.pool_tree`, no gather) and every layer's
@@ -931,8 +935,8 @@ class ServeEngine(EngineCore):
               ) -> Tuple[List[int], int]:
         """One decode tick: ``lm.decode_step`` (and, with the kernels, one
         ``fused_sampling`` launch) on each block, back to back, then
-        each block's tokens (or logits) copied to the host.  The dense
-        family's kernel tick is staged (:meth:`_tick_shard`)."""
+        each block's tokens (or logits) copied to the host.  The kernel
+        tick is staged (:meth:`_tick_shard`)."""
         tables = None
         if self._pages is not None:
             self._ensure_decode_pages(active)
@@ -975,10 +979,10 @@ class ServeEngine(EngineCore):
 
     @property
     def _staged(self) -> bool:
-        """Whether decode ticks are staged and, on the card, replayed from
-        a CUDA graph: the dense family with the decode kernels, over dense
-        caches or pages."""
-        return self._decode_kernel and self.cfg.family == "dense"
+        """Whether decode ticks and admission are staged and, on the card,
+        replayed from CUDA graphs: every decoding family with the decode
+        kernels, over dense caches or pages."""
+        return self._decode_kernel
 
     def _tick_width(self, sh: _Shard) -> int:
         """int32 words of a block's staged tick: tokens, positions, the
@@ -1004,20 +1008,22 @@ class ServeEngine(EngineCore):
 
     def _tick_body(self, sh: _Shard, rows: torch.Tensor):
         """What block ``sh``'s graph captures: one decode step over its
-        caches (or pool) and one fused_sampling launch, reading only the
+        caches (or pool: :meth:`_decode_paged_impl`, the tables read from
+        the staged rows) and one fused_sampling launch, reading only the
         staged ``rows`` (int32, :meth:`_stage_rows`' layout) on the
-        device.  Returns (tokens (n,) int32, logits (n, V))."""
+        device.  Every cache, state and pool leaf is written in place, so
+        the decode step's returned tree is dropped.  Returns (tokens (n,)
+        int32, logits (n, V))."""
         from repro_torch import kernels
 
         n = sh.hi - sh.lo
-        batch = {"tokens": rows[:n].view(n, 1), "pos": rows[n:2 * n]}
+        tok, pos = rows[:n].view(n, 1), rows[n:2 * n]
         sampling = rows[2 * n:7 * n].view(5, n)
         if self._pages is not None:
-            tree = self._pages.pool_tree(sh.pool, sh.residual)
-            logits, _ = lm.decode_step(sh.params, self.cfg, batch, tree,
-                                       paged_tables=rows[7 * n:].view(n, -1))
+            logits, _ = self._decode_paged_impl(sh, tok, pos,
+                                                rows[7 * n:].view(n, -1))
         else:
-            logits, _ = lm.decode_step(sh.params, self.cfg, batch, sh.caches)
+            logits, _ = self._decode(sh, tok, pos, sh.caches)
         return kernels.fused_sampling_rows(logits, sampling,
                                            tune=False), logits
 
@@ -1067,11 +1073,11 @@ class ServeEngine(EngineCore):
     # -- the staged admission calls ----------------------------------------
     #
     # The reference's jitted _prefill, _prefill_paged, _gather and _inject
-    # (src/repro/serving/engine.py:144-167), dense family: each staged from
-    # one int32 buffer (a fresh pinned host copy, one copy to the device)
-    # and, on the card, replayed from a graph captured per block and shape
-    # key, as the reference's jit retraces per shape; on the CPU the same
-    # body runs eagerly.
+    # (src/repro/serving/engine.py:144-167), every decoding family: each
+    # staged from one int32 buffer (a fresh pinned host copy, one copy to
+    # the device) and, on the card, replayed from a graph captured per block
+    # and shape key, as the reference's jit retraces per shape; on the CPU
+    # the same body runs eagerly.
 
     def _run_staged(self, sh: _Shard, kind: str, key: tuple, body,
                     *parts: np.ndarray, inputs=None, stage=None) -> Any:
@@ -1137,8 +1143,8 @@ class ServeEngine(EngineCore):
 
     def _gather_rows(self, sh: _Shard, local: List[int]) -> Any:
         """Copies of block ``sh``'s cache rows at the block-local slots
-        ``local`` (preemption; the reference's ``_gather``): staged and,
-        on the card, a graph per block and row count for the dense
+        ``local`` (preemption, a handoff; the reference's ``_gather``):
+        staged and, on the card, a graph per block and row count on the
         kernel path; ``lm.gather_cache_rows`` as it is otherwise."""
         if not self._staged:
             return lm.gather_cache_rows(self.cfg, local, sh.caches)
@@ -1152,8 +1158,8 @@ class ServeEngine(EngineCore):
                      rows_list: List[Any]) -> None:
         """Write gathered row trees (one slot each, on ``sh``'s device)
         into block ``sh``'s caches at the block-local slots ``local`` (a
-        resume; the reference's ``_inject``): staged and, on the card, a
-        graph per block and row count for the dense kernel path, the rows
+        resume, a handoff; the reference's ``_inject``): staged and, on the
+        card, a graph per block and row count on the kernel path, the rows
         copied into the call's static row tree; otherwise concatenated and
         scattered as they are."""
         if not self._staged:

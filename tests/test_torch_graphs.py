@@ -1,7 +1,7 @@
 """The port's compiled entry points (``repro_torch.graphs``) on the CPU.
 
-On the card the CapsNet forward and the dense family's decode tick are
-captured CUDA graphs, the port's counterparts of the reference's
+On the card the CapsNet forward and every family's kernel decode tick
+are captured CUDA graphs, the port's counterparts of the reference's
 ``jax.jit`` executables; on the CPU the same call sites run the same
 staged code eagerly.  Held here:
 
@@ -213,14 +213,19 @@ def test_staged_tokens_equal_reference(mode, kind):
             assert eng.generate([p], max_new_tokens=MAX_NEW)[0] == got[i]
 
 
-def test_only_the_dense_kernel_tick_is_staged():
+@pytest.mark.parametrize("family", ["dense", "moe", "vlm", "ssm", "hybrid"])
+def test_only_the_dense_kernel_tick_is_staged(family):
+    """Only a kernel engine's tick is staged (``decode_kernel=True``), for
+    every decoding family; without the kernels nothing is."""
     for kw in ({}, {"decode_kernel": True}):
-        eng = ServeEngine(CFG, port_params(), n_slots=2, max_len=MAX_LEN,
-                          device="cpu", **kw)
+        eng = ServeEngine.__new__(ServeEngine)
+        eng._decode_kernel = bool(kw)
+        eng.cfg = dataclasses.replace(CFG, family=family)
         assert eng._staged == bool(kw)
-    moe = ServeEngine.__new__(ServeEngine)
-    moe._decode_kernel, moe.cfg = True, dataclasses.replace(CFG, family="moe")
-    assert not moe._staged
+        if family == "dense":
+            eng = ServeEngine(CFG, port_params(), n_slots=2,
+                              max_len=MAX_LEN, device="cpu", **kw)
+            assert eng._staged == bool(kw)
 
 
 # ---------------------------------------------------------------------------

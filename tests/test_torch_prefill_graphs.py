@@ -1,7 +1,7 @@
 """The reference's remaining compiled serving entry points on the CPU: the
 staged prefill, paged prefill, gather and inject (``ServeEngine._run_staged``).
 
-On the card the dense family's admission replays CUDA graphs, one per
+On the card every family's kernel admission replays CUDA graphs, one per
 block and shape key (``(nb, plen)``, ``(nb, plen, off)``, the rows of a
 gather or an inject), the counterparts of the reference's jitted
 ``_prefill``, ``_prefill_paged``, ``_gather`` and ``_inject``; on the CPU
@@ -231,8 +231,14 @@ def in_capture():
 def _capture(self, ptrs):
     out = self.fn(**self.inputs)
     before = graphs.counters()
+    # a capture launches nothing: what the recording run writes in place
+    # (a recurrent state advanced once more) is set back
+    reads = getattr(self, "_stub_reads", [])
+    snap = [t.clone() for t in reads]
     with in_capture():
         static = self.fn(**self.inputs)
+    for t, v in zip(reads, snap):
+        t.copy_(v)
     after = graphs.counters()
     graphs.restore_counts(before)
     self._bump("captures")
@@ -243,9 +249,17 @@ def _capture(self, ptrs):
 
 def stub_capture(monkeypatch):
     """Every staged call on the CPU captures (stubbed: its body run on
-    the static inputs, host reads raising) and replays."""
+    the static inputs, host reads raising, its in-place writes to the
+    call's ``reads`` set back) and replays."""
     monkeypatch.setattr(graphs, "active",
                         lambda device: not getattr(graphs._local, "eager", 0))
+    call = graphs.CapturedCall.__call__
+
+    def keep_reads(self, reads=()):
+        self._stub_reads = list(reads)
+        return call(self, reads)
+
+    monkeypatch.setattr(graphs.CapturedCall, "__call__", keep_reads)
     monkeypatch.setattr(graphs.CapturedCall, "_capture", _capture)
     trap_host_reads(monkeypatch)
 

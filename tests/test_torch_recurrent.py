@@ -449,7 +449,9 @@ class TestServing:
         inner = eng._prefill_scatter
 
         def watched(sh, tokens, lengths, slot_idx, caches):
-            seen.append((tokens.shape, lengths.copy(), slot_idx.copy()))
+            # host arrays, or (staged) the call's slices of its buffer
+            seen.append((tuple(tokens.shape), np.array(lengths),
+                         np.array(slot_idx)))
             return inner(sh, tokens, lengths, slot_idx, caches)
 
         eng._prefill_scatter = watched
